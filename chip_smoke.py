@@ -1,19 +1,27 @@
 """Smoke run of nums_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py                 # phases 1-5
+    python3 chip_smoke.py                 # phases 1-6
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check
 
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the CUDA kernels from nums_tpu_torch/csrc, timed;
+  2. build: the CUDA kernels from nums_tpu_torch/csrc, timed; the gram
+     kernel's SASS (cuobjdump) must hold tensor-core HGMMA instructions;
   3. each kernel against its plain torch version on the card, at small
-     ragged shapes (d = 1, 97, 1001; n not a multiple of any tile);
+     ragged shapes (d = 1, 97, 129, 1001, 1025; n not a multiple of any
+     tile, and n < 64), in every rounding mode of the gram; the staged
+     bf16 copy exactly as the plain rounding with a zero pad; two calls of
+     each kernel bitwise equal;
   4. the main path at full size through the public entry points:
      init() -> random_state -> X.T @ X -> LogisticRegression(newton).fit
      -> predict, checked against float64 and plain-float32 references,
-     with launch counts showing that it ran through the kernels;
+     with launch counts showing that it ran through the kernels, and its
+     peak device memory;
   5. times on the card (CUDA events, median of 5 after warm-up), each
-     kernel against its plain version at the main path's shapes.
+     kernel against its plain version at the main path's shapes, and the
+     gram's staging pass alone;
+  6. profile: torch.profiler over one 10-iteration fit, device time by
+     kernel (the full table goes to standard error).
 Then the kernels as one JSON line, and last
 {"ok": true, "device": {...}}. A failed phase prints its traceback and
 exits with 1, without that last line. No CUDA device: exits with 2.
@@ -85,6 +93,18 @@ def phase_device(torch):
     return smi
 
 
+def _sass_functions(path, nvcc):
+    """{function name: SASS text} of a built library (cuobjdump -sass)."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        out[name.strip()] = body
+    return out
+
+
 def phase_build():
     from nums_tpu_torch.core.ops import _build
 
@@ -93,24 +113,56 @@ def phase_build():
     _build.lib()
     secs = time.perf_counter() - t0
     for line in _build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if ("registers" in line or "spill" in line or "error" in line
+                or "warning" in line):
             print(line.strip(), file=sys.stderr)
-    emit({"phase": "build", "seconds": secs, "library": path.name})
+    # Guard against a silent SIMT build: the gram must run on the tensor
+    # cores, whose sm_90a instruction is HGMMA.
+    funcs = _sass_functions(path, _build.nvcc_path())
+    mma = [body for name, body in funcs.items() if "gram_mma" in name]
+    assert len(mma) == 1, ("gram_mma in the SASS", sorted(funcs))
+    hgmma = mma[0].count("HGMMA")
+    assert hgmma > 0, "gram_mma's SASS holds no HGMMA instruction"
+    emit({"phase": "build", "seconds": secs, "library": path.name,
+          "gram_mma_hgmma_instructions": hgmma})
+
+
+SMALL_SHAPES = [(1003, 97), (2049, 1001), (37, 1), (4099, 130), (5, 64),
+                (64, 128), (65, 129), (130, 1025), (63, 1)]
+
+
+def _check_stage(torch, cuda_gram, x, w, mode):
+    """The staged copy is the plain rounding of Xᵀ, bit for bit, and zero
+    in the pad."""
+    n, d = x.shape
+    xt = cuda_gram.stage(x, w, mode)
+    ref = cuda_gram.stage_plain(x, w, mode).T.to(torch.bfloat16)
+    assert torch.equal(xt[:d, :n], ref), ("staged copy", mode, n, d)
+    assert not bool(xt[d:].any()) and not bool(xt[:, n:].any()), (
+        "pad not zero", mode, n, d)
 
 
 def phase_small(torch):
     from nums_tpu_torch.core.ops import cuda_gram, cuda_newton
 
     gen = torch.Generator(device=DEVICE).manual_seed(7)
-    worst = {"gram": 0.0, "gram_weighted": 0.0, "newton_stats": 0.0}
-    for n, d in [(1003, 97), (2049, 1001), (37, 1), (4099, 130), (5, 64)]:
+    modes = (("gram", cuda_gram.MODE_X),
+             ("gram_weighted", cuda_gram.MODE_SCALE_F32),
+             ("gram_weighted_bf16_scale", cuda_gram.MODE_SCALE_BF16))
+    worst = {name: 0.0 for name, _ in modes}
+    worst["newton_stats"] = 0.0
+    for n, d in SMALL_SHAPES:
         x = torch.randn(n, d, generator=gen, device=DEVICE)
         s = torch.rand(n, generator=gen, device=DEVICE)
-        for name, w in (("gram", None), ("gram_weighted", s)):
-            g = cuda_gram.gram(x, w)
-            p = cuda_gram.gram_plain(x, w)
+        for name, mode in modes:
+            w = None if mode == cuda_gram.MODE_X else s
+            _check_stage(torch, cuda_gram, x, w, mode)
+            g = cuda_gram.gram(x, w, mode)
+            again = cuda_gram.gram(x, w, mode)
+            p = cuda_gram.gram_plain(x, w, mode)
             torch.cuda.synchronize()
             err, rel = rel_err(g, p)
+            assert torch.equal(g, again), (name, n, d, "not repeatable")
             assert torch.equal(g, g.T), (name, n, d, "not symmetric")
             assert rel <= SMALL_REL, (name, n, d, rel)
             worst[name] = max(worst[name], err)
@@ -118,15 +170,18 @@ def phase_small(torch):
         beta = 0.05 * torch.randn(d, generator=gen, device=DEVICE)
         for kind in cuda_newton.KINDS:
             g, h = cuda_newton.stats(x, y, beta, kind)
+            g2, h2 = cuda_newton.stats(x, y, beta, kind)
             pg, ph = cuda_newton.stats_plain(x, y, beta, kind)
             torch.cuda.synchronize()
+            assert torch.equal(g, g2) and torch.equal(h, h2), (
+                kind, n, d, "not repeatable")
             assert torch.equal(h, h.T), (kind, n, d, "H not symmetric")
             for got, ref, what in ((g, pg, "g"), (h, ph, "H")):
                 err, rel = rel_err(got, ref)
                 assert rel <= SMALL_REL, (kind, what, n, d, rel)
                 worst["newton_stats"] = max(worst["newton_stats"], err)
-    emit({"phase": "kernels_vs_plain_small", "tolerance_rel": SMALL_REL,
-          "max_abs_err": worst})
+    emit({"phase": "kernels_vs_plain_small", "shapes": SMALL_SHAPES,
+          "tolerance_rel": SMALL_REL, "max_abs_err": worst})
 
 
 def _gram64(x, chunk=1 << 18):
@@ -138,6 +193,12 @@ def _gram64(x, chunk=1 << 18):
         c = x[i:i + chunk].double()
         g += c.T @ c
     return g
+
+
+def _upper_pair_flops(n, d, tile=128):
+    """Multiply-adds x 2 of the upper tile pairs the gram computes."""
+    t = -(-d // tile)
+    return 2.0 * n * (t * (t + 1) // 2) * tile * tile
 
 
 def _reset_counts():
@@ -163,6 +224,7 @@ def phase_main_path(torch):
     assert app.backend.device.type == DEVICE, app.backend.device
     assert settings.matmul_precision == "default", settings.matmul_precision
     _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rs = app.random_state(1337)
     X = rs.normal(shape=(N_FULL, D_FULL), block_shape=(N_FULL, D_FULL),
@@ -180,6 +242,7 @@ def phase_main_path(torch):
     acc = float(model.score(X, y))
     main_secs = time.perf_counter() - t0
     counts = _counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
     for k in ("newton_stats", "gram_weighted"):
         assert counts[k] >= 1, f"the fit did not launch {k}"
 
@@ -204,6 +267,7 @@ def phase_main_path(torch):
     assert beta_rel <= BETA_REL, ("beta: kernels vs highest", beta_rel)
     emit({"phase": "main_path", "shape": [N_FULL, D_FULL],
           "seconds": main_secs, "launches": counts,
+          "max_memory_allocated_bytes": peak_bytes,
           "gram_rel_err_vs_f64": gram_rel, "gram_tolerance": BF16_REL,
           "accuracy": acc, "accuracy_true_beta": acc_true,
           "beta_rel_err_vs_highest": beta_rel, "beta_tolerance": BETA_REL})
@@ -231,9 +295,12 @@ def phase_times(torch, smi, X, y, model):
         "kernel_rel_err_vs_f64": kernel_rel64,
         "plain_rel_err_vs_f64": plain_rel64,
         "ms": time_ms(lambda: cuda_gram.gram(x)),
+        "stage_ms": time_ms(lambda: cuda_gram.stage(x)),
         "plain_ms": time_ms(lambda: cuda_gram.gram_plain(x)),
         "matmul_fp32_ms": time_ms(lambda: x.T @ x),
     }
+    out["gram"]["upper_pair_tflops"] = (
+        _upper_pair_flops(*x.shape) / out["gram"]["ms"] / 1e9)
     xa = torch.cat([x, torch.ones(x.shape[0], 1, device=x.device)], dim=1)
     del x
     beta = 0.5 * torch.cat([model.coef_.data, model.intercept_.data[None]])
@@ -242,10 +309,16 @@ def phase_times(torch, smi, X, y, model):
     g, p = cuda_gram.gram(xa, s), cuda_gram.gram_plain(xa, s)
     err, rel = rel_err(g, p)
     assert rel <= FULL_REL, ("weighted gram at full size", rel)
-    del g, p
+    exact = _gram64(cuda_gram.stage_plain(xa, s))
+    _, kernel_rel64 = rel_err(g, exact)
+    _, plain_rel64 = rel_err(p, exact)
+    del g, p, exact
     out["gram_weighted"] = {
         "max_abs_err": err, "rel_err": rel,
+        "kernel_rel_err_vs_f64": kernel_rel64,
+        "plain_rel_err_vs_f64": plain_rel64,
         "ms": time_ms(lambda: cuda_gram.gram(xa, s)),
+        "stage_ms": time_ms(lambda: cuda_gram.stage(xa, s)),
         "plain_ms": time_ms(lambda: cuda_gram.gram_plain(xa, s)),
     }
     yd = y.data
@@ -258,6 +331,8 @@ def phase_times(torch, smi, X, y, model):
     out["newton_stats"] = {
         "max_abs_err": max(err_g, err_h), "rel_err": max(rel_g, rel_h),
         "ms": time_ms(lambda: cuda_newton.stats(xa, yd, beta, "logistic")),
+        "stage_ms": time_ms(lambda: cuda_gram.stage(
+            xa, s, cuda_gram.MODE_SCALE_BF16)),
         "plain_ms": time_ms(
             lambda: cuda_newton.stats_plain(xa, yd, beta, "logistic")
         ),
@@ -276,6 +351,35 @@ def phase_times(torch, smi, X, y, model):
     emit({"phase": "times", "card": smi, "shape": [N_FULL, D_FULL],
           "tolerance_rel": FULL_REL, "times": out})
     return out
+
+
+def phase_profile(torch, X, y):
+    """Device time by kernel over one 10-iteration fit (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nums_tpu_torch.models.glms import LogisticRegression
+
+    LogisticRegression(**FIT).fit(X, y)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        LogisticRegression(**FIT).fit(X, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    table = prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=25)
+    print(table, file=sys.stderr, flush=True)
+    kernels = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            ms = e.device_time_total / 1e3
+            kernels[e.name] = kernels.get(e.name, 0.0) + ms
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    emit({"phase": "profile", "wall_ms": wall_ms, "device_ms": busy,
+          "idle_share": 1.0 - busy / wall_ms,
+          "kernels_ms": dict(top)})
 
 
 KERNELS = (
@@ -307,6 +411,7 @@ def main(argv):
             return 0
         _, X, y, model, counts = phase_main_path(torch)
         times = phase_times(torch, smi, X, y, model)
+        phase_profile(torch, X, y)
         kernels = [
             {"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": counts[name],

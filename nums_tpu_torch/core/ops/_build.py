@@ -3,10 +3,10 @@
 The sources are compiled by ``nvcc`` into one shared library with a plain
 C interface, loaded with ``ctypes``. The library goes into
 ``nums_tpu_torch/_build/`` under a name that carries a hash of the
-sources and flags, so an edited source rebuilds on its next use and an
-unchanged one loads at once. Nothing is built when a module is imported:
-the first CUDA call builds, and a machine without ``nvcc`` can import and
-run every CPU path.
+sources, their headers (``csrc/*.cuh``) and flags, so an edited source or
+header rebuilds on its next use and an unchanged one loads at once.
+Nothing is built when a module is imported: the first CUDA call builds,
+and a machine without ``nvcc`` can import and run every CPU path.
 """
 
 import ctypes
@@ -46,9 +46,14 @@ def nvcc_path() -> str:
     return found
 
 
+def headers() -> tuple:
+    """Every ``csrc/*.cuh``: the sources include them."""
+    return tuple(sorted(p.name for p in CSRC_DIR.glob("*.cuh")))
+
+
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + headers():
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]
@@ -95,10 +100,15 @@ def lib():
         return _lib
     handle = ctypes.CDLL(str(build()))
     ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    handle.nums_gram.argtypes = [ptr, ptr, ptr, ptr, ll, ll, i32, ptr]
-    handle.nums_gram.restype = i32
-    handle.nums_gram_tile.argtypes = []
-    handle.nums_gram_tile.restype = i32
+    handle.nums_gram_stage.argtypes = [
+        ptr, ptr, ptr, ll, ll, ll, ll, i32, ptr,
+    ]
+    handle.nums_gram_stage.restype = i32
+    handle.nums_gram_staged.argtypes = [ptr, ptr, ptr, ll, ll, ll, i32, ptr]
+    handle.nums_gram_staged.restype = i32
+    for name in ("nums_gram_tile", "nums_gram_ktile"):
+        getattr(handle, name).argtypes = []
+        getattr(handle, name).restype = i32
     handle.nums_newton_stats.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ll, ll, i32, i32, ptr,
     ]
@@ -108,6 +118,11 @@ def lib():
 
 
 def check(err: int, what: str):
-    """Raise on a non-zero ``cudaGetLastError()`` from a launch."""
+    """Raise on a non-zero ``cudaGetLastError()`` from a launch; -1 is a
+    TMA tensor map that ``cuTensorMapEncodeTiled`` refused."""
+    if err == -1:
+        raise RuntimeError(
+            f"{what}: cuTensorMapEncodeTiled refused the TMA tensor map"
+        )
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")

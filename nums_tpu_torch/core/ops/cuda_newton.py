@@ -10,10 +10,11 @@ y (n,) and beta (d,):
 
 with bf16-rounded operands and f32 accumulation. newton.cu runs the row
 pass (eta, link, r, s) and g; H is the weighted gram of ``cuda_gram``
-(K2), which scales rows by sqrt(s) in f32 before the bf16 rounding. The
-TPU kernel reads X once for all of it; the port reads it three times (two
-memory-bound passes and the compute-bound gram), and one read is a later
-step (see the note in newton.cu).
+(K2's kernel) with the TPU Newton kernel's rounding,
+bf16(bf16(x)·bf16(√s)) (``pallas_newton.py:114``, ``MODE_SCALE_BF16``),
+and XᵀX for the linear kind. The TPU kernel reads X once for all of it;
+the port reads it three times (two memory-bound passes and the gram's
+staging pass), and one read is a later step (see the note in newton.cu).
 
 ``stats`` launches the kernels for a CUDA tensor and takes the plain torch
 version, ``stats_plain``, for a CPU tensor; any other device raises.
@@ -61,6 +62,12 @@ def _link(kind, eta):
     raise ValueError(kind)
 
 
+def _hessian_mode(s):
+    """The TPU Newton kernel's rounding of H's operands; the linear kind
+    (no weight) is the plain gram."""
+    return cuda_gram.MODE_X if s is None else cuda_gram.MODE_SCALE_BF16
+
+
 def _eta_plain(xb, bb):
     """X·beta of bf16-rounded operands, summed in float64 and rounded to
     float32 as newton.cu does; in row panels, so no float64 copy of X."""
@@ -83,7 +90,7 @@ def stats_plain(x, y, beta, kind):
     r = mu - y.to(torch.float32)
     g = xb.T @ cuda_gram.round_bf16(r)
     del xb
-    return g, cuda_gram.gram_plain(x, s)
+    return g, cuda_gram.gram_plain(x, s, _hessian_mode(s))
 
 
 def stats(x, y, beta, kind):
@@ -129,4 +136,4 @@ def stats(x, y, beta, kind):
         )
         LAUNCHES["newton_stats"] += 1
     _build.check(err, "nums_newton_stats")
-    return g, cuda_gram.gram(x, s)
+    return g, cuda_gram.gram(x, s, _hessian_mode(s))

@@ -9,8 +9,8 @@
 //                             poisson:  mu = e^eta, s = mu
 //   r = mu - y
 //   g = Xᵀ·r                  bf16 operands, f32 accumulation
-// and the caller adds H = Xᵀ·diag(s)·X with nums_gram (K2), or XᵀX (K1) for
-// the linear kind.
+// and the caller adds H = Xᵀ·diag(s)·X with gram.cu (K2's kernel), or XᵀX
+// (K1's) for the linear kind.
 //
 // Design. The TPU kernel does all of it in one pass per row chunk, with
 // the (d, d) Hessian resident in VMEM. On Hopper eta needs a whole row
@@ -26,17 +26,17 @@
 //      one column, sums bf16(x)·bf16(r) over its rows in 64-row parts, and
 //      writes a per-split partial; newton_grad_reduce sums the splits in a
 //      fixed order (no atomics).
-//   3. the weighted gram (gram.cu). It scales rows by sqrt(s) in f32 before
-//      the bf16 rounding, as the weighted gram kernel K2 does
-//      (pallas_gram.py:81-84). The TPU Newton kernel instead multiplies
-//      bf16(x) by bf16(sqrt(s)) and rounds again (pallas_newton.py:114);
-//      the port uses the K2 rule for both, and its plain version does too.
+//   3. the weighted gram (gram.cu) with the TPU Newton kernel's rounding:
+//      bf16(bf16(x)·bf16(sqrt(s))) (pallas_newton.py:114, mode 2 of
+//      gram.cu's staging pass), or XᵀX (mode 0) for the linear kind. The
+//      plain version rounds the same way.
 //
 // Bound: the row pass and the gradient each read X once (10 GB at
 // 2.5M x 1001) with a few flops per element, so they are bound by memory
-// bandwidth (3.35 TB/s); the Hessian is bound by compute (see gram.cu).
+// bandwidth (3.35 TB/s), and so is the gram's staging pass, which reads X
+// a third time; the gram itself runs on the tensor cores (see gram.cu).
 // Left on the table: one read of X for all three steps (the TPU design),
-// vector loads, and tensor cores for the Hessian.
+// for instance the staging pass fused into newton_grad, and vector loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
