@@ -1,6 +1,6 @@
 """Smoke run of nums_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py                 # phases 1-6
+    python3 chip_smoke.py                 # phases 1-7
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check
 
 Phases, each printing one JSON line:
@@ -18,10 +18,16 @@ Phases, each printing one JSON line:
      with launch counts showing that it ran through the kernels, and its
      peak device memory;
   5. times on the card (CUDA events, median of 5 after warm-up), each
-     kernel against its plain version at the main path's shapes, and the
-     gram's staging pass alone;
+     kernel against its plain version at the main path's shapes (K3 in
+     each of its logistic, linear and Poisson kinds), and the gram's
+     staging pass alone;
   6. profile: torch.profiler over one 10-iteration fit, device time by
-     kernel (the full table goes to standard error).
+     kernel (the full table goes to standard error);
+  7. glm_families: the other GLM families and solvers on phase 4's X,
+     each fit timed on the host clock and held to its check (the table
+     in ``phase_glm_families``), with the launch counts of each fit
+     (counts set to 0 just before it, read just after) and the peak
+     device memory.
 Then the kernels as one JSON line, and last
 {"ok": true, "device": {...}}. A failed phase prints its traceback and
 exits with 1, without that last line. No CUDA device: exits with 2.
@@ -271,7 +277,7 @@ def phase_main_path(torch):
           "gram_rel_err_vs_f64": gram_rel, "gram_tolerance": BF16_REL,
           "accuracy": acc, "accuracy_true_beta": acc_true,
           "beta_rel_err_vs_highest": beta_rel, "beta_tolerance": BETA_REL})
-    return app, X, y, model, counts
+    return app, X, y, model, counts, ref
 
 
 def phase_times(torch, smi, X, y, model):
@@ -337,7 +343,27 @@ def phase_times(torch, smi, X, y, model):
             lambda: cuda_newton.stats_plain(xa, yd, beta, "logistic")
         ),
     }
-    del xa, mu, s
+    del mu, s
+    # The linear and Poisson kinds of K3 (phase 7's fused fits), at a
+    # Poisson-sized beta: eta ~ N(0, 0.25), as phase 7 plants it.
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    beta_p = (0.5 / D_FULL ** 0.5) * torch.randn(
+        xa.shape[1], generator=gen, device=DEVICE)
+    for kind in ("linear", "poisson"):
+        (g, h), (pg, ph) = (cuda_newton.stats(xa, yd, beta_p, kind),
+                            cuda_newton.stats_plain(xa, yd, beta_p, kind))
+        err_g, rel_g = rel_err(g, pg)
+        err_h, rel_h = rel_err(h, ph)
+        assert max(rel_g, rel_h) <= FULL_REL, (
+            "stats at full size", kind, rel_g, rel_h)
+        del g, h, pg, ph
+        out[f"newton_stats_{kind}"] = {
+            "max_abs_err": max(err_g, err_h), "rel_err": max(rel_g, rel_h),
+            "ms": time_ms(lambda: cuda_newton.stats(xa, yd, beta_p, kind)),
+            "plain_ms": time_ms(
+                lambda: cuda_newton.stats_plain(xa, yd, beta_p, kind)),
+        }
+    del xa
 
     def fit():
         LogisticRegression(**FIT).fit(X, y)
@@ -382,6 +408,264 @@ def phase_profile(torch, X, y):
           "kernels_ms": dict(top)})
 
 
+# Phase 7, on phase 4's X (2.5M x 1000 fp32, the reference's size):
+FAM_SEED = 2024
+FAM_FIT = dict(tol=1e-8, max_iter=10)  # the fused fits and their refits
+EAGER_LINEAR_ITERS = 3   # tol 0: every iteration runs, one K1 launch each
+EXP_FIT = dict(tol=1e-8, max_iter=8)
+EXP_ABS = 0.01           # exponential fit vs its planted beta, absolute
+R2_ABS = 1e-3            # R² of the kernel fit vs the "highest" fit
+# Lasso: alpha about 16x the noise's correlation with a column, σ/√n =
+# 6.3e-5, so the 980 planted zeros stay exactly zero; float32 ADMM stops
+# at max|β - z|, ρ·max|Δz| <= tol, against a float64 ADMM on the float64
+# moments of the same X.
+LASSO = dict(alpha=1e-3, tol=1e-4, max_iter=500)
+LASSO_REF = dict(tol=1e-7, max_iter=3000)
+# BFGS stops on max|g| < tol (g is O(1e5) at beta = 0) or on a line
+# search that runs out of float32 digits; irls runs all its iterations.
+LBFGS = dict(penalty="l2", tol=1.0, max_iter=100)
+IRLS = dict(tol=1e-8, max_iter=10)
+SOLVER_REL = 1e-3        # Lasso, lbfgs, irls vs their references
+
+
+def _beta_of(torch, model):
+    return torch.cat([model.coef_.data, model.intercept_.data[None]])
+
+
+def _timed_fit(torch, make, X, y):
+    """(model, seconds, launches, peak device bytes) of
+    ``make().fit(X, y)``: the counts are set to 0 just before the fit and
+    read just after it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    model = make().fit(X, y)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return model, secs, _counts(), torch.cuda.max_memory_allocated()
+
+
+def _highest(torch, make, X, y):
+    """The same fit with plain fp32 ops (no kernel)."""
+    from nums_tpu_torch.core import settings
+
+    settings.matmul_precision = "highest"
+    try:
+        model, secs, counts, _ = _timed_fit(torch, make, X, y)
+    finally:
+        settings.matmul_precision = "default"
+    assert not any(counts.values()), ("highest launched a kernel", counts)
+    return model, secs
+
+
+def _targets(torch, X):
+    """Phase 7's labels from planted coefficients, drawn from generators
+    seeded here: linear, Poisson (eta ~ N(0, 0.25)), exponential on the
+    same eta, and sparse linear (20 nonzeros)."""
+    n, d = X.shape
+    x = X.data
+    gen = torch.Generator(device=DEVICE).manual_seed(FAM_SEED)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE)
+
+    w_lin = 0.1 * normal(d)
+    y_lin = x @ w_lin + 0.5 + 0.1 * normal(n)
+    w_p = (0.5 / d ** 0.5) * normal(d)
+    mu = torch.exp(x @ w_p)
+    y_p = torch.poisson(mu, generator=gen)
+    y_e = mu * torch.empty_like(mu).exponential_(1.0, generator=gen)
+    del mu
+    support = torch.randperm(
+        d, generator=torch.Generator().manual_seed(FAM_SEED))[:20]
+    w_s = torch.zeros(d, device=DEVICE)
+    w_s[support.to(DEVICE)] = (
+        (0.5 + 0.5 * torch.rand(20, generator=gen, device=DEVICE))
+        * torch.where(normal(20) < 0, -1.0, 1.0))
+    y_s = x @ w_s + 0.3 + 0.1 * normal(n)
+    return (w_lin, y_lin), (w_p, y_p, y_e), (w_s, y_s)
+
+
+def _moments64(torch, x, y, chunk=1 << 18):
+    """[X, 1]ᵀ[X, 1] and [X, 1]ᵀy summed in float64, in row panels."""
+    d = x.shape[1] + 1
+    G = torch.zeros(d, d, dtype=torch.float64, device=x.device)
+    q = torch.zeros(d, dtype=torch.float64, device=x.device)
+    for i in range(0, x.shape[0], chunk):
+        c = x[i:i + chunk].double()
+        c = torch.cat([c, torch.ones(c.shape[0], 1, dtype=c.dtype,
+                                     device=c.device)], dim=1)
+        G += c.T @ c
+        q += c.T @ y[i:i + chunk].double()
+    return G, q
+
+
+def phase_glm_families(torch, app, X, y, logistic_ref):
+    """Every GLM family and solver beside phase 4's, at "default"
+    precision, each held to its check:
+
+    | fit                              | route            | must launch   |
+    |----------------------------------|------------------|---------------|
+    | LinearRegression(newton)         | fused, K3 linear | newton_stats  |
+    | Ridge(alpha=1)                   | fused, K3 linear | newton_stats  |
+    | LinearRegression, glm_fuse "0"   | eager, K1        | gram = iters  |
+    | PoissonRegression(newton)        | fused, K3 poisson| newton_stats, |
+    |                                  |                  | gram_weighted |
+    | ExponentialRegression(newton)    | eager, plain ops |               |
+    | Lasso(alpha=1e-3)                | ADMM, plain ops  |               |
+    | LogisticRegression(lbfgs, l2)    | BFGS, plain ops  |               |
+    | LogisticRegression(irls)         | eager, plain ops |               |
+    """
+    from nums_tpu_torch.core import settings
+    from nums_tpu_torch.core.array.blockarray import BlockArray
+    from nums_tpu_torch.models import fast_glm
+    from nums_tpu_torch.models.glms import (
+        ExponentialRegression, Lasso, LinearRegression, LogisticRegression,
+        PoissonRegression, Ridge,
+    )
+
+    (w_lin, y_lin), (w_p, y_p, y_e), (w_s, y_s) = _targets(torch, X)
+    n = X.shape[0]
+
+    def ba(t):
+        return BlockArray.from_torch(t, block_shape=(n,), backend=app.backend)
+
+    fits = {}
+
+    def record(name, fit, **checks):
+        _, secs, counts, peak = fit
+        fits[name] = {"seconds": secs, "launches": counts,
+                      "peak_bytes": peak, **checks}
+        print(json.dumps({name: fits[name]}), file=sys.stderr, flush=True)
+
+    # Linear and Ridge, fused: K3's linear kind.
+    by = ba(y_lin)
+    lin_models = {}
+    for name, make in (
+        ("linear_newton", lambda: LinearRegression(solver="newton",
+                                                   **FAM_FIT)),
+        ("ridge", lambda: Ridge(alpha=1.0, **FAM_FIT)),
+    ):
+        fit = _timed_fit(torch, make, X, by)
+        model, _, counts, _ = fit
+        assert counts["newton_stats"] >= 1, (name, counts)
+        ref, ref_secs = _highest(torch, make, X, by)
+        _, rel = rel_err(_beta_of(torch, model), _beta_of(torch, ref))
+        r2, r2_ref = float(model.score(X, by)), float(ref.score(X, by))
+        assert rel <= BETA_REL, (name, "beta vs highest", rel)
+        assert abs(r2 - r2_ref) <= R2_ABS, (name, r2, r2_ref)
+        if name == "ridge":
+            assert float(model._lambda_vec.data[-1]) == 0.0
+        lin_models[name] = model
+        record(name, fit, highest_seconds=ref_secs,
+               beta_rel_err_vs_highest=rel, r2=r2, r2_highest=r2_ref)
+
+    # Linear, eager Newton: X.T @ X through K1 at 2.5M x 1001, once per
+    # iteration (the iterations are counted at the solve).
+    solves = []
+    solve = app.posdef_solve
+    app.posdef_solve = lambda A, b: solves.append(1) or solve(A, b)
+    settings.glm_fuse = "0"
+    try:
+        fit = _timed_fit(
+            torch, lambda: LinearRegression(
+                solver="newton", tol=0.0, max_iter=EAGER_LINEAR_ITERS),
+            X, by)
+    finally:
+        settings.glm_fuse = "1"
+        del app.posdef_solve
+    model, _, counts, _ = fit
+    assert counts["gram"] == len(solves) == EAGER_LINEAR_ITERS, (
+        counts, len(solves))
+    assert counts["newton_stats"] == 0, counts
+    _, rel = rel_err(_beta_of(torch, model),
+                     _beta_of(torch, lin_models["linear_newton"]))
+    assert rel <= BETA_REL, ("eager vs fused linear", rel)
+    record("linear_eager_newton", fit, iterations=len(solves),
+           beta_rel_err_vs_fused=rel)
+
+    # Poisson, fused: K3's Poisson kind.
+    byp = ba(y_p)
+
+    def make():
+        return PoissonRegression(solver="newton", **FAM_FIT)
+
+    fit = _timed_fit(torch, make, X, byp)
+    model, _, counts, _ = fit
+    assert counts["newton_stats"] >= 1 and counts["gram_weighted"] >= 1, (
+        counts)
+    ref, ref_secs = _highest(torch, make, X, byp)
+    _, rel = rel_err(_beta_of(torch, model), _beta_of(torch, ref))
+    assert rel <= BETA_REL, ("poisson beta vs highest", rel)
+    dev = float(model.deviance(byp, model.predict(X)))
+    assert np.isfinite(dev) and dev >= 0.0, dev
+    record("poisson_newton", fit, highest_seconds=ref_secs,
+           beta_rel_err_vs_highest=rel, deviance=dev)
+    del byp
+
+    # Exponential, eager Newton on plain ops: the planted beta.
+    fit = _timed_fit(
+        torch, lambda: ExponentialRegression(solver="newton", **EXP_FIT),
+        X, ba(y_e))
+    model = fit[0]
+    err = max(float((model.coef_.data - w_p).abs().max()),
+              abs(float(model.intercept_.data)))
+    assert err <= EXP_ABS, ("exponential vs planted beta", err)
+    record("exponential_newton", fit, max_abs_err_vs_planted=err)
+
+    # Lasso by ADMM, against a float64 ADMM on float64 moments.
+    bys = ba(y_s)
+    fit = _timed_fit(torch, lambda: Lasso(**LASSO), X, bys)
+    model = fit[0]
+    G, q = _moments64(torch, X.data, y_s)
+    z, _, ref_it = fast_glm.admm_fit_gram(
+        G, q, torch.zeros_like(q), LASSO_REF["tol"],
+        max_iter=LASSO_REF["max_iter"], penalty="l1",
+        lambda_vec=model._lambda_vec.data.double())
+    del G
+    _, rel = rel_err(_beta_of(torch, model), z)
+    coef = model.coef_.data
+    planted_zeros_exact = bool((coef[w_s == 0] == 0).all())
+    assert rel <= SOLVER_REL, ("lasso vs float64 admm", rel)
+    assert planted_zeros_exact, "a planted zero of the lasso is not 0"
+    record("lasso_admm", fit, beta_rel_err_vs_f64_admm=rel,
+           f64_admm_iterations=int(ref_it),
+           nonzeros=int((coef != 0).sum()),
+           planted_zeros_exact=planted_zeros_exact)
+    del bys
+
+    # Logistic by BFGS (l2) and by IRLS, against the fused Newton at
+    # "highest" (phase 4's unpenalized fit for IRLS).
+    searches = []
+    search = fast_glm._line_search
+    fast_glm._line_search = lambda *a: searches.append(1) or search(*a)
+    try:
+        fit = _timed_fit(
+            torch, lambda: LogisticRegression(solver="lbfgs", **LBFGS), X, y)
+    finally:
+        fast_glm._line_search = search
+    model = fit[0]
+    ref, ref_secs = _highest(
+        torch, lambda: LogisticRegression(solver="newton", penalty="l2",
+                                          **FAM_FIT), X, y)
+    _, rel = rel_err(_beta_of(torch, model), _beta_of(torch, ref))
+    assert rel <= SOLVER_REL, ("lbfgs vs newton", rel)
+    record("logistic_lbfgs_l2", fit, iterations=len(searches),
+           newton_highest_seconds=ref_secs, beta_rel_err_vs_newton=rel)
+    fit = _timed_fit(
+        torch, lambda: LogisticRegression(solver="irls", **IRLS), X, y)
+    _, rel = rel_err(_beta_of(torch, fit[0]), _beta_of(torch, logistic_ref))
+    assert rel <= SOLVER_REL, ("irls vs newton", rel)
+    record("logistic_irls", fit, beta_rel_err_vs_newton=rel)
+
+    emit({"phase": "glm_families", "shape": [N_FULL, D_FULL],
+          "max_memory_allocated_bytes": max(
+              f["peak_bytes"] for f in fits.values()),
+          "fits": fits})
+    return fits
+
+
 KERNELS = (
     ("gram", "nums_tpu_torch/csrc/gram.cu",
      "nums_tpu/core/ops/pallas_gram.py:139"),
@@ -409,9 +693,10 @@ def main(argv):
         phase_small(torch)
         if "--kernels-only" in argv:
             return 0
-        _, X, y, model, counts = phase_main_path(torch)
+        app, X, y, model, counts, ref = phase_main_path(torch)
         times = phase_times(torch, smi, X, y, model)
         phase_profile(torch, X, y)
+        phase_glm_families(torch, app, X, y, ref)
         kernels = [
             {"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": counts[name],

@@ -1,20 +1,22 @@
 """ArrayApplication: constructors, block-shape policy and array ops.
 
 Counterpart of the subset of ``nums_tpu/core/array/application.py`` that
-the main path uses: the block-shape policy, ``scalar``/``array``/
-``zeros``/``ones``/``full``/``concatenate``, ``sum``/``mean``/``exp``,
-``get``/``touch`` and the random state. The filesystem is not ported and
-stays ``None``.
+the GLMs use: the block-shape policy, ``scalar``/``array``/``zeros``/
+``ones``/``full``/``eye``/``diag``/``concatenate``, the elementwise ops
+and reductions of the solvers, the three-argument ``where``, ``inv``/
+``cholesky``/``posdef_solve``, ``get``/``touch`` and the random state.
+The filesystem is not ported and stays ``None``.
 """
 
 import numpy as np
+import torch
 
 from nums_tpu_torch.core.backend import Backend
 from nums_tpu_torch.core.grid import ArrayGrid
 from nums_tpu_torch.core.array import utils as array_utils
 from nums_tpu_torch.core.array.blockarray import BlockArray
 from nums_tpu_torch.core.array.random import NumsRandomState
-from nums_tpu_torch.core.ops import creation, shape_ops
+from nums_tpu_torch.core.ops import creation, elementwise, linalg, shape_ops
 
 
 class ArrayApplication:
@@ -24,6 +26,7 @@ class ArrayApplication:
         # `system` alias preserves the reference attribute name.
         self.system = backend
         self._block_shape_map = {}
+        self._random = None
         self.one_half = self.scalar(0.5)
         self.two = self.scalar(2.0)
         self.one = self.scalar(1.0)
@@ -125,6 +128,27 @@ class ArrayApplication:
                              self.backend.device)
         return BlockArray(data, grid, self.backend)
 
+    def eye(self, shape, block_shape, dtype=None):
+        assert len(shape) == len(block_shape) == 2
+        if dtype is None:
+            dtype = self.backend.default_float
+        grid = ArrayGrid(tuple(shape), tuple(block_shape),
+                         array_utils.to_dtype_name(dtype))
+        data = creation.eye(grid.shape, array_utils.to_torch_dtype(dtype),
+                            self.backend.device)
+        return BlockArray(data, grid, self.backend)
+
+    def diag(self, X: BlockArray) -> BlockArray:
+        if X.ndim == 1:
+            block_shape = (X.block_shape[0], X.block_shape[0])
+        elif X.ndim == 2:
+            assert X.shape[0] == X.shape[1], "X must be square."
+            block_shape = (X.block_shape[0],)
+        else:
+            raise ValueError("X must have 1 or 2 axes.")
+        return BlockArray.from_torch(creation.diag(X.data), block_shape,
+                                     self.backend)
+
     def concatenate(self, arrays, axis, axis_block_size=None):
         if len(arrays) == 1:
             return arrays[0]
@@ -151,8 +175,51 @@ class ArrayApplication:
     # Elementwise / reductions
     # ------------------------------------------------------------------
 
+    def map_uop(self, op_name, arr, out=None, where=True, args=None,
+                kwargs=None):
+        if where is not True or out is not None:
+            raise NotImplementedError("'out' and 'where' are not supported.")
+        del args, kwargs
+        return arr.ufunc(op_name)
+
+    def map_bop(self, op_name, arr_1, arr_2, out=None, where=True,
+                args=None, kwargs=None):
+        if where is not True or out is not None:
+            raise NotImplementedError("'out' and 'where' are not supported.")
+        del args, kwargs
+        if not isinstance(arr_1, BlockArray):
+            arr_2_ba = (arr_2 if isinstance(arr_2, BlockArray)
+                        else self.scalar(arr_2))
+            return arr_2_ba._bop(op_name, arr_1, reverse=True)
+        return arr_1._bop(op_name, arr_2)
+
+    def log(self, X):
+        return self.map_uop("log", X)
+
     def exp(self, X):
         return X.ufunc("exp")
+
+    def abs(self, X):
+        return self.map_uop("abs", X)
+
+    def sqrt(self, X):
+        if X.dtype not in (np.float32, np.float64):
+            X = X.astype(np.float64)
+        return X.ufunc("sqrt")
+
+    def norm(self, X):
+        return self.sqrt(X.T @ X)
+
+    def xlogy(self, x: BlockArray, y) -> BlockArray:
+        if x.dtype not in (np.float32, np.float64):
+            x = x.astype(np.float64)
+        return self.map_bop("xlogy", x, y)
+
+    def min(self, X, axis=None, keepdims=False):
+        return X.reduce_axis("min", axis, keepdims=keepdims)
+
+    def max(self, X, axis=None, keepdims=False):
+        return X.reduce_axis("max", axis, keepdims=keepdims)
 
     def sum(self, X, axis=None, keepdims=False, dtype=None):
         # dtype is the accumulator dtype (see ops/reductions.py).
@@ -162,6 +229,60 @@ class ArrayApplication:
         if X.dtype not in (np.float32, np.float64):
             X = X.astype(self.backend.default_float)
         return X.mean(axis=axis, keepdims=keepdims, dtype=dtype)
+
+    def where(self, condition: BlockArray, x=None, y=None):
+        """``where(c, x, y)``: elementwise select, with the two branches
+        promoted as a binary op promotes them. The one-argument index form
+        ``where(c)`` is a later port."""
+        if x is None and y is None:
+            raise NotImplementedError("where(condition) is not ported yet")
+        assert x is not None and y is not None
+        x = condition.check_or_convert_other(x)
+        y = condition.check_or_convert_other(y)
+        xd = x.data if isinstance(x, BlockArray) else x
+        yd = y.data if isinstance(y, BlockArray) else y
+        if not (torch.is_tensor(xd) or torch.is_tensor(yd)):
+            xd = torch.as_tensor(np.asarray(xd), device=self.backend.device)
+            if xd.is_floating_point():
+                xd = xd.to(array_utils.to_torch_dtype(
+                    self.backend.default_float))
+        xd, yd = elementwise.promote(
+            xd, yd, array_utils.to_torch_dtype(self.backend.default_float)
+        )
+        data = shape_ops.where3(condition.data, xd, yd)
+        lshape = tuple(data.shape)
+        return BlockArray(
+            data,
+            ArrayGrid(lshape, array_utils.default_block_shape_for(
+                lshape, condition.block_shape),
+                array_utils.to_dtype_name(data.dtype)),
+            self.backend,
+        )
+
+    # ------------------------------------------------------------------
+    # Linalg (nums_tpu application.py:818-843)
+    # ------------------------------------------------------------------
+
+    def inv(self, X: BlockArray) -> BlockArray:
+        assert X.ndim == 2 and X.shape[0] == X.shape[1]
+        return BlockArray(linalg.inv(X.data), X.grid.copy(), self.backend)
+
+    def cholesky(self, X: BlockArray) -> BlockArray:
+        assert X.ndim == 2 and X.shape[0] == X.shape[1]
+        return BlockArray(linalg.cholesky(X.data), X.grid.copy(),
+                          self.backend)
+
+    def posdef_solve(self, A: BlockArray, b: BlockArray) -> BlockArray:
+        """Cholesky solve of A·x = b, the eager Newton-type solvers' step;
+        NaN when A is not positive definite, with no host sync."""
+        data = linalg.posdef_solve(A.data, b.data)
+        lshape = tuple(data.shape)
+        return BlockArray(
+            data,
+            ArrayGrid(lshape, array_utils.default_block_shape_for(
+                lshape, b.block_shape), array_utils.to_dtype_name(data.dtype)),
+            self.backend,
+        )
 
     def get(self, *arrs):
         if len(arrs) == 1:
@@ -177,6 +298,13 @@ class ArrayApplication:
     # ------------------------------------------------------------------
     # Random
     # ------------------------------------------------------------------
+
+    @property
+    def random(self) -> NumsRandomState:
+        """The application's own random state, built at first use."""
+        if self._random is None:
+            self._random = self.random_state()
+        return self._random
 
     def random_state(self, seed=None):
         return NumsRandomState(self.backend, seed)

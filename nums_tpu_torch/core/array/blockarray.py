@@ -1,12 +1,12 @@
 """BlockArray: a grid-partitioned array held in one torch tensor.
 
-Counterpart of ``nums_tpu/core/array/blockarray.py`` for the main path:
+Counterpart of ``nums_tpu/core/array/blockarray.py`` for the GLM layer:
 construction, elementwise and comparison operators, ``astype``, ``T`` as
-metadata, ``sum``/``mean``/``min``/``max``, the basic indexing the GLM
-uses, ``reshape``, ``get``/``touch`` and ``tensordot``. A BlockArray is
-ONE ``torch.Tensor`` on the backend's device plus ``ArrayGrid`` metadata;
-ops run eagerly (the reference's lazy batching, ``core/lazy.py``, has no
-counterpart here).
+metadata, ``sum``/``mean``/``min``/``max``/``clip``, basic indexing and
+the row gather, ``reshape``, ``get``/``touch`` and ``tensordot``. A
+BlockArray is ONE ``torch.Tensor`` on the backend's device plus
+``ArrayGrid`` metadata; ops run eagerly (the reference's lazy batching,
+``core/lazy.py``, has no counterpart here).
 
 ``x.T @ x`` on float32 goes to the gram kernel (``ops/cuda_gram.py``) in
 the bf16-MAC precision class, as the reference's ``_pallas_gram_fast``
@@ -18,7 +18,9 @@ import torch
 
 from nums_tpu_torch.core.grid import ArrayGrid
 from nums_tpu_torch.core.array import utils as array_utils
-from nums_tpu_torch.core.ops import cuda_gram, elementwise, linear, reductions
+from nums_tpu_torch.core.ops import (
+    cuda_gram, elementwise, linear, reductions, shape_ops,
+)
 
 
 def _normalize_shape(shape_args):
@@ -256,6 +258,10 @@ class BlockArray:
     def max(self, axis=None, keepdims=False):
         return self.reduce_axis("max", axis, keepdims)
 
+    def clip(self, a_min=None, a_max=None):
+        data = torch.clamp(self.data, a_min, a_max)
+        return self._new(data, self.block_shape)
+
     # ------------------------------------------------------------------
     # Binary ops
     # ------------------------------------------------------------------
@@ -432,9 +438,30 @@ class BlockArray:
     # Indexing
     # ------------------------------------------------------------------
 
+    def _row_index(self, item):
+        """The index tensor of a row gather ``x[idx]`` (a 1-D integer numpy
+        array or BlockArray), or None for any other subscript."""
+        if isinstance(item, np.ndarray):
+            if item.ndim != 1 or item.dtype.kind not in "iu":
+                return None
+            n = self.shape[0]
+            if item.size and (item.max() >= n or item.min() < -n):
+                raise IndexError(f"row index out of bounds for axis 0 of "
+                                 f"size {n}")
+            return torch.from_numpy(item.astype(np.int64))
+        if (isinstance(item, BlockArray) and item.ndim == 1
+                and item.dtype.kind in "iu"):
+            return item.data
+        return None
+
     def __getitem__(self, item):
-        """Basic indexing: integers, slices with a positive step, None
-        and Ellipsis (the advanced and boolean forms are a later port)."""
+        """Basic indexing (integers, slices with a positive step, None and
+        Ellipsis) and the row gather ``x[idx]`` by a 1-D integer array.
+        Boolean masks and the other advanced forms are a later port."""
+        if self.ndim >= 1:
+            rows = self._row_index(item)
+            if rows is not None:
+                return self._new(shape_ops.take_rows(self.data, rows))
         key = item if isinstance(item, tuple) else (item,)
         for k in key:
             if not (

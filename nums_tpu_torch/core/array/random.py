@@ -28,6 +28,12 @@ class NumsRandomState:
         self._seed = int(seed)
         self._counter = 0
 
+    def numpy(self):
+        """Host-side NumPy generator, seeded as the reference's
+        (``nums_tpu/core/array/random.py:41-43``): the same seed draws the
+        same numbers in both packages."""
+        return np.random.default_rng(self._seed)
+
     def _next_generator(self) -> torch.Generator:
         self._counter += 1
         (word,) = np.random.SeedSequence(
@@ -85,3 +91,10 @@ class NumsRandomState:
         return self._sample_basic(
             "normal", shape, block_shape, dtype, (loc, scale)
         )
+
+    def permutation(self, size, block_size=None):
+        """A random permutation of ``range(size)`` as int64."""
+        grid = self._grid((size,), (block_size or size,), "int64")
+        data = random_ops.permutation(int(size), self._backend.device,
+                                      self._next_generator())
+        return BlockArray(data, grid, self._backend)

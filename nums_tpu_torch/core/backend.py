@@ -40,10 +40,18 @@ class Backend:
 
     def device_put(self, array: np.ndarray, grid: ArrayGrid = None):
         """Host array -> tensor on the device (copied: the caller's array
-        is never aliased)."""
+        is never aliased). Where the default float is float32 (an
+        accelerator), float64 and complex128 arrive as float32 and
+        complex64, as the reference's device_put with x64 off does: a
+        host scalar such as ``app.one`` then keeps float32 math float32."""
         del grid
-        tensor = torch.from_numpy(np.array(array, order="C", copy=True))
-        return tensor.to(self.device)
+        array = np.array(array, order="C", copy=True)
+        if self.default_float == np.float32:
+            narrow = {np.dtype(np.float64): np.float32,
+                      np.dtype(np.complex128): np.complex64}
+            if array.dtype in narrow:
+                array = array.astype(narrow[array.dtype])
+        return torch.from_numpy(array).to(self.device)
 
     def get(self, tensor) -> np.ndarray:
         return tensor.detach().cpu().numpy()

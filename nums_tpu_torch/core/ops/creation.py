@@ -19,3 +19,13 @@ def new_array(op_name: str, shape: tuple, dtype: torch.dtype, device):
 
 def full(shape: tuple, fill_value, dtype: torch.dtype, device):
     return torch.full(tuple(shape), fill_value, dtype=dtype, device=device)
+
+
+def eye(shape: tuple, dtype: torch.dtype, device):
+    rows, cols = shape
+    return torch.eye(rows, cols, dtype=dtype, device=device)
+
+
+def diag(x):
+    """Vector to diagonal matrix, or square matrix to its diagonal."""
+    return torch.diag(x)

@@ -35,3 +35,8 @@ def integers(shape: tuple, dtype: torch.dtype, device,
         high = high + 1
     return torch.randint(low, high, tuple(shape), generator=generator,
                          dtype=dtype, device=device)
+
+
+def permutation(size: int, device, generator: torch.Generator):
+    return torch.randperm(size, generator=generator, dtype=torch.int64,
+                          device=device)

@@ -26,6 +26,11 @@ matmul_precision = os.environ.get("NUMS_TPU_TORCH_MATMUL_PRECISION", "default")
 gram_kernel = os.environ.get("NUMS_TPU_TORCH_GRAM", "auto")
 newton_kernel = os.environ.get("NUMS_TPU_TORCH_NEWTON", "auto")
 
+# Fused GLM Newton (nums_tpu's NUMS_TPU_GLM_FUSE): "1" runs the fused
+# solver (``fast_glm.newton_fit``) for the families that have one; "0"
+# forces the eager per-op solver loop.
+glm_fuse = os.environ.get("NUMS_TPU_TORCH_GLM_FUSE", "1")
+
 BF16_PRECISIONS = ("default", "fastest", "bfloat16")
 
 

@@ -155,14 +155,28 @@ def test_from_reference_params(jax_app, torch_app, tmp_path, penalty):
                    ref.predict_proba(rbx).get()) < 1e-12
 
 
-def test_unported_options_raise(torch_app):
+def test_unported_options_raise(jax_app, torch_app, tmp_path):
+    from nums_tpu.models import glms as jglms
+
     bx = torch_app.array(np.ones((4, 2)), block_shape=(4, 2))
+    by = torch_app.array(np.ones(4), block_shape=(4,))
     with pytest.raises(ValueError, match="fit must be called"):
         LogisticRegression().predict(bx)
     with pytest.raises(NotImplementedError):
-        LogisticRegression(solver="lbfgs")
-    with pytest.raises(NotImplementedError):
         LogisticRegression(penalty="l1")
+    # save/load need the filesystem port (ROADMAP A4).
+    with pytest.raises(NotImplementedError):
+        LogisticRegression().save(str(tmp_path / "model"))
+    with pytest.raises(NotImplementedError):
+        GLM.load(str(tmp_path / "model"))
+    # An unknown solver fails at fit with the reference's exception.
+    rbx = jax_app.array(np.ones((4, 2)), block_shape=(4, 2))
+    rby = jax_app.array(np.ones(4), block_shape=(4,))
+    with pytest.raises(Exception, match="Unsupported optimizer") as ref:
+        jglms.LogisticRegression(solver="bogus").fit(rbx, rby)
+    with pytest.raises(Exception, match="Unsupported optimizer") as got:
+        LogisticRegression(solver="bogus").fit(bx, by)
+    assert type(got.value) is type(ref.value)
 
 
 def test_posdef_solve_matches_reference(jax_app):
