@@ -6,29 +6,38 @@
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: the CUDA kernels from nums_tpu_torch/csrc, timed; the gram
-     kernel's SASS (cuobjdump) must hold tensor-core HGMMA instructions;
+     kernel's SASS (cuobjdump) must hold tensor-core HGMMA instructions,
+     and the Newton passes' SASS 128-bit global loads (LDG.E.128);
   3. each kernel against its plain torch version on the card, at small
      ragged shapes (d = 1, 97, 129, 1001, 1025; n not a multiple of any
      tile, and n < 64), in every rounding mode of the gram; the staged
-     bf16 copy exactly as the plain rounding with a zero pad; two calls of
-     each kernel bitwise equal;
+     bf16 copy exactly as the plain rounding with a zero pad; the Newton
+     statistics on X and on X staged once, and their two passes
+     (newton_eta, newton_grad_scale) apart, the scaled operand exactly
+     as the plain rounding with a zero pad; two calls of each kernel
+     bitwise equal;
   4. the main path at full size through the public entry points:
      init() -> random_state -> X.T @ X -> LogisticRegression(newton).fit
      -> predict, checked against float64 and plain-float32 references,
-     with launch counts showing that it ran through the kernels, and its
-     peak device memory;
+     with launch counts showing that it ran through the kernels (X staged
+     once for the fit, the statistics once per iteration), and its peak
+     device memory;
   5. times on the card (CUDA events, median of 5 after warm-up), each
      kernel against its plain version at the main path's shapes (K3 in
-     each of its logistic, linear and Poisson kinds), and the gram's
-     staging pass alone;
+     each of its logistic, linear and Poisson kinds, on X staged once and
+     on X, and its parts, each part also held to its plain version as in
+     phase 3), the gram's staging pass alone, and the cuBLAS call that
+     computes K1's and K2's function;
   6. profile: torch.profiler over one 10-iteration fit, device time by
-     kernel (the full table goes to standard error);
+     kernel (the full table goes to standard error), with the fit's
+     launch counts and one staging pass;
   7. glm_families: the other GLM families and solvers on phase 4's X,
      each fit timed on the host clock and held to its check (the table
      in ``phase_glm_families``), with the launch counts of each fit
      (counts set to 0 just before it, read just after) and the peak
      device memory.
-Then the kernels as one JSON line, and last
+Then the kernels as one JSON line (each with its bound, the least time
+the card could take for its work at this run's shapes), and last
 {"ok": true, "device": {...}}. A failed phase prints its traceback and
 exits with 1, without that last line. No CUDA device: exits with 2.
 """
@@ -57,6 +66,10 @@ BETA_REL = 1e-2        # bf16-class fit vs plain-float32 fit, max|Δβ| / max|β
                        # bf16 ulp (2^-8 = 3.9e-3 relative)
 ACC_SLACK = 0.01       # fitted accuracy vs the true β's accuracy
 FIT = dict(solver="newton", tol=1e-8, max_iter=10)
+# One H100 SXM at its 700 W limit (NVIDIA's data sheet, dense rates).
+HBM_BYTES_PER_S = 3.35e12
+BF16_TC_FLOPS = 989e12
+F32_FLOPS = 67e12      # outside the tensor cores
 
 
 def emit(obj):
@@ -129,23 +142,80 @@ def phase_build():
     assert len(mma) == 1, ("gram_mma in the SASS", sorted(funcs))
     hgmma = mma[0].count("HGMMA")
     assert hgmma > 0, "gram_mma's SASS holds no HGMMA instruction"
+    # The Newton passes are bound by memory: each must load 16 bytes a
+    # thread (every instance of a template).
+    wide = {}
+    for kern in ("newton_eta", "newton_grad_scale"):
+        bodies = [body for name, body in funcs.items() if kern in name]
+        assert bodies, (kern, "not in the SASS", sorted(funcs))
+        wide[kern] = [body.count("LDG.E.128") for body in bodies]
+        assert all(wide[kern]), f"{kern}'s SASS holds no LDG.E.128"
     emit({"phase": "build", "seconds": secs, "library": path.name,
-          "gram_mma_hgmma_instructions": hgmma})
+          "gram_mma_hgmma_instructions": hgmma,
+          "ldg_e_128_instructions": wide})
 
 
 SMALL_SHAPES = [(1003, 97), (2049, 1001), (37, 1), (4099, 130), (5, 64),
                 (64, 128), (65, 129), (130, 1025), (63, 1)]
 
 
-def _check_stage(torch, cuda_gram, x, w, mode):
-    """The staged copy is the plain rounding of Xᵀ, bit for bit, and zero
-    in the pad."""
-    n, d = x.shape
-    xt = cuda_gram.stage(x, w, mode)
-    ref = cuda_gram.stage_plain(x, w, mode).T.to(torch.bfloat16)
-    assert torch.equal(xt[:d, :n], ref), ("staged copy", mode, n, d)
+def _check_xt(torch, xt, ref, what):
+    """A staged bf16 copy (d_pad, n_pad) is ``ref`` (n, d, float32)
+    transposed, bit for bit, and zero in the pad."""
+    n, d = ref.shape
+    assert torch.equal(xt[:d, :n], ref.T.to(torch.bfloat16)), (what, n, d)
     assert not bool(xt[d:].any()) and not bool(xt[:, n:].any()), (
-        "pad not zero", mode, n, d)
+        "pad not zero", what, n, d)
+
+
+def _check_stage(torch, cuda_gram, x, w, mode):
+    """The staged copy is the plain rounding of Xᵀ."""
+    _check_xt(torch, cuda_gram.stage(x, w, mode),
+              cuda_gram.stage_plain(x, w, mode), ("staged copy", mode))
+
+
+def _check_newton_parts(torch, cuda_gram, cuda_newton, x, staged, y, beta,
+                        kind, g_rel):
+    """newton_eta and newton_grad_scale on ``staged`` (X staged once),
+    each against its plain version on the same inputs, twice bitwise
+    equal; the scaled operand is the plain mode-2 rounding with the
+    kernel's own weight, zero in the pad. eta is a sum over one row, held
+    to SMALL_REL at every size; g sums all n rows, held to ``g_rel``.
+    Returns the largest absolute errors of (eta, g)."""
+    n = x.shape[0]
+    rb, wb = cuda_newton.eta(staged, y, beta, kind)
+    again = cuda_newton.eta(staged, y, beta, kind)
+    xb = cuda_gram.round_bf16(x)
+    plain = cuda_newton.eta_plain(xb, y, beta, kind)
+    eta_err = 0.0
+    for got, twice, ref in zip((rb, wb), again, plain):
+        if ref is None:
+            assert got is None and twice is None, kind
+            continue
+        assert torch.equal(got, twice), (kind, "newton_eta not repeatable")
+        assert not bool(got[n:].any()), (kind, "newton_eta pad not zero")
+        err, rel = rel_err(got[:n], ref)
+        assert rel <= SMALL_REL, (kind, "newton_eta", x.shape, rel)
+        eta_err = max(eta_err, err)
+    del again, plain
+    g, xs = cuda_newton.grad_scale(staged, rb, wb)
+    g2, xs2 = cuda_newton.grad_scale(staged, rb, wb)
+    pg, _ = cuda_newton.grad_scale_plain(xb, rb[:n].float(), None)
+    del xb
+    torch.cuda.synchronize()
+    assert torch.equal(g, g2), (kind, "newton_grad_scale not repeatable")
+    g_err, rel = rel_err(g, pg)
+    assert rel <= g_rel, (kind, "newton_grad_scale g", x.shape, rel)
+    if wb is None:
+        assert xs is None and xs2 is None, kind
+        return eta_err, g_err
+    assert torch.equal(xs, xs2), (kind, "scaled operand not repeatable")
+    del xs2
+    # sqrt(w²) = w exactly for a bf16 w, so this is bf16(bf16(x)·w).
+    w = wb[:n].float()
+    _check_xt(torch, xs, cuda_gram.stage_plain(
+        x, w * w, cuda_gram.MODE_SCALE_BF16), ("scaled operand", kind))
+    return eta_err, g_err
 
 
 def phase_small(torch):
@@ -156,7 +226,7 @@ def phase_small(torch):
              ("gram_weighted", cuda_gram.MODE_SCALE_F32),
              ("gram_weighted_bf16_scale", cuda_gram.MODE_SCALE_BF16))
     worst = {name: 0.0 for name, _ in modes}
-    worst["newton_stats"] = 0.0
+    worst.update(newton_stats=0.0, newton_eta=0.0, newton_grad_scale=0.0)
     for n, d in SMALL_SHAPES:
         x = torch.randn(n, d, generator=gen, device=DEVICE)
         s = torch.rand(n, generator=gen, device=DEVICE)
@@ -174,18 +244,29 @@ def phase_small(torch):
             worst[name] = max(worst[name], err)
         y = (torch.rand(n, generator=gen, device=DEVICE) > 0.5).float()
         beta = 0.05 * torch.randn(d, generator=gen, device=DEVICE)
+        staged = cuda_newton.prepare(x)
+        assert torch.equal(staged.xt, cuda_newton.prepare_plain(x).xt), (
+            "prepare", n, d)
         for kind in cuda_newton.KINDS:
-            g, h = cuda_newton.stats(x, y, beta, kind)
-            g2, h2 = cuda_newton.stats(x, y, beta, kind)
             pg, ph = cuda_newton.stats_plain(x, y, beta, kind)
-            torch.cuda.synchronize()
-            assert torch.equal(g, g2) and torch.equal(h, h2), (
-                kind, n, d, "not repeatable")
-            assert torch.equal(h, h.T), (kind, n, d, "H not symmetric")
-            for got, ref, what in ((g, pg, "g"), (h, ph, "H")):
-                err, rel = rel_err(got, ref)
-                assert rel <= SMALL_REL, (kind, what, n, d, rel)
-                worst["newton_stats"] = max(worst["newton_stats"], err)
+            for form, arg in (("x", x), ("staged", staged)):
+                g, h = cuda_newton.stats(arg, y, beta, kind)
+                g2, h2 = cuda_newton.stats(arg, y, beta, kind)
+                torch.cuda.synchronize()
+                assert torch.equal(g, g2) and torch.equal(h, h2), (
+                    kind, form, n, d, "not repeatable")
+                assert torch.equal(h, h.T), (kind, form, n, d,
+                                             "H not symmetric")
+                for got, ref, what in ((g, pg, "g"), (h, ph, "H")):
+                    err, rel = rel_err(got, ref)
+                    assert rel <= SMALL_REL, (kind, form, what, n, d, rel)
+                    worst["newton_stats"] = max(worst["newton_stats"], err)
+            eta_err, g_err = _check_newton_parts(
+                torch, cuda_gram, cuda_newton, x, staged, y, beta, kind,
+                SMALL_REL)
+            worst["newton_eta"] = max(worst["newton_eta"], eta_err)
+            worst["newton_grad_scale"] = max(worst["newton_grad_scale"],
+                                             g_err)
     emit({"phase": "kernels_vs_plain_small", "shapes": SMALL_SHAPES,
           "tolerance_rel": SMALL_REL, "max_abs_err": worst})
 
@@ -202,9 +283,16 @@ def _gram64(x, chunk=1 << 18):
 
 
 def _upper_pair_flops(n, d, tile=128):
-    """Multiply-adds x 2 of the upper tile pairs the gram computes."""
+    """Multiply-adds x 2 of the upper tile pairs the gram kernel computes,
+    its zero pad included: the rate it runs at."""
     t = -(-d // tile)
     return 2.0 * n * (t * (t + 1) // 2) * tile * tile
+
+
+def _triangle_flops(n, d):
+    """Multiply-adds x 2 of the gram's upper triangle, its diagonal
+    included: the work the function needs, for its bound."""
+    return 1.0 * n * d * (d + 1)
 
 
 def _reset_counts():
@@ -249,8 +337,11 @@ def phase_main_path(torch):
     main_secs = time.perf_counter() - t0
     counts = _counts()
     peak_bytes = torch.cuda.max_memory_allocated()
-    for k in ("newton_stats", "gram_weighted"):
-        assert counts[k] >= 1, f"the fit did not launch {k}"
+    # The fit stages X once and runs the statistics (and their weighted
+    # gram) once per iteration: newton_fit runs all max_iter steps.
+    assert counts["newton_stage"] == 1, counts
+    assert counts["newton_stats"] == FIT["max_iter"], counts
+    assert counts["gram_weighted"] == FIT["max_iter"], counts
 
     g64 = _gram64(X.data)
     _, gram_rel = rel_err(G.data, g64)
@@ -280,13 +371,77 @@ def phase_main_path(torch):
     return app, X, y, model, counts, ref
 
 
+def _bound(bytes_moved, tc_flops, f32_flops=0.0):
+    """(bound_ms, bound_by): the largest of the bytes over the memory rate
+    and the operations of each type over that type's peak rate (the
+    tensor cores and the f32 units run side by side)."""
+    mem_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(tc_flops / BF16_TC_FLOPS, f32_flops / F32_FLOPS) * 1e3
+    return max(mem_ms, ops_ms), "bytes" if mem_ms >= ops_ms else "operations"
+
+
+def _library_gram(torch):
+    """(fn, what): cuBLAS's gram of bf16 operands, float32 out where this
+    torch's mm takes ``out_dtype``, else bf16 out. The port never calls
+    it; it is the yardstick of K1 and K2."""
+    probe = torch.ones(64, 64, device=DEVICE, dtype=torch.bfloat16)
+    try:
+        torch.mm(probe, probe, out_dtype=torch.float32)
+    except (TypeError, RuntimeError, NotImplementedError):
+        return (lambda a: torch.mm(a.T, a)), "torch.mm, bf16 output"
+    return ((lambda a: torch.mm(a.T, a, out_dtype=torch.float32)),
+            "torch.mm(out_dtype=float32)")
+
+
+def _time_k3(torch, cuda_gram, cuda_newton, xa, staged, yd, beta, kind):
+    """K3 of one kind at full size: held to its plain version, the staged
+    and one-shot forms bitwise equal, each part held to its plain version
+    as in phase 3 (g to FULL_REL), and the times of both forms, the plain
+    version and each part."""
+    g, h = cuda_newton.stats(staged, yd, beta, kind)
+    g1, h1 = cuda_newton.stats(xa, yd, beta, kind)
+    assert torch.equal(g, g1) and torch.equal(h, h1), (kind, "forms differ")
+    del g1, h1
+    pg, ph = cuda_newton.stats_plain(xa, yd, beta, kind)
+    err_g, rel_g = rel_err(g, pg)
+    err_h, rel_h = rel_err(h, ph)
+    assert max(rel_g, rel_h) <= FULL_REL, ("stats at full size", kind,
+                                            rel_g, rel_h)
+    del g, h, pg, ph
+    eta_err, grad_err = _check_newton_parts(
+        torch, cuda_gram, cuda_newton, xa, staged, yd, beta, kind, FULL_REL)
+    rb, wb = cuda_newton.eta(staged, yd, beta, kind)
+    _, xs = cuda_newton.grad_scale(staged, rb, wb)
+    hx = staged.xt if xs is None else xs
+    out = {
+        "max_abs_err": max(err_g, err_h), "rel_err": max(rel_g, rel_h),
+        "newton_eta_max_abs_err": eta_err,
+        "newton_grad_scale_max_abs_err": grad_err,
+        "ms": time_ms(lambda: cuda_newton.stats(staged, yd, beta, kind)),
+        "one_shot_ms": time_ms(lambda: cuda_newton.stats(xa, yd, beta,
+                                                         kind)),
+        "plain_ms": time_ms(
+            lambda: cuda_newton.stats_plain(xa, yd, beta, kind)),
+        "newton_eta_ms": time_ms(
+            lambda: cuda_newton.eta(staged, yd, beta, kind)),
+        "newton_grad_scale_ms": time_ms(
+            lambda: cuda_newton.grad_scale(staged, rb, wb)),
+        "gram_ms": time_ms(
+            lambda: cuda_gram.gram_staged(hx, staged.d, xs is not None)),
+    }
+    del rb, wb, xs, hx
+    return out
+
+
 def phase_times(torch, smi, X, y, model):
     from nums_tpu_torch.core import settings
     from nums_tpu_torch.core.ops import cuda_gram, cuda_newton
     from nums_tpu_torch.models.glms import LogisticRegression
 
     out = {}
+    lib_gram, lib_what = _library_gram(torch)
     x = X.data
+    n, d = x.shape
     g, p = cuda_gram.gram(x), cuda_gram.gram_plain(x)
     err, rel = rel_err(g, p)
     assert rel <= FULL_REL, ("gram at full size", rel)
@@ -295,7 +450,9 @@ def phase_times(torch, smi, X, y, model):
     exact = _gram64(cuda_gram.round_bf16(x))
     _, kernel_rel64 = rel_err(g, exact)
     _, plain_rel64 = rel_err(p, exact)
-    del g, p, exact
+    del p, exact
+    _, lib_rel = rel_err(lib_gram(x.to(torch.bfloat16)).float(), g)
+    del g
     out["gram"] = {
         "max_abs_err": err, "rel_err": rel,
         "kernel_rel_err_vs_f64": kernel_rel64,
@@ -304,21 +461,33 @@ def phase_times(torch, smi, X, y, model):
         "stage_ms": time_ms(lambda: cuda_gram.stage(x)),
         "plain_ms": time_ms(lambda: cuda_gram.gram_plain(x)),
         "matmul_fp32_ms": time_ms(lambda: x.T @ x),
+        "library_ms": time_ms(lambda: lib_gram(x.to(torch.bfloat16))),
+        "library_call": lib_what, "library_rel_err_vs_kernel": lib_rel,
     }
     out["gram"]["upper_pair_tflops"] = (
-        _upper_pair_flops(*x.shape) / out["gram"]["ms"] / 1e9)
-    xa = torch.cat([x, torch.ones(x.shape[0], 1, device=x.device)], dim=1)
+        _upper_pair_flops(n, d) / out["gram"]["ms"] / 1e9)
+    out["gram"]["bound_ms"], out["gram"]["bound_by"] = _bound(
+        4.0 * n * d + 4.0 * d * d, _triangle_flops(n, d))
+    xa = torch.cat([x, torch.ones(n, 1, device=x.device)], dim=1)
     del x
+    da = d + 1
     beta = 0.5 * torch.cat([model.coef_.data, model.intercept_.data[None]])
     mu = torch.sigmoid(xa @ beta)
     s = mu * (1.0 - mu)
+    del mu
     g, p = cuda_gram.gram(xa, s), cuda_gram.gram_plain(xa, s)
     err, rel = rel_err(g, p)
     assert rel <= FULL_REL, ("weighted gram at full size", rel)
     exact = _gram64(cuda_gram.stage_plain(xa, s))
     _, kernel_rel64 = rel_err(g, exact)
     _, plain_rel64 = rel_err(p, exact)
-    del g, p, exact
+    del p, exact
+
+    def scaled_bf16():
+        return (xa * s.sqrt()[:, None]).to(torch.bfloat16)
+
+    _, lib_rel = rel_err(lib_gram(scaled_bf16()).float(), g)
+    del g
     out["gram_weighted"] = {
         "max_abs_err": err, "rel_err": rel,
         "kernel_rel_err_vs_f64": kernel_rel64,
@@ -326,44 +495,50 @@ def phase_times(torch, smi, X, y, model):
         "ms": time_ms(lambda: cuda_gram.gram(xa, s)),
         "stage_ms": time_ms(lambda: cuda_gram.stage(xa, s)),
         "plain_ms": time_ms(lambda: cuda_gram.gram_plain(xa, s)),
+        "library_ms": time_ms(lambda: lib_gram(scaled_bf16())),
+        "library_call": lib_what, "library_rel_err_vs_kernel": lib_rel,
     }
+    out["gram_weighted"]["bound_ms"], out["gram_weighted"]["bound_by"] = (
+        _bound(4.0 * n * da + 4.0 * n + 4.0 * da * da,
+               _triangle_flops(n, da)))
     yd = y.data
-    (g, h), (pg, ph) = (cuda_newton.stats(xa, yd, beta, "logistic"),
-                        cuda_newton.stats_plain(xa, yd, beta, "logistic"))
-    err_g, rel_g = rel_err(g, pg)
-    err_h, rel_h = rel_err(h, ph)
-    assert max(rel_g, rel_h) <= FULL_REL, ("stats at full size", rel_g, rel_h)
-    del g, h, pg, ph
-    out["newton_stats"] = {
-        "max_abs_err": max(err_g, err_h), "rel_err": max(rel_g, rel_h),
-        "ms": time_ms(lambda: cuda_newton.stats(xa, yd, beta, "logistic")),
-        "stage_ms": time_ms(lambda: cuda_gram.stage(
-            xa, s, cuda_gram.MODE_SCALE_BF16)),
-        "plain_ms": time_ms(
-            lambda: cuda_newton.stats_plain(xa, yd, beta, "logistic")
-        ),
-    }
-    del mu, s
+    # K3: X staged once, as a fit stages it; the parts of a call, and the
+    # cuBLAS sequence of the same steps (no one library call computes
+    # K3's function, so it has no library time: context only).
+    staged = cuda_newton.prepare(xa)
+    out["newton_stats"] = _time_k3(torch, cuda_gram, cuda_newton, xa,
+                                   staged, yd, beta, "logistic")
+    out["newton_stats"]["stage_ms"] = time_ms(
+        lambda: cuda_newton.prepare(xa))
+    # K3's bound, for the call its "ms" times: it reads the staged bf16 Xᵀ
+    # (2 bytes a value), y and beta, writes g and H; the gram's triangle
+    # on the tensor cores, eta's and g's 4·n·d on the f32 units. The
+    # one-shot call reads the fp32 X (4 bytes a value) instead.
+    k3_rest = 4.0 * n + 8.0 * da + 4.0 * da * da
+    k3_ops = (_triangle_flops(n, da), 4.0 * n * da)
+    out["newton_stats"]["bound_ms"], out["newton_stats"]["bound_by"] = (
+        _bound(2.0 * n * da + k3_rest, *k3_ops))
+    out["newton_stats"]["one_shot_bound_ms"], _ = _bound(
+        4.0 * n * da + k3_rest, *k3_ops)
+    xb = xa.to(torch.bfloat16)
+
+    def cublas_sequence():
+        mu = torch.sigmoid((xb @ beta.to(torch.bfloat16)).float())
+        w = (mu * (1.0 - mu)).sqrt().to(torch.bfloat16)
+        xb.T @ (mu - yd).to(torch.bfloat16)
+        return lib_gram(xb * w[:, None])
+
+    out["newton_stats"]["cublas_sequence_ms"] = time_ms(cublas_sequence)
+    del xb, s
     # The linear and Poisson kinds of K3 (phase 7's fused fits), at a
     # Poisson-sized beta: eta ~ N(0, 0.25), as phase 7 plants it.
     gen = torch.Generator(device=DEVICE).manual_seed(17)
     beta_p = (0.5 / D_FULL ** 0.5) * torch.randn(
-        xa.shape[1], generator=gen, device=DEVICE)
+        da, generator=gen, device=DEVICE)
     for kind in ("linear", "poisson"):
-        (g, h), (pg, ph) = (cuda_newton.stats(xa, yd, beta_p, kind),
-                            cuda_newton.stats_plain(xa, yd, beta_p, kind))
-        err_g, rel_g = rel_err(g, pg)
-        err_h, rel_h = rel_err(h, ph)
-        assert max(rel_g, rel_h) <= FULL_REL, (
-            "stats at full size", kind, rel_g, rel_h)
-        del g, h, pg, ph
-        out[f"newton_stats_{kind}"] = {
-            "max_abs_err": max(err_g, err_h), "rel_err": max(rel_g, rel_h),
-            "ms": time_ms(lambda: cuda_newton.stats(xa, yd, beta_p, kind)),
-            "plain_ms": time_ms(
-                lambda: cuda_newton.stats_plain(xa, yd, beta_p, kind)),
-        }
-    del xa
+        out[f"newton_stats_{kind}"] = _time_k3(
+            torch, cuda_gram, cuda_newton, xa, staged, yd, beta_p, kind)
+    del xa, staged
 
     def fit():
         LogisticRegression(**FIT).fit(X, y)
@@ -380,32 +555,42 @@ def phase_times(torch, smi, X, y, model):
 
 
 def phase_profile(torch, X, y):
-    """Device time by kernel over one 10-iteration fit (torch.profiler)."""
+    """Device time by kernel over one 10-iteration fit (torch.profiler),
+    and the fit's launch counts (set to 0 just before it, read just
+    after); returns the counts."""
     from torch.profiler import ProfilerActivity, profile
 
     from nums_tpu_torch.models.glms import LogisticRegression
 
     LogisticRegression(**FIT).fit(X, y)  # warm-up
     torch.cuda.synchronize()
+    _reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         LogisticRegression(**FIT).fit(X, y)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = _counts()
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=25)
     print(table, file=sys.stderr, flush=True)
-    kernels = {}
+    kernels, calls = {}, {}
     for e in prof.events():
         if e.device_type.name == "CUDA":
             ms = e.device_time_total / 1e3
             kernels[e.name] = kernels.get(e.name, 0.0) + ms
+            calls[e.name] = calls.get(e.name, 0) + 1
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    stage_calls = sum(c for k, c in calls.items() if "gram_stage" in k)
+    assert stage_calls == 1, ("one staging pass per fit", calls)
     emit({"phase": "profile", "wall_ms": wall_ms, "device_ms": busy,
           "idle_share": 1.0 - busy / wall_ms,
-          "kernels_ms": dict(top)})
+          "kernels_ms": dict(top),
+          "kernel_calls": {k: calls[k] for k, _ in top},
+          "gram_stage_calls": stage_calls, "launches": counts})
+    return counts
 
 
 # Phase 7, on phase 4's X (2.5M x 1000 fp32, the reference's size):
@@ -549,7 +734,9 @@ def phase_glm_families(torch, app, X, y, logistic_ref):
     ):
         fit = _timed_fit(torch, make, X, by)
         model, _, counts, _ = fit
-        assert counts["newton_stats"] >= 1, (name, counts)
+        assert counts["newton_stage"] == 1, (name, counts)
+        assert counts["newton_stats"] == counts["gram"] == FAM_FIT[
+            "max_iter"], (name, counts)
         ref, ref_secs = _highest(torch, make, X, by)
         _, rel = rel_err(_beta_of(torch, model), _beta_of(torch, ref))
         r2, r2_ref = float(model.score(X, by)), float(ref.score(X, by))
@@ -593,8 +780,9 @@ def phase_glm_families(torch, app, X, y, logistic_ref):
 
     fit = _timed_fit(torch, make, X, byp)
     model, _, counts, _ = fit
-    assert counts["newton_stats"] >= 1 and counts["gram_weighted"] >= 1, (
-        counts)
+    assert counts["newton_stage"] == 1, counts
+    assert counts["newton_stats"] == counts["gram_weighted"] == FAM_FIT[
+        "max_iter"], counts
     ref, ref_secs = _highest(torch, make, X, byp)
     _, rel = rel_err(_beta_of(torch, model), _beta_of(torch, ref))
     assert rel <= BETA_REL, ("poisson beta vs highest", rel)
@@ -676,6 +864,22 @@ KERNELS = (
 )
 
 
+def kernels_line(counts, fit_counts, times):
+    """One entry per kernel: "launches" counts the main path (phase 4),
+    "launches_per_fit" one fit (phase 6). gram.cu's weighted launches
+    ("gram_weighted") on these paths are K3's Hessian."""
+    return [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": counts[name], "launches_per_fit": fit_counts[name],
+         "max_abs_err": times[name]["max_abs_err"],
+         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
+         "bound_ms": times[name]["bound_ms"],
+         "bound_by": times[name]["bound_by"],
+         "library_ms": times[name].get("library_ms")}
+        for name, src, rep in KERNELS
+    ]
+
+
 def main(argv):
     try:
         import torch
@@ -695,16 +899,9 @@ def main(argv):
             return 0
         app, X, y, model, counts, ref = phase_main_path(torch)
         times = phase_times(torch, smi, X, y, model)
-        phase_profile(torch, X, y)
+        fit_counts = phase_profile(torch, X, y)
         phase_glm_families(torch, app, X, y, ref)
-        kernels = [
-            {"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": counts[name],
-             "max_abs_err": times[name]["max_abs_err"],
-             "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"]}
-            for name, src, rep in KERNELS
-        ]
-        emit({"kernels": kernels})
+        emit({"kernels": kernels_line(counts, fit_counts, times)})
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})

@@ -29,8 +29,9 @@ def set_instance(app: ArrayApplication):
 
 
 def create(device=None) -> ArrayApplication:
-    """A new application on ``device`` (default: ``cuda:0`` when CUDA
-    exists, else ``cpu``)."""
+    """A new application on ``device`` (default ``cuda:0``; raises
+    ``RuntimeError`` where CUDA is missing, and ``device="cpu"`` asks for
+    the CPU)."""
     settings.configure_precision()
     return ArrayApplication(make_backend(settings.backend_name,
                                          device=device))

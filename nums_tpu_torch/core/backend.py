@@ -59,8 +59,8 @@ class Backend:
 
 class SerialBackend(Backend):
     """Single-device backend on an explicit ``torch.device``. The default
-    device is ``cuda:0`` when CUDA exists and ``cpu`` otherwise, as the
-    reference takes ``jax.devices()[0]``."""
+    device is ``cuda:0``; where CUDA is missing, ``init`` raises: the CPU
+    runs only when the caller asks for it (``device="cpu"``)."""
 
     name = "serial"
 
@@ -69,9 +69,13 @@ class SerialBackend(Backend):
 
     def init(self):
         if self.device is None:
-            self.device = torch.device(
-                "cuda:0" if torch.cuda.is_available() else "cpu"
-            )
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "nums_tpu_torch: no CUDA device (torch.cuda.is_available()"
+                    " is false); to run on the CPU, ask for it: "
+                    "nums_tpu_torch.init(device=\"cpu\")"
+                )
+            self.device = torch.device("cuda:0")
         return self
 
     @property

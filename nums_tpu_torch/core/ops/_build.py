@@ -106,13 +106,14 @@ def lib():
     handle.nums_gram_stage.restype = i32
     handle.nums_gram_staged.argtypes = [ptr, ptr, ptr, ll, ll, ll, i32, ptr]
     handle.nums_gram_staged.restype = i32
-    for name in ("nums_gram_tile", "nums_gram_ktile"):
-        getattr(handle, name).argtypes = []
-        getattr(handle, name).restype = i32
-    handle.nums_newton_stats.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ll, ll, i32, i32, ptr,
+    handle.nums_newton_eta.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ll, ll, ll, i32, ptr,
     ]
-    handle.nums_newton_stats.restype = i32
+    handle.nums_newton_eta.restype = i32
+    handle.nums_newton_grad_scale.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ll, ll, ll, i32, ptr,
+    ]
+    handle.nums_newton_grad_scale.restype = i32
     _lib = handle
     return _lib
 

@@ -18,7 +18,9 @@ The operands are rounded to bf16 by one of three modes:
 On the card a staging pass writes the rounded operands once, as a bf16
 copy of Xᵀ padded with zeros to whole tiles, and a TMA + wgmma kernel
 computes the upper tile pairs from it on the tensor cores (see the note
-in gram.cu).
+in gram.cu). ``stage`` and ``gram_staged`` launch the two steps apart:
+the Newton statistics (``cuda_newton``) stage X once per fit and take the
+gram of their own bf16 operand.
 
 ``gram`` launches the kernels for a CUDA tensor and takes the plain torch
 version, ``gram_plain``, for a CPU tensor; any other device raises. The
@@ -44,6 +46,9 @@ LAUNCHES = {"gram": 0, "gram_weighted": 0}
 # workspace size.
 _BLOCKS_TARGET = 132 * 8
 _MAX_WORKSPACE_BYTES = 256 << 20
+# gram.cu's output tile (d is padded to it) and K tile (n is padded to
+# it); its entry points refuse other sizes.
+TILE, KTILE = 128, 64
 
 
 def enabled() -> bool:
@@ -122,19 +127,23 @@ def _checked(x, s):
     return s.to(torch.float32).contiguous()
 
 
+def padded_shape(n, d):
+    """(d_pad, n_pad) of the staged copy of an (n, d) X: whole output
+    tiles and whole K tiles."""
+    return -(-d // TILE) * TILE, -(-n // KTILE) * KTILE
+
+
 def stage(x, s=None, mode=None):
     """Launch the staging pass alone: the (d_pad, n_pad) bf16 copy of the
-    rounded Xᵀ, zero in the pad. ``gram`` runs it; this entry point is
-    for timing it and counts no launch."""
+    rounded Xᵀ, zero in the pad. ``gram`` runs it and ``cuda_newton``
+    stages X with it once per fit; it counts no launch."""
     mode = _mode(s, mode)
     if x.device.type != "cuda":
         raise ValueError(f"stage: no kernel for device {x.device}")
     s = _checked(x, s)
     n, d = (int(v) for v in x.shape)
     lib = _build.lib()
-    # Whole output tiles and whole K tiles, zero in the pad.
-    tile, ktile = lib.nums_gram_tile(), lib.nums_gram_ktile()
-    d_pad, n_pad = -(-d // tile) * tile, -(-n // ktile) * ktile
+    d_pad, n_pad = padded_shape(n, d)
     xt = torch.empty((d_pad, n_pad), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.nums_gram_stage(
@@ -158,6 +167,37 @@ def _splits(k_tiles, npairs, tile):
     return -(-k_tiles // per)
 
 
+def gram_staged(xt, d, weighted):
+    """G (d, d) from a staged bf16 copy ``xt`` (d_pad, n_pad) of Xᵀ (the
+    operands already rounded, zero in the pad): ``gram_mma`` and
+    ``gram_reduce``. Adds one to ``LAUNCHES["gram_weighted"]`` when the
+    copy holds weighted operands, else to ``LAUNCHES["gram"]``."""
+    if xt.device.type != "cuda":
+        raise ValueError(f"gram_staged: no kernel for device {xt.device}")
+    d_pad, n_pad = (int(v) for v in xt.shape)
+    if (xt.dtype != torch.bfloat16 or not xt.is_contiguous()
+            or (d_pad, n_pad) != padded_shape(n_pad, d)):
+        raise ValueError(
+            f"gram_staged: takes a contiguous bf16 copy padded to "
+            f"{padded_shape(n_pad, d)}, got {xt.dtype} {(d_pad, n_pad)}"
+        )
+    lib = _build.lib()
+    t = d_pad // TILE
+    npairs = t * (t + 1) // 2
+    splits = _splits(n_pad // KTILE, npairs, TILE)
+    ws = torch.empty(splits * npairs * TILE * TILE, dtype=torch.float32,
+                     device=xt.device)
+    g = torch.empty((d, d), dtype=torch.float32, device=xt.device)
+    with torch.cuda.device(xt.device):
+        err = lib.nums_gram_staged(
+            xt.data_ptr(), ws.data_ptr(), g.data_ptr(), d, n_pad, d_pad,
+            splits, torch.cuda.current_stream().cuda_stream,
+        )
+        LAUNCHES["gram_weighted" if weighted else "gram"] += 1
+    _build.check(err, "nums_gram_staged")
+    return g
+
+
 def gram(x, s=None, mode=None):
     """G = XᵀX, or Xᵀ·diag(s)·X for ``s`` of shape (n,), s >= 0, with the
     bf16 rounding of ``mode`` (default: ``MODE_X`` without s,
@@ -167,22 +207,4 @@ def gram(x, s=None, mode=None):
         return gram_plain(x, s, mode)
     if x.device.type != "cuda":
         raise ValueError(f"gram: no kernel for device {x.device}")
-    xt = stage(x, s, mode)
-    d = int(x.shape[1])
-    lib = _build.lib()
-    tile = lib.nums_gram_tile()
-    d_pad, n_pad = (int(v) for v in xt.shape)
-    t = d_pad // tile
-    npairs = t * (t + 1) // 2
-    splits = _splits(n_pad // lib.nums_gram_ktile(), npairs, tile)
-    ws = torch.empty(splits * npairs * tile * tile, dtype=torch.float32,
-                     device=x.device)
-    g = torch.empty((d, d), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.nums_gram_staged(
-            xt.data_ptr(), ws.data_ptr(), g.data_ptr(), d, n_pad, d_pad,
-            splits, torch.cuda.current_stream().cuda_stream,
-        )
-        LAUNCHES["gram" if mode == MODE_X else "gram_weighted"] += 1
-    _build.check(err, "nums_gram_staged")
-    return g
+    return gram_staged(stage(x, s, mode), int(x.shape[1]), mode != MODE_X)

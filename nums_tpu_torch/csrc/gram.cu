@@ -268,18 +268,15 @@ __global__ void gram_reduce(const float* __restrict__ ws, float* __restrict__ g,
 
 extern "C" {
 
-// Edge of the output tile (d is padded to it) and rows per K tile (n is
-// padded to it); the caller sizes the staged copy and the workspace.
-int nums_gram_tile() { return kTile; }
-int nums_gram_ktile() { return kK; }
-
 // Staging pass: xt (d_pad, n_pad) bf16 = the mode's rounding of Xᵀ, zero
 // in the pad. x: (n, d) f32 row-major; s: (n,) f32 >= 0, or NULL for
-// mode 0. d_pad and n_pad are multiples of 128 and 64. Launches on
+// mode 0. d_pad and n_pad are multiples of the output tile (128) and the
+// K tile (64); other sizes return cudaErrorInvalidValue. Launches on
 // `stream`, does not synchronise; returns cudaGetLastError().
 int nums_gram_stage(const float* x, const float* s, void* xt, long long n,
                     long long d, long long n_pad, long long d_pad, int mode,
                     void* stream) {
+  if (d_pad % kTile || n_pad % kK) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)(n_pad / kStageEdge),
                   (unsigned)(d_pad / kStageEdge));
   gram_stage<<<grid, kStageThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -290,10 +287,11 @@ int nums_gram_stage(const float* x, const float* s, void* xt, long long n,
 // G (d, d) from the staged copy xt (d_pad, n_pad). ws: splits · npairs ·
 // 128 · 128 f32 scratch, npairs = t(t+1)/2 with t = d_pad / 128. Returns
 // cudaGetLastError(), or -1 if cuTensorMapEncodeTiled refuses the TMA
-// tensor map.
+// tensor map. d_pad and n_pad as for nums_gram_stage.
 int nums_gram_staged(const void* xt, float* ws, float* g, long long d,
                      long long n_pad, long long d_pad, int splits,
                      void* stream) {
+  if (d_pad % kTile || n_pad % kK) return (int)cudaErrorInvalidValue;
   const int t = (int)(d_pad / kTile);
   const int npairs = t * (t + 1) / 2;
   const int k_tiles = (int)(n_pad / kK);

@@ -9,7 +9,8 @@ what its reference returns.
   always runs ``max_iter`` steps and freezes ``beta``, ``gmax`` and ``it``
   with ``torch.where`` once ``gmax <= tol``. With ``kernels=True`` (the
   caller's opt-in, as the reference's ``pallas=True``) the statistics ride
-  the Hopper kernels (``cuda_newton``, ``cuda_gram``).
+  the Hopper kernels (``cuda_newton``, ``cuda_gram``): X is staged once
+  (``cuda_newton.prepare``), and every iteration reads the staged copy.
 * ``bfgs_fit`` is the algorithm of ``jax.scipy.optimize.minimize(method=
   "BFGS")`` written in torch; ``admm_fit`` and ``admm_fit_gram`` are the
   reference's ADMM loops. These three test their loop conditions on the
@@ -39,13 +40,19 @@ def _gram(X, s=None, kernels=False):
     return Xw.T @ X
 
 
-def _newton_stats(kind, X, y, beta, kernels):
-    """(g, H) for one Newton iteration: the Newton-stats kernel when it is
-    enabled, else the plain eta/g chain with the Hessian on the gram
-    kernel (``kernels``) or plain ops."""
-    if kernels and cuda_newton.enabled() and cuda_newton.supported(
+def _newton_kernel(X, kernels):
+    """Whether the statistics take the Newton-stats kernel."""
+    return kernels and cuda_newton.enabled() and cuda_newton.supported(
         tuple(X.shape), X.dtype
-    ):
+    )
+
+
+def _newton_stats(kind, X, y, beta, kernels):
+    """(g, H) for one Newton iteration: the Newton-stats kernel for a
+    staged X (``cuda_newton.Staged``) or when it is enabled, else the
+    plain eta/g chain with the Hessian on the gram kernel (``kernels``)
+    or plain ops."""
+    if isinstance(X, cuda_newton.Staged) or _newton_kernel(X, kernels):
         return cuda_newton.stats(X, y, beta, kind)
     if kind == "logistic":
         mu = torch.sigmoid(X @ beta)
@@ -100,16 +107,19 @@ def newton_fit(X, y, beta0, tol, kind="logistic", max_iter=10,
     """Newton training with on-device convergence, as the reference's
     ``lax.while_loop`` (max|g| <= tol after each update). No host sync:
     every one of ``max_iter`` steps runs, and each output is frozen by
-    ``torch.where`` once converged. Returns ``(beta, gmax, it)``."""
+    ``torch.where`` once converged. On the Newton-stats kernel X is
+    staged once, before the loop, and the staged copy is freed when the
+    fit returns. Returns ``(beta, gmax, it)``."""
     lv = lambda_vec if penalized else None
     dev = X.device
     beta = beta0
     gmax = torch.full((), float("inf"), dtype=X.dtype, device=dev)
     it = torch.zeros((), dtype=torch.int32, device=dev)
     tol = torch.as_tensor(tol, dtype=X.dtype, device=dev)
+    Xs = cuda_newton.prepare(X) if _newton_kernel(X, kernels) else X
     for _ in range(int(max_iter)):
         active = gmax > tol
-        new_beta, g = _newton_step_penalized(kind, X, y, beta, lv,
+        new_beta, g = _newton_step_penalized(kind, Xs, y, beta, lv,
                                              kernels=kernels)
         beta = torch.where(active, new_beta, beta)
         gmax = torch.where(active, g.abs().max(), gmax)

@@ -9,7 +9,11 @@ output:
 * ``bfgs_fit`` on strictly convex problems: beta within 1e-6 (the line
   search's trial steps may differ, the optimum may not);
 * ``newton_train``, ``fit_logistic``, ``_objective``, ``_soft_threshold``:
-  within 1e-12.
+  within 1e-12;
+* ``newton_fit`` on the Newton-stats kernel (float32, its plain version
+  here) against the reference's Pallas fit in interpret mode: 1e-2, the
+  bf16-MAC class of tests/test_torch_glm.py (eta uses bf16(beta), which
+  pins beta to about one bf16 ulp, 3.9e-3).
 """
 
 import jax.numpy as jnp
@@ -17,9 +21,11 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import rel_err
+from torch_parity import rel_err, spy_calls  # noqa: F401
 
 from nums_tpu.models import fast_glm as jfast
+from nums_tpu_torch.core import settings
+from nums_tpu_torch.core.ops import cuda_newton
 from nums_tpu_torch.models import fast_glm as tfast
 
 N, D = 400, 6
@@ -214,3 +220,36 @@ def test_soft_threshold():
     got = tfast._soft_threshold(_t(v), _t(k)).numpy()
     assert rel_err(got, ref) < 1e-12
     assert np.array_equal(got == 0.0, ref == 0.0)
+
+
+@pytest.mark.parametrize("kind", ["logistic", "linear", "poisson"])
+def test_newton_fit_stages_x_once(monkeypatch, spy_calls, kind):
+    """On the Newton-stats kernel a fit stages X once (``prepare``) and
+    each of its ``max_iter`` iterations takes the staged copy. The result
+    is the same bits as a fit whose iterations take X itself, and within
+    the bf16 class of the reference's Pallas fit."""
+    rs = np.random.RandomState(12)
+    n, d = 1000, 256
+    X = np.hstack([rs.randn(n, d - 1), np.ones((n, 1))]).astype(np.float32)
+    eta = X.astype(np.float64) @ (0.5 / np.sqrt(d) * rs.randn(d))
+    y = {"logistic": (rs.rand(n) < 1.0 / (1.0 + np.exp(-eta))),
+         "linear": eta + 0.1 * rs.randn(n),
+         "poisson": rs.poisson(np.exp(eta))}[kind].astype(np.float32)
+    beta0 = np.zeros(d, np.float32)
+    assert settings.matmul_precision == "default"
+    prepares = spy_calls(cuda_newton, "prepare")
+    stats = spy_calls(cuda_newton, "stats")
+    got, _, _ = tfast.newton_fit(_t(X), _t(y), _t(beta0), 1e-8, kind=kind,
+                                 max_iter=4, kernels=True)
+    assert len(prepares) == 1 and len(stats) == 4
+    assert all(isinstance(a[0], cuda_newton.Staged) and a[0].shape == (n, d)
+               for a in stats)
+    monkeypatch.setattr(cuda_newton, "prepare", lambda x: x)
+    one_shot, _, _ = tfast.newton_fit(_t(X), _t(y), _t(beta0), 1e-8,
+                                      kind=kind, max_iter=4, kernels=True)
+    assert all(isinstance(a[0], torch.Tensor) for a in stats[4:])
+    assert torch.equal(got, one_shot)
+    monkeypatch.setenv("NUMS_TPU_PALLAS_NEWTON", "1")
+    ref, _, _ = jfast.newton_fit(_j(X), _j(y), _j(beta0), 1e-8, kind=kind,
+                                 max_iter=4, pallas=True)
+    assert rel_err(got, np.asarray(ref)) < 1e-2

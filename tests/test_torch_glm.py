@@ -82,6 +82,7 @@ def test_kernel_route_matches_pallas_route(padded_jax_app, torch_app,
     X, y = _data()
     assert settings.matmul_precision == "default"
     grams = spy_calls(cuda_gram, "gram")
+    prepares = spy_calls(cuda_newton, "prepare")
     stats = spy_calls(cuda_newton, "stats")
 
     ref, rbx, _ = _fit(jglms, padded_jax_app, X, y)
@@ -91,9 +92,12 @@ def test_kernel_route_matches_pallas_route(padded_jax_app, torch_app,
     assert tuple(rbx.raw.shape) == (N, 128)
     assert pallas_gram.enabled() and pallas_newton.enabled()
     assert pallas_newton.supported((N, 128), np.float32)
-    # The port went through its kernel functions: the Newton statistics
-    # of every iteration (10, with tol unreachable in the bf16 class).
+    # The port went through its kernel functions: X staged once, and the
+    # Newton statistics of every iteration on the staged copy (10, with
+    # tol unreachable in the bf16 class).
+    assert len(prepares) == 1
     assert len(stats) == FIT["max_iter"]
+    assert all(isinstance(a[0], cuda_newton.Staged) for a in stats)
     assert all(tuple(a[0].shape) == (N, D + 1) and a[3] == "logistic"
                for a in stats)
     assert rel_err(_beta(got), _beta(ref)) < 1e-2

@@ -15,8 +15,8 @@
 (d) The kernel route of LinearRegression/Ridge/PoissonRegression in
     float32 at the default precision, against nums_tpu's Pallas route in
     interpret mode on a lane-padded buffer: beta within 1e-2 of max|beta|
-    (bf16 MACs; eta uses bf16(beta)), with ``cuda_newton.stats`` called
-    with the family's kind.
+    (bf16 MACs; eta uses bf16(beta)), with X staged once and
+    ``cuda_newton.stats`` called on the staged copy with the family's kind.
 (e) ``from_reference_params`` for all seven classes: the same predictions
     as the nums_tpu model that was fitted and saved.
 (f) ``train_test_split``, ``KFold``, ``cross_val_score`` and the row
@@ -312,6 +312,7 @@ def test_kernel_route_matches_pallas_route(padded_jax_app, torch_app,
     from nums_tpu_torch.models import glms as tglms
 
     assert settings.matmul_precision == "default"
+    prepares = spy_calls(cuda_newton, "prepare")
     stats = spy_calls(cuda_newton, "stats")
     X, y = _kernel_data(kind)
     n, d = X.shape
@@ -326,7 +327,8 @@ def test_kernel_route_matches_pallas_route(padded_jax_app, torch_app,
         betas.append(np.append(m._beta.get(), m._beta0.get()))
         models.append((m, bx))
     assert tuple(models[0][1].raw.shape) == (n, 128)  # lane-padded
-    assert len(stats) == kw["max_iter"]
+    assert len(prepares) == 1 and len(stats) == kw["max_iter"]
+    assert all(isinstance(a[0], cuda_newton.Staged) for a in stats)
     assert all(tuple(a[0].shape) == (n, d + 1) and a[3] == kind
                for a in stats)
     assert rel_err(betas[1], betas[0]) < 1e-2

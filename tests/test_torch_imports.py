@@ -1,5 +1,7 @@
 """The port stands alone: nums_tpu_torch and chip_smoke.py import neither
 jax nor nums_tpu, and chip_smoke.py refuses to run without a CUDA card.
+``nums_tpu_torch.init()`` runs on the card: without one it raises, and
+``init(device="cpu")`` is how a caller asks for the CPU.
 """
 
 import ast
@@ -32,7 +34,7 @@ sys.meta_path.insert(0, Block())
 import nums_tpu_torch
 for mod in pkgutil.walk_packages(nums_tpu_torch.__path__, "nums_tpu_torch."):
     importlib.import_module(mod.name)
-app = nums_tpu_torch.init()
+app = nums_tpu_torch.init(device="cpu")
 print(app.backend.device.type)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "nums_tpu")]
 assert not bad, bad
@@ -53,6 +55,18 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "cpu"
+
+
+def test_init_needs_a_card_unless_the_cpu_is_asked_for():
+    probe = ("import nums_tpu_torch\n"
+             "print(nums_tpu_torch.init().backend.device.type)")
+    out = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0
+    assert out.stdout.strip() == ""
+    assert "RuntimeError" in out.stderr and 'device="cpu"' in out.stderr
 
 
 @pytest.mark.parametrize(

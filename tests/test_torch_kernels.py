@@ -94,19 +94,27 @@ def test_weighted_gram_matches_pallas(jax_app, shape):
     assert torch.equal(got, got.T)
 
 
+def _entry(form, x):
+    """The operand ``stats`` takes: X itself, or its staged copy."""
+    return x if form == "x" else cuda_newton.prepare(x)
+
+
+@pytest.mark.parametrize("form", ["x", "staged"])
 @pytest.mark.parametrize(
     "kind,n,d",
     [("logistic", 1024, 128), ("linear", 1024, 128), ("poisson", 1024, 128),
      ("logistic", 1000, 256), ("logistic", 4099, 256)],
 )
-def test_stats_matches_pallas(jax_app, kind, n, d):
+def test_stats_matches_pallas(jax_app, kind, n, d, form):
     """bf16 class at every shape; the d = 128 cases stay at this bound
-    because of the reference's excess precision there (ROADMAP Queue C)."""
+    because of the reference's excess precision there (ROADMAP Queue C).
+    Both entry forms: X, and X staged once by ``prepare``."""
     from nums_tpu.core.ops import pallas_newton
 
     x, y, beta = _stats_inputs(np.random.RandomState(0), n, d)
-    g, h = cuda_newton.stats(torch.from_numpy(x), torch.from_numpy(y),
-                             torch.from_numpy(beta), kind)
+    g, h = cuda_newton.stats(_entry(form, torch.from_numpy(x)),
+                             torch.from_numpy(y), torch.from_numpy(beta),
+                             kind)
     rg, rh = pallas_newton.stats(jnp.asarray(x), jnp.asarray(y),
                                  jnp.asarray(beta), kind)
     assert rel_err(g, rg) < STATS_BF16_REL
@@ -115,6 +123,30 @@ def test_stats_matches_pallas(jax_app, kind, n, d):
     assert rel_err(g, og) < STATS_BF16_REL
     assert rel_err(h, oh) < STATS_BF16_REL
     assert torch.equal(h, h.T)
+
+
+@pytest.mark.parametrize("kind", cuda_newton.KINDS)
+@pytest.mark.parametrize("n,d", [(37, 1), (100, 97), (130, 129),
+                                 (65, 1001)])
+def test_staged_and_one_shot_stats_are_bitwise_equal(kind, n, d):
+    """``prepare`` gives the staging pass's operand: bf16(X)ᵀ zero-padded
+    to whole tiles (d to 128, n to 64); ``stats`` on it and on X give the
+    same bits, at ragged shapes and n < 64."""
+    rs = np.random.RandomState(n * d)
+    x, y, beta = _stats_inputs(rs, n, d)
+    tx = torch.from_numpy(x)
+    staged = cuda_newton.prepare(tx)
+    d_pad, n_pad = -(-d // 128) * 128, -(-n // 64) * 64
+    assert staged.shape == (n, d) and staged.xt.shape == (d_pad, n_pad)
+    assert staged.xt.dtype == torch.bfloat16
+    assert torch.equal(staged.xt[:d, :n].T.float(), cuda_gram.round_bf16(tx))
+    assert not staged.xt[d:].any() and not staged.xt[:, n:].any()
+    ty, tb = torch.from_numpy(y), torch.from_numpy(beta)
+    g, h = cuda_newton.stats(staged, ty, tb, kind)
+    g1, h1 = cuda_newton.stats(tx, ty, tb, kind)
+    assert torch.equal(g, g1) and torch.equal(h, h1)
+    og, oh = _stats_oracle(kind, x, y, beta)
+    assert rel_err(h, oh) < STATS_BF16_REL
 
 
 @pytest.mark.parametrize("kind", ["logistic", "poisson"])
@@ -238,10 +270,17 @@ def test_plain_versions_are_the_cpu_route():
         cuda_gram.gram(meta)
     with pytest.raises(ValueError, match="no kernel"):
         cuda_newton.stats(meta, y.to("meta"), beta.to("meta"), "logistic")
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda_newton.prepare(meta)
     with pytest.raises(ValueError):
         cuda_newton.stats(x, y, beta, "gamma")
+    staged = cuda_newton.prepare(x)
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda_newton.eta(staged, y, beta, "poisson")
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda_gram.gram_staged(staged.xt, 9, weighted=False)
     assert cuda_gram.LAUNCHES == {"gram": 0, "gram_weighted": 0}
-    assert cuda_newton.LAUNCHES == {"newton_stats": 0}
+    assert cuda_newton.LAUNCHES == {"newton_stage": 0, "newton_stats": 0}
 
 
 def test_supported_shapes_and_dtypes():
