@@ -1,6 +1,6 @@
 """Smoke run of nums_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py                 # phases 1-7
+    python3 chip_smoke.py                 # phases 1-8
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check
 
 Phases, each printing one JSON line:
@@ -35,7 +35,21 @@ Phases, each printing one JSON line:
      each fit timed on the host clock and held to its check (the table
      in ``phase_glm_families``), with the launch counts of each fit
      (counts set to 0 just before it, read just after) and the peak
-     device memory.
+     device memory;
+  8. ooc: phase 4's X and y written to disk (``DiskArray.from_panels``,
+     10 panels of 250,000 rows, under ``settings.data_dir``, which must
+     have 25 GB free; removed at the end) and streamed back panel by
+     panel: ``gram_ooc`` (K1 per panel) against a float64 gram and the
+     in-core gram, the logistic fit on the DiskArray (K3 one-shot per
+     panel per iteration) against phase 4's in-core fit, one statistics
+     pass with the Newton gate off (K2 per panel) against the same pass
+     on K3, ``linear_regression_ooc`` (K1) against a float64 solve,
+     ``predict_ooc`` against the in-core labels, and save/load bit for
+     bit; exact launch counts per step, the peak device memory of the
+     streamed steps (at most 8 panels above what was allocated before
+     them), the time of each step, one pass split into disk, host to
+     device and device, and K1, K2 and K3 at the panel shape, each held
+     to its plain version.
 Then the kernels as one JSON line (each with its bound, the least time
 the card could take for its work at this run's shapes), and last
 {"ok": true, "device": {...}}. A failed phase prints its traceback and
@@ -368,7 +382,7 @@ def phase_main_path(torch):
           "gram_rel_err_vs_f64": gram_rel, "gram_tolerance": BF16_REL,
           "accuracy": acc, "accuracy_true_beta": acc_true,
           "beta_rel_err_vs_highest": beta_rel, "beta_tolerance": BETA_REL})
-    return app, X, y, model, counts, ref
+    return app, X, y, model, counts, ref, acc_true
 
 
 def _bound(bytes_moved, tc_flops, f32_flops=0.0):
@@ -854,6 +868,285 @@ def phase_glm_families(torch, app, X, y, logistic_ref):
     return fits
 
 
+# Phase 8, on phase 4's X and y, streamed from disk:
+OOC_PANEL_ROWS = 250_000     # 10 panels of 1.0 GB at 2.5M x 1000 fp32
+OOC_MIN_FREE_BYTES = 25e9    # the 10 GB spill and its predictions, twice over
+OOC_PEAK_PANELS = 8          # peak device memory of the streamed steps
+OOC_LABEL_MISMATCH = 1e-4    # predict_ooc (host fp32) vs predict (card)
+STATS_BF16_REL = 4e-3        # K2's H vs K3's: bf16(x·√s) vs
+                             # bf16(bf16(x)·bf16(√s)) (test_pallas_newton.py:11)
+
+
+def _ooc_stats_pass(torch, app, dX, y_at, beta, kind):
+    """(g, H) of one streamed Newton statistics pass over ``dX``, as
+    ``newton_fit_ooc`` makes it: each panel moved, augmented on the card
+    and folded by ``streaming.glm_stats_update_aug``."""
+    from nums_tpu_torch.core.array.application import ooc_panels, ooc_put
+    from nums_tpu_torch.core.ops import streaming
+
+    da = dX.shape[1] + 1
+    g = torch.zeros(da, device=DEVICE)
+    H = torch.zeros(da, da, device=DEVICE)
+    for start, panel in ooc_panels(dX):
+        yp, _ = ooc_put(app.backend, y_at(start, panel.shape[0]))
+        pa, _ = ooc_put(app.backend, panel, augment_ones=True)
+        streaming.glm_stats_update_aug(kind, g, H, pa, yp, beta)
+    return g, H
+
+
+def _ooc_counted(torch, launches, fn):
+    """fn() with the launch counts set to 0 just before it and read just
+    after (synchronized), added into ``launches``; returns (result,
+    seconds, counts)."""
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    return out, secs, counts
+
+
+def _ooc_pass_parts(torch, app, dX):
+    """One pass taken apart, on the host clock: the disk (or page cache)
+    read of every panel alone, then each panel's move to the card
+    (``ooc_put``, as the gram takes it and augmented as the fit takes
+    it) alone."""
+    from nums_tpu_torch.core.array.application import ooc_put
+
+    t0 = time.perf_counter()
+    for _ in dX.iter_row_panels():
+        pass
+    read_s = time.perf_counter() - t0
+    put = {False: 0.0, True: 0.0}
+    for _, panel in dX.iter_row_panels():
+        for augment in put:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, _ = ooc_put(app.backend, panel, augment_ones=augment)
+            torch.cuda.synchronize()
+            put[augment] += time.perf_counter() - t0
+            del p
+    return {"host_read_s": read_s, "host_to_device_s": put[False],
+            "host_to_device_augment_s": put[True]}
+
+
+def _ooc_panel_kernels(torch, app, dX, dy, beta):
+    """K1, K2 and K3 (one-shot) on one resident panel of the streamed
+    path, each held to its plain version at FULL_REL and timed by CUDA
+    events beside its plain version and its bound."""
+    from nums_tpu_torch.core.array.application import ooc_put
+    from nums_tpu_torch.core.ops import cuda_gram, cuda_newton
+
+    p, rows = ooc_put(app.backend, dX.row_panel(0))
+    pa, _ = ooc_put(app.backend, dX.row_panel(0), augment_ones=True)
+    yp, _ = ooc_put(app.backend, dy.row_panel(0))
+    d, da = p.shape[1], pa.shape[1]
+    mu = torch.sigmoid(pa @ beta)
+    s = mu * (1.0 - mu)
+    del mu
+    calls = {
+        "gram": (lambda: cuda_gram.gram(p),
+                 lambda: cuda_gram.gram_plain(p),
+                 _bound(4.0 * rows * d + 4.0 * d * d,
+                        _triangle_flops(rows, d))),
+        "gram_weighted": (lambda: cuda_gram.gram(pa, s),
+                          lambda: cuda_gram.gram_plain(pa, s),
+                          _bound(4.0 * rows * da + 4.0 * rows
+                                 + 4.0 * da * da,
+                                 _triangle_flops(rows, da))),
+        "newton_stats": (
+            lambda: cuda_newton.stats(pa, yp, beta, "logistic"),
+            lambda: cuda_newton.stats_plain(pa, yp, beta, "logistic"),
+            _bound(4.0 * rows * da + 4.0 * rows + 8.0 * da + 4.0 * da * da,
+                   _triangle_flops(rows, da), 4.0 * rows * da)),
+    }
+    out = {}
+    for name, (kernel, plain, (bound_ms, bound_by)) in calls.items():
+        got, ref = kernel(), plain()
+        if name != "newton_stats":
+            got, ref = (got,), (ref,)
+        errs = [rel_err(a, b) for a, b in zip(got, ref)]
+        rel = max(r for _, r in errs)
+        assert rel <= FULL_REL, (name, "at the panel shape", rel)
+        del got, ref
+        out[name] = {"shape": [rows, da if name != "gram" else d],
+                     "max_abs_err": max(e for e, _ in errs),
+                     "rel_err": rel, "ms": time_ms(kernel),
+                     "plain_ms": time_ms(plain), "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+    return out
+
+
+def phase_ooc(torch, smi, app, X, y, model, acc_true):
+    """Out of core at full width: phase 4's X and y written to disk in
+    panels of OOC_PANEL_ROWS rows and streamed back through the public
+    entry points, each held to its in-core or float64 reference:
+
+    | step                               | kernels per panel             |
+    |------------------------------------|-------------------------------|
+    | spill: DiskArray.from_panels       | none (card -> disk)           |
+    | app.gram_ooc                       | K1                            |
+    | LogisticRegression.fit(dX, dy)     | K3 one-shot, per iteration    |
+    | one statistics pass, Newton gate 0 | K2 (after one pass with K3)   |
+    | app.linear_regression_ooc          | K1                            |
+    | model.predict_ooc, save, load      | none (host panels)            |
+
+    The launch counts of each step are set to 0 just before it and read
+    just after; the peak device memory of the streamed steps is taken
+    above what was allocated before them."""
+    import shutil
+    import tempfile
+
+    from nums_tpu_torch.core import settings
+    from nums_tpu_torch.core.array.application import _ooc_y_getter
+    from nums_tpu_torch.core.array.blockarray import BlockArray
+    from nums_tpu_torch.core.array.diskarray import DiskArray
+    from nums_tpu_torch.core.ops import cuda_gram, streaming
+    from nums_tpu_torch.models.glms import GLM, LogisticRegression
+
+    n, d = X.shape
+    rows = OOC_PANEL_ROWS
+    panels = -(-n // rows)
+    panel_bytes = rows * d * 4
+    x = X.data
+    # In-core references first: the in-core gram stages a 5 GB copy.
+    g_core = (X.T @ X).data
+    g64 = _gram64(x)
+    beta_core = _beta_of(torch, model)
+    (_, y_lin), _, _ = _targets(torch, X)
+    m64, q64 = _moments64(torch, x, y_lin)
+    theta64 = torch.linalg.solve(m64[:d, :d], q64[:d])
+    del m64, q64
+    by_lin = BlockArray.from_torch(y_lin, backend=app.backend)
+
+    os.makedirs(settings.data_dir, exist_ok=True)
+    free = shutil.disk_usage(settings.data_dir).free
+    assert free >= OOC_MIN_FREE_BYTES, (
+        f"phase 8 needs {OOC_MIN_FREE_BYTES / 1e9:.0f} GB free under "
+        f"{settings.data_dir}; {free / 1e9:.1f} GB are free")
+    root = tempfile.mkdtemp(prefix="chip_smoke_ooc-", dir=settings.data_dir)
+    out = {"phase": "ooc", "card": smi, "shape": [n, d],
+           "panel_rows": rows, "panels": panels, "data_dir_free_bytes": free}
+    launches = {}
+    try:
+        t0 = time.perf_counter()
+        dX = DiskArray.from_panels(
+            os.path.join(root, "X"), app.fs,
+            (x[i:i + rows].cpu().numpy() for i in range(0, n, rows)),
+            (n, d), np.float32, rows)
+        dy = DiskArray.from_panels(
+            os.path.join(root, "y"), app.fs,
+            (y.data[i:i + rows].cpu().numpy() for i in range(0, n, rows)),
+            (n,), np.float32, rows)
+        out["spill_s"] = time.perf_counter() - t0
+        assert dX.num_row_panels == dy.num_row_panels == panels
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+
+        G, out["gram_ooc_s"], c = _ooc_counted(
+            torch, launches, lambda: app.gram_ooc(dX).data)
+        assert c["gram"] == panels and c["gram_weighted"] == 0, c
+        assert c["newton_stats"] == c["newton_stage"] == 0, c
+        assert G.shape == (d, d) and bool(torch.isfinite(G).all())
+        _, out["gram_rel_err_vs_f64"] = rel_err(G, g64)
+        _, out["gram_rel_err_vs_in_core"] = rel_err(G, g_core)
+        assert out["gram_rel_err_vs_f64"] <= BF16_REL, out
+        assert out["gram_rel_err_vs_in_core"] <= FULL_REL, out
+        del G, g64, g_core
+
+        steps = []
+        newton_update = streaming.newton_update
+        streaming.newton_update = (
+            lambda *a: steps.append(1) or newton_update(*a))
+        try:
+            fitted, out["fit_s"], c = _ooc_counted(
+                torch, launches,
+                lambda: LogisticRegression(**FIT).fit(dX, dy))
+        finally:
+            streaming.newton_update = newton_update
+        it = len(steps)
+        out["fit_iterations"] = it
+        out["fit_s_per_iteration"] = out["fit_s"] / it
+        assert c["newton_stats"] == c["newton_stage"] == c[
+            "gram_weighted"] == panels * it, (c, it)
+        assert c["gram"] == 0, c
+        beta_ooc = _beta_of(torch, fitted)
+        _, out["beta_rel_err_vs_in_core"] = rel_err(beta_ooc, beta_core)
+        assert out["beta_rel_err_vs_in_core"] <= BETA_REL, out
+
+        # K2 against K3 on one pass at half the fitted beta, rounded to
+        # bf16: at the fit's optimum g is the rounding noise of each route,
+        # and no relative tolerance holds it (at half of it g is far from
+        # 0); K3's eta takes bf16(beta), which would shift its g from the
+        # plain g of the K2 route by about 2^-9 of g, a bf16 beta by none.
+        beta_half = cuda_gram.round_bf16(0.5 * beta_ooc)
+        y_at = _ooc_y_getter(dX, dy)
+        (g3, h3), out["k3_pass_s"], c = _ooc_counted(
+            torch, launches,
+            lambda: _ooc_stats_pass(torch, app, dX, y_at, beta_half,
+                                    "logistic"))
+        assert c["newton_stats"] == c["gram_weighted"] == panels, c
+        gate, settings.newton_kernel = settings.newton_kernel, "0"
+        try:
+            (g2, h2), out["k2_pass_s"], c = _ooc_counted(
+                torch, launches,
+                lambda: _ooc_stats_pass(torch, app, dX, y_at, beta_half,
+                                        "logistic"))
+        finally:
+            settings.newton_kernel = gate
+        assert c["gram_weighted"] == panels and c["gram"] == 0, c
+        assert c["newton_stats"] == c["newton_stage"] == 0, c
+        _, out["k2_vs_k3_g_rel_err"] = rel_err(g2, g3)
+        _, out["k2_vs_k3_h_rel_err"] = rel_err(h2, h3)
+        assert out["k2_vs_k3_g_rel_err"] <= FULL_REL, out
+        assert out["k2_vs_k3_h_rel_err"] <= STATS_BF16_REL, out
+        del g2, h2, g3, h3
+
+        theta, out["linear_regression_ooc_s"], c = _ooc_counted(
+            torch, launches,
+            lambda: app.linear_regression_ooc(dX, by_lin).data)
+        assert c["gram"] == panels and c["gram_weighted"] == 0, c
+        _, out["linear_regression_rel_err_vs_f64"] = rel_err(theta, theta64)
+        assert out["linear_regression_rel_err_vs_f64"] <= BETA_REL, out
+        out["peak_above_base_bytes"] = (torch.cuda.max_memory_allocated()
+                                        - base)
+        out["peak_limit_bytes"] = OOC_PEAK_PANELS * panel_bytes
+        assert out["peak_above_base_bytes"] <= out["peak_limit_bytes"], out
+
+        t0 = time.perf_counter()
+        pred = fitted.predict_ooc(dX, out=os.path.join(root, "pred"))
+        out["predict_ooc_s"] = time.perf_counter() - t0
+        labels = np.concatenate([p for _, p in pred.iter_row_panels()])
+        assert labels.shape == (n,), labels.shape
+        out["accuracy"] = float((labels == y.get()).mean())
+        out["accuracy_true_beta"] = acc_true
+        assert abs(out["accuracy"] - acc_true) <= ACC_SLACK, out
+        in_core = fitted.predict(X).get()
+        out["predict_mismatch_share"] = float((labels != in_core).mean())
+        assert out["predict_mismatch_share"] <= OOC_LABEL_MISMATCH, out
+
+        fitted.save(os.path.join(root, "model"))
+        back = GLM.load(os.path.join(root, "model"))
+        assert type(back) is LogisticRegression
+        assert torch.equal(_beta_of(torch, back), beta_ooc), "save/load"
+
+        out.update(_ooc_pass_parts(torch, app, dX))
+        out["panel"] = _ooc_panel_kernels(torch, app, dX, dy, beta_half)
+        per_pass = panels * out["panel"]["newton_stats"]["ms"] / 1e3
+        out["fit_device_share"] = per_pass / out["fit_s_per_iteration"]
+        out["launches"] = launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(out)
+    return out
+
+
 KERNELS = (
     ("gram", "nums_tpu_torch/csrc/gram.cu",
      "nums_tpu/core/ops/pallas_gram.py:139"),
@@ -864,18 +1157,24 @@ KERNELS = (
 )
 
 
-def kernels_line(counts, fit_counts, times):
+def kernels_line(counts, fit_counts, times, ooc):
     """One entry per kernel: "launches" counts the main path (phase 4),
-    "launches_per_fit" one fit (phase 6). gram.cu's weighted launches
-    ("gram_weighted") on these paths are K3's Hessian."""
+    "launches_per_fit" one fit (phase 6), "launches_ooc" the streamed
+    steps of phase 8; "panel_ms" is its time on one resident panel there,
+    and "panel_bound_ms" that panel's bound.
+    gram.cu's weighted launches ("gram_weighted") on these paths are K3's
+    Hessian, and K2 proper in phase 8's pass with the Newton gate off."""
     return [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], "launches_per_fit": fit_counts[name],
+         "launches_ooc": ooc["launches"][name],
          "max_abs_err": times[name]["max_abs_err"],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"],
          "bound_by": times[name]["bound_by"],
-         "library_ms": times[name].get("library_ms")}
+         "library_ms": times[name].get("library_ms"),
+         "panel_ms": ooc["panel"][name]["ms"],
+         "panel_bound_ms": ooc["panel"][name]["bound_ms"]}
         for name, src, rep in KERNELS
     ]
 
@@ -897,11 +1196,12 @@ def main(argv):
         phase_small(torch)
         if "--kernels-only" in argv:
             return 0
-        app, X, y, model, counts, ref = phase_main_path(torch)
+        app, X, y, model, counts, ref, acc_true = phase_main_path(torch)
         times = phase_times(torch, smi, X, y, model)
         fit_counts = phase_profile(torch, X, y)
         phase_glm_families(torch, app, X, y, ref)
-        emit({"kernels": kernels_line(counts, fit_counts, times)})
+        ooc = phase_ooc(torch, smi, app, X, y, model, acc_true)
+        emit({"kernels": kernels_line(counts, fit_counts, times, ooc)})
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})

@@ -6,6 +6,7 @@ kernels written for Hopper (``nums_tpu_torch/csrc``), built at first use.
 This package imports ``torch`` and never ``jax`` or ``nums_tpu``.
 """
 
+from nums_tpu_torch.api import delete, read, write
 from nums_tpu_torch.core import application_manager
 
 
@@ -22,4 +23,4 @@ def init(device=None):
     return application_manager.instance()
 
 
-__all__ = ["init"]
+__all__ = ["read", "write", "delete", "init"]

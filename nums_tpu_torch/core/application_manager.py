@@ -8,6 +8,7 @@ the backend and the ``ArrayApplication`` from ``settings``.
 from nums_tpu_torch.core import settings
 from nums_tpu_torch.core.backend import make_backend
 from nums_tpu_torch.core.array.application import ArrayApplication
+from nums_tpu_torch.core.io.filesystem import FileSystem
 
 _instance: ArrayApplication = None
 
@@ -33,8 +34,8 @@ def create(device=None) -> ArrayApplication:
     ``RuntimeError`` where CUDA is missing, and ``device="cpu"`` asks for
     the CPU)."""
     settings.configure_precision()
-    return ArrayApplication(make_backend(settings.backend_name,
-                                         device=device))
+    backend = make_backend(settings.backend_name, device=device)
+    return ArrayApplication(backend, FileSystem(backend))
 
 
 def destroy():

@@ -1,11 +1,18 @@
-"""ArrayApplication: constructors, block-shape policy and array ops.
+"""ArrayApplication: constructors, block-shape policy, array ops, I/O and
+the out-of-core ops.
 
 Counterpart of the subset of ``nums_tpu/core/array/application.py`` that
-the GLMs use: the block-shape policy, ``scalar``/``array``/``zeros``/
-``ones``/``full``/``eye``/``diag``/``concatenate``, the elementwise ops
-and reductions of the solvers, the three-argument ``where``, ``inv``/
-``cholesky``/``posdef_solve``, ``get``/``touch`` and the random state.
-The filesystem is not ported and stays ``None``.
+the GLMs and the out-of-core path use: the block-shape policy,
+``scalar``/``array``/``zeros``/``ones``/``full``/``eye``/``diag``/
+``concatenate``, the elementwise ops and reductions of the solvers, the
+three-argument ``where``, ``inv``/``cholesky``/``posdef_solve``,
+``get``/``touch``, the random state, the block checkpoints of the
+application's ``FileSystem`` (``write_fs``/``read_fs``/``verify_fs``/
+``delete_fs``), and the streamed ops on a ``DiskArray`` (``gram_ooc``, the
+column reductions, ``tsqr_r_ooc``, ``linear_regression_ooc``), with the
+panel helpers that the GLMs' out-of-core fits share (``ooc_put``,
+``ooc_accumulator``, ``ooc_panels``, ``_ooc_y_getter``). The mesh
+backend's row-sharded panels are a later port.
 """
 
 import numpy as np
@@ -15,16 +22,87 @@ from nums_tpu_torch.core.backend import Backend
 from nums_tpu_torch.core.grid import ArrayGrid
 from nums_tpu_torch.core.array import utils as array_utils
 from nums_tpu_torch.core.array.blockarray import BlockArray
+from nums_tpu_torch.core.array.diskarray import DiskArray
 from nums_tpu_torch.core.array.random import NumsRandomState
-from nums_tpu_torch.core.ops import creation, elementwise, linalg, shape_ops
+from nums_tpu_torch.core.io.filesystem import FileSystem, _fs_path
+from nums_tpu_torch.core.ops import (
+    creation, elementwise, linalg, shape_ops, streaming,
+)
+
+
+def _device_dtype(backend, dtype) -> torch.dtype:
+    """``Backend.device_dtype`` as a torch dtype."""
+    return array_utils.to_torch_dtype(backend.device_dtype(dtype))
+
+
+def ooc_put(backend, panel, augment_ones=False):
+    """Host panel -> the backend's device, whole (the serial backend has
+    no pad rows). Returns (device panel, its row count). With
+    ``augment_ones`` the (rows, d) panel moves as it is and the
+    intercept-augmented (rows, d + 1) panel, ones in the last column, is
+    built on the device, not in host memory. The device dtype is
+    ``_device_dtype``'s."""
+    dtype = _device_dtype(backend, panel.dtype)
+    host = torch.from_numpy(np.ascontiguousarray(panel))
+    rows = int(panel.shape[0])
+    if not augment_ones:
+        return host.to(backend.device).to(dtype), rows
+    out = torch.empty((rows, int(panel.shape[1]) + 1), dtype=dtype,
+                      device=backend.device)
+    out[:, :-1].copy_(host)
+    out[:, -1] = 1
+    return out, rows
+
+
+def ooc_accumulator(backend, value):
+    """A fold's accumulator: ``value`` (a host array or a tensor) on the
+    backend's device. The mesh port replicates it over the mesh here."""
+    return torch.as_tensor(value, device=backend.device)
+
+
+def ooc_panels(X):
+    """The row-panel stream of a fold: host panels, prefetched."""
+    return X.iter_row_panels()
+
+
+def _ooc_y_getter(X, y):
+    """(start, length) -> the host slice of y aligned with X's row panels.
+
+    y may be a 1-D DiskArray with X's row partitioning, a BlockArray
+    (fetched to the host once, here), or a host array."""
+    if isinstance(y, DiskArray):
+        assert y.ndim == 1, y.shape
+        assert list(y.grid.grid_slices[0]) == list(X.grid.grid_slices[0]), (
+            "y DiskArray must share X's row partitioning"
+        )
+        index = {s: i for i, (s, _) in enumerate(y.grid.grid_slices[0])}
+
+        def get(start, length):
+            arr = y.row_panel(index[start])
+            assert arr.shape[0] == length, (arr.shape, length)
+            return arr
+
+        return get
+    host = y.get() if isinstance(y, BlockArray) else np.asarray(y)
+    if host.shape[:1] != (X.shape[0],):
+        raise ValueError(
+            f"y has {host.shape[0] if host.ndim else 'scalar'} rows, "
+            f"X has {X.shape[0]} — an oversized y would be silently "
+            f"truncated to X's row range"
+        )
+
+    def get(start, length):
+        return host[start:start + length]
+
+    return get
 
 
 class ArrayApplication:
-    def __init__(self, backend: Backend, filesystem=None):
-        assert filesystem is None, "the filesystem is not ported yet"
+    def __init__(self, backend: Backend, filesystem: FileSystem):
         self.backend = backend
         # `system` alias preserves the reference attribute name.
         self.system = backend
+        self.fs = filesystem
         self._block_shape_map = {}
         self._random = None
         self.one_half = self.scalar(0.5)
@@ -294,6 +372,120 @@ class ArrayApplication:
         for a in arrs:
             a.touch()
         return arrs[0] if len(arrs) == 1 else arrs
+
+    # ------------------------------------------------------------------
+    # I/O (nums_tpu application.py:889-896, 1050-1051): the FileSystem's
+    # block checkpoints
+    # ------------------------------------------------------------------
+
+    def write_fs(self, ba: BlockArray, filename: str, replicas: int = None):
+        return self.fs.write_fs(ba, filename, replicas=replicas)
+
+    def read_fs(self, filename: str, verify: bool = False) -> BlockArray:
+        return self.fs.read_fs(filename, verify=verify)
+
+    def verify_fs(self, filename: str, repair: bool = False) -> dict:
+        return self.fs.verify_fs(filename, repair=repair)
+
+    def delete_fs(self, filename: str):
+        return self.fs.delete_fs(filename)
+
+    # ------------------------------------------------------------------
+    # Out-of-core (DiskArray) ops (nums_tpu application.py:904-1048): one
+    # streamed pass each, device memory one panel and the accumulator
+    # ------------------------------------------------------------------
+
+    def open_fs(self, filename: str, verify: bool = False) -> DiskArray:
+        """An existing ``write_fs`` checkpoint as a DiskArray;
+        ``verify=True`` CRC-checks every block on every panel read."""
+        return DiskArray(_fs_path(filename), self.fs, verify=verify)
+
+    def spill(self, ba: BlockArray, filename: str, replicas: int = None):
+        """Write ``ba`` to disk and return the DiskArray view."""
+        self.write_fs(ba, filename, replicas=replicas)
+        return self.open_fs(filename)
+
+    def _ooc_accumulate(self, X, init, update):
+        """Fold ``update(acc, device panel)`` over X's row panels."""
+        acc = ooc_accumulator(self.backend, init)
+        for _, panel in ooc_panels(X):
+            p, _ = ooc_put(self.backend, panel)
+            acc = update(acc, p)
+        return acc
+
+    def gram_ooc(self, X, dtype=None) -> BlockArray:
+        """XᵀX of a DiskArray in one streamed pass; each panel's product
+        rides the gram kernel where ``streaming._sym_gram`` takes it."""
+        assert X.ndim == 2
+        d = X.shape[1]
+        dt = _device_dtype(self.backend, dtype or X.dtype)
+        G = self._ooc_accumulate(
+            X, torch.zeros((d, d), dtype=dt),
+            lambda acc, p: streaming.gram_update(acc, p.to(dt)),
+        )
+        return BlockArray.from_torch(G, backend=self.backend)
+
+    def _reduce0_ooc(self, X, op):
+        d = X.shape[1] if X.ndim == 2 else 1
+        dt = _device_dtype(self.backend, X.dtype)
+        if dt.is_floating_point:
+            init_val = {"sum": 0.0, "min": np.inf, "max": -np.inf}[op]
+        else:
+            # ±inf cast to an integer would be INT_MIN, which absorbs
+            # min: the dtype's own bounds are the identities.
+            info = torch.iinfo(dt)
+            init_val = {"sum": 0, "min": info.max, "max": info.min}[op]
+        shape = (d,) if X.ndim == 2 else ()
+        acc = self._ooc_accumulate(
+            X, torch.full(shape, init_val, dtype=dt),
+            lambda a, p: streaming.reduce0_update(op, a, p.to(dt)),
+        )
+        return BlockArray.from_torch(acc, backend=self.backend)
+
+    def sum_ooc(self, X) -> BlockArray:
+        """Column sums (axis=0) of a DiskArray, one streamed pass."""
+        return self._reduce0_ooc(X, "sum")
+
+    def min_ooc(self, X) -> BlockArray:
+        return self._reduce0_ooc(X, "min")
+
+    def max_ooc(self, X) -> BlockArray:
+        return self._reduce0_ooc(X, "max")
+
+    def mean_ooc(self, X) -> BlockArray:
+        return self.sum_ooc(X) / float(X.shape[0])
+
+    def tsqr_r_ooc(self, X) -> BlockArray:
+        """R factor of a DiskArray by the streamed Householder combine
+        R <- qr_r([R; panel]), stable at any conditioning."""
+        assert X.ndim == 2
+        d = X.shape[1]
+        dt = _device_dtype(self.backend, X.dtype)
+        chunk = linalg.choose_chunk(X.shape[0], d)
+        R = self._ooc_accumulate(
+            X, torch.zeros((d, d), dtype=dt),
+            lambda acc, p: streaming.tsqr_r_update(chunk, acc, p.to(dt)),
+        )
+        return BlockArray.from_torch(R, backend=self.backend)
+
+    def linear_regression_ooc(self, X, y, lamb: float = 0.0) -> BlockArray:
+        """(Ridge) regression on a DiskArray: one streamed pass of the
+        normal equations (XᵀX on the gram kernel), then one (d, d)
+        solve."""
+        assert X.ndim == 2
+        d = X.shape[1]
+        dt = _device_dtype(self.backend, X.dtype)
+        y_at = _ooc_y_getter(X, y)
+        G = ooc_accumulator(self.backend, torch.zeros((d, d), dtype=dt))
+        b = ooc_accumulator(self.backend, torch.zeros((d,), dtype=dt))
+        for start, panel in ooc_panels(X):
+            p, _ = ooc_put(self.backend, panel)
+            yp, _ = ooc_put(self.backend, y_at(start, panel.shape[0]))
+            streaming.normal_eq_update(G, b, p.to(dt), yp.to(dt))
+        if lamb:
+            G = G + lamb * torch.eye(d, dtype=dt, device=G.device)
+        theta = linalg.posdef_solve(G, b)
+        return BlockArray.from_torch(theta, backend=self.backend)
 
     # ------------------------------------------------------------------
     # Random

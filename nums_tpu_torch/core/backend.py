@@ -38,19 +38,25 @@ class Backend:
     def default_float(self) -> np.dtype:
         return settings.default_float_for(self.device)
 
+    def device_dtype(self, dtype) -> np.dtype:
+        """The dtype that host data of ``dtype`` takes on the device:
+        where the default float is float32 (an accelerator), float64 and
+        complex128 arrive as float32 and complex64, as the reference's
+        device_put with x64 off does."""
+        dtype = np.dtype(dtype)
+        if self.default_float == np.float32:
+            return {np.dtype(np.float64): np.dtype(np.float32),
+                    np.dtype(np.complex128): np.dtype(np.complex64)}.get(
+                        dtype, dtype)
+        return dtype
+
     def device_put(self, array: np.ndarray, grid: ArrayGrid = None):
         """Host array -> tensor on the device (copied: the caller's array
-        is never aliased). Where the default float is float32 (an
-        accelerator), float64 and complex128 arrive as float32 and
-        complex64, as the reference's device_put with x64 off does: a
-        host scalar such as ``app.one`` then keeps float32 math float32."""
+        is never aliased), in ``device_dtype``: a host scalar such as
+        ``app.one`` then keeps float32 math float32 on the card."""
         del grid
         array = np.array(array, order="C", copy=True)
-        if self.default_float == np.float32:
-            narrow = {np.dtype(np.float64): np.float32,
-                      np.dtype(np.complex128): np.complex64}
-            if array.dtype in narrow:
-                array = array.astype(narrow[array.dtype])
+        array = array.astype(self.device_dtype(array.dtype), copy=False)
         return torch.from_numpy(array).to(self.device)
 
     def get(self, tensor) -> np.ndarray:

@@ -1,0 +1,149 @@
+"""Per-panel update steps of the out-of-core (DiskArray) folds.
+
+Counterpart of ``nums_tpu/core/ops/streaming.py``. Each step takes one
+row panel, a tensor on the device, and adds its contribution to the
+fold's accumulators in place (``add_``), where the reference donates
+them to a jitted update; an accumulator belongs to the fold that made it,
+and no caller sees it before the fold ends. Device memory stays one panel
+plus the accumulators, whatever the number of rows. The reference builds
+each step with a cached factory of one static argument (an op, a chunk, a
+GLM kind); here that argument is the step's first.
+
+The hand-written kernels take the panels where the reference's Pallas
+kernels take them: ``_sym_gram`` (every gram-shaped step) rides the gram
+kernel (K1), and ``glm_stats_update_aug`` the Newton statistics kernel
+(K3) on the intercept-augmented panel, or, with that gate off, the
+weighted gram kernel (K2) for H. On a CPU tensor the kernel wrappers take
+their plain versions; otherwise the plain ops run in the panel's dtype
+(TF32 off).
+"""
+
+import torch
+
+from nums_tpu_torch.core.ops import cuda_gram, cuda_newton
+from nums_tpu_torch.core.ops import linalg as _linalg
+
+
+def _sym_gram(panel):
+    """panelᵀ·panel: the gram kernel where its gate is on and it takes the
+    panel (any non-empty fp32 2-D tensor), else the plain product."""
+    if cuda_gram.enabled() and cuda_gram.supported(tuple(panel.shape),
+                                                   panel.dtype):
+        return cuda_gram.gram(panel)
+    return panel.T @ panel
+
+
+def gram_update(G, panel):
+    """G += panelᵀ panel."""
+    return G.add_(_sym_gram(panel))
+
+
+def gram_and_sum_update(G, s, panel):
+    """(G, s) += (panelᵀ panel, panel.sum(0)): the moments of a PCA in one
+    pass over the data."""
+    G.add_(_sym_gram(panel))
+    s.add_(panel.sum(dim=0))
+    return G, s
+
+
+def normal_eq_update(G, b, panel, y_panel):
+    """(G, b) += (panelᵀ panel, panelᵀ y_panel): the normal equations."""
+    G.add_(_sym_gram(panel))
+    b.add_(panel.T @ y_panel)
+    return G, b
+
+
+def _augment_masked(panel, nv):
+    """[panel, m] with m_i = 1 for the first ``nv`` rows and 0 for the
+    rest: rows past ``nv`` are zero-filled pad rows, and the mask makes
+    every contribution of theirs vanish."""
+    rows = panel.shape[0]
+    mask = torch.arange(rows, device=panel.device) < nv
+    return torch.cat([panel, mask.to(panel.dtype)[:, None]], dim=1)
+
+
+def normal_eq_aug_update(G, q, panel, y_panel, nv):
+    """With pa = [panel, 1] (the first ``nv`` rows valid):
+    (G, q) += (paᵀ pa, paᵀ y_panel), the moments of the linear ADMM."""
+    pa = _augment_masked(panel, nv)
+    G.add_(pa.T @ pa)
+    q.add_(pa.T @ y_panel)
+    return G, q
+
+
+_REDUCE = {"sum", "min", "max"}
+
+
+def reduce0_update(op, acc, panel):
+    """acc = combine(acc, reduce(panel, axis=0)) for ``op`` in sum, min,
+    max."""
+    if op == "sum":
+        return acc.add_(panel.sum(dim=0, dtype=acc.dtype))
+    if op == "min":
+        return torch.minimum(acc, panel.amin(dim=0), out=acc)
+    if op == "max":
+        return torch.maximum(acc, panel.amax(dim=0), out=acc)
+    raise ValueError(f"reduce0_update: {op!r} not in {sorted(_REDUCE)}")
+
+
+def tsqr_r_update(chunk, R, panel):
+    """R of qr([R; panel]): the Householder combine, stable at any
+    conditioning. Returns a new R."""
+    return _linalg._tsqr_r_impl(torch.cat([R, panel], dim=0), chunk)
+
+
+def _mean_weight(kind, eta):
+    """(mu, s) of a GLM kind at eta: the mean and the Hessian weight."""
+    if kind == "logistic":
+        mu = torch.sigmoid(eta)
+        return mu, mu * (1.0 - mu)
+    if kind == "linear":
+        return eta, torch.ones_like(eta)
+    if kind == "poisson":
+        mu = torch.exp(eta)
+        return mu, mu
+    raise ValueError(kind)
+
+
+def glm_stats_update(kind, g, H, panel, y_panel, beta, nv):
+    """Newton statistics of one panel, intercept-augmented here with the
+    row mask (the first ``nv`` rows valid):
+    g += [p, 1]ᵀ(mu − y);  H += ([p, 1]·s)ᵀ[p, 1]; plain ops."""
+    pa = _augment_masked(panel, nv)
+    mu, s = _mean_weight(kind, pa @ beta)
+    g.add_(pa.T @ (mu - y_panel))
+    H.add_((pa * s[:, None]).T @ pa)
+    return g, H
+
+
+def glm_stats_update_aug(kind, g, H, pa, y_panel, beta):
+    """``glm_stats_update`` for a panel that arrives intercept-augmented
+    (``ooc_put(..., augment_ones=True)``; the serial backend has no pad
+    rows). With the Newton gate on, K3 in its one-shot form,
+    ``cuda_newton.stats(pa, …)``, which stages the panel; else g in plain
+    ops and H on the gram kernel where its gate is on (K2 with the weight
+    s, K1 for the linear kind, whose weight is 1); else plain ops."""
+    shape = tuple(pa.shape)
+    if cuda_newton.enabled() and cuda_newton.supported(shape, pa.dtype):
+        pg, pH = cuda_newton.stats(pa, y_panel, beta, kind)
+        g.add_(pg)
+        H.add_(pH)
+        return g, H
+    mu, s = _mean_weight(kind, pa @ beta)
+    g.add_(pa.T @ (mu - y_panel))
+    if cuda_gram.enabled() and cuda_gram.supported(shape, pa.dtype):
+        H.add_(cuda_gram.gram(pa, None if kind == "linear" else s))
+    elif kind == "linear":
+        H.add_(pa.T @ pa)
+    else:
+        H.add_((pa * s[:, None]).T @ pa)
+    return g, H
+
+
+def newton_update(penalized, beta, g, H, lambda_vec):
+    """beta' = beta − (H + diag(λ))⁻¹(g + λ∘beta) when ``penalized``, else
+    beta − H⁻¹g. Returns (beta', max|g|), g with its penalty term."""
+    if penalized:
+        g = g + lambda_vec * beta
+        H = H + torch.diag(lambda_vec)
+    return beta - _linalg.posdef_solve(H, g), g.abs().max()

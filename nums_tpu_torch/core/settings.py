@@ -1,9 +1,10 @@
 """Global configuration for nums_tpu_torch.
 
 Counterpart of ``nums_tpu/core/settings.py``: the backend name, the
-matmul precision, the kernel gates, the default dtypes and the operator
-alias tables. Every value is read from the environment at import and may
-be reassigned on the module afterwards; the code reads it at call time.
+data directory and the checkpoint settings, the matmul precision, the
+kernel gates, the default dtypes and the operator alias tables. Every
+value is read from the environment at import and may be reassigned on the
+module afterwards; the code reads it at call time.
 """
 
 import os
@@ -12,6 +13,28 @@ import numpy as np
 
 # Backend: "serial" (one device). The mesh backend is a later port.
 backend_name = os.environ.get("NUMS_TPU_TORCH_BACKEND", "serial")
+
+# Directory that relative checkpoint, DiskArray and model names live under
+# (nums_tpu's NUMS_TPU_DATA_DIR).
+data_dir = os.environ.get(
+    "NUMS_TPU_TORCH_DATA_DIR",
+    os.path.join(os.path.expanduser("~"), ".nums_tpu_torch"),
+)
+
+# Checkpoint resilience (nums_tpu's NUMS_TPU_CHECKPOINT_REPLICAS,
+# NUMS_TPU_CHECKPOINT_FSYNC and NUMS_TPU_REPLICA_DIRS): the number of full
+# copies write_fs makes (1 = no replication); whether files and
+# directories are fsynced around the publish renames (0 = rename ordering
+# only); and the colon-separated roots that replica directories live
+# under (empty: sibling ``<path>.replica<k>`` directories).
+checkpoint_replicas = int(
+    os.environ.get("NUMS_TPU_TORCH_CHECKPOINT_REPLICAS", "1"))
+checkpoint_fsync = os.environ.get("NUMS_TPU_TORCH_CHECKPOINT_FSYNC",
+                                  "1") == "1"
+replica_roots = [
+    p for p in os.environ.get("NUMS_TPU_TORCH_REPLICA_DIRS", "").split(":")
+    if p
+]
 
 # Precision of float32 contractions (nums_tpu's NUMS_TPU_MATMUL_PRECISION).
 # "default": the gram and Newton kernels run with bf16-rounded operands

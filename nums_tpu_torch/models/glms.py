@@ -1,6 +1,6 @@
 """Generalized linear models with the reference's solvers.
 
-Counterpart of ``nums_tpu/models/glms.py`` in core memory: the four
+Counterpart of ``nums_tpu/models/glms.py``: the four
 families (linear, logistic, Poisson, exponential), the sklearn aliases
 (``PoissonRegressor``, ``Ridge``, ``Lasso``, ``ElasticNet``), the eager
 per-op solvers (gd, sgd, block_sgd, newton, irls) over ``BlockArray``s,
@@ -10,18 +10,23 @@ families rides the Hopper kernels on float32 data in the bf16-MAC
 precision class (``cuda_newton``, ``cuda_gram``); the eager linear Newton
 reaches the gram kernel through ``X.T @ X`` (``BlockArray._gram_fast``).
 
-Out-of-core training and ``save``/``load`` need the filesystem and the
-disk arrays, a later port. ``from_reference_params`` builds a fitted model
-from the state that ``nums_tpu``'s ``GLM.save`` writes (its
-``model.json`` fields plus ``beta``, ``beta0`` and ``lambda_vec`` as numpy
-arrays).
+``fit`` on a ``DiskArray`` trains out of core (Newton streams the panels
+once per iteration, through K3 on the card; ADMM streams them once), and
+``predict_ooc`` streams predictions to a new DiskArray. ``save``/``load``
+write and read nums_tpu's format (``model.json`` and ``write_fs``
+checkpoints of ``beta`` and ``lambda_vec``), so a model saved by either
+package loads in the other. ``from_reference_params`` builds a fitted
+model from that state held as numpy arrays.
 """
 
 import numpy as np
+import torch
 
 from nums_tpu_torch.core.application_manager import instance as _instance
 from nums_tpu_torch.core.array.blockarray import BlockArray
+from nums_tpu_torch.core.array.diskarray import DiskArray
 from nums_tpu_torch.core.array.random import NumsRandomState
+from nums_tpu_torch.core.io.filesystem import _fs_path
 from nums_tpu_torch.core.ops import cuda_gram
 
 
@@ -80,7 +85,10 @@ class GLM:
 
     def fit(self, X: BlockArray, y: BlockArray):
         """X is augmented with a ones column, so the last component of
-        beta is the intercept (glms.py:72-169 of the reference)."""
+        beta is the intercept (glms.py:72-169 of the reference). ``X`` may
+        be a ``DiskArray``: the fit then runs out of core (``_fit_ooc``)."""
+        if isinstance(X, DiskArray):
+            return self._fit_ooc(X, y)
         assert X.ndim == 2 and y.ndim == 1
         app = self._app
         X = app.concatenate(
@@ -153,6 +161,78 @@ class GLM:
     # the intercept; the sklearn aliases override.
     _penalize_intercept = True
     _sklearn_alpha_scale = False
+
+    def _fit_ooc(self, X, y):
+        """Out-of-core fit on a DiskArray (glms.py:177-214 of the
+        reference): Newton (any fused kind, penalty none or l2) streams the
+        dataset once per iteration; ADMM (linear kind) streams it once and
+        runs its loop on the (d+1)² moments."""
+        if self._fused_kind is None:
+            raise NotImplementedError(
+                "out-of-core training unsupported for this model family."
+            )
+        from nums_tpu_torch.models import fast_glm
+
+        app = self._app
+        d = X.shape[1]
+        lv = self._lambda_host_vec(X.shape[0], d + 1)
+        if lv is not None:
+            self._lambda_vec = app.array(lv, block_shape=(d + 1,))
+        if self._opt == "admm":
+            if self._fused_kind != "linear":
+                raise NotImplementedError(
+                    "out-of-core admm supports linear models only."
+                )
+            beta = self._admm_ooc(X, y, lv)
+        elif self._opt in ("newton", "newton-cg"):
+            if self._penalty not in (None, "l2"):
+                raise NotImplementedError(
+                    "out-of-core Newton supports penalty in {none, l2}."
+                )
+            beta, _, _ = fast_glm.newton_fit_ooc(
+                X, y, self._tol, kind=self._fused_kind,
+                max_iter=int(self._max_iter),
+                penalized=lv is not None, lambda_vec=lv,
+            )
+        else:
+            raise NotImplementedError(
+                "out-of-core training supports solver in {newton, admm}."
+            )
+        beta = BlockArray.from_torch(beta, backend=app.backend)
+        self._beta0 = beta[-1]
+        self._beta = beta[:-1]
+        return self
+
+    def _admm_ooc(self, X, y, lv):
+        """One streamed pass for (G, q) = ([X,1]ᵀ[X,1], [X,1]ᵀy), then
+        the ADMM loop on (d+1)² state (glms.py:216-254 of the
+        reference)."""
+        from nums_tpu_torch.core.array.application import (
+            _device_dtype, _ooc_y_getter, ooc_accumulator, ooc_panels,
+            ooc_put,
+        )
+        from nums_tpu_torch.core.ops import streaming
+        from nums_tpu_torch.models import fast_glm
+
+        backend = X.backend
+        da = X.shape[1] + 1
+        dt = _device_dtype(backend, X.dtype)
+        y_at = _ooc_y_getter(X, y)
+        G = ooc_accumulator(backend, torch.zeros((da, da), dtype=dt))
+        q = ooc_accumulator(backend, torch.zeros((da,), dtype=dt))
+        for start, panel in ooc_panels(X):
+            p, nv = ooc_put(backend, panel)
+            yp, _ = ooc_put(backend, y_at(start, panel.shape[0]))
+            streaming.normal_eq_aug_update(G, q, p.to(dt), yp.to(dt), nv)
+        beta0 = ooc_accumulator(backend, torch.zeros((da,), dtype=dt))
+        lam = ooc_accumulator(backend, torch.as_tensor(
+            np.zeros(da) if lv is None else lv).to(dt))
+        beta, _, _ = fast_glm.admm_fit_gram(
+            G, q, beta0, self._tol, max_iter=int(self._max_iter),
+            rho=self._admm_rho, penalty=self._penalty or "none",
+            lambda_vec=lam, l1_ratio=self._l1_ratio,
+        )
+        return beta
 
     def _fused_newton(self, X, y, beta, max_iter):
         """Newton as one on-device loop (``fast_glm.newton_fit``), or None
@@ -254,6 +334,32 @@ class GLM:
     def predict(self, X):
         raise NotImplementedError()
 
+    def predict_ooc(self, X, out: str = None):
+        """Predictions for an out-of-core design matrix, computed on the
+        host panel by panel and streamed to a new 1-D DiskArray (``out``
+        defaults to ``<X.path>.pred``), as the reference computes them
+        (glms.py:381-403 there)."""
+        assert isinstance(X, DiskArray), type(X)
+        assert self._beta is not None, "fit must be called first"
+        coef = np.asarray(self._beta.get())
+        b0 = float(self._beta0.get())
+        out = out or X.path + ".pred"
+
+        def panels():
+            for _, p in X.iter_row_panels():
+                yield np.asarray(self._host_link(p @ coef + b0))
+
+        dtype = self._host_link(np.zeros(1)).dtype
+        return DiskArray.from_panels(
+            out, self._app.fs, panels(), (X.shape[0],), dtype,
+            X.grid.block_shape[0],
+        )
+
+    def _host_link(self, eta):
+        """The link's inverse and the decision, on a host panel's eta, for
+        ``predict_ooc``."""
+        raise NotImplementedError()
+
     def link_inv(self, eta):
         raise NotImplementedError()
 
@@ -299,17 +405,51 @@ class GLM:
         return self.deviance_sqr(X, y)
 
     def save(self, filename: str):
-        raise NotImplementedError(
-            "GLM.save needs the filesystem port; use nums_tpu's GLM.save and "
-            "GLM.from_reference_params"
-        )
+        """Persist the fitted parameters and hyperparameters to a
+        directory, in nums_tpu's format (glms.py:458-486 of the
+        reference): ``write_fs`` checkpoints ``beta`` and ``lambda_vec``
+        (when penalized) and ``model.json``."""
+        import json
+        import os
+
+        assert self._beta is not None, "fit must be called before save"
+        path = _fs_path(filename)
+        os.makedirs(path, exist_ok=True)
+        self._app.write_fs(self._beta, os.path.join(path, "beta"))
+        if self._lambda_vec is not None:
+            self._app.write_fs(self._lambda_vec,
+                               os.path.join(path, "lambda_vec"))
+        meta = {
+            "model": type(self).__name__,
+            "beta0": float(self._beta0.get()),
+            "penalty": self._penalty or "none",
+            "C": 1.0 / self._lambda,
+            "tol": self._tol,
+            "max_iter": self._max_iter,
+            "solver": self._opt,
+            "lr": self._lr,
+            "admm_rho": self._admm_rho,
+            "l1_ratio": self._l1_ratio,
+        }
+        with open(os.path.join(path, "model.json"), "w") as f:
+            json.dump(meta, f)
 
     @classmethod
     def load(cls, filename: str):
-        raise NotImplementedError(
-            "GLM.load needs the filesystem port; use "
-            "GLM.from_reference_params"
-        )
+        """A fitted GLM (any subclass) from ``save`` output, this
+        package's or nums_tpu's."""
+        import json
+        import os
+
+        path = _fs_path(filename)
+        with open(os.path.join(path, "model.json")) as f:
+            meta = json.load(f)
+        app = _instance()
+        lam_dir = os.path.join(path, "lambda_vec")
+        arrays = {"beta": app.read_fs(os.path.join(path, "beta")).get()}
+        if os.path.isdir(lam_dir):
+            arrays["lambda_vec"] = app.read_fs(lam_dir).get()
+        return cls.from_reference_params(meta, arrays)
 
     @classmethod
     def from_reference_params(cls, meta: dict, arrays: dict):
@@ -385,6 +525,9 @@ class LinearRegression(GLM):
     def predict(self, X):
         return self.forward(X)
 
+    def _host_link(self, eta):
+        return eta
+
 
 class LogisticRegression(GLM):
     # Canonical link: logit.
@@ -439,6 +582,9 @@ class LogisticRegression(GLM):
             ).astype(np.int64)
         return (self.forward(X) > 0.5).astype(np.int64)
 
+    def _host_link(self, eta):
+        return (1.0 / (1.0 + np.exp(-eta)) > 0.5).astype(np.int64)
+
     def predict_proba(self, X):
         """(n, 2) probabilities in sklearn column order: column 1 is
         P(y = 1)."""
@@ -482,6 +628,9 @@ class PoissonRegression(GLM):
 
     def predict(self, X):
         return self.forward(X)
+
+    def _host_link(self, eta):
+        return np.exp(eta)
 
 
 class ExponentialRegression(GLM):

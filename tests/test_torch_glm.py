@@ -168,10 +168,15 @@ def test_unported_options_raise(jax_app, torch_app, tmp_path):
         LogisticRegression().predict(bx)
     with pytest.raises(NotImplementedError):
         LogisticRegression(penalty="l1")
-    # save/load need the filesystem port (ROADMAP A4).
-    with pytest.raises(NotImplementedError):
+    # save before fit fails its assert, and load of a missing directory
+    # raises, as in the reference.
+    with pytest.raises(AssertionError, match="fit must be called"):
+        jglms.LogisticRegression().save(str(tmp_path / "ref"))
+    with pytest.raises(AssertionError, match="fit must be called"):
         LogisticRegression().save(str(tmp_path / "model"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):
+        jglms.GLM.load(str(tmp_path / "ref"))
+    with pytest.raises(FileNotFoundError):
         GLM.load(str(tmp_path / "model"))
     # An unknown solver fails at fit with the reference's exception.
     rbx = jax_app.array(np.ones((4, 2)), block_shape=(4, 2))

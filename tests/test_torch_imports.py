@@ -69,6 +69,31 @@ def test_init_needs_a_card_unless_the_cpu_is_asked_for():
     assert "RuntimeError" in out.stderr and 'device="cpu"' in out.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "nums_tpu_torch.api",
+    "nums_tpu_torch.core.io.filesystem",
+    "nums_tpu_torch.core.io.checkpoint",
+    "nums_tpu_torch.core.array.diskarray",
+    "nums_tpu_torch.core.ops.streaming",
+    "nums_tpu_torch.models._common",
+])
+def test_io_and_ooc_modules_import_first(module):
+    """Each module of the I/O and out-of-core slice imports as the first
+    module of a process (no import cycle), with jax and nums_tpu
+    blocked."""
+    probe = _PROBE.split("import nums_tpu_torch\n")[0] + (
+        f"import {module}\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'nums_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(REPO)) for p in PACKAGE.rglob("*.py"))
