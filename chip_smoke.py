@@ -1,6 +1,6 @@
 """Smoke run of nums_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py                 # phases 1-8
+    python3 chip_smoke.py                 # phases 1-9
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check
 
 Phases, each printing one JSON line:
@@ -49,7 +49,24 @@ Phases, each printing one JSON line:
      streamed steps (at most 8 panels above what was allocated before
      them), the time of each step, one pass split into disk, host to
      device and device, and K1, K2 and K3 at the panel shape, each held
-     to its plain version.
+     to its plain version; and PCA and TruncatedSVD (16 components) fitted
+     on the DiskArray (K1 per panel, the moments of one streamed pass) and
+     its ``transform`` to a new DiskArray, held to a float64 covariance,
+     to the same fits with the gram gate off and to the in-core
+     ``transform`` of the first and last panel;
+  9. linalg: on phase 4's X, its columns scaled to a decaying spectrum,
+     ``randomized_svd`` and the randomized PCA; then, X freed, the linalg
+     entry points on A = N(0,1) at 2^24 x 128 fp32 (8.6 GB) with a planted
+     least-squares problem: ``indirect_tsr``, ``indirect_tsqr``,
+     ``direct_tsqr`` (also with ``overwrite_x=True``), ``svd``, the three
+     regressions (``ridge_regression``'s ``R.T @ R`` on K1), an in-core PCA
+     and a StandardScaler round trip under ``tsqr_method="auto"``
+     (CholeskyQR2 on the card), and ``indirect_tsr`` and ``direct_tsqr``
+     under ``"householder"``; each held to float64 references (the table
+     in ``phase_linalg``) and timed on the host clock beside its bound
+     and its peak device memory; K1 on ``ridge_regression``'s own R
+     against its plain version; device time by kernel of the two forms
+     of CholeskyQR2.
 Then the kernels as one JSON line (each with its bound, the least time
 the card could take for its work at this run's shapes), and last
 {"ok": true, "device": {...}}. A failed phase prints its traceback and
@@ -568,24 +585,19 @@ def phase_times(torch, smi, X, y, model):
     return out
 
 
-def phase_profile(torch, X, y):
-    """Device time by kernel over one 10-iteration fit (torch.profiler),
-    and the fit's launch counts (set to 0 just before it, read just
-    after); returns the counts."""
+def _profiled(torch, fn):
+    """One call of ``fn`` under torch.profiler: (wall ms on the host clock
+    after a synchronize, device ms by kernel name, calls by kernel name).
+    The profiler's table goes to standard error."""
     from torch.profiler import ProfilerActivity, profile
 
-    from nums_tpu_torch.models.glms import LogisticRegression
-
-    LogisticRegression(**FIT).fit(X, y)  # warm-up
     torch.cuda.synchronize()
-    _reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        LogisticRegression(**FIT).fit(X, y)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    counts = _counts()
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=25)
     print(table, file=sys.stderr, flush=True)
@@ -595,6 +607,20 @@ def phase_profile(torch, X, y):
             ms = e.device_time_total / 1e3
             kernels[e.name] = kernels.get(e.name, 0.0) + ms
             calls[e.name] = calls.get(e.name, 0) + 1
+    return wall_ms, kernels, calls
+
+
+def phase_profile(torch, X, y):
+    """Device time by kernel over one 10-iteration fit (torch.profiler),
+    and the fit's launch counts (set to 0 just before it, read just
+    after); returns the counts."""
+    from nums_tpu_torch.models.glms import LogisticRegression
+
+    LogisticRegression(**FIT).fit(X, y)  # warm-up
+    _reset_counts()
+    wall_ms, kernels, calls = _profiled(
+        torch, lambda: LogisticRegression(**FIT).fit(X, y))
+    counts = _counts()
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     stage_calls = sum(c for k, c in calls.items() if "gram_stage" in k)
@@ -981,6 +1007,92 @@ def _ooc_panel_kernels(torch, app, dX, dy, beta):
     return out
 
 
+OOC_COMPONENTS = 16
+OOC_GATE_OFF_REL = 1e-4      # fp32 moments vs float64 moments
+ORTHONORMAL_ABS = 1e-5
+OOC_TRANSFORM_REL = 1e-4     # the streamed transform vs the in-core one
+
+
+def _ooc_decomposition(torch, app, launches, x, g64, dX, root):
+    """PCA and TruncatedSVD fitted on the DiskArray (one streamed pass of
+    moments each, K1 per panel) and their streamed ``transform``.
+
+    Held: exactly one ``gram`` launch per panel per fit and none per
+    transform; explained variances within BF16_REL of the largest of a
+    float64 reference (the top eigenvalues of the float64 covariance for
+    PCA; s²/n − (μᵀv)² from the float64 gram's eigenpairs for
+    TruncatedSVD); the same fits with the gram gate off within
+    OOC_GATE_OFF_REL; components orthonormal to ORTHONORMAL_ABS; the
+    transformed file's first and last panel within OOC_TRANSFORM_REL of
+    the in-core ``transform`` of the same rows."""
+    from nums_tpu_torch.core import settings
+    from nums_tpu_torch.core.array.blockarray import BlockArray
+    from nums_tpu_torch.models.decomposition import PCA, TruncatedSVD
+
+    n, d = x.shape
+    k = OOC_COMPONENTS
+    panels = dX.num_row_panels
+    mu = torch.zeros(d, dtype=torch.float64, device=x.device)
+    for i in range(0, n, 1 << 18):
+        mu += x[i:i + (1 << 18)].sum(dim=0, dtype=torch.float64)
+    mu /= n
+    cov = (g64 - n * torch.outer(mu, mu)) / (n - 1)
+    pca_ref = torch.linalg.eigvalsh(cov).flip(0)[:k]
+    evals, evecs = torch.linalg.eigh(g64)
+    evals, evecs = evals.flip(0)[:k], evecs.flip(1)[:, :k]
+    tsvd_ref = evals / n - (evecs.T @ mu) ** 2
+    del cov, evecs
+    eye = torch.eye(k, device=x.device)
+    out = {}
+    for name, cls, ref in (("pca", PCA, pca_ref),
+                           ("truncated_svd", TruncatedSVD, tsvd_ref)):
+        model, fit_s, c = _ooc_counted(
+            torch, launches, lambda: cls(n_components=k).fit(dX))
+        assert c["gram"] == panels and c["gram_weighted"] == 0, (name, c)
+        assert c["newton_stats"] == c["newton_stage"] == 0, (name, c)
+        gate, settings.gram_kernel = settings.gram_kernel, "0"
+        try:
+            plain, plain_s, c = _ooc_counted(
+                torch, launches, lambda: cls(n_components=k).fit(dX))
+        finally:
+            settings.gram_kernel = gate
+        assert not any(c.values()), (name, "gate off launched a kernel", c)
+        ev = model.explained_variance_.data
+        assert ev.shape == (k,) and bool(torch.isfinite(ev).all()), name
+        _, rel = rel_err(ev, ref)
+        _, plain_rel = rel_err(plain.explained_variance_.data, ref)
+        assert rel <= BF16_REL, (name, "explained variance", rel)
+        assert plain_rel <= OOC_GATE_OFF_REL, (name, "gate off", plain_rel)
+        comps = model.components_.data
+        ortho = float((comps @ comps.T - eye).abs().max())
+        assert comps.shape == (k, d) and ortho <= ORTHONORMAL_ABS, (
+            name, "components", ortho)
+        disk, transform_s, c = _ooc_counted(
+            torch, launches,
+            lambda: model.transform(dX, out=os.path.join(root, name)))
+        assert not any(c.values()), (name, "transform launched a kernel", c)
+        assert disk.shape == (n, k) and disk.num_row_panels == panels, disk
+        worst = 0.0
+        for i in (0, panels - 1):
+            start = dX.grid.grid_slices[0][i][0]
+            rows = BlockArray.from_torch(
+                x[start:start + OOC_PANEL_ROWS], backend=app.backend)
+            core = model.transform(rows).data
+            got = torch.from_numpy(disk.row_panel(i)).to(core.device)
+            _, t_rel = rel_err(got, core)
+            assert t_rel <= OOC_TRANSFORM_REL, (name, "transform", i, t_rel)
+            worst = max(worst, t_rel)
+        out[name] = {
+            "fit_s": fit_s, "gate_off_fit_s": plain_s,
+            "transform_s": transform_s,
+            "explained_variance_rel_err_vs_f64": rel,
+            "gate_off_rel_err_vs_f64": plain_rel,
+            "components_orthonormal_abs_err": ortho,
+            "transform_rel_err_vs_in_core": worst,
+        }
+    return out
+
+
 def phase_ooc(torch, smi, app, X, y, model, acc_true):
     """Out of core at full width: phase 4's X and y written to disk in
     panels of OOC_PANEL_ROWS rows and streamed back through the public
@@ -993,6 +1105,8 @@ def phase_ooc(torch, smi, app, X, y, model, acc_true):
     | LogisticRegression.fit(dX, dy)     | K3 one-shot, per iteration    |
     | one statistics pass, Newton gate 0 | K2 (after one pass with K3)   |
     | app.linear_regression_ooc          | K1                            |
+    | PCA / TruncatedSVD .fit(dX)        | K1 (the streamed moments)     |
+    | their .transform(dX)               | none (one fp32 GEMM)          |
     | model.predict_ooc, save, load      | none (host panels)            |
 
     The launch counts of each step are set to 0 just before it and read
@@ -1058,7 +1172,7 @@ def phase_ooc(torch, smi, app, X, y, model, acc_true):
         _, out["gram_rel_err_vs_in_core"] = rel_err(G, g_core)
         assert out["gram_rel_err_vs_f64"] <= BF16_REL, out
         assert out["gram_rel_err_vs_in_core"] <= FULL_REL, out
-        del G, g64, g_core
+        del G, g_core
 
         steps = []
         newton_update = streaming.newton_update
@@ -1114,6 +1228,9 @@ def phase_ooc(torch, smi, app, X, y, model, acc_true):
         assert c["gram"] == panels and c["gram_weighted"] == 0, c
         _, out["linear_regression_rel_err_vs_f64"] = rel_err(theta, theta64)
         assert out["linear_regression_rel_err_vs_f64"] <= BETA_REL, out
+        out["decomposition"] = _ooc_decomposition(
+            torch, app, launches, x, g64, dX, root)
+        del g64
         out["peak_above_base_bytes"] = (torch.cuda.max_memory_allocated()
                                         - base)
         out["peak_limit_bytes"] = OOC_PEAK_PANELS * panel_bytes
@@ -1147,6 +1264,443 @@ def phase_ooc(torch, smi, app, X, y, model, acc_true):
     return out
 
 
+# Phase 9: the linalg layer. TSQR at 2^24 x 128 fp32 is the reference's
+# own linalg target shape (BASELINE.json), not cut.
+LA_M, LA_N = 1 << 24, 128
+LA_BLOCKS = 8                # A is drawn in row blocks of 2^21 rows
+LA_SEED = 4242
+LA_COMPONENTS = 16
+LA_QR_REL = 1e-5             # max|QR − A| / max|A|
+LA_R_REL = 1e-4              # |R| of one route vs another's
+LA_S_REL = 1e-5              # singular values vs float64 gram eigenvalues
+LA_THETA_REL = 1e-4          # θ̂ vs the float64 normal equations
+LA_RIDGE_BF16_REL = 1e-2     # ridge at "default": RᵀR on the bf16 gram
+LA_STREAM_FOOTPRINT = 1.25   # overwrite_x: peak, A included, over A's bytes
+LA_SCALER_REL = 1e-5         # StandardScaler round trip vs A
+RSVD_REL = 1e-3              # randomized top-16 vs float64 gram eigenvalues
+RSVD_DECAY = 0.8             # phase 4's X, column j scaled by 0.8^j
+
+
+def _clocked(torch, fn, reps, setup=None):
+    """One call of ``fn`` for the caller to check, and ``reps`` timed ones
+    later, each on ``setup()``'s fresh arguments where given (made outside
+    the clock). Returns (the first call's result, info, rest). ``info``
+    holds the first call's launch counts (set to 0 just before it, read
+    just after) and its peak device memory, in all and above what was
+    allocated before it. ``rest()``, called once the caller has dropped
+    the result, runs the timed calls and adds ``seconds``: their median on
+    the host clock after a synchronize (the first call's own time where
+    ``reps`` is 0)."""
+    def once():
+        args = setup() if setup is not None else ()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        return out, secs, _counts(), peak, peak - base
+
+    out, first_s, counts, peak, above = once()
+    info = {"first_call_seconds": first_s, "launches": counts,
+            "peak_bytes": peak, "peak_above_base_bytes": above,
+            "timed_calls": reps}
+
+    def rest():
+        times = []
+        for _ in range(reps):
+            times.append(once()[1])
+        info["seconds"] = statistics.median(times) if times else first_s
+
+    return out, info, rest
+
+
+def _f32_bound(bytes_moved, flops):
+    bound_ms, bound_by = _bound(bytes_moved, 0.0, flops)
+    return {"bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _max_abs_diff(a, b, chunk=1 << 20):
+    """max|a − b| over row chunks: no full-size temporary."""
+    worst = 0.0
+    for i in range(0, a.shape[0], chunk):
+        diff = a[i:i + chunk] - b[i:i + chunk]
+        worst = max(worst, float(diff.abs().max()))
+    return worst
+
+
+def _qr_errors(torch, q, r, a):
+    """(max|QR − A| / max|A|, max|QᵀQ − I|), QᵀQ summed in float64."""
+    worst = 0.0
+    for i in range(0, a.shape[0], 1 << 20):
+        worst = max(worst, float(
+            (q[i:i + (1 << 20)] @ r - a[i:i + (1 << 20)]).abs().max()))
+    eye = torch.eye(q.shape[1], dtype=torch.float64, device=q.device)
+    return (worst / float(a.abs().max()),
+            float((_gram64(q) - eye).abs().max()))
+
+
+def phase_linalg_wide(torch, app, X):
+    """``randomized_svd`` and the randomized PCA at 2.5M x 1000 fp32, on
+    phase 4's X with column j scaled in place by RSVD_DECAY^j (floored at
+    1e-4): N(0,1) draws alone have a flat spectrum, in which no sketch
+    finds a top 16. Held to the eigenvalues of a float64 gram (and of the
+    float64 covariance) within RSVD_REL."""
+    from nums_tpu_torch.models.decomposition import PCA
+
+    n, d = X.shape
+    k = LA_COMPONENTS
+    x = X.data
+    x.mul_(torch.clamp(RSVD_DECAY ** torch.arange(
+        d, dtype=torch.float64, device=x.device), min=1e-4).float())
+    g64 = _gram64(x)
+    s_ref = torch.linalg.eigvalsh(g64).flip(0)[:k].sqrt()
+    mu = torch.zeros(d, dtype=torch.float64, device=x.device)
+    for i in range(0, n, 1 << 18):
+        mu += x[i:i + (1 << 18)].sum(dim=0, dtype=torch.float64)
+    mu /= n
+    ev_ref = torch.linalg.eigvalsh(
+        (g64 - n * torch.outer(mu, mu)) / (n - 1)).flip(0)[:k]
+    del g64
+    ell = k + 10
+    # Six products with X (the sketch, two per power iteration, the
+    # projection) and the back-projection; X read once, U, S, Vᵀ written.
+    bound = _f32_bound(4.0 * n * d + 4.0 * (n * k + k + k * d),
+                       12.0 * n * d * ell + 2.0 * n * ell * k)
+    calls = {}
+
+    (U, S, VT), info, rest = _clocked(
+        torch, lambda: app.randomized_svd(X, k), 3)
+    assert U.shape == (n, k) and S.shape == (k,) and VT.shape == (k, d)
+    _, info["singular_values_rel_err_vs_f64"] = rel_err(S.data, s_ref)
+    assert info["singular_values_rel_err_vs_f64"] <= RSVD_REL, info
+    eye = torch.eye(k, dtype=torch.float64, device=x.device)
+    info["utu_abs_err"] = float((_gram64(U.data) - eye).abs().max())
+    assert info["utu_abs_err"] <= ORTHONORMAL_ABS, info
+    del U, S, VT
+    rest()
+    calls["randomized_svd"] = {**info, **bound}
+    print(json.dumps({"randomized_svd": calls["randomized_svd"]}),
+          file=sys.stderr, flush=True)
+
+    model, info, rest = _clocked(
+        torch, lambda: PCA(n_components=k, svd_solver="randomized").fit(X), 3)
+    _, info["explained_variance_rel_err_vs_f64"] = rel_err(
+        model.explained_variance_.data, ev_ref)
+    assert info["explained_variance_rel_err_vs_f64"] <= RSVD_REL, info
+    comps = model.components_.data
+    info["components_orthonormal_abs_err"] = float(
+        (comps @ comps.T - eye.float()).abs().max())
+    assert info["components_orthonormal_abs_err"] <= ORTHONORMAL_ABS, info
+    del model, comps
+    rest()
+    calls["pca_randomized"] = {**info, **bound}
+    print(json.dumps({"pca_randomized": calls["pca_randomized"]}),
+          file=sys.stderr, flush=True)
+    assert not any(c["launches"][name] for c in calls.values()
+                   for name in c["launches"]), calls
+    return {"shape": [n, d], "components": k, "column_decay": RSVD_DECAY,
+            "calls": calls}
+
+
+def phase_linalg(torch, smi, app, wide):
+    """The linalg entry points at 2^24 x 128 fp32, A = N(0,1) drawn on the
+    card through the app's generator in row blocks, y = Aθ + 0.01·noise:
+
+    | call                          | route          | held to              |
+    |-------------------------------|----------------|----------------------|
+    | indirect_tsr                  | cholqr_r       | |R| of the routes    |
+    | indirect_tsqr                 | cholqr_r, GEMM | QR − A               |
+    | direct_tsqr                   | cholqr2        | QR − A, QᵀQ − I      |
+    | direct_tsqr(overwrite_x=True) | cholqr2_stream | the same; footprint  |
+    | svd                           | svd_cholqr     | S (float64 gram)     |
+    | linear_, fast_linear_regr.    | cholqr2 / _r   | θ̂ (float64 solve)    |
+    | ridge_regression(lamb=1)      | cholqr_r + K1  | 1 launch, θ̂ 1e-2;    |
+    |   K1 on that call's R         |                | plain 1e-5, f64 2e-3 |
+    |   the same at "highest"       | cholqr_r       | 0 launches, θ̂ 1e-4   |
+    | PCA(16).fit_transform         | svd_cholqr     | float64 covariance   |
+    | StandardScaler round trip     | plain ops      | A itself             |
+    | indirect_tsr, direct_tsqr     | Householder    | as above, timed once |
+
+    ``indirect_tsqr``'s Q is X·R⁻¹ with an explicit inverse: its QᵀQ − I is
+    recorded and not held. ``overwrite_x`` runs on a copy it may destroy.
+    Each call's launch counts are set to 0 just before its first, checked
+    call and read just after; the times are host-clock medians of 3 later
+    calls (the Householder calls are timed once, on that first call)."""
+    from nums_tpu_torch.core import settings
+    from nums_tpu_torch.core.array.blockarray import BlockArray
+    from nums_tpu_torch.core.ops import cuda_gram
+    from nums_tpu_torch.models.decomposition import PCA
+    from nums_tpu_torch.models.preprocessing import StandardScaler
+
+    m, n, k = LA_M, LA_N, LA_COMPONENTS
+    rows = m // LA_BLOCKS
+    rs = app.random_state(LA_SEED)
+    a = torch.empty((m, n), dtype=torch.float32, device=DEVICE)
+    for i in range(LA_BLOCKS):
+        a[i * rows:(i + 1) * rows] = rs.normal(
+            shape=(rows, n), block_shape=(rows, n), dtype=np.float32).data
+    A = BlockArray.from_torch(a, block_shape=(rows, n), backend=app.backend)
+    theta = rs.normal(shape=(n,), block_shape=(n,), dtype=np.float32)
+    noise = rs.normal(scale=0.01, shape=(m,), block_shape=(rows,),
+                      dtype=np.float32)
+    Y = A @ theta + noise
+    del noise
+    a_bytes = 4.0 * m * n
+    a_max = float(a.abs().max())
+
+    # float64 references from chunked sums.
+    g64 = _gram64(a)
+    q64 = torch.zeros(n, dtype=torch.float64, device=DEVICE)
+    mu64 = torch.zeros(n, dtype=torch.float64, device=DEVICE)
+    for i in range(0, m, 1 << 18):
+        c = a[i:i + (1 << 18)].double()
+        q64 += c.T @ Y.data[i:i + (1 << 18)].double()
+        mu64 += c.sum(dim=0)
+    del c
+    mu64 /= m
+    s_ref = torch.linalg.eigvalsh(g64).flip(0).sqrt()
+    theta_ref = torch.linalg.solve(g64, q64)
+    ridge_ref = torch.linalg.solve(
+        g64 + torch.eye(n, dtype=torch.float64, device=DEVICE), q64)
+    ev_ref = torch.linalg.eigvalsh(
+        (g64 - m * torch.outer(mu64, mu64)) / (m - 1)).flip(0)[:k]
+    theta_scale = float(theta_ref.abs().max())
+    # Operations the functions need, as ``_bound`` counts K1's: a gram is
+    # its upper triangle, a product with a triangular factor or its
+    # inverse mn², a dense product with an n×n matrix 2mn². The routines
+    # compute the full squares; the bounds are of the function.
+    mn2 = 1.0 * m * n * n
+    gram_ops = _triangle_flops(m, n)
+    calls, r_of = {}, {}
+
+    def record(name, route, info, rest, bytes_moved, flops):
+        rest()
+        info["footprint_over_a"] = (
+            info["peak_above_base_bytes"] + a_bytes) / a_bytes
+        calls[name] = {"route": route, **info,
+                       **_f32_bound(bytes_moved, flops)}
+        print(json.dumps({name: calls[name]}), file=sys.stderr, flush=True)
+
+    def check_qr(info, Q, R, orthogonal=True):
+        assert Q.shape == (m, n) and R.shape == (n, n), (Q.shape, R.shape)
+        info["qr_rel_err"], info["qtq_abs_err"] = _qr_errors(
+            torch, Q.data, R.data, a)
+        assert info["qr_rel_err"] <= LA_QR_REL, info
+        if orthogonal:
+            assert info["qtq_abs_err"] <= LA_QR_REL, info
+
+    def check_theta(info, got, ref, tol):
+        assert got.shape == (n,), got.shape
+        err = float((got.data.double() - ref).abs().max()) / theta_scale
+        info["theta_err_over_max_theta"] = err
+        assert err <= tol, info
+
+    assert settings.tsqr_method == "auto" and app._use_cholqr(A)
+    assert settings.matmul_precision == "default"
+
+    R, info, rest = _clocked(torch, lambda: app.indirect_tsr(A), 3)
+    r_of["cholqr_r"] = R.data.abs()
+    assert torch.equal(R.data, R.data.triu()), "R not upper triangular"
+    del R
+    record("indirect_tsr", "cholqr_r", info, rest, a_bytes, gram_ops)
+
+    (Q, R), info, rest = _clocked(torch, lambda: app.indirect_tsqr(A), 3)
+    check_qr(info, Q, R, orthogonal=False)
+    del Q, R
+    record("indirect_tsqr", "cholqr_r, X @ inv(R)", info, rest,
+           2 * a_bytes, gram_ops + mn2)
+
+    (Q, R), info, rest = _clocked(torch, lambda: app.direct_tsqr(A), 3)
+    check_qr(info, Q, R)
+    r_of["cholqr2"] = R.data.abs()
+    del Q, R
+    # Two grams and two right triangular solves.
+    cholqr2_ops = 2 * gram_ops + 2 * mn2
+    record("direct_tsqr", "cholqr2", info, rest, 2 * a_bytes, cholqr2_ops)
+
+    def copy_of_a():
+        return (BlockArray.from_torch(a.clone(), block_shape=(rows, n),
+                                      backend=app.backend),)
+
+    (Q, R), info, rest = _clocked(
+        torch, lambda C: app.direct_tsqr(C, overwrite_x=True), 3,
+        setup=copy_of_a)
+    check_qr(info, Q, R)
+    _, info["r_rel_err_vs_cholqr2"] = rel_err(R.data.abs(), r_of["cholqr2"])
+    assert info["r_rel_err_vs_cholqr2"] <= LA_R_REL, info
+    del Q, R
+    # Two grams and two chunked products with the inverse factors: the
+    # same function as cholqr2.
+    record("direct_tsqr_overwrite_x", "cholqr2_stream", info, rest,
+           2 * a_bytes, cholqr2_ops)
+    assert calls["direct_tsqr_overwrite_x"][
+        "footprint_over_a"] <= LA_STREAM_FOOTPRINT, calls
+
+    # Where the two forms of CholeskyQR2 spend their time, by kernel.
+    def profile_of(fn):
+        wall_ms, kernels, kcalls = _profiled(torch, fn)
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+        return {"wall_ms": wall_ms, "device_ms": sum(kernels.values()),
+                "kernels_ms": dict(top),
+                "kernel_calls": {kn: kcalls[kn] for kn, _ in top}}
+
+    profiles = {"direct_tsqr": profile_of(lambda: app.direct_tsqr(A))}
+    C, = copy_of_a()
+    profiles["direct_tsqr_overwrite_x"] = profile_of(
+        lambda: app.direct_tsqr(C, overwrite_x=True))
+    del C
+
+    (U, S, VT), info, rest = _clocked(torch, lambda: app.svd(A), 3)
+    assert U.shape == (m, n) and S.shape == (n,) and VT.shape == (n, n)
+    _, info["singular_values_rel_err_vs_f64"] = rel_err(S.data, s_ref)
+    assert info["singular_values_rel_err_vs_f64"] <= LA_S_REL, info
+    eye = torch.eye(n, dtype=torch.float64, device=DEVICE)
+    info["utu_abs_err"] = float((_gram64(U.data) - eye).abs().max())
+    assert info["utu_abs_err"] <= LA_QR_REL, info
+    del U, S, VT
+    # Why ``linalg._small_svd`` works in float64: the singular values of
+    # one fp32 R by torch's default routine in float32 (Jacobi), by
+    # cuSOLVER's gesvd in float32, and by the default in float64.
+    r = app.indirect_tsr(A).data
+    info["r_singular_values_rel_err_by_routine"] = {
+        name: rel_err(torch.linalg.svd(arg, full_matrices=False, **kw)[1],
+                      s_ref)[1]
+        for name, arg, kw in (("float32_default", r, {}),
+                              ("float32_gesvd", r, {"driver": "gesvd"}),
+                              ("float64_default", r.double(), {}))}
+    del r
+    # cholqr2, and U = Q times the small SVD's dense factor.
+    record("svd", "svd_cholqr", info, rest, 2 * a_bytes,
+           cholqr2_ops + 2 * mn2)
+
+    got, info, rest = _clocked(torch, lambda: app.linear_regression(A, Y), 3)
+    check_theta(info, got, theta_ref, LA_THETA_REL)
+    record("linear_regression", "lstsq_cholqr", info, rest,
+           a_bytes + 4.0 * m, cholqr2_ops + 2.0 * m * n)
+
+    got, info, rest = _clocked(
+        torch, lambda: app.fast_linear_regression(A, Y), 3)
+    check_theta(info, got, theta_ref, LA_THETA_REL)
+    record("fast_linear_regression", "cholqr_r, X @ inv(R)", info, rest,
+           a_bytes + 4.0 * m, gram_ops + mn2 + 2.0 * m * n)
+
+    # K1 on the operand this path gives it, the upper-triangular R (its
+    # diagonal near √m), against its plain version and a float64 RᵀR.
+    r = app.indirect_tsr(A).data
+    assert r.shape == (n, n) and r.is_contiguous(), (r.shape, r.stride())
+    g = cuda_gram.gram(r)
+    again = cuda_gram.gram(r)
+    torch.cuda.synchronize()
+    assert torch.equal(g, again), "gram of R not repeatable"
+    assert torch.equal(g, g.T), "gram of R not symmetric"
+    k1_abs, k1_rel = rel_err(g, cuda_gram.gram_plain(r))
+    assert k1_rel <= SMALL_REL, ("gram of R vs plain", k1_rel)
+    _, k1_rel64 = rel_err(g, _gram64(r))
+    assert k1_rel64 <= BF16_REL, ("gram of R vs float64", k1_rel64)
+    del r, g, again
+
+    got, info, rest = _clocked(
+        torch, lambda: app.ridge_regression(A, Y, 1.0), 3)
+    check_theta(info, got, ridge_ref, LA_RIDGE_BF16_REL)
+    assert info["launches"]["gram"] == 1, info
+    assert sum(info["launches"].values()) == 1, info
+    info["gram_of_r"] = {"shape": [n, n], "max_abs_err_vs_plain": k1_abs,
+                         "rel_err_vs_plain": k1_rel,
+                         "rel_err_vs_f64": k1_rel64}
+    record("ridge_regression", "cholqr_r, R.T @ R on the gram kernel",
+           info, rest, a_bytes + 4.0 * m, gram_ops + 2.0 * m * n)
+    linalg_launches = dict(info["launches"])
+    settings.matmul_precision = "highest"
+    try:
+        got, info, rest = _clocked(
+            torch, lambda: app.ridge_regression(A, Y, 1.0), 3)
+        check_theta(info, got, ridge_ref, LA_THETA_REL)
+        assert not any(info["launches"].values()), info
+        record("ridge_regression_highest", "cholqr_r, plain R.T @ R",
+               info, rest, a_bytes + 4.0 * m, gram_ops + 2.0 * m * n)
+    finally:
+        settings.matmul_precision = "default"
+    del got
+
+    def pca():
+        model = PCA(n_components=k)
+        return model, model.fit_transform(A)
+
+    (model, Z), info, rest = _clocked(torch, pca, 3)
+    assert Z.shape == (m, k), Z.shape
+    _, info["explained_variance_rel_err_vs_f64"] = rel_err(
+        model.explained_variance_.data, ev_ref)
+    assert info["explained_variance_rel_err_vs_f64"] <= LA_S_REL * 10, info
+    comps = model.components_.data
+    info["components_orthonormal_abs_err"] = float(
+        (comps @ comps.T - torch.eye(k, device=DEVICE)).abs().max())
+    assert info["components_orthonormal_abs_err"] <= ORTHONORMAL_ABS, info
+    # fit_transform is u·s of the fit's SVD: it equals transform.
+    _, info["fit_transform_vs_transform_rel_err"] = rel_err(
+        Z.data[:1 << 20], model.transform(
+            BlockArray.from_torch(a[:1 << 20], backend=app.backend)).data)
+    assert info["fit_transform_vs_transform_rel_err"] <= LA_R_REL, info
+    del model, Z, comps
+    record("pca_fit_transform", "svd_cholqr", info, rest,
+           a_bytes + 4.0 * m * k, cholqr2_ops + 2 * mn2)
+
+    def scaler():
+        sc = StandardScaler().fit(A)
+        Z = sc.transform(A)
+        return sc, Z, sc.inverse_transform(Z)
+
+    (sc, Z, back), info, rest = _clocked(torch, scaler, 3)
+    info["mean_abs_err_vs_f64"], _ = rel_err(sc.mean_.data, mu64)
+    info["round_trip_rel_err"] = _max_abs_diff(back.data, a) / a_max
+    assert info["round_trip_rel_err"] <= LA_SCALER_REL, info
+    del back
+    info["transformed_std_abs_err"] = float(
+        (Z.data.std(dim=0) - 1.0).abs().max())
+    assert info["transformed_std_abs_err"] <= LA_R_REL, info
+    del sc, Z
+    # fit reads A; transform and its inverse each read and write one.
+    record("standard_scaler_round_trip", "plain ops", info, rest,
+           5 * a_bytes, 8.0 * m * n)
+
+    settings.tsqr_method = "householder"
+    try:
+        assert not app._use_cholqr(A)
+        R, info, rest = _clocked(torch, lambda: app.indirect_tsr(A), 0)
+        r_of["householder"] = R.data.abs()
+        del R
+        # Householder's own count, 2mn², is of the routine: the function
+        # (R alone) needs no more than cholqr_r's gram.
+        record("indirect_tsr_householder", "batched QR tree (R only)",
+               info, rest, a_bytes, gram_ops)
+        (Q, R), info, rest = _clocked(torch, lambda: app.direct_tsqr(A), 0)
+        check_qr(info, Q, R)
+        _, info["r_rel_err_vs_r_only_tree"] = rel_err(
+            R.data.abs(), r_of["householder"])
+        assert info["r_rel_err_vs_r_only_tree"] <= LA_R_REL, info
+        del Q, R
+        record("direct_tsqr_householder", "batched QR tree", info, rest,
+               2 * a_bytes, cholqr2_ops)
+    finally:
+        settings.tsqr_method = "auto"
+
+    r_rel = {}
+    for name in ("cholqr_r", "householder"):
+        _, r_rel[f"{name}_vs_cholqr2"] = rel_err(r_of[name], r_of["cholqr2"])
+        assert r_rel[f"{name}_vs_cholqr2"] <= LA_R_REL, r_rel
+    emit({"phase": "linalg", "card": smi, "shape": [m, n],
+          "a_bytes": a_bytes, "tsqr_method": "auto",
+          "r_rel_err_between_routes": r_rel,
+          "max_memory_allocated_bytes": max(
+              c["peak_bytes"] for c in calls.values()),
+          "launches": linalg_launches, "calls": calls,
+          "cholqr2_profiles": profiles, "wide": wide})
+    return linalg_launches
+
+
 KERNELS = (
     ("gram", "nums_tpu_torch/csrc/gram.cu",
      "nums_tpu/core/ops/pallas_gram.py:139"),
@@ -1157,17 +1711,20 @@ KERNELS = (
 )
 
 
-def kernels_line(counts, fit_counts, times, ooc):
+def kernels_line(counts, fit_counts, times, ooc, linalg_launches):
     """One entry per kernel: "launches" counts the main path (phase 4),
     "launches_per_fit" one fit (phase 6), "launches_ooc" the streamed
-    steps of phase 8; "panel_ms" is its time on one resident panel there,
-    and "panel_bound_ms" that panel's bound.
+    steps of phase 8 (the PCA and TruncatedSVD fits among them),
+    "launches_linalg" one ``ridge_regression`` of phase 9, the one entry
+    point there that reaches a kernel; "panel_ms" is its time on one
+    resident panel of phase 8, and "panel_bound_ms" that panel's bound.
     gram.cu's weighted launches ("gram_weighted") on these paths are K3's
     Hessian, and K2 proper in phase 8's pass with the Newton gate off."""
     return [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], "launches_per_fit": fit_counts[name],
          "launches_ooc": ooc["launches"][name],
+         "launches_linalg": linalg_launches[name],
          "max_abs_err": times[name]["max_abs_err"],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"],
@@ -1201,7 +1758,14 @@ def main(argv):
         fit_counts = phase_profile(torch, X, y)
         phase_glm_families(torch, app, X, y, ref)
         ooc = phase_ooc(torch, smi, app, X, y, model, acc_true)
-        emit({"kernels": kernels_line(counts, fit_counts, times, ooc)})
+        wide = phase_linalg_wide(torch, app, X)
+        # Phase 9 allocates up to five times its 8.6 GB A: phase 4's 10 GB
+        # X and everything fitted on it go first.
+        del X, y, model, ref
+        torch.cuda.empty_cache()
+        linalg_launches = phase_linalg(torch, smi, app, wide)
+        emit({"kernels": kernels_line(counts, fit_counts, times, ooc,
+                                      linalg_launches)})
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})

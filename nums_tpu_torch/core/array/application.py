@@ -5,8 +5,10 @@ Counterpart of the subset of ``nums_tpu/core/array/application.py`` that
 the GLMs and the out-of-core path use: the block-shape policy,
 ``scalar``/``array``/``zeros``/``ones``/``full``/``eye``/``diag``/
 ``concatenate``, the elementwise ops and reductions of the solvers, the
-three-argument ``where``, ``inv``/``cholesky``/``posdef_solve``,
-``get``/``touch``, the random state, the block checkpoints of the
+three-argument ``where``, ``var``/``std``, the linalg entry points
+(``qr``, ``indirect_tsr``/``indirect_tsqr``, ``direct_tsqr``, ``svd``,
+``randomized_svd``, the regressions, ``inv``/``cholesky``/
+``posdef_solve``), ``get``/``touch``, the random state, the block checkpoints of the
 application's ``FileSystem`` (``write_fs``/``read_fs``/``verify_fs``/
 ``delete_fs``), and the streamed ops on a ``DiskArray`` (``gram_ooc``, the
 column reductions, ``tsqr_r_ooc``, ``linear_regression_ooc``), with the
@@ -18,6 +20,7 @@ backend's row-sharded panels are a later port.
 import numpy as np
 import torch
 
+from nums_tpu_torch.core import settings
 from nums_tpu_torch.core.backend import Backend
 from nums_tpu_torch.core.grid import ArrayGrid
 from nums_tpu_torch.core.array import utils as array_utils
@@ -208,12 +211,15 @@ class ArrayApplication:
 
     def eye(self, shape, block_shape, dtype=None):
         assert len(shape) == len(block_shape) == 2
+        return self.eye_k(shape, block_shape, k=0, dtype=dtype)
+
+    def eye_k(self, shape, block_shape, k=0, dtype=None):
         if dtype is None:
             dtype = self.backend.default_float
         grid = ArrayGrid(tuple(shape), tuple(block_shape),
                          array_utils.to_dtype_name(dtype))
         data = creation.eye(grid.shape, array_utils.to_torch_dtype(dtype),
-                            self.backend.device)
+                            self.backend.device, int(k))
         return BlockArray(data, grid, self.backend)
 
     def diag(self, X: BlockArray) -> BlockArray:
@@ -308,6 +314,16 @@ class ArrayApplication:
             X = X.astype(self.backend.default_float)
         return X.mean(axis=axis, keepdims=keepdims, dtype=dtype)
 
+    def var(self, X, axis=None, ddof=0, keepdims=False, dtype=None):
+        if X.dtype not in (np.float32, np.float64):
+            X = X.astype(np.float64)
+        return X.var(axis=axis, ddof=ddof, keepdims=keepdims, dtype=dtype)
+
+    def std(self, X, axis=None, ddof=0, keepdims=False, dtype=None):
+        if X.dtype not in (np.float32, np.float64):
+            X = X.astype(np.float64)
+        return X.std(axis=axis, ddof=ddof, keepdims=keepdims, dtype=dtype)
+
     def where(self, condition: BlockArray, x=None, y=None):
         """``where(c, x, y)``: elementwise select, with the two branches
         promoted as a binary op promotes them. The one-argument index form
@@ -338,8 +354,155 @@ class ArrayApplication:
         )
 
     # ------------------------------------------------------------------
-    # Linalg (nums_tpu application.py:818-843)
+    # Linalg (nums_tpu application.py:665-882). The ops of
+    # ``core/ops/linalg.py`` run in plain float32 (TF32 off) in every
+    # precision setting; the BlockArray products here (``X @ R_inv``,
+    # ``R.T @ R``, ``X.T @ y``) follow ``settings.matmul_precision``, and
+    # of those the same-tensor gram ``R.T @ R`` of ``ridge_regression``
+    # goes to the gram kernel in the bf16 class.
     # ------------------------------------------------------------------
+
+    def qr(self, X: BlockArray):
+        return self.indirect_tsqr(X)
+
+    def _tsqr_chunk(self, X):
+        return linalg.choose_chunk(X.shape[0], X.shape[1])
+
+    def _use_cholqr(self, X=None) -> bool:
+        """CholeskyQR2 or the Householder tree. CholeskyQR needs full
+        column rank, so a wide matrix takes Householder everywhere; under
+        ``settings.tsqr_method == "auto"`` the backend's device decides:
+        CholeskyQR2 (GEMMs and triangular solves) on ``cuda``, Householder
+        on ``cpu``."""
+        if X is not None and X.shape[0] < X.shape[1]:
+            return False
+        method = settings.tsqr_method
+        if method == "cholqr2":
+            return True
+        if method == "householder":
+            return False
+        return self.backend.device.type == "cuda"
+
+    def _wrap(self, data, block_shape):
+        return BlockArray.from_torch(data, block_shape, self.backend)
+
+    def indirect_tsr(self, X: BlockArray, reshape_output=True) -> BlockArray:
+        """The R factor of X, by CholeskyQR (``linalg.cholqr_r``) or the
+        TSQR reduction tree."""
+        assert X.ndim == 2
+        del reshape_output
+        if self._use_cholqr(X):
+            r = linalg.cholqr_r(X.data)
+        else:
+            r = linalg._tsqr_r_impl(X.data, self._tsqr_chunk(X))
+        return self._wrap(
+            r, (min(X.block_shape[1], r.shape[0]), X.block_shape[1]))
+
+    def indirect_tsqr(self, X: BlockArray, reshape_output=True):
+        """(Q, R) with Q = X R⁻¹."""
+        R = self.indirect_tsr(X, reshape_output)
+        return X @ self.inv(R), R
+
+    def direct_tsqr(self, X: BlockArray, reshape_output=True,
+                    overwrite_x=False):
+        """(Q, R) by CholeskyQR2 or the recursive Householder tree.
+
+        ``overwrite_x=True`` takes the streamed CholeskyQR2 that writes Q
+        into X's own tensor: peak device memory about 1× X where the other
+        routes hold 3×. X is destroyed: it shares Q's storage afterwards
+        (the reference donates X's buffer and repoints X the same way).
+        ``overwrite_x`` always takes CholeskyQR2, whatever
+        ``settings.tsqr_method`` says, as the reference's does: X must be
+        tall (m >= n) and of full rank, or Q and R are NaN."""
+        assert X.ndim == 2
+        del reshape_output
+        if overwrite_x:
+            q, r = linalg.cholqr2_stream(2**20, X.data)
+        elif self._use_cholqr(X):
+            q, r = linalg.cholqr2(X.data)
+        else:
+            q, r = linalg.direct_tsqr(self._tsqr_chunk(X), X.data)
+        Q = self._wrap(q, (X.block_shape[0],
+                           min(X.block_shape[1], q.shape[1])))
+        R = self._wrap(r, (min(X.block_shape[1], r.shape[0]),
+                           X.block_shape[1]))
+        return Q, R
+
+    def svd(self, X: BlockArray):
+        """Tall-skinny SVD (U, S, Vᵀ) through TSQR."""
+        assert X.ndim == 2
+        if self._use_cholqr(X):
+            u, s, vt = linalg.svd_cholqr(X.data)
+        else:
+            u, s, vt = linalg.svd(self._tsqr_chunk(X), X.data)
+        nb = min(X.block_shape[1], X.shape[1])
+        return (
+            self._wrap(u, (X.block_shape[0],
+                           min(X.block_shape[1], u.shape[1]))),
+            self._wrap(s, (nb,)),
+            self._wrap(vt, (nb, nb)),
+        )
+
+    def randomized_svd(self, X: BlockArray, k: int, n_oversamples: int = 10,
+                       n_iter: int = 2, seed: int = 0):
+        """Randomized top-k SVD (Halko, Martinsson, Tropp 2011, Alg. 4.4 and
+        5.1), for matrices whose both dimensions are large: a Gaussian
+        sketch of width ell = k + ``n_oversamples``, ``n_iter`` power
+        iterations re-orthonormalized by TSQR, then the exact SVD of the
+        (ell, n) projection. No step holds more than max(m, n)·ell beside X.
+
+        Deterministic for a given seed. The sketch is drawn from this
+        package's generator (``random_state(seed).normal``), whose bits are
+        not the reference's threefry bits: the same seed gives another
+        sketch there, and the two results agree only as far as the method
+        is accurate, not draw for draw
+        (``core/ops/linalg.randomized_svd`` takes the sketch as an argument
+        and matches the reference on the same one)."""
+        assert X.ndim == 2
+        m, n = X.shape
+        k = int(k)
+        assert 1 <= k <= min(m, n)
+        ell = min(k + int(n_oversamples), min(m, n))
+        omega = self.random_state(seed).normal(
+            shape=(n, ell), block_shape=(min(X.block_shape[1], n), ell),
+            dtype=X.dtype,
+        )
+        u, s, vt = linalg.randomized_svd(
+            k, int(n_iter), self._tsqr_chunk(X), X.data, omega.data)
+        return (
+            self._wrap(u, (X.block_shape[0], k)),
+            self._wrap(s, (k,)),
+            self._wrap(vt, (k, min(X.block_shape[1], n))),
+        )
+
+    def fast_linear_regression(self, X: BlockArray, y: BlockArray):
+        """Least squares through indirect TSQR: R⁻¹ (Qᵀ y)."""
+        assert X.ndim == 2 and y.ndim == 1
+        Q, R = self.indirect_tsqr(X)
+        return self.inv(R) @ (Q.T @ y)
+
+    def linear_regression(self, X: BlockArray, y: BlockArray):
+        """Least squares through direct TSQR and a triangular solve."""
+        assert X.ndim == 2 and y.ndim == 1
+        if self._use_cholqr(X):
+            theta = linalg.lstsq_cholqr(X.data, y.data)
+        else:
+            theta = linalg.lstsq(self._tsqr_chunk(X), X.data, y.data)
+        return self._wrap(theta, (min(X.block_shape[1], theta.shape[0]),))
+
+    def lstsq(self, X: BlockArray, y: BlockArray):
+        return self.linear_regression(X, y)
+
+    def ridge_regression(self, X: BlockArray, y: BlockArray, lamb: float):
+        """(λI + RᵀR)⁻¹ Xᵀy with R of ``indirect_tsr``; ``R.T @ R`` is the
+        same-tensor gram, on the gram kernel in the bf16 class."""
+        assert X.ndim == 2 and y.ndim == 1 and lamb >= 0
+        R = self.indirect_tsr(X)
+        n = R.shape[0]
+        lamb_eye = self.eye_k(
+            (n, n), (R.block_shape[0], R.block_shape[0]), dtype=X.dtype
+        ) * lamb
+        return self.inv(lamb_eye + R.T @ R) @ (X.T @ y)
 
     def inv(self, X: BlockArray) -> BlockArray:
         assert X.ndim == 2 and X.shape[0] == X.shape[1]

@@ -2,7 +2,8 @@
 
 Counterpart of ``nums_tpu/core/array/blockarray.py`` for the GLM layer:
 construction, elementwise and comparison operators, ``astype``, ``T`` as
-metadata, ``sum``/``mean``/``min``/``max``/``clip``, basic indexing and
+metadata, ``sum``/``mean``/``var``/``std``/``min``/``max``/``clip``, basic
+indexing and
 the row gather, ``reshape``, ``get``/``touch`` and ``tensordot``. A
 BlockArray is ONE ``torch.Tensor`` on the backend's device plus
 ``ArrayGrid`` metadata; ops run eagerly (the reference's lazy batching,
@@ -257,6 +258,21 @@ class BlockArray:
 
     def max(self, axis=None, keepdims=False):
         return self.reduce_axis("max", axis, keepdims)
+
+    def _moment(self, op_name, axis, ddof, keepdims, dtype):
+        axis = _norm_axis(axis)
+        dt = None if dtype is None else array_utils.to_torch_dtype(dtype)
+        data = reductions.moment(op_name, self.data, axis, int(ddof),
+                                 bool(keepdims), dt)
+        bs = array_utils.reduced_block_shape(self.block_shape, axis,
+                                             keepdims)
+        return self._new(data, bs)
+
+    def var(self, axis=None, ddof=0, keepdims=False, dtype=None):
+        return self._moment("var", axis, ddof, keepdims, dtype)
+
+    def std(self, axis=None, ddof=0, keepdims=False, dtype=None):
+        return self._moment("std", axis, ddof, keepdims, dtype)
 
     def clip(self, a_min=None, a_max=None):
         data = torch.clamp(self.data, a_min, a_max)

@@ -21,9 +21,15 @@ def full(shape: tuple, fill_value, dtype: torch.dtype, device):
     return torch.full(tuple(shape), fill_value, dtype=dtype, device=device)
 
 
-def eye(shape: tuple, dtype: torch.dtype, device):
+def eye(shape: tuple, dtype: torch.dtype, device, k: int = 0):
+    """Ones on the k-th diagonal (k > 0 above the main one), as
+    ``numpy.eye``."""
     rows, cols = shape
-    return torch.eye(rows, cols, dtype=dtype, device=device)
+    if k == 0:
+        return torch.eye(rows, cols, dtype=dtype, device=device)
+    i = torch.arange(rows, device=device)[:, None]
+    j = torch.arange(cols, device=device)[None, :]
+    return (j - i == k).to(dtype)
 
 
 def diag(x):

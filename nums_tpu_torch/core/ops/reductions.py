@@ -2,7 +2,8 @@
 
 Counterpart of ``nums_tpu/core/ops/reductions.py``. As there, ``dtype=``
 of ``sum`` and ``mean`` is the ACCUMULATOR dtype (torch casts the input
-before it reduces), while for ``min`` and ``max`` it casts the result.
+before it reduces), while for ``min`` and ``max`` it casts the result;
+``var`` and ``std`` compute in ``dtype`` (``jnp.var``'s rule).
 """
 
 import torch
@@ -35,3 +36,14 @@ def reduce(op_name: str, x, axis, keepdims: bool, dtype=None):
     else:
         out = fn(x, dim=_dims(axis, x.ndim), keepdim=keepdims)
     return out.to(dtype) if dtype is not None else out
+
+
+def moment(op_name: str, x, axis, ddof: int, keepdims: bool, dtype=None):
+    """``op_name`` in var|std over ``axis`` (None = all) with ``ddof``
+    delta degrees of freedom, computed in ``dtype`` (default: the input's
+    own inexact dtype)."""
+    fn = {"var": torch.var, "std": torch.std}[op_name]
+    x = x.to(dtype if dtype is not None else inexact_dtype(x.dtype))
+    if x.ndim == 0:
+        return fn(x.reshape(1), dim=(0,), correction=ddof, keepdim=False)
+    return fn(x, dim=_dims(axis, x.ndim), correction=ddof, keepdim=keepdims)

@@ -54,6 +54,13 @@ newton_kernel = os.environ.get("NUMS_TPU_TORCH_NEWTON", "auto")
 # forces the eager per-op solver loop.
 glm_fuse = os.environ.get("NUMS_TPU_TORCH_GLM_FUSE", "1")
 
+# TSQR algorithm (nums_tpu's NUMS_TPU_TSQR): "auto" takes CholeskyQR2 (all
+# GEMMs and triangular solves) on a CUDA backend and the Householder panel
+# tree on the CPU; "cholqr2" and "householder" force one. CholeskyQR2 is
+# orthogonal to about eps for cond(X) up to about 1/sqrt(eps); the
+# Householder tree holds at any conditioning, and takes every wide matrix.
+tsqr_method = os.environ.get("NUMS_TPU_TORCH_TSQR", "auto")
+
 BF16_PRECISIONS = ("default", "fastest", "bfloat16")
 
 

@@ -76,10 +76,13 @@ def test_init_needs_a_card_unless_the_cpu_is_asked_for():
     "nums_tpu_torch.core.array.diskarray",
     "nums_tpu_torch.core.ops.streaming",
     "nums_tpu_torch.models._common",
+    "nums_tpu_torch.core.ops.linalg",
+    "nums_tpu_torch.models.preprocessing",
+    "nums_tpu_torch.models.decomposition",
 ])
 def test_io_and_ooc_modules_import_first(module):
-    """Each module of the I/O and out-of-core slice imports as the first
-    module of a process (no import cycle), with jax and nums_tpu
+    """Each module of the I/O, out-of-core and linalg slices imports as
+    the first module of a process (no import cycle), with jax and nums_tpu
     blocked."""
     probe = _PROBE.split("import nums_tpu_torch\n")[0] + (
         f"import {module}\n"
