@@ -1,15 +1,17 @@
 """Smoke run of nums_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py                 # phases 1-9
+    python3 chip_smoke.py                 # phases 1-10
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check
 
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: the CUDA kernels from nums_tpu_torch/csrc, timed; the gram
      kernel's SASS (cuobjdump) must hold tensor-core HGMMA instructions,
-     and the Newton passes' SASS 128-bit global loads (LDG.E.128);
+     and the Newton passes' SASS 128-bit global loads (LDG.E.128); the two
+     host libraries of the I/O layer (csrc/csv_parser.cpp, shard_io.cpp),
+     timed, and the run fails if either did not build;
   3. each kernel against its plain torch version on the card, at small
-     ragged shapes (d = 1, 97, 129, 1001, 1025; n not a multiple of any
+     ragged shapes (d = 1, 28, 29, 97, 129, 1001, 1025; n not a multiple of any
      tile, and n < 64), in every rounding mode of the gram; the staged
      bf16 copy exactly as the plain rounding with a zero pad; the Newton
      statistics on X and on X staged once, and their two passes
@@ -66,7 +68,21 @@ Phases, each printing one JSON line:
      in ``phase_linalg``) and timed on the host clock beside its bound
      and its peak device memory; K1 on ``ridge_regression``'s own R
      against its plain version; device time by kernel of the two forms
-     of CholeskyQR2.
+     of CholeskyQR2;
+ 10. higgs: the HIGGS pipeline at 11,000,000 x 29 (a label and 28
+     features) from text: a CSV written from a seed under
+     ``settings.data_dir`` (3.8 GB; 8 GB must be free; removed at the end),
+     ``read_csv_host`` in 16 byte ranges through the native parser (the
+     ingested X and y bitwise equal to the float32 arrays that made the
+     file; the first and last range bitwise equal to ``np.loadtxt``), host
+     to device, the 80/20 split, ``X_train.T @ X_train`` (K1),
+     ``LogisticRegression(newton).fit`` (K3, X staged once) and ``predict``
+     twice, with exact launch counts, the gram held to a float64 gram, the
+     accuracy to the planted beta's and beta to the plain-fp32 refit; K1,
+     K2 and K3 at 8.8M x 28/29 against their plain versions; X_test through
+     ``write_fs``/``read_fs`` with the native block engine and with
+     ``np.save``/``np.load`` (byte-equal files), and through the ``s3://``
+     verbs on the file-backed fake.
 Then the kernels as one JSON line (each with its bound, the least time
 the card could take for its work at this run's shapes), and last
 {"ok": true, "device": {...}}. A failed phase prints its traceback and
@@ -181,13 +197,25 @@ def phase_build():
         assert bodies, (kern, "not in the SASS", sorted(funcs))
         wide[kern] = [body.count("LDG.E.128") for body in bodies]
         assert all(wide[kern]), f"{kern}'s SASS holds no LDG.E.128"
+    # The host libraries of the I/O layer. Without them the package takes
+    # numpy's routes and says nothing: on the card that is a failure.
+    from nums_tpu_torch.core.io import _native, shard_native
+
+    host = {}
+    for name, module in (("csv_parser", _native),
+                         ("shard_io", shard_native)):
+        t0 = time.perf_counter()
+        assert module.get_lib() is not None, (
+            f"{name}.cpp did not build", _build.host_compilers())
+        host[name] = time.perf_counter() - t0
     emit({"phase": "build", "seconds": secs, "library": path.name,
           "gram_mma_hgmma_instructions": hgmma,
-          "ldg_e_128_instructions": wide})
+          "ldg_e_128_instructions": wide, "host_library_seconds": host})
 
 
 SMALL_SHAPES = [(1003, 97), (2049, 1001), (37, 1), (4099, 130), (5, 64),
-                (64, 128), (65, 129), (130, 1025), (63, 1)]
+                (64, 128), (65, 129), (130, 1025), (63, 1), (4100, 28),
+                (4100, 29)]
 
 
 def _check_xt(torch, xt, ref, what):
@@ -411,6 +439,22 @@ def _bound(bytes_moved, tc_flops, f32_flops=0.0):
     return max(mem_ms, ops_ms), "bytes" if mem_ms >= ops_ms else "operations"
 
 
+def _gram_bound(n, d, weighted=False):
+    """The gram's bound: X (and the weights) read once in fp32, G written
+    once, its upper triangle on the tensor cores."""
+    return _bound(4.0 * n * d + (4.0 * n if weighted else 0.0) + 4.0 * d * d,
+                  _triangle_flops(n, d))
+
+
+def _k3_bound(n, da, x_bytes):
+    """K3's bound: X read once at ``x_bytes`` a value (2: the staged bf16
+    copy; 4: the fp32 X of a one-shot call), y and beta read, g and H
+    written; the gram's triangle on the tensor cores, eta's and g's
+    4·n·d on the f32 units."""
+    return _bound(x_bytes * n * da + 4.0 * n + 8.0 * da + 4.0 * da * da,
+                  _triangle_flops(n, da), 4.0 * n * da)
+
+
 def _library_gram(torch):
     """(fn, what): cuBLAS's gram of bf16 operands, float32 out where this
     torch's mm takes ``out_dtype``, else bf16 out. The port never calls
@@ -497,8 +541,7 @@ def phase_times(torch, smi, X, y, model):
     }
     out["gram"]["upper_pair_tflops"] = (
         _upper_pair_flops(n, d) / out["gram"]["ms"] / 1e9)
-    out["gram"]["bound_ms"], out["gram"]["bound_by"] = _bound(
-        4.0 * n * d + 4.0 * d * d, _triangle_flops(n, d))
+    out["gram"]["bound_ms"], out["gram"]["bound_by"] = _gram_bound(n, d)
     xa = torch.cat([x, torch.ones(n, 1, device=x.device)], dim=1)
     del x
     da = d + 1
@@ -530,8 +573,7 @@ def phase_times(torch, smi, X, y, model):
         "library_call": lib_what, "library_rel_err_vs_kernel": lib_rel,
     }
     out["gram_weighted"]["bound_ms"], out["gram_weighted"]["bound_by"] = (
-        _bound(4.0 * n * da + 4.0 * n + 4.0 * da * da,
-               _triangle_flops(n, da)))
+        _gram_bound(n, da, weighted=True))
     yd = y.data
     # K3: X staged once, as a fit stages it; the parts of a call, and the
     # cuBLAS sequence of the same steps (no one library call computes
@@ -541,16 +583,10 @@ def phase_times(torch, smi, X, y, model):
                                    staged, yd, beta, "logistic")
     out["newton_stats"]["stage_ms"] = time_ms(
         lambda: cuda_newton.prepare(xa))
-    # K3's bound, for the call its "ms" times: it reads the staged bf16 Xᵀ
-    # (2 bytes a value), y and beta, writes g and H; the gram's triangle
-    # on the tensor cores, eta's and g's 4·n·d on the f32 units. The
-    # one-shot call reads the fp32 X (4 bytes a value) instead.
-    k3_rest = 4.0 * n + 8.0 * da + 4.0 * da * da
-    k3_ops = (_triangle_flops(n, da), 4.0 * n * da)
+    # K3's bound is for the call its "ms" times, on the staged copy.
     out["newton_stats"]["bound_ms"], out["newton_stats"]["bound_by"] = (
-        _bound(2.0 * n * da + k3_rest, *k3_ops))
-    out["newton_stats"]["one_shot_bound_ms"], _ = _bound(
-        4.0 * n * da + k3_rest, *k3_ops)
+        _k3_bound(n, da, 2.0))
+    out["newton_stats"]["one_shot_bound_ms"], _ = _k3_bound(n, da, 4.0)
     xb = xa.to(torch.bfloat16)
 
     def cublas_sequence():
@@ -962,33 +998,37 @@ def _ooc_pass_parts(torch, app, dX):
 
 def _ooc_panel_kernels(torch, app, dX, dy, beta):
     """K1, K2 and K3 (one-shot) on one resident panel of the streamed
-    path, each held to its plain version at FULL_REL and timed by CUDA
-    events beside its plain version and its bound."""
+    path: ``_kernels_at`` that shape."""
     from nums_tpu_torch.core.array.application import ooc_put
-    from nums_tpu_torch.core.ops import cuda_gram, cuda_newton
 
-    p, rows = ooc_put(app.backend, dX.row_panel(0))
+    p, _ = ooc_put(app.backend, dX.row_panel(0))
     pa, _ = ooc_put(app.backend, dX.row_panel(0), augment_ones=True)
     yp, _ = ooc_put(app.backend, dy.row_panel(0))
-    d, da = p.shape[1], pa.shape[1]
+    return _kernels_at(torch, p, pa, yp, beta)
+
+
+def _kernels_at(torch, p, pa, yp, beta, staged=None):
+    """K1 on ``p``, K2 and K3 on ``pa`` (``p`` with its column of ones;
+    K3 one-shot, or on ``staged``, ``pa`` staged once as a fit stages it),
+    each held to its plain version at FULL_REL and timed by CUDA events
+    beside its plain version and its bound."""
+    from nums_tpu_torch.core.ops import cuda_gram, cuda_newton
+
+    rows, d, da = p.shape[0], p.shape[1], pa.shape[1]
     mu = torch.sigmoid(pa @ beta)
     s = mu * (1.0 - mu)
     del mu
+    k3_x = pa if staged is None else staged
     calls = {
         "gram": (lambda: cuda_gram.gram(p),
-                 lambda: cuda_gram.gram_plain(p),
-                 _bound(4.0 * rows * d + 4.0 * d * d,
-                        _triangle_flops(rows, d))),
+                 lambda: cuda_gram.gram_plain(p), _gram_bound(rows, d)),
         "gram_weighted": (lambda: cuda_gram.gram(pa, s),
                           lambda: cuda_gram.gram_plain(pa, s),
-                          _bound(4.0 * rows * da + 4.0 * rows
-                                 + 4.0 * da * da,
-                                 _triangle_flops(rows, da))),
+                          _gram_bound(rows, da, weighted=True)),
         "newton_stats": (
-            lambda: cuda_newton.stats(pa, yp, beta, "logistic"),
+            lambda: cuda_newton.stats(k3_x, yp, beta, "logistic"),
             lambda: cuda_newton.stats_plain(pa, yp, beta, "logistic"),
-            _bound(4.0 * rows * da + 4.0 * rows + 8.0 * da + 4.0 * da * da,
-                   _triangle_flops(rows, da), 4.0 * rows * da)),
+            _k3_bound(rows, da, 4.0 if staged is None else 2.0)),
     }
     out = {}
     for name, (kernel, plain, (bound_ms, bound_by)) in calls.items():
@@ -997,7 +1037,7 @@ def _ooc_panel_kernels(torch, app, dX, dy, beta):
             got, ref = (got,), (ref,)
         errs = [rel_err(a, b) for a, b in zip(got, ref)]
         rel = max(r for _, r in errs)
-        assert rel <= FULL_REL, (name, "at the panel shape", rel)
+        assert rel <= FULL_REL, (name, "at", tuple(pa.shape), rel)
         del got, ref
         out[name] = {"shape": [rows, da if name != "gram" else d],
                      "max_abs_err": max(e for e, _ in errs),
@@ -1701,6 +1741,384 @@ def phase_linalg(torch, smi, app, wide):
     return linalg_launches
 
 
+# Phase 10: the HIGGS pipeline (CSV -> split -> logistic fit -> accuracy)
+# at the shape of the UCI HIGGS file, 11,000,000 rows of a label and 28
+# features, not cut. The file itself is not here: the text is written from
+# a seed, N(0,1) features and labels from a planted beta.
+HIGGS_ROWS, HIGGS_FEATURES = 11_000_000, 28
+HIGGS_SEED = 2014
+HIGGS_CHUNK_ROWS = 125_000    # rows a writer process formats at a time
+HIGGS_WRITERS = 8             # writer processes, at most the host's cores
+HIGGS_PARSE_WORKERS = 16      # byte ranges of read_csv_host
+HIGGS_FMT = "%.9g"            # nine significant digits round-trip float32
+HIGGS_MIN_FREE_BYTES = 8e9    # the text (3.8 GB), its parts, the checkpoints
+HIGGS_BLOCKS = 16             # row blocks of X_test in write_fs and S3
+HIGGS_FORMAT_ROWS = 1000      # rows formatted by one % operation
+
+
+def _higgs_chunk(i, rows, beta):
+    """Rows [i·chunk, i·chunk + rows) of the data: x ~ N(0,1) in float32
+    and labels from ``beta`` with logistic noise, from a generator seeded
+    by (HIGGS_SEED, i). x is drawn first, so x alone can be drawn again."""
+    rng = np.random.default_rng([HIGGS_SEED, i])
+    x = rng.standard_normal((rows, beta.shape[0]), dtype=np.float32)
+    u = rng.random(rows, dtype=np.float32)
+    eta = np.einsum("ij,j->i", x, beta)
+    y = (1.0 / (1.0 + np.exp(-eta)) > u).astype(np.float32)
+    return x, y
+
+
+def _higgs_write_part(args):
+    """Format one chunk as CSV text (label, then the features) into the
+    file ``path``; returns the chunk's labels. Runs in a writer process."""
+    i, rows, beta, path = args
+    x, y = _higgs_chunk(i, rows, beta)
+    table = np.concatenate([y[:, None], x], axis=1).astype(np.float64)
+    row_fmt = ",".join([HIGGS_FMT] * table.shape[1]) + "\n"
+    with open(path, "wb") as f:
+        for lo in range(0, rows, HIGGS_FORMAT_ROWS):
+            blk = table[lo:lo + HIGGS_FORMAT_ROWS]
+            f.write(((row_fmt * len(blk)) % tuple(blk.ravel().tolist()))
+                    .encode())
+    return y
+
+
+def _higgs_write_csv(path, beta, workers):
+    """Write the whole file: a pool of ``workers`` writer processes formats
+    the chunks into part files, appended to ``path`` in order as they
+    arrive. Returns the labels."""
+    import multiprocessing
+    import shutil
+
+    n = HIGGS_ROWS
+    jobs = [(i, min(HIGGS_CHUNK_ROWS, n - lo), beta, f"{path}.part{i}")
+            for i, lo in enumerate(range(0, n, HIGGS_CHUNK_ROWS))]
+    ys = []
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(workers) as pool, open(path, "wb") as out:
+        for job, y in zip(jobs, pool.imap(_higgs_write_part, jobs)):
+            with open(job[3], "rb") as part:
+                shutil.copyfileobj(part, out, 1 << 24)
+            os.remove(job[3])
+            ys.append(y)
+    return np.concatenate(ys)
+
+
+def _higgs_features():
+    """The features again, from the chunks' seeds (numpy's generators
+    release the GIL: one thread per chunk in flight)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    n = HIGGS_ROWS
+    x = np.empty((n, HIGGS_FEATURES), np.float32)
+
+    def fill(job):
+        i, lo = job
+        rows = min(HIGGS_CHUNK_ROWS, n - lo)
+        rng = np.random.default_rng([HIGGS_SEED, i])
+        x[lo:lo + rows] = rng.standard_normal((rows, HIGGS_FEATURES),
+                                              dtype=np.float32)
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as ex:
+        list(ex.map(fill, enumerate(range(0, n, HIGGS_CHUNK_ROWS))))
+    return x
+
+
+def _bits_equal(a, b):
+    """Equal shape, dtype and bytes (so -0.0 is not 0.0 and nan is nan)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and np.array_equal(np.ascontiguousarray(a).view(np.uint8),
+                               np.ascontiguousarray(b).view(np.uint8)))
+
+
+def _dir_bytes(path):
+    """{file name: bytes} of a checkpoint directory."""
+    out = {}
+    for name in sorted(os.listdir(path)):
+        with open(os.path.join(path, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def _higgs_checkpoints(torch, app, Xb, x_host, root):
+    """X_test through write_fs/read_fs with the native block engine and
+    with it switched off (``shard_native.get_lib`` giving None, as on a
+    host without a compiler), then through the s3:// verbs on the
+    file-backed fake: arrays bitwise equal, files byte-equal, no object
+    left after delete. Returns the seconds of each."""
+    import nums_tpu_torch
+    from nums_tpu_torch.core.io import shard_native
+    from nums_tpu_torch.core.io.fake_s3 import FileBackedFakeS3Client
+
+    out = {}
+    calls = {"write": 0, "read": 0}
+    write_shards = shard_native.write_shards
+    read_windows = shard_native.read_block_windows
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            ok = fn(*args, **kwargs)
+            calls[name] += bool(ok)
+            return ok
+        return wrapper
+
+    def round_trip(route):
+        path = os.path.join(root, f"x_test_{route}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        app.write_fs(Xb, path)
+        out[f"write_fs_{route}_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = app.read_fs(path)
+        torch.cuda.synchronize()
+        out[f"read_fs_{route}_s"] = time.perf_counter() - t0
+        assert back.block_shape == Xb.block_shape, back.block_shape
+        assert _bits_equal(back.get(), x_host), f"read_fs ({route})"
+        return path
+
+    shard_native.write_shards = counted("write", write_shards)
+    shard_native.read_block_windows = counted("read", read_windows)
+    get_lib = shard_native.get_lib
+    try:
+        native_dir = round_trip("native")
+        assert calls == {"write": 1, "read": 1}, calls
+        shard_native.get_lib = lambda: None
+        numpy_dir = round_trip("numpy")
+        assert calls == {"write": 1, "read": 1}, calls
+    finally:
+        shard_native.get_lib = get_lib
+        shard_native.write_shards = write_shards
+        shard_native.read_block_windows = read_windows
+    assert _dir_bytes(native_dir) == _dir_bytes(numpy_dir), (
+        "native and numpy checkpoints differ")
+    out["checkpoint_files"] = len(os.listdir(native_dir))
+
+    fake_root = os.path.join(root, "s3")
+    client = FileBackedFakeS3Client(fake_root)
+    client.create_bucket("higgs")
+    old = os.environ.get("NUMS_TPU_TORCH_FAKE_S3_DIR")
+    os.environ["NUMS_TPU_TORCH_FAKE_S3_DIR"] = fake_root
+    try:
+        t0 = time.perf_counter()
+        nums_tpu_torch.write(Xb, "s3://higgs/x_test")
+        out["s3_write_s"] = time.perf_counter() - t0
+        out["s3_objects"] = client.list_objects_v2("higgs")["KeyCount"]
+        assert out["s3_objects"] == HIGGS_BLOCKS + 1, out
+        t0 = time.perf_counter()
+        back = nums_tpu_torch.read("s3://higgs/x_test")
+        torch.cuda.synchronize()
+        out["s3_read_s"] = time.perf_counter() - t0
+        assert back.block_shape == Xb.block_shape, back.block_shape
+        assert _bits_equal(back.get(), x_host), "s3 read"
+        t0 = time.perf_counter()
+        nums_tpu_torch.delete("s3://higgs/x_test")
+        out["s3_delete_s"] = time.perf_counter() - t0
+        assert client.list_objects_v2("higgs")["KeyCount"] == 0
+    finally:
+        if old is None:
+            del os.environ["NUMS_TPU_TORCH_FAKE_S3_DIR"]
+        else:
+            os.environ["NUMS_TPU_TORCH_FAKE_S3_DIR"] = old
+    return out
+
+
+def phase_higgs(torch, smi, app):
+    """The HIGGS pipeline through the public entry points, on text:
+
+    | step                                        | kernels            |
+    |---------------------------------------------|--------------------|
+    | the CSV written from a seed (writer pool)   | none (host)        |
+    | app.fs.read_csv_host (16 byte ranges)       | none (host C++)    |
+    | BlockArray.from_np, app.array               | none (host->card)  |
+    | X[:split], X[split:] at 80/20               | none (views)       |
+    | X_train.T @ X_train                         | K1, 1 launch       |
+    | LogisticRegression(newton).fit              | K3: 1 stage, 10    |
+    | predict on the test rows, cold and warm     | none (fp32 GEMV)   |
+    | write_fs/read_fs (native, numpy), s3:// verbs | none (card<->host) |
+
+    The launch counts are set to 0 just before the gram and read just
+    after the second predict."""
+    import resource
+    import shutil
+    import tempfile
+    from io import StringIO
+
+    from nums_tpu_torch.core import settings
+    from nums_tpu_torch.core.array.blockarray import BlockArray
+    from nums_tpu_torch.core.io import _native
+    from nums_tpu_torch.core.ops import cuda_newton
+    from nums_tpu_torch.models.glms import LogisticRegression
+
+    n, d = HIGGS_ROWS, HIGGS_FEATURES
+    os.makedirs(settings.data_dir, exist_ok=True)
+    free = shutil.disk_usage(settings.data_dir).free
+    assert free >= HIGGS_MIN_FREE_BYTES, (
+        f"phase 10 needs {HIGGS_MIN_FREE_BYTES / 1e9:.0f} GB free under "
+        f"{settings.data_dir}; {free / 1e9:.1f} GB are free")
+    root = tempfile.mkdtemp(prefix="chip_smoke_higgs-", dir=settings.data_dir)
+    out = {"phase": "higgs", "card": smi, "shape": [n, d + 1],
+           "rows_written": n, "data_dir_free_bytes": free,
+           "max_rss_before_bytes": 1024 * resource.getrusage(
+               resource.RUSAGE_SELF).ru_maxrss}
+    t_phase = time.perf_counter()
+    try:
+        beta_true = (0.3 * np.random.default_rng(HIGGS_SEED).standard_normal(
+            d)).astype(np.float32)
+        path = os.path.join(root, "higgs.csv")
+        out["host_cpus"] = os.cpu_count()
+        out["csv_writers"] = max(1, min(HIGGS_WRITERS, os.cpu_count() or 1))
+        t0 = time.perf_counter()
+        y_true = _higgs_write_csv(path, beta_true, out["csv_writers"])
+        out["csv_write_s"] = time.perf_counter() - t0
+        mb = os.path.getsize(path) / 1e6
+        out["csv_mb"] = mb
+        t0 = time.perf_counter()
+        x_true = _higgs_features()
+        out["features_again_s"] = time.perf_counter() - t0
+
+        # Ingest. The file must parse on the native route alone.
+        # (The parse threads append: a list's append is atomic.)
+        routes = []
+        parse_into, parse_bytes = _native.parse_bytes_into, _native.parse_bytes
+
+        def count(route, fn):
+            def wrapper(*args):
+                routes.append(route)
+                return fn(*args)
+            return wrapper
+
+        _native.parse_bytes_into = count("native", parse_into)
+        _native.parse_bytes = count("numpy", parse_bytes)
+        try:
+            t0 = time.perf_counter()
+            host = app.fs.read_csv_host(path, num_workers=HIGGS_PARSE_WORKERS)
+            out["parse_s"] = time.perf_counter() - t0
+        finally:
+            _native.parse_bytes_into = parse_into
+            _native.parse_bytes = parse_bytes
+        out["parse_mb_per_s"] = mb / out["parse_s"]
+        assert routes == ["native"] * HIGGS_PARSE_WORKERS, routes
+        out["parse_route"] = "native"
+        out["parse_ranges"] = len(routes)
+        assert host.shape == (n, d + 1) and host.dtype == np.float64, (
+            host.shape, host.dtype)
+        x_host = host[:, 1:].astype(np.float32)
+        y_host = host[:, 0].astype(np.float32)
+        assert _bits_equal(x_host, x_true), "ingested X differs from its source"
+        assert _bits_equal(y_host, y_true), "ingested y differs from its source"
+        del x_true, y_true
+        # The native parser against numpy's on the same bytes.
+        t0 = time.perf_counter()
+        ranges = app.fs._byte_ranges(path, HIGGS_PARSE_WORKERS)
+        assert len(ranges) == HIGGS_PARSE_WORKERS, ranges
+        for start, stop in (ranges[0], ranges[-1]):
+            with open(path, "rb") as f:
+                f.seek(start)
+                raw = f.read(stop - start)
+            got, ok = _native.parse_bytes(raw, ",")
+            assert ok, "the native parser declined a range"
+            ref = np.loadtxt(StringIO(raw.decode()), delimiter=",", ndmin=2)
+            assert _bits_equal(got, ref), ("native parse vs np.loadtxt",
+                                           start, stop)
+            del raw, got, ref
+        out["native_vs_loadtxt_s"] = time.perf_counter() - t0
+
+        # Host to device, as the reference's pipeline script does it.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        X = BlockArray.from_np(host[:, 1:].astype(np.float32, copy=False),
+                               block_shape=(n, d), backend=app.backend)
+        y = app.array(host[:, 0].astype(np.float32, copy=False),
+                      block_shape=(n,))
+        del host
+        torch.cuda.synchronize()
+        out["host_to_device_s"] = time.perf_counter() - t0
+        assert X.data.device.type == DEVICE and X.data.dtype == torch.float32
+        split = int(n * 0.8)
+        X_train, y_train = X[:split], y[:split]
+        X_test, y_test = X[split:], y[split:]
+
+        _reset_counts()
+        t0 = time.perf_counter()
+        G = X_train.T @ X_train
+        G.touch()
+        torch.cuda.synchronize()
+        out["gram_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model = LogisticRegression(**FIT).fit(X_train, y_train)
+        torch.cuda.synchronize()
+        out["fit_s"] = time.perf_counter() - t0
+        labels = y_test.astype(np.int64)
+        for turn in ("cold", "warm"):
+            t0 = time.perf_counter()
+            acc = float((model.predict(X_test) == labels).mean())
+            out[f"predict_{turn}_s"] = time.perf_counter() - t0
+        counts = _counts()
+        out["launches"] = counts
+        assert counts == {"gram": 1, "gram_weighted": FIT["max_iter"],
+                          "newton_stage": 1,
+                          "newton_stats": FIT["max_iter"]}, counts
+
+        assert G.shape == (d, d) and bool(torch.isfinite(G.data).all())
+        _, out["gram_rel_err_vs_f64"] = rel_err(G.data, _gram64(X_train.data))
+        assert out["gram_rel_err_vs_f64"] <= BF16_REL, out
+        bt = torch.from_numpy(beta_true).to(DEVICE)
+        out["accuracy"] = acc
+        out["accuracy_true_beta"] = float(
+            ((X_test.data @ bt > 0) == (y_test.data > 0.5)).float().mean())
+        assert abs(acc - out["accuracy_true_beta"]) <= ACC_SLACK, out
+        beta_k = _beta_of(torch, model)
+        assert bool(torch.isfinite(beta_k).all())
+        out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        # A second fit, outside the counted path: the first one carries
+        # whatever this process set up on its first fit at this width.
+        _, out["fit_again_s"], _, _ = _timed_fit(
+            torch, lambda: LogisticRegression(**FIT), X_train, y_train)
+        ref, out["fit_highest_s"] = _highest(
+            torch, lambda: LogisticRegression(**FIT), X_train, y_train)
+        _, out["beta_rel_err_vs_highest"] = rel_err(beta_k,
+                                                    _beta_of(torch, ref))
+        assert out["beta_rel_err_vs_highest"] <= BETA_REL, out
+        _, out["beta_rel_err_vs_planted"] = rel_err(beta_k[:d], bt)
+
+        # K1, K2 and K3 at this path's shapes, K3 on X staged as the fit
+        # stages it, at half the fitted beta (at the optimum g is rounding
+        # noise, which no relative tolerance holds).
+        xa = torch.cat([X_train.data,
+                        torch.ones(split, 1, device=DEVICE)], dim=1)
+        out["kernels"] = _kernels_at(
+            torch, X_train.data, xa, y_train.data, 0.5 * beta_k,
+            staged=cuda_newton.prepare(xa))
+        del xa, G, ref, model
+
+        # Device seconds of the pipeline's kernels over its seconds from
+        # the first byte parsed to the second predict.
+        pipeline = sum(out[k] for k in (
+            "parse_s", "host_to_device_s", "gram_s", "fit_s",
+            "predict_cold_s", "predict_warm_s"))
+        out["pipeline_s"] = pipeline
+        out["pipeline_kernel_share"] = (
+            out["kernels"]["gram"]["ms"]
+            + FIT["max_iter"] * out["kernels"]["newton_stats"]["ms"]
+        ) / 1e3 / pipeline
+
+        rows = -(-(n - split) // HIGGS_BLOCKS)
+        Xb = X_test.reshape(block_shape=(rows, d))
+        assert Xb.grid_shape == (HIGGS_BLOCKS, 1), Xb.grid_shape
+        out["checkpoint_shape"] = [n - split, d]
+        out["checkpoint_blocks"] = HIGGS_BLOCKS
+        out.update(_higgs_checkpoints(torch, app, Xb, x_host[split:], root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    assert not os.path.exists(root), root
+    out["max_rss_bytes"] = 1024 * resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 KERNELS = (
     ("gram", "nums_tpu_torch/csrc/gram.cu",
      "nums_tpu/core/ops/pallas_gram.py:139"),
@@ -1711,13 +2129,16 @@ KERNELS = (
 )
 
 
-def kernels_line(counts, fit_counts, times, ooc, linalg_launches):
+def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs):
     """One entry per kernel: "launches" counts the main path (phase 4),
     "launches_per_fit" one fit (phase 6), "launches_ooc" the streamed
     steps of phase 8 (the PCA and TruncatedSVD fits among them),
     "launches_linalg" one ``ridge_regression`` of phase 9, the one entry
-    point there that reaches a kernel; "panel_ms" is its time on one
-    resident panel of phase 8, and "panel_bound_ms" that panel's bound.
+    point there that reaches a kernel, "launches_higgs" phase 10's gram,
+    fit and two predicts; "panel_ms" is its time on one resident panel of
+    phase 8, and "panel_bound_ms" that panel's bound; "higgs_ms" its time
+    at phase 10's shape (8.8M x 28 for K1, x 29 for K2 and K3, K3 on X
+    staged once), beside that shape's plain version and bound.
     gram.cu's weighted launches ("gram_weighted") on these paths are K3's
     Hessian, and K2 proper in phase 8's pass with the Newton gate off."""
     return [
@@ -1731,7 +2152,12 @@ def kernels_line(counts, fit_counts, times, ooc, linalg_launches):
          "bound_by": times[name]["bound_by"],
          "library_ms": times[name].get("library_ms"),
          "panel_ms": ooc["panel"][name]["ms"],
-         "panel_bound_ms": ooc["panel"][name]["bound_ms"]}
+         "panel_bound_ms": ooc["panel"][name]["bound_ms"],
+         "launches_higgs": higgs["launches"][name],
+         "higgs_max_abs_err": higgs["kernels"][name]["max_abs_err"],
+         "higgs_ms": higgs["kernels"][name]["ms"],
+         "higgs_plain_ms": higgs["kernels"][name]["plain_ms"],
+         "higgs_bound_ms": higgs["kernels"][name]["bound_ms"]}
         for name, src, rep in KERNELS
     ]
 
@@ -1764,8 +2190,10 @@ def main(argv):
         del X, y, model, ref
         torch.cuda.empty_cache()
         linalg_launches = phase_linalg(torch, smi, app, wide)
+        torch.cuda.empty_cache()
+        higgs = phase_higgs(torch, smi, app)
         emit({"kernels": kernels_line(counts, fit_counts, times, ooc,
-                                      linalg_launches)})
+                                      linalg_launches, higgs)})
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})

@@ -6,7 +6,8 @@ kernels written for Hopper (``nums_tpu_torch/csrc``), built at first use.
 This package imports ``torch`` and never ``jax`` or ``nums_tpu``.
 """
 
-from nums_tpu_torch.api import delete, read, write
+from nums_tpu_torch.api import (delete, read, read_csv, read_parquet, write,
+                                write_parquet)
 from nums_tpu_torch.core import application_manager
 
 
@@ -23,4 +24,5 @@ def init(device=None):
     return application_manager.instance()
 
 
-__all__ = ["read", "write", "delete", "init"]
+__all__ = ["read", "write", "delete", "read_csv", "read_parquet",
+           "write_parquet", "init"]

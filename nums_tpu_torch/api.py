@@ -1,27 +1,164 @@
-"""Top-level I/O verbs (``nums_tpu/api.py:1-27``): ``read``, ``write`` and
-``delete`` of a block checkpoint through the active application's
-``FileSystem``. An ``s3://`` name raises ``NotImplementedError`` until S3
-is ported; CSV and Parquet are later ports too."""
+"""Top-level I/O verbs (``nums_tpu/api.py``) on the active application:
+``read``, ``write`` and ``delete`` of a block checkpoint (an ``s3://``
+name goes to S3, any other to the filesystem), ``read_csv``, and Parquet
+files to and from a BlockArray or a DiskArray. pyarrow is imported inside
+the Parquet functions, so the package imports without it."""
+
+import numpy as np
 
 from nums_tpu_torch.core.application_manager import instance as _instance
 
-
-def _local(filename: str) -> str:
-    if filename.startswith("s3://"):
-        raise NotImplementedError(
-            f"{filename!r}: S3 storage is not ported yet; use a local path"
-        )
-    return filename
+_S3 = "s3://"
 
 
 def read(filename: str):
     """Read a persisted BlockArray."""
-    return _instance().read_fs(_local(filename))
+    if filename.startswith(_S3):
+        return _instance().read_s3(filename[len(_S3):])
+    return _instance().read_fs(filename)
 
 
 def write(ba, filename: str):
-    return _instance().write_fs(ba, _local(filename))
+    if filename.startswith(_S3):
+        return _instance().write_s3(ba, filename[len(_S3):])
+    return _instance().write_fs(ba, filename)
 
 
 def delete(filename: str):
-    return _instance().delete_fs(_local(filename))
+    if filename.startswith(_S3):
+        return _instance().delete_s3(filename[len(_S3):])
+    return _instance().delete_fs(filename)
+
+
+def read_csv(filename, dtype=float, delimiter=",", has_header=False,
+             num_workers=None):
+    return _instance().read_csv(
+        filename, dtype=dtype, delimiter=delimiter, has_header=has_header,
+        num_workers=num_workers,
+    )
+
+
+def _parquet_row_groups(pf, columns, dtype):
+    assert pf.num_row_groups > 0, "parquet file has no row groups"
+    for i in range(pf.num_row_groups):
+        arr = pf.read_row_group(i, columns=columns).to_pandas().to_numpy()
+        if dtype is not None:
+            arr = arr.astype(dtype)
+        yield arr
+
+
+def _rechunk(panels, rows_per_panel):
+    """A stream of row panels cut anew into panels of exactly
+    ``rows_per_panel`` rows (the last ragged), holding one output panel."""
+    assert rows_per_panel > 0, rows_per_panel
+    buf = []
+    have = 0
+    for p in panels:
+        buf.append(p)
+        have += p.shape[0]
+        while have >= rows_per_panel:
+            cat = np.concatenate(buf, axis=0) if len(buf) > 1 else buf[0]
+            yield cat[:rows_per_panel]
+            rest = cat[rows_per_panel:]
+            buf = [rest] if rest.shape[0] else []
+            have = rest.shape[0]
+    if have:
+        yield np.concatenate(buf, axis=0) if len(buf) > 1 else buf[0]
+
+
+def read_parquet(filename, columns=None, dtype=None, out=None,
+                 block_rows=None):
+    """A Parquet file as a BlockArray; ``block_rows`` sets its row
+    blocking. With ``out=<path>`` the row groups stream to a DiskArray at
+    that path instead, one group and one block in host memory at a time,
+    so the file may be larger than the host's and the device's memory.
+    Needs pyarrow."""
+    import pyarrow.parquet as pq
+
+    if block_rows is not None:
+        assert block_rows > 0, block_rows
+    pf = pq.ParquetFile(filename)
+    if out is not None:
+        return _read_parquet_ooc(pf, columns, dtype, out, block_rows)
+    from nums_tpu_torch.experimental.nums_modin import _from_row_parts
+
+    parts = list(_parquet_row_groups(pf, columns, dtype))
+    block_shape = (
+        (block_rows, parts[0].shape[1]) if block_rows is not None else None
+    )
+    return _from_row_parts(parts, dtype=dtype, block_shape=block_shape)
+
+
+def _read_parquet_ooc(pf, columns, dtype, out, block_rows):
+    """Stream the row groups to a DiskArray at ``out``. Width and dtype
+    come from the first group as decoded (the schema misleads on a pandas
+    index column and on nullable integers that decode to float64); the
+    stream goes on after it, so no group is decoded twice."""
+    from nums_tpu_torch.core.array.diskarray import DiskArray
+
+    n = pf.metadata.num_rows
+    groups = _parquet_row_groups(pf, columns, dtype)
+    first = next(groups)
+    d = first.shape[1]
+    out_dtype = np.dtype(dtype) if dtype is not None else first.dtype
+    if block_rows is None:
+        block_rows = max(1, min(n, first.shape[0]))
+
+    def panels():
+        yield first
+        yield from groups  # goes on from row group 1
+
+    return DiskArray.from_panels(
+        out, _instance().fs, _rechunk(panels(), block_rows), (n, d),
+        out_dtype, block_rows,
+    )
+
+
+def write_parquet(ba, filename: str, column_names=None,
+                  row_group_rows: int = None):
+    """A BlockArray or a DiskArray as a Parquet file, one row group per
+    row stripe (``row_group_rows`` rows; by default a row block, or a
+    DiskArray's panel): host memory holds one stripe. Needs pyarrow."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from nums_tpu_torch.core.array.diskarray import DiskArray
+
+    assert ba.ndim == 2, ba.shape
+    d = ba.shape[1]
+    names = (
+        list(column_names) if column_names is not None
+        else [f"c{i}" for i in range(d)]
+    )
+    assert len(names) == d, (len(names), d)
+    if row_group_rows is not None:
+        assert row_group_rows > 0, row_group_rows
+    if isinstance(ba, DiskArray):
+        stripes = (p for _, p in ba.iter_row_panels())
+        if row_group_rows is not None:
+            stripes = _rechunk(stripes, int(row_group_rows))
+    else:
+        rows = row_group_rows or max(1, ba.block_shape[0])
+        data = ba.data  # the logical view, once
+        stripes = (
+            data[start:start + rows].cpu().numpy()
+            for start in range(0, ba.shape[0], rows)
+        )
+    writer = None
+    try:
+        for stripe in stripes:
+            table = pa.table(
+                {nm: stripe[:, j] for j, nm in enumerate(names)}
+            )
+            if writer is None:
+                writer = pq.ParquetWriter(filename, table.schema)
+            writer.write_table(table)
+        if writer is None:  # zero rows: still a valid file
+            empty = pa.table(
+                {nm: np.empty(0, np.dtype(ba.dtype)) for nm in names}
+            )
+            writer = pq.ParquetWriter(filename, empty.schema)
+            writer.write_table(empty)
+    finally:
+        if writer is not None:
+            writer.close()

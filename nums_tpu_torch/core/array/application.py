@@ -537,8 +537,8 @@ class ArrayApplication:
         return arrs[0] if len(arrs) == 1 else arrs
 
     # ------------------------------------------------------------------
-    # I/O (nums_tpu application.py:889-896, 1050-1051): the FileSystem's
-    # block checkpoints
+    # I/O (nums_tpu application.py:889-896, 1050-1089): the FileSystem's
+    # block checkpoints, S3 objects and text ingestion
     # ------------------------------------------------------------------
 
     def write_fs(self, ba: BlockArray, filename: str, replicas: int = None):
@@ -552,6 +552,43 @@ class ArrayApplication:
 
     def delete_fs(self, filename: str):
         return self.fs.delete_fs(filename)
+
+    def write_s3(self, ba: BlockArray, filename: str):
+        return self.fs.write_s3(ba, filename)
+
+    def read_s3(self, filename: str) -> BlockArray:
+        return self.fs.read_s3(filename)
+
+    def delete_s3(self, filename: str):
+        return self.fs.delete_s3(filename)
+
+    def _default_blocks(self, arr: BlockArray) -> BlockArray:
+        """``arr`` in the block shape ``get_block_shape`` gives its shape."""
+        block_shape = self.get_block_shape(arr.shape, arr.dtype)
+        if block_shape != arr.block_shape:
+            arr = arr.reshape(block_shape=block_shape)
+        return arr
+
+    def read_csv(
+        self, filename, dtype=float, delimiter=",", has_header=False,
+        num_workers=None,
+    ):
+        return self._default_blocks(self.fs.read_csv(
+            filename, dtype=dtype, delimiter=delimiter, has_header=has_header,
+            num_workers=num_workers,
+        ))
+
+    def loadtxt(
+        self, fname, dtype=float, comments="# ", delimiter=" ",
+        converters=None, skiprows=0, usecols=None, unpack=False, ndmin=0,
+        encoding="bytes", max_rows=None, num_workers=None,
+    ) -> BlockArray:
+        return self._default_blocks(self.fs.loadtxt(
+            fname, dtype=dtype, comments=comments, delimiter=delimiter,
+            converters=converters, skiprows=skiprows, usecols=usecols,
+            unpack=unpack, ndmin=ndmin, encoding=encoding, max_rows=max_rows,
+            num_workers=num_workers,
+        ))
 
     # ------------------------------------------------------------------
     # Out-of-core (DiskArray) ops (nums_tpu application.py:904-1048): one

@@ -1,8 +1,8 @@
-"""Block checkpoints on the local filesystem.
+"""Block checkpoints on the local filesystem and in S3, and parallel
+text ingestion.
 
-Counterpart of the local-disk part of ``nums_tpu/core/io/filesystem.py``
-(lines 36-247 and 280-385, 541-790 there), in one process. An array on
-disk is a directory with one ``.npy`` file per grid block
+Counterpart of ``nums_tpu/core/io/filesystem.py``, in one process. An
+array on disk is a directory with one ``.npy`` file per grid block
 (``block_<i>_<j>.npy``) and ``meta.pkl`` = ``{"grid": grid.to_meta(),
 "checksums": {file name: crc32}}``, byte for byte the format that
 ``nums_tpu`` writes, so a checkpoint moves between the two packages.
@@ -17,9 +17,18 @@ complete orphan when a crash fell between the two renames. ``replicas``
 guarded by the CRCs, and ``verify_fs(repair=True)`` heals a bad copy
 from an intact one.
 
-The multi-process writers, S3, CSV and ``loadtxt``, and the native block
-engine (``shard_io.cpp``) are later ports; here every block goes through
-``np.save``/``np.load``.
+Block files go through the native engine (``shard_native``: a C++ thread
+pool, the GIL released) and through ``np.save``/``np.load`` where it is
+missing or declines; the files are the same either way.
+
+In S3 an array is one pickled numpy block per object, keyed
+``<name>_<i>_<j>``, and the pickled grid under ``<name>_meta``, written
+last: the objects nums_tpu writes. boto3 is optional; the fakes of
+``fake_s3`` stand in where they are asked for.
+
+``read_csv`` and ``loadtxt`` split a text file into newline-aligned byte
+ranges and parse them on parallel threads, the numeric ranges with the
+native parser (``_native``), the others with ``np.loadtxt``.
 """
 
 import os
@@ -27,12 +36,19 @@ import pickle
 import re
 import shutil
 import zlib
+from concurrent.futures import ThreadPoolExecutor
+from io import StringIO
 
 import numpy as np
 
 from nums_tpu_torch.core import settings
 from nums_tpu_torch.core.grid import ArrayGrid
 from nums_tpu_torch.core.array.blockarray import BlockArray
+from nums_tpu_torch.core.io import _native, shard_native
+
+# Blocks fetched from the device and written by one call of the native
+# engine: host memory holds this many blocks, not the array.
+WRITE_BATCH_BLOCKS = 16
 
 
 def _fs_path(filename: str) -> str:
@@ -245,16 +261,27 @@ def _place(out, dst, blk):
     out[dst] = blk.reshape(()) if out.ndim == 0 else blk
 
 
+def _s3_parse(filename: str):
+    assert not filename.startswith("s3://"), "pass keys without scheme"
+    bucket, _, key = filename.partition("/")
+    return bucket, key
+
+
+def _s3_block_key(key: str, grid_entry: tuple) -> str:
+    return f"{key}_" + "_".join(map(str, grid_entry))
+
+
 class FileSystem:
-    """Block I/O of one process on the local filesystem."""
+    """Block I/O and text ingestion of one process."""
 
     def __init__(self, backend):
         self.backend = backend
 
     def write_fs(self, ba: BlockArray, filename: str, replicas: int = None):
-        """Crash-consistent, optionally replicated write of ``ba``: one
-        block at a time leaves the device, so host memory holds one
-        block. Returns one True per block."""
+        """Crash-consistent, optionally replicated write of ``ba``: a
+        batch of blocks at a time leaves the device and is written by the
+        native engine (``np.save`` where it declines), so host memory
+        holds one batch. Returns one True per block."""
         if replicas is None:
             replicas = settings.checkpoint_replicas
         final_path = _fs_path(filename)
@@ -267,12 +294,16 @@ class FileSystem:
         data = ba.data
         checksums = {}
         entries = list(ba.grid.get_entry_iterator())
-        for e in entries:
-            blk = _host_block(data, ba.grid, e)
-            fname = _block_fname(e)
-            checksums[fname] = _block_crc(blk)
-            for t in tmps:
-                np.save(os.path.join(t, fname), blk)
+        for i in range(0, len(entries), WRITE_BATCH_BLOCKS):
+            batch = entries[i:i + WRITE_BATCH_BLOCKS]
+            blocks = [_host_block(data, ba.grid, e) for e in batch]
+            for e, blk in zip(batch, blocks):
+                checksums[_block_fname(e)] = _block_crc(blk)
+            items = [(os.path.join(t, _block_fname(e)), blk)
+                     for t in tmps for e, blk in zip(batch, blocks)]
+            if not shard_native.write_shards(items):
+                for p, blk in items:
+                    np.save(p, blk)
         meta = {"grid": ba.grid.to_meta(), "checksums": checksums}
         for t in tmps:
             _write_meta(t, meta)
@@ -320,25 +351,33 @@ class FileSystem:
 
     def read_fs(self, filename: str, verify: bool = False) -> BlockArray:
         """The array, assembled in host memory and placed on the device
-        once, with the stored block shape. A primary block that is
+        once, with the stored block shape. The native engine reads every
+        block straight into its window of the host buffer; when it
+        declines or any read fails, and under ``verify=True`` (a window
+        read cannot checksum), blocks load one by one: a primary that is
         missing or does not load fails over to the replicas (always
-        CRC-guarded); ``verify=True`` CRC-checks the primaries too."""
+        CRC-guarded), and ``verify`` CRC-checks the primaries too."""
         path = _fs_path(filename)
         meta = self.read_meta_fs(filename)
         alt_dirs = _existing_replicas(path)
         checks = meta.get("checksums")
         grid = ArrayGrid.from_meta(meta["grid"])
         out = np.zeros(grid.shape, dtype=np.dtype(grid.dtype))
+        jobs = []
         for entry in grid.get_entry_iterator():
-            p = os.path.join(path, _block_fname(entry))
             dst = grid.get_slice(entry)
-            if not verify:
-                try:
-                    _place(out, dst, np.load(p))
-                    continue
-                except Exception:
-                    pass  # fail over to the replicas
-            _place(out, dst, self._load_block_checked(p, alt_dirs, checks))
+            src = tuple(slice(0, s.stop - s.start) for s in dst)
+            jobs.append((os.path.join(path, _block_fname(entry)), src, dst))
+        if verify or not shard_native.read_block_windows(jobs, out):
+            for p, _, dst in jobs:
+                if not verify:
+                    try:
+                        _place(out, dst, np.load(p))
+                        continue
+                    except Exception:
+                        pass  # fail over to the replicas
+                _place(out, dst,
+                       self._load_block_checked(p, alt_dirs, checks))
         return BlockArray.from_np(out, block_shape=grid.block_shape,
                                   backend=self.backend)
 
@@ -405,3 +444,273 @@ class FileSystem:
 
     def exists_fs(self, filename: str) -> bool:
         return _recover_fs_dir(_fs_path(filename))
+
+    # -- S3 -------------------------------------------------------------
+
+    # A callable that returns the client, for tests and other object
+    # stores. When None: the fakes where the environment asks for them,
+    # else boto3.
+    s3_client_factory = None
+
+    def _s3_client(self):
+        if FileSystem.s3_client_factory is not None:
+            return FileSystem.s3_client_factory()
+        # A fake that was asked for outranks an importable boto3: a test
+        # that sets NUMS_TPU_TORCH_FAKE_S3_DIR must never reach real S3.
+        fake_dir = os.environ.get("NUMS_TPU_TORCH_FAKE_S3_DIR")
+        if fake_dir:
+            from nums_tpu_torch.core.io.fake_s3 import FileBackedFakeS3Client
+
+            return FileBackedFakeS3Client(fake_dir)
+        if os.environ.get("NUMS_TPU_TORCH_FAKE_S3") == "1":
+            from nums_tpu_torch.core.io.fake_s3 import FakeS3Client
+
+            return FakeS3Client()
+        try:
+            import boto3
+        except ImportError:
+            raise RuntimeError(
+                "boto3 is not available; S3 I/O is disabled in this build "
+                "(set NUMS_TPU_TORCH_FAKE_S3=1 for the in-process fake)."
+            ) from None
+        return boto3.client("s3")
+
+    def write_s3(self, ba: BlockArray, filename: str):
+        """One object per block (a pickled C-ordered numpy array, which
+        nums_tpu reads too), then the grid's meta object: readers key on
+        it, so a writer that fails midway never exposes a grid with
+        missing blocks. Returns one True per block."""
+        client = self._s3_client()
+        bucket, key = _s3_parse(filename)
+        data = ba.data
+        results = []
+        for grid_entry in ba.grid.get_entry_iterator():
+            block = _host_block(data, ba.grid, grid_entry)
+            client.put_object(
+                Bucket=bucket, Key=_s3_block_key(key, grid_entry),
+                Body=pickle.dumps(block),
+            )
+            results.append(True)
+        meta = {"grid": ba.grid.to_meta()}
+        client.put_object(
+            Bucket=bucket, Key=f"{key}_meta", Body=pickle.dumps(meta)
+        )
+        return np.array(results, dtype=bool)
+
+    def read_meta_s3(self, filename: str) -> dict:
+        client = self._s3_client()
+        bucket, key = _s3_parse(filename)
+        obj = client.get_object(Bucket=bucket, Key=f"{key}_meta")
+        return pickle.loads(obj["Body"].read())
+
+    def read_s3(self, filename: str) -> BlockArray:
+        """The array, assembled on the host block by block and placed on
+        the device once, with the stored block shape."""
+        client = self._s3_client()
+        bucket, key = _s3_parse(filename)
+        grid = ArrayGrid.from_meta(self.read_meta_s3(filename)["grid"])
+        out = np.zeros(grid.shape, dtype=np.dtype(grid.dtype))
+        for grid_entry in grid.get_entry_iterator():
+            obj = client.get_object(
+                Bucket=bucket, Key=_s3_block_key(key, grid_entry))
+            _place(out, grid.get_slice(grid_entry),
+                   pickle.loads(obj["Body"].read()))
+        return BlockArray.from_np(out, block_shape=grid.block_shape,
+                                  backend=self.backend)
+
+    def delete_s3(self, filename: str):
+        client = self._s3_client()
+        bucket, key = _s3_parse(filename)
+        grid = ArrayGrid.from_meta(self.read_meta_s3(filename)["grid"])
+        keys = [f"{key}_meta"] + [
+            _s3_block_key(key, e) for e in grid.get_entry_iterator()
+        ]
+        # DeleteObjects takes at most 1000 keys per request.
+        for i in range(0, len(keys), 1000):
+            client.delete_objects(
+                Bucket=bucket,
+                Delete={"Objects": [{"Key": k} for k in keys[i:i + 1000]]},
+            )
+        return np.array([True] * len(keys), dtype=bool)
+
+    # -- parallel text ingestion ----------------------------------------
+
+    def _byte_ranges(self, filename: str, num_workers: int):
+        """Split a file into at most ``num_workers`` byte ranges, each
+        starting just after a newline."""
+        size = os.path.getsize(filename)
+        num_workers = max(1, min(num_workers, size))
+        approx = size // num_workers
+        offsets = [0]
+        with open(filename, "rb") as f:
+            for i in range(1, num_workers):
+                pos = i * approx
+                if pos <= offsets[-1]:
+                    continue
+                f.seek(pos)
+                f.readline()  # on to the next line's first byte
+                aligned = f.tell()
+                if aligned < size:
+                    offsets.append(aligned)
+        offsets.append(size)
+        return [
+            (offsets[i], offsets[i + 1]) for i in range(len(offsets) - 1)
+        ]
+
+    def _default_workers(self) -> int:
+        return max(self.backend.num_devices, os.cpu_count() or 1)
+
+    def read_csv(
+        self, filename, dtype=float, delimiter=",", has_header=False,
+        num_workers=None,
+    ) -> BlockArray:
+        arr = self.read_csv_host(
+            filename, dtype=dtype, delimiter=delimiter,
+            has_header=has_header, num_workers=num_workers,
+        )
+        block_shape = (
+            max(1, arr.shape[0] // max(1, self.backend.num_devices)),
+            arr.shape[1],
+        )
+        return BlockArray.from_np(
+            arr, block_shape=block_shape, backend=self.backend
+        )
+
+    def read_csv_host(
+        self, filename, dtype=float, delimiter=",", has_header=False,
+        num_workers=None,
+    ) -> np.ndarray:
+        """The host stage of :meth:`read_csv`, without the placement on
+        the device, so a caller can time the parse apart from the copy.
+
+        With the native parser every byte range parses straight into its
+        slice of one buffer sized for the whole file (parallel threads,
+        the GIL released): no concatenation. A range that is not purely
+        numeric, or rows of unequal width, send the file to the per-range
+        ``np.loadtxt`` route, which decides what the text means."""
+        if num_workers is None:
+            num_workers = self._default_workers()
+        ranges = self._byte_ranges(filename, num_workers)
+        workers = min(32, len(ranges))
+
+        def load(rng):
+            start, stop = rng
+            with open(filename, "rb") as f:
+                f.seek(start)
+                raw = f.read(stop - start)
+            if start == 0 and has_header:
+                nl = raw.find(b"\n")
+                raw = raw[nl + 1:] if nl >= 0 else b""
+            return raw if raw.strip() else b""
+
+        arr = None
+        if _native.get_lib() is not None:
+            with ThreadPoolExecutor(max_workers=workers) as ex:
+                raws = list(ex.map(load, ranges))
+            counts = [_native.count_values(r, delimiter) for r in raws]
+            offs = np.zeros(len(counts) + 1, np.int64)
+            np.cumsum(counts, out=offs[1:])
+            out = np.empty(int(offs[-1]), np.float64)
+
+            def parse_into(i):
+                if not raws[i]:
+                    return 0, 0, 0, True
+                return _native.parse_bytes_into(
+                    raws[i], delimiter, out[offs[i]:offs[i + 1]]
+                )
+
+            with ThreadPoolExecutor(max_workers=workers) as ex:
+                results = list(ex.map(parse_into, range(len(raws))))
+            del raws
+            cols = {c for _, _, c, ok in results if ok and c}
+            if all(ok for *_, ok in results) and len(cols) == 1:
+                # The count is an upper bound where lines are blank or
+                # end in a delimiter: close the gaps that leaves.
+                pos = 0
+                for (n, _, _, _), lo in zip(results, offs):
+                    if n and lo != pos:
+                        out[pos:pos + n] = out[lo:lo + n]
+                    pos += n
+                arr = out[:pos].reshape(-1, cols.pop())
+                if np.dtype(dtype) != arr.dtype:
+                    arr = arr.astype(dtype)
+
+        if arr is None:
+            def parse(rng):
+                raw = load(rng)
+                if not raw:
+                    return None
+                a, ok = _native.parse_bytes(raw, delimiter)
+                if ok:
+                    return (
+                        a if np.dtype(dtype) == a.dtype else a.astype(dtype)
+                    )
+                return np.loadtxt(
+                    StringIO(raw.decode()), dtype=dtype,
+                    delimiter=delimiter, ndmin=2,
+                )
+
+            with ThreadPoolExecutor(max_workers=workers) as ex:
+                parts = [
+                    p for p in ex.map(parse, ranges)
+                    if p is not None and p.size
+                ]
+            if not parts:
+                raise ValueError(
+                    f"{filename}: no data rows (empty or blank file)"
+                )
+            arr = (
+                np.concatenate(parts, axis=0) if len(parts) > 1
+                else parts[0]
+            )
+        return arr
+
+    def loadtxt(
+        self, fname, dtype=float, comments="# ", delimiter=" ",
+        converters=None, skiprows=0, usecols=None, unpack=False, ndmin=0,
+        encoding="bytes", max_rows=None, num_workers=None,
+    ) -> BlockArray:
+        """``np.loadtxt`` into a BlockArray. The simple argument
+        combinations split the file into newline-aligned byte ranges
+        parsed on parallel threads; converters, usecols, unpack, ndmin,
+        skiprows and max_rows take numpy's one call, for its exact
+        meaning."""
+        simple = (
+            converters is None and usecols is None and not unpack
+            and ndmin == 0 and skiprows == 0 and max_rows is None
+        )
+        if not simple:
+            arr = np.loadtxt(
+                fname, dtype=dtype, comments=comments, delimiter=delimiter,
+                converters=converters, skiprows=skiprows, usecols=usecols,
+                unpack=unpack, ndmin=ndmin, encoding=encoding,
+                max_rows=max_rows,
+            )
+            return BlockArray.from_np(arr, backend=self.backend)
+
+        if num_workers is None:
+            num_workers = self._default_workers()
+        ranges = self._byte_ranges(fname, num_workers)
+
+        def parse(rng):
+            start, stop = rng
+            with open(fname, "rb") as f:
+                f.seek(start)
+                raw = f.read(stop - start)
+            if not raw.strip():
+                return None
+            return np.loadtxt(
+                StringIO(raw.decode()), dtype=dtype, comments=comments,
+                delimiter=delimiter, ndmin=2,
+            )
+
+        with ThreadPoolExecutor(max_workers=min(32, len(ranges))) as ex:
+            parts = [
+                p for p in ex.map(parse, ranges) if p is not None and p.size
+            ]
+        if not parts:
+            raise ValueError(f"{fname}: no data rows (empty or blank file)")
+        arr = np.concatenate(parts, axis=0) if len(parts) > 1 else parts[0]
+        # np.loadtxt with ndmin=0 squeezes every axis of size 1: one row
+        # gives (n,), one column (m,), one value a 0-d array.
+        return BlockArray.from_np(np.squeeze(arr), backend=self.backend)

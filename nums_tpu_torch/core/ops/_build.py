@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (``nums_tpu_torch/csrc``).
+"""Build and load the port's native code (``nums_tpu_torch/csrc``).
 
 The sources are compiled by ``nvcc`` into one shared library with a plain
 C interface, loaded with ``ctypes``. The library goes into
@@ -7,6 +7,10 @@ sources, their headers (``csrc/*.cuh``) and flags, so an edited source or
 header rebuilds on its next use and an unchanged one loads at once.
 Nothing is built when a module is imported: the first CUDA call builds,
 and a machine without ``nvcc`` can import and run every CPU path.
+
+The host libraries of the I/O layer (``csrc/*.cpp``: the CSV parser and
+the block I/O engine) are built the same way by the host C++ compiler,
+one library per source (``host_library``).
 """
 
 import ctypes
@@ -91,6 +95,60 @@ def build() -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return target
+
+
+def host_compilers() -> list:
+    """Command prefixes that compile host C++ into a shared library, in
+    the order tried: ``$CXX``, ``c++``, ``g++``, then ``nvcc -x c++`` (a
+    CUDA toolkit drives a host compiler even where none is on the PATH
+    under its usual names)."""
+    out = []
+    for cc in (os.environ.get("CXX"), "c++", "g++"):
+        if cc and shutil.which(cc):
+            out.append([cc, "-fPIC"])
+    try:
+        out.append([nvcc_path(), "-x", "c++", "-Xcompiler", "-fPIC"])
+    except RuntimeError:
+        pass
+    return out
+
+
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared")
+
+
+def host_library(source: str, stem: str, libs=()):
+    """Path of the shared library of ``csrc/<source>``, built by the host
+    C++ compiler (linked against ``libs``, e.g. ``-lpthread``) unless one
+    for this source and these flags exists, or None when no compiler
+    builds it or the build directory cannot be written. The name carries
+    a hash of both."""
+    src = CSRC_DIR / source
+    h = hashlib.sha256(" ".join(HOST_FLAGS + tuple(libs)).encode())
+    h.update(src.read_bytes())
+    target = BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
+    if target.exists():
+        return target
+    try:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    except OSError:  # a package directory that cannot be written
+        return None
+    os.close(fd)
+    try:
+        for cc in host_compilers():
+            try:
+                proc = subprocess.run(
+                    [*cc, *HOST_FLAGS, str(src), "-o", tmp, *libs],
+                    capture_output=True, text=True, timeout=300)
+            except (OSError, subprocess.TimeoutExpired):
+                continue
+            if proc.returncode == 0:
+                os.replace(tmp, target)
+                return target
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return None
 
 
 def lib():

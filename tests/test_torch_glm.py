@@ -18,12 +18,11 @@ nums_tpu, at n = 2048, d = 96.
 
 import json
 
-import jax
 import numpy as np
 import pytest
 
 from torch_parity import (  # noqa: F401
-    GRAM_BF16_REL, jax_app, rel_err, spy_calls, torch_app,
+    GRAM_BF16_REL, jax_app, padded_jax_app, rel_err, spy_calls, torch_app,
 )
 
 from nums_tpu_torch.core import settings
@@ -51,26 +50,6 @@ def _fit(glms, app, X, y, **kw):
     bx = app.array(X, block_shape=(N, D))
     by = app.array(y, block_shape=(N,))
     return glms.LogisticRegression(**{**FIT, **kw}).fit(bx, by), bx, by
-
-
-@pytest.fixture()
-def padded_jax_app(monkeypatch):
-    """nums_tpu with at-rest lane padding and the Pallas gram forced on
-    (interpret mode on the CPU): its kernel route."""
-    from nums_tpu.core import application_manager, settings as jsettings
-
-    monkeypatch.setattr(jsettings, "lane_pad", True)
-    monkeypatch.setattr(jsettings, "lane_pad_min", 8)
-    monkeypatch.setattr(jsettings, "backend_name", "serial")
-    monkeypatch.setenv("NUMS_TPU_PALLAS_GRAM", "1")
-    application_manager.destroy()
-    app = application_manager.create()
-    application_manager.set_instance(app)
-    yield app
-    application_manager.destroy()
-    # The reference's jitted fit is cached by shape: drop it, so that a
-    # later test that spies on the trace (test_lane_pad.py) retraces.
-    jax.clear_caches()
 
 
 def test_kernel_route_matches_pallas_route(padded_jax_app, torch_app,

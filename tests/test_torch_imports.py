@@ -38,6 +38,10 @@ app = nums_tpu_torch.init(device="cpu")
 print(app.backend.device.type)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "nums_tpu")]
 assert not bad, bad
+# The optional dependencies of the I/O layer load inside the functions
+# that need them, not when a module is imported.
+bad = [m for m in ("pyarrow", "pandas", "boto3", "modin") if m in sys.modules]
+assert not bad, bad
 """
 
 
@@ -79,10 +83,14 @@ def test_init_needs_a_card_unless_the_cpu_is_asked_for():
     "nums_tpu_torch.core.ops.linalg",
     "nums_tpu_torch.models.preprocessing",
     "nums_tpu_torch.models.decomposition",
+    "nums_tpu_torch.core.io._native",
+    "nums_tpu_torch.core.io.shard_native",
+    "nums_tpu_torch.core.io.fake_s3",
+    "nums_tpu_torch.experimental.nums_modin",
 ])
 def test_io_and_ooc_modules_import_first(module):
-    """Each module of the I/O, out-of-core and linalg slices imports as
-    the first module of a process (no import cycle), with jax and nums_tpu
+    """Each module of the I/O, out-of-core, linalg and ingestion slices
+    imports as the first module of a process (no import cycle), with jax and nums_tpu
     blocked."""
     probe = _PROBE.split("import nums_tpu_torch\n")[0] + (
         f"import {module}\n"

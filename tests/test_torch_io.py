@@ -14,6 +14,7 @@ with equal labels.
 
 import os
 import pickle
+import sys
 
 import numpy as np
 import pytest
@@ -243,18 +244,24 @@ def test_orphans_cleaned_but_live_writer_kept(torch_app, tmp_path):
         proc.wait(timeout=30)
 
 
-def test_api_verbs(torch_app, tmp_path):
+def test_api_verbs(torch_app, tmp_path, monkeypatch):
     x = np.arange(12.0).reshape(3, 4)
     p = str(tmp_path / "api")
     assert nums_tpu_torch.write(torch_app.array(x, block_shape=(2, 4)),
                                 p).all()
     assert np.array_equal(nums_tpu_torch.read(p).get(), x)
     assert nums_tpu_torch.delete(p).tolist() == [True]
-    with pytest.raises(NotImplementedError, match="S3"):
+    # An s3:// name goes to S3 (tests/test_torch_s3.py): with no boto3
+    # and no fake asked for, each verb says so.
+    monkeypatch.setattr(tfilesystem.FileSystem, "s3_client_factory", None)
+    monkeypatch.delenv("NUMS_TPU_TORCH_FAKE_S3_DIR", raising=False)
+    monkeypatch.delenv("NUMS_TPU_TORCH_FAKE_S3", raising=False)
+    monkeypatch.setitem(sys.modules, "boto3", None)  # not importable
+    with pytest.raises(RuntimeError, match="boto3"):
         nums_tpu_torch.read("s3://bucket/key")
-    with pytest.raises(NotImplementedError, match="S3"):
+    with pytest.raises(RuntimeError, match="boto3"):
         nums_tpu_torch.write(torch_app.array(x), "s3://bucket/key")
-    with pytest.raises(NotImplementedError, match="S3"):
+    with pytest.raises(RuntimeError, match="boto3"):
         nums_tpu_torch.delete("s3://bucket/key")
 
 

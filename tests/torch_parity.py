@@ -43,6 +43,28 @@ def jax_app():
     application_manager.destroy()
 
 
+@pytest.fixture()
+def padded_jax_app(monkeypatch):
+    """nums_tpu with at-rest lane padding and the Pallas gram forced on
+    (interpret mode on the CPU): its kernel route."""
+    from nums_tpu.core import application_manager, settings as jsettings
+
+    monkeypatch.setattr(jsettings, "lane_pad", True)
+    monkeypatch.setattr(jsettings, "lane_pad_min", 8)
+    monkeypatch.setattr(jsettings, "backend_name", "serial")
+    monkeypatch.setenv("NUMS_TPU_PALLAS_GRAM", "1")
+    application_manager.destroy()
+    app = application_manager.create()
+    application_manager.set_instance(app)
+    yield app
+    application_manager.destroy()
+    # The reference's jitted fit is cached by shape: drop it, so that a
+    # later test that spies on the trace (test_lane_pad.py) retraces.
+    import jax
+
+    jax.clear_caches()
+
+
 @pytest.fixture(scope="module")
 def torch_app():
     """nums_tpu_torch's application on the CPU."""
