@@ -1,7 +1,8 @@
 """Smoke run of nums_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py                 # phases 1-10
+    python3 chip_smoke.py                 # phases 1-11
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check
+    python3 chip_smoke.py --random-only   # phases 1 and 11
 
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi);
@@ -23,7 +24,13 @@ Phases, each printing one JSON line:
      -> predict, checked against float64 and plain-float32 references,
      with launch counts showing that it ran through the kernels (X staged
      once for the fit, the statistics once per iteration), and its peak
-     device memory;
+     device memory. X, beta and u are drawn on threefry2x32 counters
+     (``core/ops/threefry.py``): for this seed X is the array the
+     reference draws, held at 16 positions to known answers computed
+     with jax, and to its moments; the 2.5M x 1000 draw is timed beside
+     one ``Tensor.normal_`` of a torch generator (the library call, used
+     nowhere in the port) and its bound, and its peak device memory may
+     exceed the output by at most 2 GB;
   5. times on the card (CUDA events, median of 5 after warm-up), each
      kernel against its plain version at the main path's shapes (K3 in
      each of its logistic, linear and Poisson kinds, on X staged once and
@@ -82,7 +89,20 @@ Phases, each printing one JSON line:
      K2 and K3 at 8.8M x 28/29 against their plain versions; X_test through
      ``write_fs``/``read_fs`` with the native block engine and with
      ``np.save``/``np.load`` (byte-equal files), and through the ``s3://``
-     verbs on the file-backed fake.
+     verbs on the file-backed fake;
+ 11. random: the Random123 vectors on the card; known answers from the
+     reference (bits, ``random``, ``normal``, ``integers(0, 1000)`` at 16
+     flat positions of a 2.5M x 1000 draw and 4 beyond 2^32 of a virtual
+     10M x 1000 one, ``permutation(1000)`` whole; ``RANDOM_KNOWN``); the
+     card against the package's own CPU route on a 2^22-position slice
+     (bits, ``random``, ``integers``, ``permutation(2.5M)`` equal,
+     ``normal`` within 4 ulp) and every other distribution at 2^20 draws
+     within its class's tolerance (the table in ``phase_random``); chunk
+     size and block shape independence, bitwise; ``permutation(2.5M)`` a
+     permutation in two rounds of sort; one draw of each distribution at
+     2^22 against its law; ``get_state``/``set_state`` resuming a stream
+     bitwise; a shuffled ``train_test_split`` of 2.5M rows partitioning
+     them.
 Then the kernels as one JSON line (each with its bound, the least time
 the card could take for its work at this run's shapes), and last
 {"ok": true, "device": {...}}. A failed phase prints its traceback and
@@ -117,6 +137,156 @@ FIT = dict(solver="newton", tol=1e-8, max_iter=10)
 HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOPS = 989e12
 F32_FLOPS = 67e12      # outside the tensor cores
+
+
+# The 2.5M x 1000 draw of phase 4: its peak device memory above the
+# output, and its moments.
+DRAW_SCRATCH_BYTES = 2e9
+X_MEAN_ABS = 1e-4
+X_VAR_ABS = 1e-3
+NORMAL_KNOWN_REL, NORMAL_KNOWN_ABS = 2e-6, 1e-6
+
+# What the reference draws in its accelerator mode (jax, 64-bit types off)
+# under fold_in(key(seed), counter): raw 32-bit draws, ``random``,
+# ``normal`` and ``integers(0, 1000)`` at flat positions of a 2.5M x 1000
+# float32 / int32 draw ("positions": first, last, around a chunk edge of
+# 2^25 and around 2^31) and of a virtual 10M x 1000 one
+# ("positions_beyond_2_32", listed after the others in each value list),
+# and ``permutation(1000)`` whole. Seed and counter are phase 4's X.
+# tests/test_torch_random.py recomputes them with jax and asserts that they
+# are equal.
+RANDOM_KNOWN = {
+    "seed": 1337,
+    "counter": 1,
+    "positions": [0, 1, 999, 1000, 33554431, 33554432, 33554433, 1234567890,
+        2000000000, 2147483647, 2147483648, 2147483649, 1241513983,
+        1241513984, 2499999998, 2499999999],
+    "positions_beyond_2_32": [4294967296, 4294967297, 8589946937,
+        9999999999],
+    "bits": [1764235418, 1822911928, 4072251225, 2341061538, 3759282943,
+        2460913530, 3937008107, 1141846338, 256644132, 1725033432,
+        3938423956, 3454980516, 1073797586, 330244646, 2719107836,
+        2006536914, 3514514198, 383144868, 3775882405, 3408187729],
+    "random": [0.4107680320739746, 0.42442965507507324, 0.948144793510437,
+        0.5450707674026489, 0.8752762079238892, 0.5729759931564331,
+        0.9166560173034668, 0.2658567428588867, 0.05975461006164551,
+        0.40164053440093994, 0.9169857501983643, 0.8044252395629883,
+        0.2500128746032715, 0.07689106464385986, 0.6330915689468384,
+        0.4671832323074341, 0.8182865381240845, 0.08920776844024658,
+        0.879141092300415, 0.7935304641723633],
+    "normal": [-0.2255696803331375, -0.19057399034500122,
+        1.6271257400512695, 0.11321713775396347, 1.1516923904418945,
+        0.18395601212978363, 1.382925033569336, -0.6253924369812012,
+        -1.5568366050720215, -0.24910297989845276, 1.38507878780365,
+        0.8575345873832703, -0.6744491457939148, -1.42629873752594,
+        0.3400528132915497, -0.08235234022140503, 0.908854603767395,
+        -1.3456496000289917, 1.1707040071487427, 0.818732500076294],
+    "integers": [81, 4, 106, 177, 827, 554, 947, 599, 425, 10, 327, 908,
+        765, 934, 68, 205, 510, 350, 822, 825],
+    "permutation": [226, 22, 108, 253, 196, 9, 638, 674, 352, 357, 492, 217,
+        818, 473, 866, 676, 500, 127, 922, 978, 555, 947, 391, 479, 482,
+        518, 670, 319, 130, 698, 985, 583, 802, 620, 424, 948, 103, 675,
+        214, 180, 561, 882, 57, 84, 629, 166, 23, 74, 810, 413, 470, 159,
+        756, 925, 918, 101, 907, 649, 345, 175, 254, 515, 995, 296, 883,
+        991, 567, 512, 994, 789, 527, 655, 354, 429, 156, 639, 187, 705,
+        275, 917, 910, 570, 516, 650, 875, 123, 181, 823, 846, 791, 760, 37,
+        606, 953, 627, 697, 138, 762, 408, 276, 66, 361, 472, 722, 8, 386,
+        921, 142, 538, 755, 605, 867, 318, 517, 55, 716, 931, 455, 940, 541,
+        467, 302, 309, 271, 14, 621, 982, 936, 39, 934, 331, 663, 462, 96,
+        904, 402, 314, 68, 734, 204, 150, 803, 454, 313, 983, 968, 543, 209,
+        307, 381, 137, 798, 33, 906, 337, 422, 558, 415, 273, 658, 475, 616,
+        43, 744, 695, 758, 416, 647, 954, 374, 826, 387, 719, 874, 855, 911,
+        297, 341, 326, 186, 679, 2, 4, 715, 830, 902, 523, 815, 120, 225,
+        812, 151, 287, 143, 778, 788, 396, 926, 117, 412, 819, 930, 3, 447,
+        367, 20, 613, 693, 323, 218, 690, 859, 128, 255, 244, 506, 718, 385,
+        891, 599, 662, 766, 172, 47, 751, 144, 185, 546, 969, 390, 154, 644,
+        966, 535, 406, 173, 115, 853, 617, 626, 847, 124, 837, 283, 835,
+        822, 78, 905, 139, 216, 521, 463, 939, 632, 816, 848, 452, 298, 427,
+        551, 279, 706, 526, 554, 340, 71, 105, 666, 471, 824, 950, 495, 943,
+        795, 964, 770, 636, 310, 16, 118, 776, 92, 493, 550, 277, 335, 125,
+        237, 772, 997, 140, 246, 901, 420, 72, 884, 428, 678, 136, 491, 736,
+        773, 560, 608, 368, 370, 507, 18, 176, 986, 536, 399, 933, 250, 941,
+        409, 53, 183, 239, 764, 197, 91, 732, 768, 912, 505, 784, 126, 585,
+        63, 860, 611, 219, 266, 50, 194, 320, 598, 403, 32, 633, 453, 793,
+        979, 809, 990, 915, 844, 998, 295, 871, 963, 34, 348, 269, 64, 592,
+        384, 753, 169, 668, 549, 280, 888, 565, 711, 805, 688, 85, 960, 262,
+        394, 94, 774, 999, 739, 797, 82, 817, 971, 421, 466, 430, 61, 235,
+        865, 79, 377, 637, 588, 993, 804, 305, 863, 992, 457, 268, 920, 568,
+        40, 221, 669, 81, 783, 464, 602, 540, 970, 981, 324, 752, 862, 369,
+        278, 316, 182, 885, 556, 988, 522, 487, 436, 569, 223, 245, 958,
+        808, 508, 528, 761, 667, 267, 58, 375, 97, 28, 1, 800, 132, 153,
+        790, 76, 566, 292, 42, 414, 285, 435, 380, 338, 48, 147, 955, 152,
+        654, 961, 157, 502, 270, 228, 294, 485, 574, 231, 965, 332, 222,
+        597, 578, 450, 83, 376, 411, 191, 234, 444, 900, 529, 145, 35, 260,
+        31, 308, 317, 315, 525, 476, 531, 689, 474, 957, 27, 344, 342, 383,
+        913, 21, 104, 519, 919, 733, 730, 265, 51, 562, 441, 59, 513, 684,
+        281, 100, 828, 748, 532, 366, 769, 178, 976, 796, 545, 311, 322,
+        771, 121, 10, 122, 431, 300, 590, 811, 534, 207, 757, 257, 5, 845,
+        842, 146, 708, 240, 26, 600, 19, 102, 460, 746, 461, 12, 680, 759,
+        572, 959, 640, 261, 946, 167, 360, 503, 174, 775, 677, 110, 236,
+        831, 163, 938, 932, 258, 591, 483, 451, 927, 648, 673, 841, 148,
+        480, 418, 160, 86, 49, 77, 511, 827, 664, 141, 898, 443, 199, 564,
+        165, 459, 289, 870, 346, 709, 850, 973, 190, 665, 62, 703, 488, 177,
+        645, 458, 170, 685, 189, 205, 780, 740, 202, 834, 580, 806, 864,
+        343, 861, 75, 646, 737, 623, 635, 439, 162, 889, 989, 158, 895, 119,
+        392, 490, 282, 293, 557, 510, 754, 701, 200, 398, 30, 692, 13, 914,
+        624, 52, 351, 683, 604, 952, 977, 878, 630, 849, 263, 389, 723, 363,
+        249, 395, 785, 652, 552, 88, 325, 942, 714, 843, 401, 291, 869, 353,
+        909, 696, 682, 290, 984, 155, 544, 509, 886, 333, 499, 634, 6, 735,
+        581, 498, 501, 935, 400, 378, 417, 373, 892, 749, 962, 537, 857,
+        833, 419, 794, 213, 350, 601, 903, 56, 577, 90, 738, 264, 184, 489,
+        397, 782, 659, 661, 520, 433, 610, 584, 220, 46, 107, 872, 628, 712,
+        304, 713, 854, 93, 687, 807, 69, 192, 868, 704, 89, 168, 731, 745,
+        135, 609, 179, 643, 336, 116, 625, 671, 7, 359, 161, 233, 607, 224,
+        469, 312, 87, 593, 25, 548, 481, 15, 371, 210, 779, 975, 542, 193,
+        571, 916, 814, 727, 212, 301, 468, 801, 631, 211, 388, 504, 603,
+        425, 533, 256, 11, 339, 787, 618, 586, 171, 699, 893, 252, 897, 728,
+        763, 0, 829, 17, 524, 987, 576, 448, 852, 813, 514, 404, 750, 247,
+        700, 839, 575, 497, 355, 579, 873, 36, 672, 29, 477, 129, 980, 836,
+        365, 596, 929, 478, 742, 825, 786, 587, 721, 553, 106, 227, 44, 328,
+        242, 382, 259, 208, 595, 686, 928, 95, 437, 321, 899, 362, 945, 725,
+        206, 24, 426, 729, 423, 651, 656, 272, 879, 657, 702, 594, 967, 720,
+        777, 614, 622, 54, 446, 619, 358, 494, 201, 109, 188, 438, 133, 851,
+        840, 432, 563, 434, 767, 660, 405, 589, 349, 547, 972, 951, 974,
+        924, 65, 215, 877, 937, 582, 923, 306, 484, 327, 456, 832, 949, 347,
+        741, 896, 229, 890, 330, 198, 131, 858, 45, 134, 530, 164, 440, 70,
+        956, 944, 717, 496, 449, 111, 642, 379, 445, 410, 248, 908, 241,
+        232, 747, 251, 98, 612, 539, 880, 710, 329, 465, 356, 653, 393, 372,
+        486, 288, 838, 856, 691, 792, 996, 821, 726, 887, 559, 238, 67, 364,
+        41, 876, 299, 781, 73, 743, 641, 60, 442, 799, 38, 284, 694, 80,
+        724, 203, 149, 615, 113, 573, 894, 334, 407, 707, 114, 820, 286,
+        881, 99, 765, 195, 243, 274, 230, 112, 681, 303],
+}
+
+
+def random_known_answers(device):
+    """The package's draws for ``RANDOM_KNOWN``'s questions on ``device``
+    (the accelerator mode, ``x64=False``, on either device), each position
+    drawn alone as a one-element flat range."""
+    import torch
+
+    from nums_tpu_torch.core.ops import random_ops, threefry
+
+    key = threefry.fold_in(
+        threefry.seed_key(RANDOM_KNOWN["seed"], False),
+        RANDOM_KNOWN["counter"])
+    out = {"bits": [], "random": [], "normal": [], "integers": []}
+    for shape, positions in (
+            ((N_FULL, D_FULL), RANDOM_KNOWN["positions"]),
+            ((4 * N_FULL, D_FULL), RANDOM_KNOWN["positions_beyond_2_32"])):
+        for p in positions:
+            at = (p, p + 1)
+            bits = threefry.random_bits(key, shape, 32, device, *at)
+            out["bits"].append(int(bits.item()) & 0xFFFFFFFF)
+            out["random"].append(float(random_ops.jr_uniform(
+                key, shape, torch.float32, device, flat_range=at).item()))
+            out["normal"].append(float(random_ops.jr_normal(
+                key, shape, torch.float32, device, flat_range=at).item()))
+            out["integers"].append(int(random_ops.jr_randint(
+                key, shape, 0, 1000, torch.int32, device, False,
+                flat_range=at).item()))
+    out["permutation"] = random_ops.permutation(key, 1000, device).tolist()
+    return out
 
 
 def emit(obj):
@@ -341,6 +511,20 @@ def _gram64(x, chunk=1 << 18):
     return g
 
 
+def _mean_var64(torch, x, chunk=1 << 24):
+    """Mean and variance of every element of ``x``, float64 sums taken a
+    chunk at a time."""
+    flat = x.reshape(-1)
+    total = torch.zeros((), dtype=torch.float64, device=x.device)
+    squares = torch.zeros((), dtype=torch.float64, device=x.device)
+    for i in range(0, flat.numel(), chunk):
+        c = flat[i:i + chunk].double()
+        total += c.sum()
+        squares += (c * c).sum()
+    mean = float(total) / flat.numel()
+    return mean, float(squares) / flat.numel() - mean * mean
+
+
 def _upper_pair_flops(n, d, tile=128):
     """Multiply-adds x 2 of the upper tile pairs the gram kernel computes,
     its zero pad included: the rate it runs at."""
@@ -376,12 +560,57 @@ def phase_main_path(torch):
     app = nums_tpu_torch.init()
     assert app.backend.device.type == DEVICE, app.backend.device
     assert settings.matmul_precision == "default", settings.matmul_precision
-    _reset_counts()
-    torch.cuda.reset_peak_memory_stats()
+    # The library's draw of the same array, timed first and dropped: one
+    # in-place normal_ of a torch generator. The port calls it nowhere.
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1337)
+    lib = torch.empty((N_FULL, D_FULL), dtype=torch.float32, device=DEVICE)
+    lib.normal_(generator=gen)  # warm-up
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rs = app.random_state(1337)
+    lib.normal_(generator=gen)
+    torch.cuda.synchronize()
+    library_draw_secs = time.perf_counter() - t0
+    del lib, gen
+    torch.cuda.empty_cache()
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    rs = app.random_state(RANDOM_KNOWN["seed"])
     X = rs.normal(shape=(N_FULL, D_FULL), block_shape=(N_FULL, D_FULL),
                   dtype=np.float32)
+    torch.cuda.synchronize()
+    draw_secs = time.perf_counter() - t0
+    x_bytes = 4.0 * N_FULL * D_FULL
+    draw_peak_above = torch.cuda.max_memory_allocated() - base_bytes
+    assert rs.get_state()["counter"] == RANDOM_KNOWN["counter"]
+    assert X.data.dtype == torch.float32 and X.data.is_cuda
+    assert draw_peak_above <= x_bytes + DRAW_SCRATCH_BYTES, (
+        "the draw's peak device memory above the output", draw_peak_above)
+    draw_bound_ms, _ = _bound(x_bytes, 0.0)
+    # X is the reference's X for this seed: the known answers, at their
+    # flat positions of X itself.
+    at = torch.tensor(RANDOM_KNOWN["positions"], device=DEVICE)
+    known = torch.tensor(RANDOM_KNOWN["normal"][:len(at)],
+                         dtype=torch.float64, device=DEVICE)
+    x_at = X.data.view(-1)[at].double()
+    known_err = float((x_at - known).abs().max())
+    assert bool(((x_at - known).abs() <= NORMAL_KNOWN_REL * known.abs()
+                 + NORMAL_KNOWN_ABS).all()), (x_at.tolist(), known.tolist())
+    x_mean, x_var = _mean_var64(torch, X.data)
+    assert abs(x_mean) <= X_MEAN_ABS and abs(x_var - 1.0) <= X_VAR_ABS, (
+        x_mean, x_var)
+    draw = {"seconds": draw_secs, "library_seconds": library_draw_secs,
+            "library": "torch.Tensor.normal_(generator=torch.Generator)",
+            "bound_ms": draw_bound_ms, "bound_by": "bytes",
+            "peak_above_base_bytes": draw_peak_above,
+            "output_bytes": x_bytes,
+            "scratch_limit_bytes": DRAW_SCRATCH_BYTES,
+            "known_answers_max_abs_err": known_err,
+            "mean": x_mean, "var": x_var}
     G = X.T @ X
     G.touch()
     gram_launches = _counts()["gram"]
@@ -422,12 +651,12 @@ def phase_main_path(torch):
     _, beta_rel = rel_err(beta_k, beta_h)
     assert beta_rel <= BETA_REL, ("beta: kernels vs highest", beta_rel)
     emit({"phase": "main_path", "shape": [N_FULL, D_FULL],
-          "seconds": main_secs, "launches": counts,
+          "seconds": main_secs, "launches": counts, "draw": draw,
           "max_memory_allocated_bytes": peak_bytes,
           "gram_rel_err_vs_f64": gram_rel, "gram_tolerance": BF16_REL,
           "accuracy": acc, "accuracy_true_beta": acc_true,
           "beta_rel_err_vs_highest": beta_rel, "beta_tolerance": BETA_REL})
-    return app, X, y, model, counts, ref, acc_true
+    return app, X, y, model, counts, ref, acc_true, draw
 
 
 def _bound(bytes_moved, tc_flops, f32_flops=0.0):
@@ -2119,6 +2348,304 @@ def phase_higgs(torch, smi, app):
     return out
 
 
+# ---------------------------------------------------------------------
+# Phase 11: the random layer
+# ---------------------------------------------------------------------
+
+RANDOM123 = (
+    ((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+    ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF),
+     (0x1CB996FC, 0xBB002BE7)),
+    ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+     (0xC4923A9C, 0x483DF7A0)),
+)
+RANDOM_SLICE = 1 << 22       # card vs CPU route: bits, random, integers, normal
+RANDOM_DRAWS = 1 << 20       # card vs CPU route: every other distribution
+RANDOM_LAW_DRAWS = 1 << 22   # one draw of each distribution against its law
+NORMAL_ULPS = 4
+# Card vs the CPU route, |got - ref| <= rtol*|ref| + atol*max|ref| on all
+# but ``frac`` of the elements. "exact": equal. "ulp": one transcendental
+# of the card's math library against the host's on an exact uniform; the
+# few elements let off sit where the function magnifies an ulp of its
+# argument (tan at its pole, a difference of logs near 0). "looped": an
+# accept test or a floor on such a value may flip. "law": see
+# ``negative_binomial`` in ROADMAP Queue C.
+RANDOM_CLASSES = {
+    "exact": (0.0, 0.0, 0.0),
+    "ulp": (1e-5, 1e-6, 1e-4),
+    "looped": (1e-5, 1e-5, 1e-3),
+}
+# (distribution, parameters, class, law check on float64 draws)
+RANDOM_DISTS = [
+    ("random", (), "exact", lambda s: (0 <= s).all() and (s < 1).all()
+     and abs(s.mean() - 0.5) < 1e-3 and abs(s.var() - 1 / 12) < 1e-3),
+    ("uniform", (-2.0, 3.5), "ulp", lambda s: (-2 <= s).all()
+     and (s < 3.5).all() and abs(s.mean() - 0.75) < 5e-3),
+    ("normal", (1.0, 2.0), "ulp", lambda s: abs(s.mean() - 1.0) < 6e-3
+     and abs(s.var() - 4.0) < 3e-2),
+    ("beta", (2.0, 3.0), "looped", lambda s: ((0 < s) & (s < 1)).all()
+     and abs(s.mean() - 0.4) < 1e-3),
+    ("binomial", (10.0, 0.5), "looped", lambda s: ((0 <= s) & (s <= 10)).all()
+     and abs(s.mean() - 5.0) < 1e-2),
+    ("binomial", (200.0, 0.4), "looped", lambda s: ((0 <= s) & (s <= 200)).all()
+     and abs(s.mean() - 80.0) < 5e-2),
+    ("chisquare", (4.0,), "looped", lambda s: (s > 0).all()
+     and abs(s.mean() - 4.0) < 2e-2),
+    ("exponential", (2.0,), "ulp", lambda s: (s >= 0).all()
+     and abs(s.mean() - 2.0) < 1e-2),
+    ("f", (5.0, 7.0), "looped", lambda s: (s > 0).all()
+     and abs(np.median(s) - 0.9) < 0.1),
+    ("gamma", (2.0, 2.0), "looped", lambda s: (s > 0).all()
+     and abs(s.mean() - 4.0) < 2e-2),
+    ("gamma", (0.3, 1.0), "looped", lambda s: (s >= 0).all()
+     and abs(s.mean() - 0.3) < 5e-3),
+    # a uniform of exactly 0 (2^-23 of the float32 draws) gives the int32
+    # maximum, in the reference too: the mean is taken below it
+    ("geometric", (0.5,), "looped", lambda s: (s >= 1).all()
+     and np.median(s) <= 2.0 and (s > 1e6).mean() < 1e-5
+     and abs(s[s < 1e6].mean() - 2.0) < 1e-2),
+    ("gumbel", (0.0, 1.0), "ulp", lambda s: np.isfinite(s).all()
+     and abs(s.mean() - 0.5772) < 1e-2),
+    ("laplace", (0.0, 1.0), "ulp", lambda s: abs(s.mean()) < 1e-2
+     and abs(s.var() - 2.0) < 5e-2),
+    ("logistic", (0.0, 1.0), "ulp", lambda s: abs(s.mean()) < 1e-2),
+    ("lognormal", (0.0, 0.5), "ulp", lambda s: (s > 0).all()
+     and abs(s.mean() - np.exp(0.125)) < 5e-3),
+    ("pareto", (3.0,), "ulp", lambda s: (s >= 0).all()
+     and abs(s.mean() - 0.5) < 1e-2),
+    ("poisson", (3.0,), "looped", lambda s: (s >= 0).all()
+     and abs(s.mean() - 3.0) < 1e-2),
+    ("poisson", (50.0,), "looped", lambda s: (s >= 0).all()
+     and abs(s.mean() - 50.0) < 5e-2),
+    ("power", (3.0,), "ulp", lambda s: ((0 <= s) & (s <= 1)).all()
+     and abs(s.mean() - 0.75) < 1e-3),
+    # likewise log(0): an infinite draw, in the reference too
+    ("rayleigh", (1.0,), "ulp", lambda s: (s >= 0).all()
+     and np.isinf(s).mean() < 1e-5
+     and abs(s[np.isfinite(s)].mean() - np.sqrt(np.pi / 2)) < 5e-3),
+    ("standard_cauchy", (), "ulp", lambda s: np.isfinite(s).all()
+     and abs(np.median(s)) < 1e-2),
+    ("standard_t", (5.0,), "looped", lambda s: abs(np.median(s)) < 1e-2),
+    ("triangular", (0.0, 0.5, 1.0), "ulp", lambda s: ((0 <= s) & (s <= 1)).all()
+     and abs(s.mean() - 0.5) < 1e-3),
+    ("wald", (1.0, 1.0), "looped", lambda s: (s > 0).all()
+     and abs(s.mean() - 1.0) < 1e-2),
+    ("weibull", (2.0,), "ulp", lambda s: (s >= 0).all()
+     and abs(s.mean() - 0.8862) < 5e-3),
+    ("negative_binomial", (5.0, 0.5), "law", lambda s: (s >= 0).all()
+     and abs(s.mean() - 5.0) < 2e-2 and abs(s.var() - 10.0) < 0.2),
+    ("noncentral_chisquare", (4.0, 2.0), "looped", lambda s: (s > 0).all()
+     and abs(s.mean() - 6.0) < 3e-2),
+    ("noncentral_chisquare", (0.5, 1.0), "looped", lambda s: (s >= 0).all()
+     and abs(s.mean() - 1.5) < 2e-2),
+    ("noncentral_f", (5.0, 20.0, 3.0), "looped", lambda s: (s > 0).all()
+     and abs(s.mean() - 20.0 / 18.0 * 8.0 / 5.0) < 2e-2),
+    # float32's pi is just above pi
+    ("vonmises", (0.0, 1.0), "angle", lambda s: (
+        np.abs(s) <= float(np.float32(np.pi))).all()
+     and abs(s.mean()) < 1e-2),
+    ("zipf", (3.0,), "looped", lambda s: (s >= 1).all()
+     and abs(np.median(s) - 1.0) < 1e-9),
+    ("logseries", (0.5,), "looped", lambda s: (s >= 1).all()
+     and abs(s.mean() - 0.5 / (0.5 * np.log(2.0))) < 1e-2),
+]
+
+
+def _mismatch(torch, got, ref, rtol, atol):
+    """(fraction of elements outside rtol*|ref| + atol*max|ref|, the
+    largest |got - ref| / max|ref|), both as float64 on the host."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    scale = max(float(ref.abs().max()), 1e-30)
+    err = (got - ref).abs()
+    ok = (err <= rtol * ref.abs() + atol * scale) | (got == ref)
+    return 1.0 - float(ok.double().mean()), float(err.max()) / scale
+
+
+def _held(torch, cls, got, ref, mu=0.0):
+    """The check of one distribution's card draw against the CPU route's:
+    (passed, {"mismatch": fraction, "max_err_over_max": x})."""
+    if cls == "angle":
+        # vonmises: arccos near 1 magnifies an ulp of its argument without
+        # bound, so the class's tolerance is on the cosine of the angle
+        # from mu, and the angle itself is held to 1e-3.
+        rtol, atol, frac = RANDOM_CLASSES["looped"]
+        bad, err = _mismatch(torch, torch.cos(got.double() - mu),
+                             torch.cos(ref.double() - mu), rtol, atol)
+        bad_angle, _ = _mismatch(torch, got, ref, 0.0, 1e-3 / np.pi)
+        return bad <= frac and bad_angle <= frac, {
+            "mismatch": max(bad, bad_angle), "max_err_over_max": err}
+    rtol, atol, frac = RANDOM_CLASSES[cls]
+    bad, err = _mismatch(torch, got, ref, rtol, atol)
+    return bad <= frac, {"mismatch": bad, "max_err_over_max": err}
+
+
+def phase_random(torch, smi, app, draw):
+    """Phase 11 (the module docstring lists its checks). ``draw`` is phase
+    4's record of the 2.5M x 1000 draw, None when phase 4 did not run. Any
+    breach raises: the run then ends without its last line."""
+    from nums_tpu_torch.core.ops import random_ops, threefry
+    from nums_tpu_torch.models import model_selection
+
+    t_phase = time.perf_counter()
+    out = {"phase": "random", "nvidia_smi": smi, "draw": draw}
+    f32, i32 = torch.float32, torch.int32
+
+    # (a) the Random123 vectors, scalar keys and tensor keys
+    for key, ctr, want in RANDOM123:
+        c = [torch.tensor([threefry._signed(w)], dtype=i32, device=DEVICE)
+             for w in ctr]
+        k = [torch.tensor([threefry._signed(w)], dtype=i32, device=DEVICE)
+             for w in key]
+        for k0, k1 in ((key[0], key[1]), (k[0], k[1])):
+            w0, w1 = threefry.threefry2x32(k0, k1, c[0], c[1])
+            got = (int(w0.item()) & 0xFFFFFFFF, int(w1.item()) & 0xFFFFFFFF)
+            assert got == want, ("Random123", key, ctr, got, want)
+    out["random123_vectors"] = len(RANDOM123)
+
+    # (b) known answers from the reference
+    got = random_known_answers(DEVICE)
+    for name in ("bits", "random", "integers", "permutation"):
+        assert got[name] == RANDOM_KNOWN[name], (name, got[name])
+    gn = np.array(got["normal"])
+    kn = np.array(RANDOM_KNOWN["normal"])
+    assert (np.abs(gn - kn) <= NORMAL_KNOWN_REL * np.abs(kn)
+            + NORMAL_KNOWN_ABS).all(), (gn.tolist(), kn.tolist())
+    out["known_answers"] = {
+        "positions": len(RANDOM_KNOWN["bits"]),
+        "beyond_2_32": len(RANDOM_KNOWN["positions_beyond_2_32"]),
+        "normal_max_abs_err": float(np.abs(gn - kn).max())}
+
+    # (c) the card against the package's own CPU route, asked for
+    # explicitly: a 2^22 slice that straddles a chunk edge of the full draw
+    key = threefry.fold_in(threefry.seed_key(RANDOM_KNOWN["seed"], False), 7)
+    shape = (N_FULL, D_FULL)
+    start = threefry.CHUNK - RANDOM_SLICE // 2
+    at = (start, start + RANDOM_SLICE)
+    both = lambda fn: (fn(DEVICE), fn("cpu"))  # noqa: E731
+    g, r = both(lambda dev: threefry.random_bits(key, shape, 32, dev, *at))
+    assert torch.equal(g.cpu(), r), "bits: card vs cpu"
+    g, r = both(lambda dev: random_ops.jr_uniform(
+        key, shape, f32, dev, flat_range=at))
+    assert torch.equal(g.cpu(), r), "random: card vs cpu"
+    g, r = both(lambda dev: random_ops.jr_randint(
+        key, shape, 0, 1000, i32, dev, False, flat_range=at))
+    assert torch.equal(g.cpu(), r), "integers: card vs cpu"
+    g, r = both(lambda dev: random_ops.jr_normal(
+        key, shape, f32, dev, flat_range=at))
+    ulps = ((g.cpu().double() - r.double()).abs()
+            / torch.from_numpy(np.spacing(np.abs(r.numpy()))).double())
+    out["normal_card_vs_cpu_max_ulps"] = float(ulps.max())
+    assert float(ulps.max()) <= NORMAL_ULPS, float(ulps.max())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    perm = random_ops.permutation(key, N_FULL, DEVICE)
+    torch.cuda.synchronize()
+    out["permutation_seconds"] = time.perf_counter() - t0
+    assert torch.equal(perm.cpu(), random_ops.permutation(key, N_FULL, "cpu"))
+    # (e) ... which is a permutation, in the two rounds the formula gives
+    assert torch.equal(torch.sort(perm).values,
+                       torch.arange(N_FULL, device=DEVICE))
+    rounds = int(np.ceil(3 * np.log(N_FULL) / np.log(2**32 - 1)))
+    assert rounds == 2, rounds
+    out["permutation"] = {"n": N_FULL, "sort_rounds": rounds}
+    del perm, g, r, ulps
+
+    dists = {}
+    n = (RANDOM_DRAWS,)
+    for i, (name, params, cls, _) in enumerate(RANDOM_DISTS):
+        k = threefry.fold_in(key, 100 + i)
+        g, r = both(lambda dev: random_ops.sample(
+            name, k, n, f32, dev, False, *params))
+        label = f"{name}{list(params)}"
+        if cls == "law":
+            dists[label] = {"class": cls}
+            continue
+        ok, info = _held(torch, cls, g, r, mu=params[0] if params else 0.0)
+        dists[label] = {"class": cls, **info}
+        assert ok, (label, info)
+    k = threefry.fold_in(key, 200)
+    g, r = both(lambda dev: random_ops.hypergeometric(
+        k, n, torch.int64, dev, 10, 20, 10))
+    assert torch.equal(g.cpu(), r), "hypergeometric: card vs cpu"
+    for replace, p in ((True, None), (False, None), (True, [.1, .2, .3, .4])):
+        g, r = both(lambda dev: random_ops.jr_choice(
+            k, 4 if p else 5000, (3,) if not replace else (4096,), replace,
+            None if p is None else torch.tensor(p, dtype=f32, device=dev),
+            dev, False))
+        # weighted: a cumulative sum in another order may move a boundary
+        ok, info = _held(torch, "looped" if p else "exact", g, r)
+        assert ok, ("choice: card vs cpu", replace, p, info)
+    out["card_vs_cpu"] = {"slice": RANDOM_SLICE, "draws": RANDOM_DRAWS,
+                          "classes": RANDOM_CLASSES, "distributions": dists}
+    print(json.dumps({"random_so_far": out}), file=sys.stderr, flush=True)
+
+    # (d) chunk size and block shape change nothing, bitwise
+    small = (4099, 257)
+    whole = random_ops.jr_normal(key, small, f32, DEVICE)
+    for chunk in (1 << 10, 99_991, 1 << 20):
+        assert torch.equal(whole, random_ops.jr_normal(
+            key, small, f32, DEVICE, chunk=chunk)), ("chunk", chunk)
+    ints = random_ops.jr_randint(key, small, -5, 1000, i32, DEVICE, False)
+    assert torch.equal(ints, random_ops.jr_randint(
+        key, small, -5, 1000, i32, DEVICE, False, chunk=77_777))
+    arrays = [app.random_state(5).normal(
+        shape=small, block_shape=bs, dtype=np.float32).data
+        for bs in (small, (1000, 64), (1, 1))]
+    assert torch.equal(arrays[0], arrays[1])
+    assert torch.equal(arrays[0], arrays[2])
+    del whole, ints, arrays
+
+    # (f) one draw of each distribution against its law, through the
+    # random state (so the dtype mapping of a float64 request is in it)
+    rs = app.random_state(20260)
+    laws = {}
+    for name, params, _, law in RANDOM_DISTS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arr = getattr(rs, name)(*params, shape=(RANDOM_LAW_DRAWS,))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        assert arr.data.dtype == f32, (name, arr.dtype)
+        assert arr.data.device.type == DEVICE, (name, arr.data.device)
+        sample = arr.get().astype(np.float64)
+        laws[f"{name}{list(params)}"] = {
+            "seconds": secs, "mean": float(sample.mean())}
+        assert bool(law(sample)), (name, params, float(sample.mean()),
+                                   float(sample.var()))
+    h = rs.hypergeometric(20, 10, 10, shape=(RANDOM_LAW_DRAWS,)).get()
+    assert h.dtype == np.int64 and ((0 <= h) & (h <= 10)).all()
+    assert abs(h.mean() - 10 * 20 / 30) < 1e-2, h.mean()
+    out["laws"] = {"draws": RANDOM_LAW_DRAWS, "distributions": laws}
+
+    # (g) a saved state resumes the stream bitwise; a shuffled split of
+    # 2.5M rows partitions them
+    state = rs.get_state()
+    first = rs.normal(shape=(1 << 16,), dtype=np.float32).data
+    other = app.random_state(1)
+    other.set_state(state)
+    assert torch.equal(first, other.normal(shape=(1 << 16,),
+                                           dtype=np.float32).data)
+    rows = app.array(np.arange(N_FULL, dtype=np.float32).reshape(-1, 1),
+                     block_shape=(N_FULL, 1))
+    label = app.array(np.arange(N_FULL, dtype=np.float32),
+                      block_shape=(N_FULL,))
+    parts = model_selection.train_test_split(rows, label, test_size=0.2,
+                                             random_state=3)
+    x_train, x_test, y_train, y_test = (p.data for p in parts)
+    assert x_train.shape[0] == 2_000_000 and x_test.shape[0] == 500_000
+    assert torch.equal(x_train[:, 0], y_train)
+    assert torch.equal(x_test[:, 0], y_test)
+    union = torch.sort(torch.cat([y_train, y_test])).values
+    assert torch.equal(union, torch.arange(
+        N_FULL, dtype=torch.float32, device=DEVICE))
+    assert not torch.equal(y_train, torch.arange(
+        2_000_000, dtype=torch.float32, device=DEVICE))
+    out["train_test_split_rows"] = N_FULL
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 KERNELS = (
     ("gram", "nums_tpu_torch/csrc/gram.cu",
      "nums_tpu/core/ops/pallas_gram.py:139"),
@@ -2175,11 +2702,17 @@ def main(argv):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         smi = phase_device(torch)
+        if "--random-only" in argv:
+            import nums_tpu_torch
+
+            phase_random(torch, smi, nums_tpu_torch.init(), None)
+            return 0
         phase_build()
         phase_small(torch)
         if "--kernels-only" in argv:
             return 0
-        app, X, y, model, counts, ref, acc_true = phase_main_path(torch)
+        app, X, y, model, counts, ref, acc_true, draw = phase_main_path(
+            torch)
         times = phase_times(torch, smi, X, y, model)
         fit_counts = phase_profile(torch, X, y)
         phase_glm_families(torch, app, X, y, ref)
@@ -2192,6 +2725,8 @@ def main(argv):
         linalg_launches = phase_linalg(torch, smi, app, wide)
         torch.cuda.empty_cache()
         higgs = phase_higgs(torch, smi, app)
+        torch.cuda.empty_cache()
+        phase_random(torch, smi, app, draw)
         emit({"kernels": kernels_line(counts, fit_counts, times, ooc,
                                       linalg_launches, higgs)})
         emit({"ok": True, "device": {

@@ -4,8 +4,10 @@ the out-of-core ops.
 Counterpart of the subset of ``nums_tpu/core/array/application.py`` that
 the GLMs and the out-of-core path use: the block-shape policy,
 ``scalar``/``array``/``zeros``/``ones``/``full``/``eye``/``diag``/
-``concatenate``, the elementwise ops and reductions of the solvers, the
-three-argument ``where``, ``var``/``std``, the linalg entry points
+``empty``/``arange``/``linspace``/``concatenate``/``split``, the
+elementwise ops and reductions (``reduce``, ``argmin``/``argmax``),
+``matmul``/``tensordot``, ``allclose``, both forms of ``where``,
+``var``/``std``, the linalg entry points
 (``qr``, ``indirect_tsr``/``indirect_tsqr``, ``direct_tsqr``, ``svd``,
 ``randomized_svd``, the regressions, ``inv``/``cholesky``/
 ``posdef_solve``), ``get``/``touch``, the random state, the block checkpoints of the
@@ -199,6 +201,9 @@ class ArrayApplication:
     def ones(self, shape, block_shape, dtype=None):
         return self._new_array("ones", shape, block_shape, dtype)
 
+    def empty(self, shape, block_shape, dtype=None):
+        return self._new_array("empty", shape, block_shape, dtype)
+
     def full(self, shape, block_shape, fill_value, dtype=None):
         if dtype is None:
             dtype = np.asarray(fill_value).dtype
@@ -233,6 +238,27 @@ class ArrayApplication:
         return BlockArray.from_torch(creation.diag(X.data), block_shape,
                                      self.backend)
 
+    def arange(self, shape, block_shape, step=1, dtype=None) -> BlockArray:
+        if dtype is None:
+            dtype = np.int64
+        assert step == 1
+        grid = ArrayGrid(tuple(shape), tuple(block_shape),
+                         array_utils.to_dtype_name(dtype))
+        data = creation.arange(0, grid.shape[0], step,
+                               array_utils.to_torch_dtype(dtype),
+                               self.backend.device)
+        return BlockArray(data, grid, self.backend)
+
+    def linspace(self, start, stop, shape, block_shape, endpoint=True,
+                 retstep=False, dtype=None, axis=0):
+        assert axis == 0 and retstep is False
+        dtype = _device_dtype(self.backend, dtype if dtype else np.float64)
+        grid = ArrayGrid(tuple(shape), tuple(block_shape),
+                         array_utils.to_dtype_name(dtype))
+        data = creation.linspace(start, stop, grid.shape[0], bool(endpoint),
+                                 dtype, self.backend.device)
+        return BlockArray(data, grid, self.backend)
+
     def concatenate(self, arrays, axis, axis_block_size=None):
         if len(arrays) == 1:
             return arrays[0]
@@ -254,6 +280,23 @@ class ArrayApplication:
                             array_utils.to_dtype_name(data.dtype)),
             self.backend,
         )
+
+    def split(self, X: BlockArray, indices_or_sections, axis=0):
+        if not isinstance(indices_or_sections, int):
+            raise NotImplementedError("Split currently supports integers only.")
+        dim = X.shape[axis]
+        assert dim % indices_or_sections == 0, (
+            "array split does not result in an equal division"
+        )
+        step = dim // indices_or_sections
+        out = []
+        for i in range(indices_or_sections):
+            sel = tuple(
+                slice(i * step, (i + 1) * step) if ax == axis else slice(None)
+                for ax in range(X.ndim)
+            )
+            out.append(X[sel])
+        return out
 
     # ------------------------------------------------------------------
     # Elementwise / reductions
@@ -300,14 +343,18 @@ class ArrayApplication:
         return self.map_bop("xlogy", x, y)
 
     def min(self, X, axis=None, keepdims=False):
-        return X.reduce_axis("min", axis, keepdims=keepdims)
+        return self.reduce("min", X, axis, keepdims)
 
     def max(self, X, axis=None, keepdims=False):
-        return X.reduce_axis("max", axis, keepdims=keepdims)
+        return self.reduce("max", X, axis, keepdims)
 
     def sum(self, X, axis=None, keepdims=False, dtype=None):
-        # dtype is the accumulator dtype (see ops/reductions.py).
-        return X.sum(axis=axis, keepdims=keepdims, dtype=dtype)
+        return self.reduce("sum", X, axis, keepdims, dtype)
+
+    def reduce(self, op_name, X, axis=None, keepdims=False, dtype=None):
+        # dtype is the accumulator dtype (see ops/reductions.py), not a
+        # cast of the result.
+        return X.reduce_axis(op_name, axis, keepdims=keepdims, dtype=dtype)
 
     def mean(self, X, axis=None, keepdims=False, dtype=None):
         if X.dtype not in (np.float32, np.float64):
@@ -324,12 +371,39 @@ class ArrayApplication:
             X = X.astype(np.float64)
         return X.std(axis=axis, ddof=ddof, keepdims=keepdims, dtype=dtype)
 
+    def argmin(self, X, axis=None):
+        return self.argop("argmin", X, axis)
+
+    def argmax(self, X, axis=None):
+        return self.argop("argmax", X, axis)
+
+    def argop(self, op_name, arr, axis=None):
+        """The reference keeps its one-dimensional restriction; so does
+        this."""
+        if arr.ndim > 1:
+            raise NotImplementedError(
+                f"{op_name} currently supports one-dimensional arrays."
+            )
+        if axis is None:
+            axis = 0
+        assert axis == 0
+        return getattr(arr, op_name)(axis=None).astype(np.int64)
+
     def where(self, condition: BlockArray, x=None, y=None):
         """``where(c, x, y)``: elementwise select, with the two branches
-        promoted as a binary op promotes them. The one-argument index form
-        ``where(c)`` is a later port."""
+        promoted as a binary op promotes them. ``where(c)``: one int64
+        index array per axis (``numpy.where``'s order), resolved on the
+        device by ``torch.nonzero`` (one host sync, for the count)."""
         if x is None and y is None:
-            raise NotImplementedError("where(condition) is not ported yet")
+            index_arrays = torch.nonzero(condition.data.to(torch.bool),
+                                         as_tuple=True)
+            result = []
+            for arr in index_arrays:
+                count = int(arr.shape[0])
+                bs = (self.compute_block_shape((count,), np.int64)
+                      if count else (0,))
+                result.append(BlockArray.from_torch(arr, bs, self.backend))
+            return tuple(result)
         assert x is not None and y is not None
         x = condition.check_or_convert_other(x)
         y = condition.check_or_convert_other(y)
@@ -451,13 +525,11 @@ class ArrayApplication:
         iterations re-orthonormalized by TSQR, then the exact SVD of the
         (ell, n) projection. No step holds more than max(m, n)·ell beside X.
 
-        Deterministic for a given seed. The sketch is drawn from this
-        package's generator (``random_state(seed).normal``), whose bits are
-        not the reference's threefry bits: the same seed gives another
-        sketch there, and the two results agree only as far as the method
-        is accurate, not draw for draw
-        (``core/ops/linalg.randomized_svd`` takes the sketch as an argument
-        and matches the reference on the same one)."""
+        Deterministic for a given seed. The sketch is
+        ``random_state(seed).normal``, on the reference's threefry
+        counters: the same seed draws the reference's sketch (to the
+        rounding of ``erfinv``), so the two packages agree draw for draw,
+        not merely as far as the method is accurate."""
         assert X.ndim == 2
         m, n = X.shape
         k = int(k)
@@ -524,6 +596,25 @@ class ArrayApplication:
                 lshape, b.block_shape), array_utils.to_dtype_name(data.dtype)),
             self.backend,
         )
+
+    def matmul(self, arr_1, arr_2):
+        return arr_1 @ arr_2
+
+    def tensordot(self, arr_1, arr_2, axes=2):
+        return arr_1.tensordot(arr_2, axes)
+
+    def allclose(self, a: BlockArray, b: BlockArray, rtol=1.0e-5,
+                 atol=1.0e-8):
+        """A 0-d boolean array: ``|a - b| <= atol + rtol * |b|``
+        everywhere (NaNs unequal)."""
+        assert a.shape == b.shape
+        ad, bd = elementwise.promote(
+            a.data, b.data,
+            array_utils.to_torch_dtype(self.backend.default_float))
+        if not ad.is_floating_point() and not ad.is_complex():
+            ad, bd = ad.to(torch.float64), bd.to(torch.float64)
+        data = torch.isclose(ad, bd, rtol=float(rtol), atol=float(atol)).all()
+        return BlockArray.from_torch(data, (), self.backend)
 
     def get(self, *arrs):
         if len(arrs) == 1:

@@ -120,6 +120,18 @@ class BlockArray:
                          array_utils.to_dtype_name(data.dtype))
         return BlockArray(data, grid, self.backend)
 
+    def _store(self, data, transposed=False):
+        """Rebind the tensor in place (an in-place op of the array API:
+        ``shuffle``); the grid stays."""
+        raw_logical = (
+            tuple(reversed(self.grid.shape)) if transposed
+            else tuple(self.grid.shape)
+        )
+        assert tuple(data.shape) == raw_logical, (data.shape, raw_logical)
+        assert data.dtype == self._data.dtype, (data.dtype, self._data.dtype)
+        self._data = data
+        self._transposed = transposed
+
     # ------------------------------------------------------------------
     # Properties
     # ------------------------------------------------------------------
@@ -258,6 +270,17 @@ class BlockArray:
 
     def max(self, axis=None, keepdims=False):
         return self.reduce_axis("max", axis, keepdims)
+
+    def _arg_op(self, op_name, axis):
+        data = reductions.arg_op(op_name, self.data, axis)
+        return self._new(data, array_utils.reduced_block_shape(
+            self.block_shape, axis, False))
+
+    def argmin(self, axis=None):
+        return self._arg_op("argmin", axis)
+
+    def argmax(self, axis=None):
+        return self._arg_op("argmax", axis)
 
     def _moment(self, op_name, axis, ddof, keepdims, dtype):
         axis = _norm_axis(axis)

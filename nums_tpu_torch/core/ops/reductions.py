@@ -47,3 +47,12 @@ def moment(op_name: str, x, axis, ddof: int, keepdims: bool, dtype=None):
     if x.ndim == 0:
         return fn(x.reshape(1), dim=(0,), correction=ddof, keepdim=False)
     return fn(x, dim=_dims(axis, x.ndim), correction=ddof, keepdim=keepdims)
+
+
+def arg_op(op_name: str, x, axis):
+    """``argmin``/``argmax`` over ``axis`` (None = the flattened array),
+    int64, the first of equal extremes as NumPy's."""
+    fn = {"argmin": torch.argmin, "argmax": torch.argmax}[op_name]
+    if x.dtype == torch.bool:
+        x = x.to(torch.uint8)
+    return fn(x) if axis is None else fn(x, dim=int(axis))

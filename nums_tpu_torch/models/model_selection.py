@@ -3,9 +3,8 @@
 Counterpart of ``nums_tpu/models/model_selection.py``: splits are row
 gathers on the device over one permutation (``NumsRandomState.
 permutation``), so no index set or data copy goes through the host. The
-permutation comes from a torch generator, not the reference's threefry
-stream (ROADMAP A2): a shuffled split is deterministic for a seed but is
-not the reference's split; ``shuffle=False`` splits are the same.
+permutation is drawn on the reference's threefry counters: for a seed, a
+shuffled split is the reference's split, row for row.
 """
 
 import copy

@@ -80,6 +80,32 @@ OPS = {
     "reshape": lambda app, a, b: a.reshape(84),
     "reshape_block": lambda app, a, b: a.reshape(
         (12, 7), block_shape=(6, 7)),
+    "app_reduce_sum": lambda app, a, b: app.reduce("sum", a, axis=1),
+    "app_reduce_max_keep": lambda app, a, b: app.reduce(
+        "max", a, axis=0, keepdims=True),
+    "app_reduce_acc_dtype": lambda app, a, b: app.reduce(
+        "sum", (a * 1e3).astype(np.int32), dtype=np.int64),
+    "app_min": lambda app, a, b: app.min(a, axis=1),
+    "app_argmin": lambda app, a, b: app.argmin(a[:, 2]),
+    "app_argmax": lambda app, a, b: app.argmax(a[3]),
+    "app_argop": lambda app, a, b: app.argop("argmax", b[:, 0], axis=0),
+    "app_matmul": lambda app, a, b: app.matmul(a, b.T),
+    "app_matmul_gram": lambda app, a, b: app.matmul(a.T, a),
+    "app_matvec": lambda app, a, b: app.matmul(a, b[0]),
+    "app_tensordot1": lambda app, a, b: app.tensordot(a.T, b, axes=1),
+    "app_tensordot2": lambda app, a, b: app.tensordot(a, b, axes=2),
+    "app_tensordot0": lambda app, a, b: app.tensordot(a[0], b[1], axes=0),
+    "app_allclose_true": lambda app, a, b: app.allclose(a, a + 1e-9),
+    "app_allclose_false": lambda app, a, b: app.allclose(a, b),
+    "app_allclose_tol": lambda app, a, b: app.allclose(
+        a, a * 1.01, rtol=0.1, atol=0.0),
+    "app_split0": lambda app, a, b: app.split(a, 3, axis=0)[1],
+    "app_split1": lambda app, a, b: app.split(a, 7, axis=1)[6],
+    "app_where1_rows": lambda app, a, b: app.where(a > 0)[0],
+    "app_where1_cols": lambda app, a, b: app.where(a > 0)[1],
+    "app_where1_vec": lambda app, a, b: app.where(a[0] > b[1])[0],
+    "app_where1_none": lambda app, a, b: app.where(a > 1e9)[1],
+    "app_where3": lambda app, a, b: app.where(a > 0, a, b),
 }
 
 
@@ -127,6 +153,72 @@ def test_creation_matches_nums_tpu(jax_app, torch_app, dtype):
         lambda app: app.scalar(np.asarray(1, dtype or "float64")[()]),
     ):
         _compare(make(torch_app), make(jax_app), 0.0)
+
+
+@pytest.mark.parametrize("dtype", [None, "float32", "int64", "int32"])
+def test_empty_arange_linspace_match_nums_tpu(jax_app, torch_app, dtype):
+    makers = [
+        lambda app: app.empty((5, 3), (2, 3), dtype=dtype),
+        lambda app: app.arange((11,), (4,), dtype=dtype),
+        lambda app: app.linspace(-1.0, 2.5, (9,), (4,), dtype=dtype),
+        lambda app: app.linspace(0.0, 10.0, (5,), (5,), endpoint=False,
+                                 dtype=dtype),
+        lambda app: app.linspace(3.0, 4.0, (1,), (1,), dtype=dtype),
+    ]
+    for make in makers:
+        _compare(make(torch_app), make(jax_app),
+                 1e-6 if dtype == "float32" else 1e-15)
+    assert not torch_app.empty((3,), (3,)).get().any()  # zeros, as there
+    ends = torch_app.linspace(-1.0, 2.5, (9,), (4,)).get()
+    assert ends[0] == -1.0 and ends[-1] == 2.5
+
+
+def test_split_argop_and_where_contracts(jax_app, torch_app):
+    a = torch_app.array(np.arange(24.0).reshape(6, 4), block_shape=(2, 4))
+    parts = torch_app.split(a, 3)
+    assert [p.shape for p in parts] == [(2, 4)] * 3
+    assert np.array_equal(np.concatenate([p.get() for p in parts]), a.get())
+    with pytest.raises(NotImplementedError):
+        torch_app.split(a, [2, 4])
+    with pytest.raises(AssertionError):
+        torch_app.split(a, 4)
+    for app in (torch_app, jax_app):
+        with pytest.raises(NotImplementedError):
+            app.argmin(app.array(np.zeros((2, 2)), block_shape=(2, 2)))
+    ties = np.array([3.0, 1.0, 1.0, 7.0, 7.0])
+    t = torch_app.array(ties, block_shape=(5,))
+    assert int(torch_app.argmin(t)) == 1 and int(torch_app.argmax(t)) == 3
+    assert torch_app.argmin(t).dtype == np.int64
+    rows, cols = torch_app.where(a > 10.0)
+    want = np.where(a.get() > 10.0)
+    assert np.array_equal(rows.get(), want[0])
+    assert np.array_equal(cols.get(), want[1])
+    assert rows.dtype == cols.dtype == np.int64
+    assert bool(torch_app.allclose(a, a)) is True
+    assert torch_app.allclose(a, a).shape == ()
+
+
+def test_app_matmul_of_the_gram_takes_the_kernel_route(torch_app, spy_calls):
+    """``app.matmul(X.T, X)`` and ``app.tensordot(X.T, X, axes=1)`` at the
+    default precision reach the gram kernel's wrapper (its plain version
+    on a CPU tensor: the launch counter stays 0, only a CUDA launch
+    counts); any other product is ``torch.matmul``."""
+    calls = spy_calls(cuda_gram, "gram")
+    before = dict(cuda_gram.LAUNCHES)
+    x = np.random.RandomState(3).randn(256, 64).astype(np.float32)
+    X = torch_app.array(x, block_shape=(128, 64))
+    g = torch_app.matmul(X.T, X)
+    assert len(calls) == 1
+    g2 = torch_app.tensordot(X.T, X, axes=1)
+    assert len(calls) == 2
+    assert np.array_equal(g.get(), g2.get())
+    assert rel_err(g.get(), x.astype(np.float64).T @ x) < GRAM_BF16_REL
+    Y = torch_app.array(x.copy(), block_shape=(128, 64))
+    torch_app.matmul(X.T, Y)
+    torch_app.matmul(X, X.T)
+    torch_app.tensordot(X, X, axes=2)
+    assert len(calls) == 2
+    assert dict(cuda_gram.LAUNCHES) == before
 
 
 def test_app_get_touch_and_scalars(torch_app):

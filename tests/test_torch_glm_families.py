@@ -400,7 +400,7 @@ def test_splits_and_row_gather(jax_app, torch_app):
         for g, r in zip(got, ref):
             assert np.array_equal(g.get(), r.get())
     # Shuffled: one permutation shared by every array, the same for one
-    # seed (the stream itself is torch's, not threefry's: ROADMAP A2).
+    # seed (and the reference's: test_shuffled_splits_equal_the_reference).
     a = tms.train_test_split(tX, ty, test_size=0.2, random_state=5)
     b = tms.train_test_split(tX, ty, test_size=0.2, random_state=5)
     for g, h in zip(a, b):
@@ -419,6 +419,34 @@ def test_splits_and_row_gather(jax_app, torch_app):
     tests = [t.get() for _, t in tms.KFold(4, shuffle=True,
                                           random_state=2).split(tX)]
     assert np.array_equal(np.sort(np.concatenate(tests)), np.arange(50))
+
+
+@pytest.mark.parametrize("seed", [0, 5, 2**32 + 9])
+def test_shuffled_splits_equal_the_reference(jax_app, torch_app, seed):
+    """The permutation is drawn on the reference's threefry counters: a
+    shuffled ``train_test_split`` and a shuffled ``KFold`` give the
+    reference's rows and folds exactly."""
+    from nums_tpu.models import model_selection as jms
+    from nums_tpu_torch.models import model_selection as tms
+
+    X = np.random.RandomState(1).randn(53, 4)
+    y = np.arange(53.0)
+    rX, ry = jax_app.array(X, block_shape=(20, 4)), jax_app.array(y, (20,))
+    tX, ty = torch_app.array(X, block_shape=(20, 4)), torch_app.array(y, (20,))
+    ref = jms.train_test_split(rX, ry, test_size=0.3, random_state=seed)
+    got = tms.train_test_split(tX, ty, test_size=0.3, random_state=seed)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert np.array_equal(g.get(), np.asarray(r.get()))
+    assert not np.array_equal(got[2].get(), y[:got[2].shape[0]])
+    folds_r = list(jms.KFold(4, shuffle=True, random_state=seed).split(rX))
+    folds_g = list(tms.KFold(4, shuffle=True, random_state=seed).split(tX))
+    assert len(folds_g) == len(folds_r) == 4
+    for fold_g, fold_r in zip(folds_g, folds_r):
+        for g, r in zip(fold_g, fold_r):
+            g = g.get() if hasattr(g, "get") else np.asarray(g)
+            r = r.get() if hasattr(r, "get") else np.asarray(r)
+            assert np.array_equal(g, np.asarray(r))
 
 
 def test_cross_val_score_matches_reference(jax_app, torch_app):

@@ -87,10 +87,15 @@ def test_init_needs_a_card_unless_the_cpu_is_asked_for():
     "nums_tpu_torch.core.io.shard_native",
     "nums_tpu_torch.core.io.fake_s3",
     "nums_tpu_torch.experimental.nums_modin",
+    "nums_tpu_torch.core.ops.threefry",
+    "nums_tpu_torch.core.ops.random_ops",
+    "nums_tpu_torch.core.array.random",
+    "nums_tpu_torch.numpy",
+    "nums_tpu_torch.numpy.random",
 ])
 def test_io_and_ooc_modules_import_first(module):
-    """Each module of the I/O, out-of-core, linalg and ingestion slices
-    imports as the first module of a process (no import cycle), with jax and nums_tpu
+    """Each module of the I/O, out-of-core, linalg, ingestion and random
+    slices imports as the first module of a process (no import cycle), with jax and nums_tpu
     blocked."""
     probe = _PROBE.split("import nums_tpu_torch\n")[0] + (
         f"import {module}\n"

@@ -515,12 +515,15 @@ def test_direct_tsqr_overwrite_x(jax_app, torch_app, dtype):
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_randomized_svd_entry_point(jax_app, torch_app, dtype):
-    """The sketch comes from each package's own generator (the port's bits
-    are not the reference's threefry bits), so each is held to numpy's SVD
-    on a planted decaying spectrum: the top-k singular values and the
-    projector UUᵀ, to the sketch's own accuracy there (1e-6 in float64,
-    1e-3 in float32); the grids to the reference's."""
+    """Both packages draw the sketch on threefry counters, so the same seed
+    gives the same sketch and the results agree draw for draw: singular
+    values, and U and Vᵀ after the sign flip, to 1e-9 in float64 and 2e-4
+    in float32 (the sketch itself to the normal's tolerance). Each is also
+    held to numpy's SVD on a planted decaying spectrum, to the method's
+    accuracy there (1e-6 in float64, 1e-3 in float32); the grids to the
+    reference's."""
     tol = {"float64": 1e-6, "float32": 1e-3}[dtype]
+    same = {"float64": 1e-9, "float32": 2e-4}[dtype]
     m, n, k = 3000, 40, 6
     x = _matrix(51, m, n, dtype, cond=1e8)
     X, jX = _both(jax_app, torch_app, x, (1000, 20))
@@ -536,6 +539,19 @@ def test_randomized_svd_entry_point(jax_app, torch_app, dtype):
         assert rel_err(s, s64[:k]) <= tol
         u = np.asarray(u, dtype=np.float64)
         assert rel_err(u @ u.T @ x, u64[:, :k] @ u64[:, :k].T @ x) <= tol
+    # the same sketch ...
+    ell = k + 10
+    omega = torch_app.random_state(3).normal(shape=(n, ell), dtype=x.dtype)
+    jomega = jax_app.random_state(3).normal(shape=(n, ell), dtype=x.dtype)
+    assert rel_err(omega.get(), np.asarray(jomega.get())) <= (
+        1e-12 if dtype == "float64" else 2e-6)
+    # ... so the same factors, up to the sign of each pair
+    gu, gs, gvt = (np.asarray(a.get(), dtype=np.float64) for a in got)
+    ru, rs_, rvt = (np.asarray(a.get(), dtype=np.float64) for a in ref)
+    assert rel_err(gs, rs_) <= same
+    sign = np.sign(np.sum(gvt * rvt, axis=1))
+    assert rel_err(gvt * sign[:, None], rvt) <= same
+    assert rel_err(gu * sign[None, :], ru) <= same
 
 
 # ----------------------------------------------------------------------

@@ -95,3 +95,42 @@ def spy_calls(monkeypatch):
         return calls
 
     return spy
+
+
+# The classes of tests/test_torch_random.py (its docstring states them).
+
+
+def draw_mismatch(got, ref, rtol, atol):
+    """Fraction of elements outside rtol*|ref| + atol*max|ref|."""
+    got = np.asarray(got, dtype=np.float64)
+    ref = np.asarray(ref, dtype=np.float64)
+    assert got.shape == ref.shape
+    scale = max(float(np.max(np.abs(ref))), 1e-30)
+    ok = np.abs(got - ref) <= rtol * np.abs(ref) + atol * scale
+    ok |= (got == ref) | (np.isnan(got) & np.isnan(ref))
+    return 1.0 - float(np.mean(ok))
+
+
+def assert_draw_class(cls, got, ref, dtype_name):
+    assert got.shape == ref.shape and got.dtype == ref.dtype, (
+        got.dtype, ref.dtype)
+    if cls == "exact":
+        assert np.array_equal(got, ref)
+    elif cls == "ulp":
+        rtol, atol = {"float64": (1e-12, 1e-12),
+                      "float32": (2e-6, 1e-6)}[dtype_name]
+        assert draw_mismatch(got, ref, rtol, atol) == 0.0
+    elif cls == "angle":
+        # the sampler's own variable: the cosine of the angle from mu
+        mu = 0.5
+        assert draw_mismatch(np.cos(got - mu), np.cos(ref - mu), 1e-5,
+                             1e-5) <= 1e-3
+        assert draw_mismatch(got, ref, 0.0, 1e-3 / np.pi) <= 1e-3
+    elif cls == "negative_binomial":
+        # law only: mean n(1-p)/p and variance n(1-p)/p^2 for (5, 0.4)
+        assert (got >= 0).all() and (got == np.round(got)).all()
+        assert abs(got.mean() - 7.5) < 6 * np.sqrt(18.75 / got.size)
+        assert abs(got.var() - 18.75) < 3.0
+    else:
+        assert cls == "looped"
+        assert draw_mismatch(got, ref, 1e-5, 1e-5) <= 1e-3
