@@ -1,8 +1,9 @@
 """Smoke run of nums_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py                 # phases 1-11
+    python3 chip_smoke.py                 # phases 1-12
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check
     python3 chip_smoke.py --random-only   # phases 1 and 11
+    python3 chip_smoke.py --facade-only   # phases 1, 2 and 12
 
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi);
@@ -103,6 +104,30 @@ Phases, each printing one JSON line:
      2^22 against its law; ``get_state``/``set_state`` resuming a stream
      bitwise; a shuffled ``train_test_split`` of 2.5M rows partitioning
      them.
+ 12. facade: ``nums_tpu_torch.numpy`` on phase 4's X, drawn again from
+     its seed: every contraction form of ``X.T @ X`` (the operator,
+     ``nps.matmul``, ``nps.dot``, ``nps.tensordot(axes=1)``, ``X.T.dot``,
+     ``nps.linalg.matmul``, ``multi_dot``, ``nps.transpose``) launching K1
+     once each, bitwise equal to each other and within 2e-3 of a float64
+     gram, and none under ``"highest"``; ``X[y > 0]`` with planted labels
+     (exact row count, bitwise ``X[idx]`` from the host); ``X[::-3]``,
+     ``X[:, [3, 1, 4]]``, 2^20 points and ``X[..., None]``, bitwise
+     numpy's on a host copy of a row slice; on a copy, ``Xc[Xc > 3] =
+     3.0`` bitwise ``nps.clip(X, None, 3.0)`` with its peak at most the
+     mask and one copy above X and ``Xc``, a packed write through a
+     2.5e9-element mask and a slice write, X untouched; column
+     ``sum``/``mean``/``var``/``std`` within 1e-5 of float64 and
+     ``min``/``max``/``argmax`` equal; on 8 columns (20M values) ``sort``
+     and stable ``argsort`` with ties, ``unique``, ``bincount`` and
+     ``searchsorted`` equal to numpy's, ``median`` and ``percentile`` to 1
+     ulp, ``histogram(64)`` counts equal on its edges, ``cumsum`` within
+     1e-3 of float64; every ufunc of ``numpy/api.py`` at 2^20 in float32
+     and int32 against the package's CPU route (``FACADE_EXACT`` and
+     integers equal, the rest within 4 ulp); ``numpy.linalg``'s ``qr``/
+     ``svd``/``lstsq``/``norm`` at 2^20 x 128 bitwise the application's,
+     ``det``/``inv``/``solve``/``eigh``/``eig`` at 1000 x 1000 against
+     float64 numpy. Each step's host-clock seconds after a synchronize,
+     its bound and its peak device memory are in the phase's line.
 Then the kernels as one JSON line (each with its bound, the least time
 the card could take for its work at this run's shapes), and last
 {"ok": true, "device": {...}}. A failed phase prints its traceback and
@@ -2646,6 +2671,484 @@ def phase_random(torch, smi, app, draw):
     return out
 
 
+FACADE_COLS = 8              # the statistics' columns: 2.5M x 8 = 20M values
+FACADE_HOST_ROWS = 30_000    # the row slice copied to the host for indexing
+FACADE_POINTS = 1 << 20      # the pointwise gather X[rows, cols]
+FACADE_UFUNC_N = 1 << 20     # each ufunc, card vs the CPU route
+FACADE_ULPS = 4              # transcendental ufuncs, card vs CPU
+FACADE_RED_REL = 1e-5        # column sum/mean/var/std vs float64, of max|ref|
+FACADE_SCAN_REL = FULL_REL   # float32 cumsum of 2.5M rows vs float64
+FACADE_LA_SHAPE = (1 << 20, 128)
+FACADE_SQ = 1000             # the square matrices of det/inv/solve/eig(h)
+FACADE_LA_REL = 1e-4         # float32 linalg vs float64 numpy, of max|ref|
+FACADE_DET_REL = 1e-3        # det: a product of 1000 float32 pivots
+# The forms of the facade whose contraction is X.T @ X; each must launch
+# K1 once (nums_tpu's reach its Pallas gram).
+FACADE_GRAM_FORMS = (
+    ("matmul_operator", lambda nps, X: X.T @ X),
+    ("nps_matmul", lambda nps, X: nps.matmul(X.T, X)),
+    ("nps_dot", lambda nps, X: nps.dot(X.T, X)),
+    ("nps_tensordot", lambda nps, X: nps.tensordot(X.T, X, axes=1)),
+    ("method_dot", lambda nps, X: X.T.dot(X)),
+    ("linalg_matmul", lambda nps, X: nps.linalg.matmul(X.T, X)),
+    ("linalg_multi_dot", lambda nps, X: nps.linalg.multi_dot([X.T, X])),
+    ("nps_transpose", lambda nps, X: nps.matmul(nps.transpose(X), X)),
+)
+# Ufuncs whose float results must equal the CPU route's: comparisons,
+# rounding, signs and magnitudes, selections; every other float result
+# may differ by rounding (the card's division, square root and
+# transcendental functions are not the host's), and every integer result
+# must be equal. The division family computes jax's divmod from the exact
+# ``fmod``: a last-ulp difference of the card's division cannot move it.
+FACADE_EXACT = {
+    "abs", "absolute", "fabs", "negative", "positive", "sign", "signbit",
+    "ceil", "floor", "trunc", "rint", "conj", "conjugate", "isfinite",
+    "isinf", "isnan", "logical_not", "equal", "not_equal", "greater",
+    "greater_equal", "less", "less_equal", "logical_and", "logical_or",
+    "logical_xor", "maximum", "minimum", "fmax", "fmin", "copysign",
+    "nextafter", "heaviside", "fmod", "mod", "remainder", "floor_divide",
+}
+
+
+def _ulps(got, ref, scale=None):
+    """Each finite element's error in float32 ulps of its magnitude: of
+    ``ref``, or of ``scale`` where that is larger (a binary op's
+    operands: ``logaddexp`` near 0 is the difference of two terms of their
+    size)."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    fin = np.isfinite(ref)
+    mag = np.abs(ref[fin]).astype(np.float32)
+    if scale is not None:
+        mag = np.maximum(mag, np.asarray(scale, dtype=np.float32)[fin])
+    return (np.abs(got[fin].astype(np.float64) - ref[fin].astype(np.float64))
+            / np.spacing(mag).astype(np.float64))
+
+
+def _within_ulps(got, ref, ulps, scale=None):
+    """NaN where ref is NaN, ±inf where it is, elsewhere within ``ulps``
+    float32 ulps (``_ulps``)."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    if not np.array_equal(np.isnan(got), np.isnan(ref)):
+        return False
+    inf = np.isinf(ref)
+    if not np.array_equal(got[inf], ref[inf]):
+        return False
+    return bool(np.all(_ulps(got, ref, scale) <= ulps))
+
+
+def _col_stats64(torch, x, chunk=1 << 18):
+    """Per-column float64 sum, sum of squares, min, max and first argmax
+    of ``x``, a row chunk at a time."""
+    d = x.shape[1]
+    s = torch.zeros(d, dtype=torch.float64, device=x.device)
+    sq = torch.zeros_like(s)
+    mn = torch.full_like(s, float("inf"))
+    mx = torch.full_like(s, float("-inf"))
+    arg = torch.zeros(d, dtype=torch.int64, device=x.device)
+    for i in range(0, x.shape[0], chunk):
+        c = x[i:i + chunk].double()
+        s += c.sum(0)
+        sq += (c * c).sum(0)
+        mn = torch.minimum(mn, c.amin(0))
+        cmax, carg = c.max(0)
+        arg = torch.where(cmax > mx, carg + i, arg)
+        mx = torch.maximum(mx, cmax)
+    return s, sq, mn, mx, arg
+
+
+def _facade_ufuncs(torch, nps, app, cpu_app):
+    """Every ufunc of ``numpy/api.py`` on the card against the port's own
+    CPU route (``map_uop``/``map_bop`` of an application on the CPU, in the
+    card's dtype mode), at 2^20 elements in float32 and int32: the same
+    dtype and exception, and equal values for every integer result and the
+    float ops of ``FACADE_EXACT``, the other float results within
+    ``FACADE_ULPS``. Every mismatch is listed before the check fails."""
+    from nums_tpu_torch.numpy import api
+
+    rng = np.random.default_rng(RANDOM_KNOWN["seed"])
+    n = FACADE_UFUNC_N
+    inputs = {
+        "float32": (rng.standard_normal(n).astype(np.float32) * 3,
+                    rng.standard_normal(n).astype(np.float32) * 3),
+        "int32": (rng.integers(-50, 51, n).astype(np.int32),
+                  rng.integers(1, 9, n).astype(np.int32)),
+    }
+
+    def run(fn):
+        try:
+            out = fn()
+            return out.get(), None
+        except (TypeError, ValueError) as e:
+            return None, type(e)
+
+    checked, exact, within, raised = 0, 0, 0, 0
+    ulps, bad = {}, []
+    for dtype, (x, y) in inputs.items():
+        xc, yc = app.array(x), app.array(y)
+        xh, yh = cpu_app.array(x), cpu_app.array(y)
+        for name in api.UOP_NAMES + api.BOP_NAMES:
+            if name in api.BOP_NAMES:
+                got = run(lambda: getattr(nps, name)(xc, yc))
+                ref = run(lambda: cpu_app.map_bop(name, xh, yh))
+            else:
+                got = run(lambda: getattr(nps, name)(xc))
+                ref = run(lambda: cpu_app.map_uop(name, xh))
+            checked += 1
+            if got[1] is not ref[1]:
+                bad.append((name, dtype, "exception", str(got[1]),
+                            str(ref[1])))
+                continue
+            if ref[1] is not None:
+                raised += 1
+                continue
+            g, r = got[0], ref[0]
+            if g.dtype != r.dtype or g.shape != r.shape:
+                bad.append((name, dtype, "dtype", str(g.dtype),
+                            str(r.dtype)))
+            elif r.dtype.kind in "biu" or name in FACADE_EXACT:
+                exact += 1
+                if not np.array_equal(g, r, equal_nan=r.dtype.kind == "f"):
+                    bad.append((name, dtype, "not equal"))
+            else:
+                within += 1
+                scale = (np.maximum(np.abs(x), np.abs(y))
+                         if name in api.BOP_NAMES else None)
+                err = _ulps(g, r, scale)
+                ulps[f"{name}_{dtype}"] = float(err.max()) if err.size else 0.0
+                if not _within_ulps(g, r, FACADE_ULPS, scale):
+                    bad.append((name, dtype, "ulps",
+                                ulps[f"{name}_{dtype}"]))
+    assert not bad, bad
+    worst = max(ulps, key=ulps.get) if ulps else None
+    return {"ufuncs": len(api.UOP_NAMES) + len(api.BOP_NAMES),
+            "cases": checked, "exact": exact, "within_ulps": within,
+            "same_exception": raised, "ulps_limit": FACADE_ULPS,
+            "worst_ulps": ulps.get(worst, 0.0), "worst_ulps_op": worst,
+            "ulps_by_op": ulps, "elements": n}
+
+
+def _facade_linalg(torch, nps, app, step):
+    """``nps.linalg`` on the card: ``qr``/``svd``/``lstsq``/``norm`` at
+    2^20 x 128 bitwise the application's entry points; ``det``/``inv``/
+    ``solve``/``eigh``/``eig`` at 1000 x 1000 against float64 numpy."""
+    out = {}
+    m, k = FACADE_LA_SHAPE
+    rs = app.random_state(RANDOM_KNOWN["seed"] + 1)
+    A = rs.normal(shape=(m, k), block_shape=(m, k), dtype=np.float32)
+    b = rs.normal(shape=(m,), block_shape=(m,), dtype=np.float32)
+    a_bytes = 4.0 * m * k
+    q, r = step("linalg_qr", lambda: nps.linalg.qr(A), 3 * a_bytes,
+                4.0 * m * k * k)
+    q2, r2 = app.qr(A)
+    assert torch.equal(q.data, q2.data) and torch.equal(r.data, r2.data)
+    del q, r, q2, r2
+    u, s, vt = step("linalg_svd", lambda: nps.linalg.svd(A), 3 * a_bytes,
+                    6.0 * m * k * k)
+    u2, s2, vt2 = app.svd(A)
+    assert all(torch.equal(p.data, p2.data)
+               for p, p2 in ((u, u2), (s, s2), (vt, vt2)))
+    del u, s, vt, u2, s2, vt2
+    th = step("linalg_lstsq", lambda: nps.linalg.lstsq(A, b),
+              a_bytes + 4.0 * m, 4.0 * m * k * k)
+    assert torch.equal(th.data, app.lstsq(A, b).data)
+    nb = step("linalg_norm", lambda: nps.linalg.norm(b), 4.0 * m, 2.0 * m)
+    assert torch.equal(nb.data, app.norm(b).data)
+    out["bitwise_as_application"] = ["qr", "svd", "lstsq", "norm"]
+    del A, b
+
+    n = FACADE_SQ
+    rng = np.random.default_rng(RANDOM_KNOWN["seed"])
+    mh = (np.eye(n) + 0.3 * rng.standard_normal((n, n)) / np.sqrt(n)).astype(
+        np.float32)
+    sh = ((mh + mh.T) / 2).astype(np.float32)
+    vh = rng.standard_normal(n).astype(np.float32)
+    M, S, v = app.array(mh), app.array(sh), app.array(vh)
+    m64, s64, v64 = (a.astype(np.float64) for a in (mh, sh, vh))
+    sq_bytes = 4.0 * n * n
+
+    def rel(got, ref):
+        got = np.asarray(got, dtype=np.complex128)
+        return float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+
+    d = step("linalg_det", lambda: nps.linalg.det(M), sq_bytes,
+             2.0 / 3 * n ** 3)
+    out["det_rel_err"] = abs(float(d) - np.linalg.det(m64)) / abs(
+        np.linalg.det(m64))
+    inv = step("linalg_inv", lambda: nps.linalg.inv(M), 2 * sq_bytes,
+               2.0 * n ** 3)
+    out["inv_rel_err"] = rel(inv.get(), np.linalg.inv(m64))
+    sol = step("linalg_solve", lambda: nps.linalg.solve(M, v), sq_bytes,
+               2.0 / 3 * n ** 3)
+    out["solve_rel_err"] = rel(sol.get(), np.linalg.solve(m64, v64))
+    w, vecs = step("linalg_eigh", lambda: nps.linalg.eigh(S), 2 * sq_bytes,
+                   9.0 * n ** 3)
+    out["eigh_rel_err"] = rel(w.get(), np.linalg.eigvalsh(s64))
+    vv = vecs.get().astype(np.float64)
+    out["eigh_residual"] = float(np.max(np.abs(
+        s64 @ vv - vv * w.get())) / np.max(np.abs(s64)))
+    we, _ = step("linalg_eig", lambda: nps.linalg.eig(M), 2 * sq_bytes,
+                 25.0 * n ** 3)
+    w64 = np.linalg.eigvals(m64)
+    wg = we.get().astype(np.complex128)
+    nearest = np.min(np.abs(w64[:, None] - wg[None, :]), axis=1)
+    out["eig_rel_err"] = float(nearest.max() / np.max(np.abs(w64)))
+    out["eig_dtype"] = str(we.dtype)
+    out["tolerance_rel"] = FACADE_LA_REL
+    out["det_tolerance_rel"] = FACADE_DET_REL
+    assert out["det_rel_err"] <= FACADE_DET_REL, out
+    for key in ("inv", "solve", "eigh", "eig"):
+        assert out[f"{key}_rel_err"] <= FACADE_LA_REL, (key, out)
+    assert out["eigh_residual"] <= FACADE_LA_REL, out
+    return out
+
+
+def phase_facade(torch, smi, app, X=None):
+    """Phase 12 (the module docstring lists its checks). ``X`` is phase
+    4's 2.5M x 1000 array, or None to draw it again from its seed. Any
+    breach raises: the run then ends without its last line. Returns the
+    phase's launch counts (set to 0 just before the facade's path, read
+    just after)."""
+    import nums_tpu_torch.numpy as nps
+    from nums_tpu_torch.core import application_manager, settings
+
+    t_phase = time.perf_counter()
+    out = {"phase": "facade", "nvidia_smi": smi, "shape": [N_FULL, D_FULL]}
+    application_manager.set_instance(app)
+    if X is None:
+        t0 = time.perf_counter()
+        X = app.random_state(RANDOM_KNOWN["seed"]).normal(
+            shape=(N_FULL, D_FULL), block_shape=(N_FULL, D_FULL),
+            dtype=np.float32)
+        torch.cuda.synchronize()
+        out["draw_seconds"] = time.perf_counter() - t0
+    x_bytes = 4.0 * N_FULL * D_FULL
+    rows_before = X.data[:FACADE_HOST_ROWS].clone()
+    steps = {}
+
+    def step(name, fn, bytes_moved, flops=0.0, tc_flops=0.0):
+        """One facade call: host-clock seconds after a synchronize, its
+        bound (``flops`` on the f32 units, ``tc_flops`` on the tensor
+        cores), its peak device memory (in all and above what was
+        allocated before it) and the kernel launches it made."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = _counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        after = _counts()
+        bound_ms, bound_by = _bound(bytes_moved, tc_flops, flops)
+        steps[name] = {"seconds": secs, "bound_ms": bound_ms,
+                       "bound_by": bound_by,
+                       "peak_bytes": peak,
+                       "peak_above_base_bytes": peak - base,
+                       "launches": {k: after[k] - before[k] for k in after
+                                    if after[k] != before[k]}}
+        return res
+
+    _reset_counts()
+    # (a) every contraction form of X.T @ X: K1 once each, bitwise equal
+    g_bytes = x_bytes + 4.0 * D_FULL * D_FULL
+    first = None
+    for name, form in FACADE_GRAM_FORMS:
+        G = step(f"gram_{name}", lambda: form(nps, X), g_bytes,
+                 tc_flops=_triangle_flops(N_FULL, D_FULL))
+        assert steps[f"gram_{name}"]["launches"] == {"gram": 1}, (
+            name, steps[f"gram_{name}"])
+        if first is None:
+            first = G
+        else:
+            assert torch.equal(G.data, first.data), name
+    g64 = _gram64(X.data)
+    _, out["gram_rel_err_vs_f64"] = rel_err(first.data, g64)
+    assert out["gram_rel_err_vs_f64"] <= BF16_REL, out
+    settings.matmul_precision = "highest"
+    try:
+        Gh = step("gram_highest", lambda: nps.matmul(X.T, X), g_bytes,
+                  2.0 * N_FULL * D_FULL * D_FULL)
+    finally:
+        settings.matmul_precision = "default"
+    assert not steps["gram_highest"]["launches"], steps["gram_highest"]
+    _, out["gram_highest_rel_err_vs_f64"] = rel_err(Gh.data, g64)
+    assert out["gram_highest_rel_err_vs_f64"] <= FULL_REL, out
+    del G, first, Gh, g64
+
+    # (b) the mask read X[y > 0], y planted labels; and from host indices
+    y = (X[:, 1] > 0.5).astype(np.float32)
+    count = int((y.data > 0).sum())
+    sel = step("mask_read", lambda: X[y > 0],
+               5.0 * N_FULL + 8.0 * count * D_FULL)
+    assert sel.shape == (count, D_FULL), (sel.shape, count)
+    idx = np.nonzero(y.get() > 0)[0]
+    sel2 = step("index_read_host", lambda: X[idx],
+                8.0 * count + 8.0 * count * D_FULL)
+    assert torch.equal(sel.data, sel2.data)
+    out["mask_rows"] = count
+    del sel, sel2, y, idx
+
+    # (c) other indexing, full size; bitwise against numpy on a host copy
+    # of a row slice
+    rng = np.random.default_rng(RANDOM_KNOWN["seed"])
+    rows = rng.integers(0, N_FULL, FACADE_POINTS)
+    cols = rng.integers(0, D_FULL, FACADE_POINTS)
+    keys = {
+        "reverse_step3": ((slice(None, None, -3),),
+                          8.0 * (-(-N_FULL // 3)) * D_FULL),
+        "columns": ((slice(None), [3, 1, 4]), 8.0 * N_FULL * 3),
+        "pointwise": ((rows, cols), 16.0 * FACADE_POINTS + 8.0
+                      * FACADE_POINTS),
+        "newaxis": ((Ellipsis, None), 0.0),
+    }
+    Xs = X[:FACADE_HOST_ROWS]
+    hs = Xs.get()
+    for name, (key, nbytes) in keys.items():
+        res = step(f"index_{name}", lambda: X[key], nbytes)
+        if name == "pointwise":
+            assert torch.equal(res.data, X.data[
+                torch.from_numpy(rows).to(DEVICE),
+                torch.from_numpy(cols).to(DEVICE)])
+            key = (rows % FACADE_HOST_ROWS, cols)
+        elif name == "reverse_step3":
+            assert res.shape == (-(-N_FULL // 3), D_FULL)
+            assert torch.equal(res.data[0], X.data[-1])
+            assert torch.equal(res.data[-1], X.data[(N_FULL - 1) % 3])
+        del res
+        assert np.array_equal(Xs[key].get(), hs[key]), name
+    out["indexing_checked_rows"] = FACADE_HOST_ROWS
+    del Xs, hs
+
+    # (d) assignment on a copy
+    Xc = step("copy", lambda: X.copy(), 2 * x_bytes)
+    step("setitem_scalar_mask", lambda: Xc.__setitem__(Xc > 3, 3.0),
+         2 * x_bytes + N_FULL * D_FULL)
+    scalar_peak = steps["setitem_scalar_mask"]["peak_above_base_bytes"]
+    mask_bytes = 1.0 * N_FULL * D_FULL
+    assert scalar_peak <= x_bytes + mask_bytes + (64 << 20), (
+        "setitem's peak above X and its copy", scalar_peak)
+    clip = step("clip", lambda: nps.clip(X, None, 3.0), 2 * x_bytes)
+    assert torch.equal(Xc.data, clip.data)
+    m2 = X < -4.5
+    n2 = int(m2.data.sum())
+    vals = app.array(np.arange(n2, dtype=np.float32))
+    step("setitem_packed_mask", lambda: Xc.__setitem__(m2, vals),
+         2 * x_bytes + mask_bytes)
+    assert torch.equal(Xc[m2].data, vals.data)
+    assert torch.equal(torch.where(m2.data, clip.data, Xc.data), clip.data)
+    before = Xc.data[990:2010].cpu().numpy()
+    step("setitem_slice", lambda: Xc.__setitem__(
+        (slice(1000, 2000), slice(5, 9)), 7.0), 2 * x_bytes)
+    want = before.copy()
+    want[10:1010, 5:9] = 7.0
+    assert np.array_equal(Xc.data[990:2010].cpu().numpy(), want)
+    assert torch.equal(X.data[:FACADE_HOST_ROWS], rows_before), (
+        "an assignment to the copy wrote into X")
+    out["setitem"] = {"scalar_mask_peak_above_base_bytes": scalar_peak,
+                      "limit_bytes": x_bytes + mask_bytes,
+                      "packed_elements": n2}
+    del Xc, clip, m2, vals
+
+    # (e) reductions along axis 0 against float64
+    s64, sq64, mn64, mx64, arg64 = _col_stats64(torch, X.data)
+    mean64 = s64 / N_FULL
+    var64 = sq64 / N_FULL - mean64 * mean64
+    checks = {}
+    for name, fn, ref in (
+            ("sum", lambda: nps.sum(X, axis=0), s64),
+            ("mean", lambda: nps.mean(X, axis=0), mean64),
+            ("var", lambda: nps.var(X, axis=0), var64),
+            ("std", lambda: nps.std(X, axis=0), var64.sqrt())):
+        res = step(f"reduce_{name}", fn, x_bytes + 4.0 * D_FULL,
+                   2.0 * N_FULL * D_FULL)
+        _, checks[name] = rel_err(res.data, ref)
+        assert checks[name] <= FACADE_RED_REL, (name, checks[name])
+    for name, fn, ref in (
+            ("min", lambda: nps.min(X, axis=0), mn64),
+            ("max", lambda: nps.max(X, axis=0), mx64),
+            ("argmax", lambda: X.argmax(axis=0), arg64)):
+        res = step(f"reduce_{name}", fn, x_bytes + 4.0 * D_FULL,
+                   1.0 * N_FULL * D_FULL)
+        assert torch.equal(res.data.to(ref.dtype), ref), name
+    out["reductions_rel_err"] = checks
+    out["reductions_tolerance"] = FACADE_RED_REL
+
+    # (f) sorting and statistics on 8 columns (20M values), against numpy
+    # on the host copy
+    C = X[:, :FACADE_COLS]
+    Ct = nps.around(C, 1)          # ties
+    hc, ht = C.get(), Ct.get()
+    c_bytes = 4.0 * N_FULL * FACADE_COLS
+    stats = {}
+    res = step("sort", lambda: nps.sort(Ct, axis=0), 2 * c_bytes,
+               0.0)
+    assert np.array_equal(res.get(), np.sort(ht, axis=0, kind="stable"))
+    res = step("argsort", lambda: nps.argsort(Ct, axis=0), 2 * c_bytes)
+    assert np.array_equal(res.get(), np.argsort(ht, axis=0, kind="stable"))
+    res = step("median", lambda: nps.median(C, axis=0), c_bytes)
+    assert _within_ulps(res.get(), np.median(hc, axis=0), 1), "median"
+    res = step("percentile", lambda: nps.percentile(C, [1, 50, 99], axis=0),
+               c_bytes)
+    assert _within_ulps(res.get(), np.percentile(
+        hc.astype(np.float64), [1, 50, 99], axis=0).astype(np.float32),
+        1), "percentile"
+    h, e = step("histogram", lambda: nps.histogram(C, bins=64), c_bytes,
+                1.0 * N_FULL * FACADE_COLS * 6)
+    he = e.get()
+    assert np.array_equal(h.get(), np.histogram(hc, bins=he)[0].astype(
+        h.dtype)), "histogram counts"
+    # jnp's float32 lerp against numpy's float64 linspace: within 2 ulps of
+    # the largest edge (an edge near 0 is the difference of two terms)
+    ne = np.histogram_bin_edges(hc, bins=64)
+    stats["histogram_edges_max_abs_err"] = float(np.max(np.abs(
+        he.astype(np.float64) - ne)))
+    assert stats["histogram_edges_max_abs_err"] <= 2 * float(np.spacing(
+        np.max(np.abs(ne)).astype(np.float32))), stats
+    vals, counts = step("unique", lambda: nps.unique(Ct, return_counts=True),
+                        2 * c_bytes)
+    uv, uc = np.unique(ht, return_counts=True)
+    assert np.array_equal(vals.get(), uv) and np.array_equal(counts.get(),
+                                                             uc)
+    stats["unique_values"] = int(uv.shape[0])
+    ints = nps.astype(nps.abs(Ct) * 10, np.int32)
+    res = step("bincount", lambda: nps.bincount(nps.ravel(ints)), c_bytes)
+    assert np.array_equal(res.get(), np.bincount(ints.get().ravel()))
+    s0 = nps.sort(Ct[:, 0])
+    for side in ("left", "right"):
+        res = step(f"searchsorted_{side}",
+                   lambda: nps.searchsorted(s0, Ct[:, 1], side=side),
+                   3 * 4.0 * N_FULL)
+        assert np.array_equal(res.get(), np.searchsorted(
+            np.sort(ht[:, 0]), ht[:, 1], side=side))
+    res = step("cumsum", lambda: nps.cumsum(C, axis=0), 2 * c_bytes,
+               1.0 * N_FULL * FACADE_COLS)
+    ref = np.cumsum(hc.astype(np.float64), axis=0)
+    stats["cumsum_rel_err_vs_f64"] = float(
+        np.max(np.abs(res.get() - ref)) / np.max(np.abs(ref)))
+    assert stats["cumsum_rel_err_vs_f64"] <= FACADE_SCAN_REL, stats
+    stats["cumsum_tolerance"] = FACADE_SCAN_REL
+    out["statistics"] = stats
+    del C, Ct, hc, ht, res, h, e, vals, counts, ints, s0
+
+    # (g) every ufunc, card vs the CPU route; (h) linalg
+    saved = settings.default_float_for
+    settings.default_float_for = lambda device: np.dtype(np.float32)
+    try:
+        cpu_app = application_manager.create(device="cpu")
+        out["ufuncs"] = _facade_ufuncs(torch, nps, app, cpu_app)
+    finally:
+        settings.default_float_for = saved
+    out["linalg"] = _facade_linalg(torch, nps, app, step)
+
+    out["launches"] = _counts()
+    assert out["launches"]["gram"] == len(FACADE_GRAM_FORMS), out["launches"]
+    out["steps"] = steps
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 KERNELS = (
     ("gram", "nums_tpu_torch/csrc/gram.cu",
      "nums_tpu/core/ops/pallas_gram.py:139"),
@@ -2656,7 +3159,8 @@ KERNELS = (
 )
 
 
-def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs):
+def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
+                 facade):
     """One entry per kernel: "launches" counts the main path (phase 4),
     "launches_per_fit" one fit (phase 6), "launches_ooc" the streamed
     steps of phase 8 (the PCA and TruncatedSVD fits among them),
@@ -2665,7 +3169,8 @@ def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs):
     fit and two predicts; "panel_ms" is its time on one resident panel of
     phase 8, and "panel_bound_ms" that panel's bound; "higgs_ms" its time
     at phase 10's shape (8.8M x 28 for K1, x 29 for K2 and K3, K3 on X
-    staged once), beside that shape's plain version and bound.
+    staged once), beside that shape's plain version and bound;
+    "launches_facade" phase 12's facade path (K1: one per contraction form).
     gram.cu's weighted launches ("gram_weighted") on these paths are K3's
     Hessian, and K2 proper in phase 8's pass with the Newton gate off."""
     return [
@@ -2684,7 +3189,8 @@ def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs):
          "higgs_max_abs_err": higgs["kernels"][name]["max_abs_err"],
          "higgs_ms": higgs["kernels"][name]["ms"],
          "higgs_plain_ms": higgs["kernels"][name]["plain_ms"],
-         "higgs_bound_ms": higgs["kernels"][name]["bound_ms"]}
+         "higgs_bound_ms": higgs["kernels"][name]["bound_ms"],
+         "launches_facade": facade["launches"][name]}
         for name, src, rep in KERNELS
     ]
 
@@ -2708,6 +3214,14 @@ def main(argv):
             phase_random(torch, smi, nums_tpu_torch.init(), None)
             return 0
         phase_build()
+        if "--facade-only" in argv:
+            import nums_tpu_torch
+
+            phase_facade(torch, smi, nums_tpu_torch.init())
+            emit({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}})
+            return 0
         phase_small(torch)
         if "--kernels-only" in argv:
             return 0
@@ -2727,8 +3241,10 @@ def main(argv):
         higgs = phase_higgs(torch, smi, app)
         torch.cuda.empty_cache()
         phase_random(torch, smi, app, draw)
+        torch.cuda.empty_cache()
+        facade = phase_facade(torch, smi, app)
         emit({"kernels": kernels_line(counts, fit_counts, times, ooc,
-                                      linalg_launches, higgs)})
+                                      linalg_launches, higgs, facade)})
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})

@@ -608,12 +608,9 @@ class ArrayApplication:
         """A 0-d boolean array: ``|a - b| <= atol + rtol * |b|``
         everywhere (NaNs unequal)."""
         assert a.shape == b.shape
-        ad, bd = elementwise.promote(
-            a.data, b.data,
+        data = elementwise.allclose(
+            a.data, b.data, rtol, atol,
             array_utils.to_torch_dtype(self.backend.default_float))
-        if not ad.is_floating_point() and not ad.is_complex():
-            ad, bd = ad.to(torch.float64), bd.to(torch.float64)
-        data = torch.isclose(ad, bd, rtol=float(rtol), atol=float(atol)).all()
         return BlockArray.from_torch(data, (), self.backend)
 
     def get(self, *arrs):

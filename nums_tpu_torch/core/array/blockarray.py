@@ -1,13 +1,15 @@
 """BlockArray: a grid-partitioned array held in one torch tensor.
 
-Counterpart of ``nums_tpu/core/array/blockarray.py`` for the GLM layer:
-construction, elementwise and comparison operators, ``astype``, ``T`` as
-metadata, ``sum``/``mean``/``var``/``std``/``min``/``max``/``clip``, basic
-indexing and
-the row gather, ``reshape``, ``get``/``touch`` and ``tensordot``. A
-BlockArray is ONE ``torch.Tensor`` on the backend's device plus
-``ArrayGrid`` metadata; ops run eagerly (the reference's lazy batching,
-``core/lazy.py``, has no counterpart here).
+Counterpart of ``nums_tpu/core/array/blockarray.py``: construction, the
+operators, ``astype``/``copy``, the lazy transpose and ``transpose(*axes)``,
+``reshape``/``broadcast_to``/``expand_dims``/``squeeze``, the reductions,
+``tensordot``/``matmul``, NumPy indexing and assignment, and the ndarray
+methods, which delegate to the facade (``nums_tpu_torch.numpy.extra``) as
+the reference's do. A BlockArray is ONE ``torch.Tensor`` on the backend's
+device plus ``ArrayGrid`` metadata; ops run eagerly (the reference's lazy
+batching, ``core/lazy.py``, has no counterpart here), and none of them
+writes into a tensor that another array may hold: an assignment builds a
+new tensor and rebinds it, as the reference's ``_store`` does.
 
 ``x.T @ x`` on float32 goes to the gram kernel (``ops/cuda_gram.py``) in
 the bf16-MAC precision class, as the reference's ``_pallas_gram_fast``
@@ -17,10 +19,11 @@ goes to its Pallas kernel.
 import numpy as np
 import torch
 
+from nums_tpu_torch.core import trace
 from nums_tpu_torch.core.grid import ArrayGrid
 from nums_tpu_torch.core.array import utils as array_utils
 from nums_tpu_torch.core.ops import (
-    cuda_gram, elementwise, linear, reductions, shape_ops,
+    cuda_gram, elementwise, linear, masking, reductions, shape_ops,
 )
 
 
@@ -201,26 +204,41 @@ class BlockArray:
             torch.cuda.current_stream(self._data.device).synchronize()
         return self
 
+    def copy(self):
+        return BlockArray(elementwise.touch(self._data), self.grid.copy(),
+                          self.backend, transposed=self._transposed)
+
+    def is_single_block(self):
+        return self.grid.num_blocks == 1
+
     # ------------------------------------------------------------------
     # Structure ops
     # ------------------------------------------------------------------
 
     def astype(self, dtype):
-        data = self._data.to(array_utils.to_torch_dtype(dtype))
+        data = elementwise.astype(self._data,
+                                  array_utils.to_torch_dtype(dtype))
         grid = ArrayGrid(self.shape, self.block_shape,
                          array_utils.to_dtype_name(data.dtype))
         return BlockArray(data, grid, self.backend,
                           transposed=self._transposed)
 
-    def transpose(self):
-        """Zero-copy lazy transpose (reversed axes)."""
-        if self.ndim <= 1:
-            return self
-        shape = tuple(reversed(self.shape))
-        block_shape = tuple(reversed(self.block_shape))
-        grid = ArrayGrid(shape, block_shape, self.grid.dtype)
-        return BlockArray(self._data, grid, self.backend,
-                          transposed=not self._transposed)
+    def transpose(self, *axes):
+        """The reversed axes as a zero-copy lazy transpose; any other
+        permutation as a permuted view."""
+        if axes and isinstance(axes[0], (tuple, list)):
+            axes = tuple(axes[0])
+        perm = (tuple(int(a) % self.ndim for a in axes) if axes
+                else tuple(reversed(range(self.ndim))))
+        block_shape = tuple(self.block_shape[p] for p in perm)
+        if perm == tuple(reversed(range(self.ndim))):
+            if self.ndim <= 1:
+                return self
+            shape = tuple(self.shape[p] for p in perm)
+            grid = ArrayGrid(shape, block_shape, self.grid.dtype)
+            return BlockArray(self._data, grid, self.backend,
+                              transposed=not self._transposed)
+        return self._new(self.data.permute(*perm), block_shape)
 
     def reshape(self, *shape, **kwargs):
         block_shape = kwargs.pop("block_shape", None)
@@ -231,12 +249,23 @@ class BlockArray:
             new_shape = self.shape
         if new_shape == self.shape and block_shape is None:
             return self
-        data = self.data.reshape(new_shape)
+        data = shape_ops.reshape(self.data, new_shape)
         if block_shape is None:
             block_shape = array_utils.default_block_shape_for(new_shape)
         grid = ArrayGrid(new_shape, tuple(block_shape),
                          array_utils.to_dtype_name(data.dtype))
         return BlockArray(data, grid, self.backend)
+
+    def broadcast_to(self, shape):
+        return self._new(shape_ops.broadcast_to(self.data, tuple(shape)))
+
+    def expand_dims(self, axis):
+        return self._new(shape_ops.expand_dims(self.data, axis))
+
+    def squeeze(self):
+        data = shape_ops.squeeze(self.data)
+        bs = tuple(b for b, s in zip(self.block_shape, self.shape) if s != 1)
+        return self._new(data, bs)
 
     # ------------------------------------------------------------------
     # Elementwise / reductions
@@ -244,13 +273,15 @@ class BlockArray:
 
     def ufunc(self, op_name):
         # Elementwise ops commute with the lazy transpose.
-        data = elementwise.uop(op_name, self._data)
+        trace.log_op(op_name, self)
+        data = elementwise.uop(op_name, self._data, self._default_float())
         grid = ArrayGrid(self.shape, self.block_shape,
                          array_utils.to_dtype_name(data.dtype))
         return BlockArray(data, grid, self.backend,
                           transposed=self._transposed)
 
     def reduce_axis(self, op_name, axis, keepdims=False, dtype=None):
+        trace.log_op(op_name, self)
         axis = _norm_axis(axis)
         dt = None if dtype is None else array_utils.to_torch_dtype(dtype)
         data = reductions.reduce(op_name, self.data, axis, bool(keepdims),
@@ -271,6 +302,9 @@ class BlockArray:
     def max(self, axis=None, keepdims=False):
         return self.reduce_axis("max", axis, keepdims)
 
+    def prod(self, axis=None, keepdims=False):
+        return self.reduce_axis("prod", axis, keepdims)
+
     def _arg_op(self, op_name, axis):
         data = reductions.arg_op(op_name, self.data, axis)
         return self._new(data, array_utils.reduced_block_shape(
@@ -283,6 +317,7 @@ class BlockArray:
         return self._arg_op("argmax", axis)
 
     def _moment(self, op_name, axis, ddof, keepdims, dtype):
+        trace.log_op(op_name, self)
         axis = _norm_axis(axis)
         dt = None if dtype is None else array_utils.to_torch_dtype(dtype)
         data = reductions.moment(op_name, self.data, axis, int(ddof),
@@ -297,17 +332,14 @@ class BlockArray:
     def std(self, axis=None, ddof=0, keepdims=False, dtype=None):
         return self._moment("std", axis, ddof, keepdims, dtype)
 
-    def clip(self, a_min=None, a_max=None):
-        data = torch.clamp(self.data, a_min, a_max)
-        return self._new(data, self.block_shape)
-
     # ------------------------------------------------------------------
     # Binary ops
     # ------------------------------------------------------------------
 
-    def check_or_convert_other(self, other):
+    def check_or_convert_other(self, other, compute_block_shape=False):
         """Python scalars stay raw (weak typing); arrays become
         BlockArrays on this backend."""
+        del compute_block_shape
         if isinstance(other, BlockArray):
             return other
         if array_utils.is_scalar_like(other):
@@ -325,6 +357,7 @@ class BlockArray:
         else:
             o_data, o_shape, o_bs = other, (), ()
         a, b = (o_data, self.data) if reverse else (self.data, o_data)
+        trace.log_op(op_name, self, other)
         data = elementwise.bop(op_name, a, b, self._default_float())
         bs = array_utils.broadcast_block_shape(
             tuple(data.shape), self.shape, self.block_shape, o_shape, o_bs
@@ -355,6 +388,18 @@ class BlockArray:
     def __rtruediv__(self, other):
         return self._bop("true_divide", other, reverse=True)
 
+    def __floordiv__(self, other):
+        return self._bop("floor_divide", other)
+
+    def __rfloordiv__(self, other):
+        return self._bop("floor_divide", other, reverse=True)
+
+    def __mod__(self, other):
+        return self._bop("mod", other)
+
+    def __rmod__(self, other):
+        return self._bop("mod", other, reverse=True)
+
     def __pow__(self, other):
         return self._bop("power", other)
 
@@ -366,13 +411,15 @@ class BlockArray:
     __isub__ = __sub__
     __imul__ = __mul__
     __itruediv__ = __truediv__
+    __ipow__ = __pow__
 
     def _const_bool(self, value: bool):
         """Full-shape bool constant: NumPy's result for equality against
         an incomparable operand like None."""
-        data = torch.full(tuple(self.shape), value, dtype=torch.bool,
-                          device=self._data.device)
-        return self._new(data, self.block_shape)
+        data = elementwise.const_bool(self._data, value)
+        grid = ArrayGrid(self.shape, self.block_shape, "bool")
+        return BlockArray(data, grid, self.backend,
+                          transposed=self._transposed)
 
     def __eq__(self, other):
         if other is None:  # np.ndarray == None -> elementwise False
@@ -398,11 +445,31 @@ class BlockArray:
 
     __hash__ = None
 
+    # Bitwise / logical (NumPy semantics: & | ^ are bitwise; on bools they
+    # coincide with the logical ops).
     def __and__(self, other):
         return self._bop("bitwise_and", other)
 
+    def __rand__(self, other):
+        return self._bop("bitwise_and", other, reverse=True)
+
     def __or__(self, other):
         return self._bop("bitwise_or", other)
+
+    def __ror__(self, other):
+        return self._bop("bitwise_or", other, reverse=True)
+
+    def __xor__(self, other):
+        return self._bop("bitwise_xor", other)
+
+    def __rxor__(self, other):
+        return self._bop("bitwise_xor", other, reverse=True)
+
+    def __lshift__(self, other):
+        return self._bop("left_shift", other)
+
+    def __rshift__(self, other):
+        return self._bop("right_shift", other)
 
     def __neg__(self):
         return self.ufunc("negative")
@@ -428,6 +495,7 @@ class BlockArray:
             static_axes = int(axes)
         else:
             static_axes = tuple(tuple(a) for a in axes)
+        trace.log_op("tensordot", self, other)
         if other._data is self._data:
             fast = self._gram_fast(other, static_axes)
             if fast is not None:
@@ -447,7 +515,8 @@ class BlockArray:
         Routes on the pattern (same tensor, one contracted axis, left
         operand lazily transposed), the dtype and the precision setting
         alone (the reference also needs a lane-padded buffer,
-        blockarray.py:749-780; nothing here needs one)."""
+        blockarray.py:749-780; nothing here needs one). A strided view
+        (a column slice, say) is made contiguous for the kernel."""
         if (
             static_axes != 1
             or self.ndim != 2
@@ -458,13 +527,17 @@ class BlockArray:
                                        self._data.dtype)
         ):
             return None
-        data = cuda_gram.gram(self._data)
+        data = cuda_gram.gram(self._data.contiguous())
         bs = array_utils.tensordot_block_shape(
             self.block_shape, other.block_shape, 1
         )
         return self._new(data, bs)
 
     def __matmul__(self, other):
+        other = self.check_or_convert_other(other)
+        if self.ndim > 2 or (isinstance(other, BlockArray) and other.ndim > 2):
+            o = other.data if isinstance(other, BlockArray) else other
+            return self._new(linear.matmul(self.data, o))
         return self.tensordot(other, axes=1)
 
     def __rmatmul__(self, other):
@@ -477,40 +550,165 @@ class BlockArray:
     # Indexing
     # ------------------------------------------------------------------
 
-    def _row_index(self, item):
-        """The index tensor of a row gather ``x[idx]`` (a 1-D integer numpy
-        array or BlockArray), or None for any other subscript."""
-        if isinstance(item, np.ndarray):
-            if item.ndim != 1 or item.dtype.kind not in "iu":
-                return None
-            n = self.shape[0]
-            if item.size and (item.max() >= n or item.min() < -n):
-                raise IndexError(f"row index out of bounds for axis 0 of "
-                                 f"size {n}")
-            return torch.from_numpy(item.astype(np.int64))
-        if (isinstance(item, BlockArray) and item.ndim == 1
-                and item.dtype.kind in "iu"):
-            return item.data
-        return None
+    @staticmethod
+    def _is_bool_mask(s):
+        return (
+            isinstance(s, BlockArray) and s.dtype == np.bool_
+        ) or (isinstance(s, np.ndarray) and s.dtype == np.bool_)
+
+    def _index_tensor(self, arr, dim_len):
+        """A host integer index array as an int64 tensor on the device,
+        negative entries counted from the end; out of range raises
+        IndexError (the check is on the host: no device sync)."""
+        arr = np.asarray(arr)
+        if arr.size and (arr.max() >= dim_len or arr.min() < -dim_len):
+            raise IndexError(f"index out of bounds for axis of size "
+                             f"{dim_len}")
+        arr = np.where(arr < 0, arr + dim_len, arr).astype(np.int64)
+        return torch.from_numpy(arr).to(self._data.device)
+
+    def _normalize_subscript(self, item):
+        """The subscript as a tuple torch can index with, and the axis each
+        entry consumes (None for ``None`` and ``Ellipsis``).
+
+        A boolean mask becomes one index tensor per axis it covers: a
+        BlockArray mask on its device by ``masking.device_where`` (one
+        host sync, for the count), a host mask by ``np.where``. Integer
+        index arrays become int64 tensors on the device; those already on
+        the device are wrapped to ``[0, n)`` (negative from the end) and
+        clamped into it, as jax's gather clamps. Slices keep their steps
+        (negative ones included)."""
+        if not isinstance(item, tuple):
+            item = (item,)
+        entries = []
+        for s in item:
+            if self._is_bool_mask(s):
+                if isinstance(s, BlockArray):
+                    _, idx = masking.device_where(s)
+                    entries.extend(("mask", i) for i in idx)
+                else:
+                    entries.extend(("host", i) for i in np.where(s))
+            elif isinstance(s, BlockArray):
+                entries.append(("device", s.data))
+            elif torch.is_tensor(s):
+                entries.append(("device", s))
+            elif isinstance(s, (np.ndarray, list)):
+                entries.append(("host", np.asarray(s)))
+            else:
+                entries.append(("basic", s))
+        consumed = sum(1 for kind, s in entries
+                       if not (kind == "basic" and (s is None
+                                                    or s is Ellipsis)))
+        key, axes, axis = [], [], 0
+        for kind, s in entries:
+            if kind == "basic" and s is Ellipsis:
+                key.append(s)
+                axes.append(None)
+                axis += self.ndim - consumed
+                continue
+            if kind == "basic" and s is None:
+                key.append(s)
+                axes.append(None)
+                continue
+            n = self.shape[axis]
+            if kind == "host":
+                s = self._index_tensor(s, n)
+            elif kind == "device":
+                s = s.to(device=self._data.device, dtype=torch.int64)
+                s = torch.where(s < 0, s + n, s).clamp(0, max(n - 1, 0))
+            elif isinstance(s, (int, np.integer)):
+                s = int(s)
+                if not -n <= s < n:
+                    raise IndexError(f"index {s} is out of bounds for "
+                                     f"axis {axis} with size {n}")
+            key.append(s)
+            axes.append(axis)
+            axis += 1
+        return tuple(key), tuple(axes)
+
+    @staticmethod
+    def _positive_step(s, n):
+        """(slice with a positive step, flip) selecting ``range(n)[s]``:
+        a negative step becomes the same elements in increasing order and
+        ``flip`` says to reverse them."""
+        start, stop, step = s.indices(n)
+        if step > 0:
+            return slice(start, stop, step), False
+        count = len(range(start, stop, step))
+        if count == 0:
+            return slice(0, 0, 1), False
+        last = start + (count - 1) * step
+        return slice(last, start + 1, -step), True
+
+    def _index(self, data, key, axes):
+        """``data[key]`` with NumPy's semantics, negative steps included:
+        those slices are taken forward and reversed first, every other
+        entry of the key left for the second step."""
+        if not any(isinstance(k, slice) and (k.step or 1) < 0 for k in key):
+            return data[key]
+        first = [slice(None)] * data.ndim
+        flips = []
+        for k, a in zip(key, axes):
+            if isinstance(k, slice) and a is not None:
+                first[a], flip = self._positive_step(k, data.shape[a])
+                if flip:
+                    flips.append(a)
+        data = data[tuple(first)]
+        if flips:
+            data = torch.flip(data, flips)
+        second = tuple(slice(None) if isinstance(k, slice) else k
+                       for k in key)
+        return data[second]
 
     def __getitem__(self, item):
-        """Basic indexing (integers, slices with a positive step, None and
-        Ellipsis) and the row gather ``x[idx]`` by a 1-D integer array.
-        Boolean masks and the other advanced forms are a later port."""
-        if self.ndim >= 1:
-            rows = self._row_index(item)
-            if rows is not None:
-                return self._new(shape_ops.take_rows(self.data, rows))
-        key = item if isinstance(item, tuple) else (item,)
-        for k in key:
-            if not (
-                isinstance(k, (int, np.integer, type(None), type(Ellipsis)))
-                or (isinstance(k, slice) and (k.step or 1) > 0)
-            ):
-                raise NotImplementedError(
-                    f"index {k!r}: only basic indexing is ported"
-                )
-        return self._new(self.data[key])
+        key, axes = self._normalize_subscript(item)
+        return self._new(self._index(self.data, key, axes))
+
+    def _value_tensor(self, value):
+        """An assigned value as a tensor of this array's dtype on its
+        device (jax's ``.at[].set`` casts the same way)."""
+        if isinstance(value, BlockArray):
+            v = value.data
+        elif torch.is_tensor(value):
+            v = value
+        else:
+            v = torch.as_tensor(np.asarray(value), device=self._data.device)
+        return v.to(device=self._data.device, dtype=self._data.dtype)
+
+    def __setitem__(self, item, value):
+        """NumPy assignment, by a new tensor: the old one is never written,
+        so a view another array took of it keeps its values.
+
+        A boolean mask with a value of one element is one ``torch.where``
+        on the device, with no host sync; any other value is written
+        packed, in row-major order of the True positions, at the index
+        tensors of ``masking.device_where`` (one host sync). Every other
+        key goes through slice assignment or ``index_put_`` on a copy."""
+        v = self._value_tensor(value)
+        if not isinstance(item, tuple) and self._is_bool_mask(item):
+            if v.numel() == 1:
+                mask = (item.data if isinstance(item, BlockArray)
+                        else torch.from_numpy(np.asarray(item)).to(
+                            self._data.device))
+                mask = mask.reshape(tuple(mask.shape)
+                                    + (1,) * (self.ndim - mask.ndim))
+                self._store(torch.where(mask, v.reshape(()), self.data))
+                return
+        key, axes = self._normalize_subscript(item)
+        out = self.data.clone()
+        if any(isinstance(k, slice) and (k.step or 1) < 0 for k in key):
+            # torch slices take no negative step: write through the flat
+            # positions that the key selects.
+            pos = self._index(
+                torch.arange(out.numel(), device=out.device).reshape(
+                    out.shape), key, axes)
+            flat = out.reshape(-1)
+            flat[pos.reshape(-1)] = torch.broadcast_to(
+                v, tuple(pos.shape)).reshape(-1)
+            out = flat.reshape(out.shape)
+        else:
+            out[key] = v
+        self._store(out)
 
     # ------------------------------------------------------------------
     # Scalar conversions
@@ -537,8 +735,118 @@ class BlockArray:
     def __int__(self):
         return int(self._scalar_value())
 
+    def __complex__(self):
+        return complex(self._scalar_value())
+
+    # ------------------------------------------------------------------
+    # ndarray methods (delegate to the facade, as the reference's do)
+    # ------------------------------------------------------------------
+
+    def all(self, axis=None):
+        from nums_tpu_torch.numpy import extra
+
+        return extra.all(self, axis=axis)
+
+    def any(self, axis=None):
+        from nums_tpu_torch.numpy import extra
+
+        return extra.any(self, axis=axis)
+
+    def clip(self, a_min=None, a_max=None):
+        from nums_tpu_torch.numpy import extra
+
+        return extra.clip(self, a_min, a_max)
+
+    def round(self, decimals=0):
+        from nums_tpu_torch.numpy import extra
+
+        return extra.around(self, decimals)
+
+    def cumsum(self, axis=None):
+        from nums_tpu_torch.numpy import extra
+
+        return extra.cumsum(self, axis=axis)
+
+    def cumprod(self, axis=None):
+        from nums_tpu_torch.numpy import extra
+
+        return extra.cumprod(self, axis=axis)
+
+    def take(self, indices, axis=None):
+        from nums_tpu_torch.numpy import extra
+
+        return extra.take(self, indices, axis=axis)
+
+    def repeat(self, repeats, axis=None):
+        from nums_tpu_torch.numpy import extra
+
+        return extra.repeat(self, repeats, axis=axis)
+
+    def ravel(self):
+        return self.reshape(self.size)
+
+    def flatten(self):
+        return self.reshape(self.size)
+
+    def swapaxes(self, axis1, axis2):
+        from nums_tpu_torch.numpy import extra
+
+        return extra.swapaxes(self, axis1, axis2)
+
+    def sort(self, axis=-1):
+        # NumPy sorts in place; rebind the tensor (as __setitem__ does).
+        from nums_tpu_torch.numpy import extra
+
+        out = extra.sort(self, axis=axis)
+        self._store(out.data)
+
+    def argsort(self, axis=-1):
+        from nums_tpu_torch.numpy import extra
+
+        return extra.argsort(self, axis=axis)
+
+    def nonzero(self):
+        from nums_tpu_torch.numpy import extra
+
+        return extra.nonzero(self)
+
+    def conj(self):
+        return self.ufunc("conj")
+
+    conjugate = conj
+
+    @property
+    def real(self):
+        from nums_tpu_torch.numpy import extra
+
+        return extra.real(self)
+
+    @property
+    def imag(self):
+        from nums_tpu_torch.numpy import extra
+
+        return extra.imag(self)
+
+    def dot(self, other):
+        from nums_tpu_torch.numpy import extra
+
+        return extra.dot(self, other)
+
+    def trace(self, offset=0):
+        from nums_tpu_torch.numpy import extra
+
+        return extra.trace(self, offset=offset)
+
+    def diagonal(self, offset=0):
+        from nums_tpu_torch.numpy import extra
+
+        return extra.diagonal(self, offset=offset)
+
     def item(self):
         return self._scalar_value()
+
+    def tolist(self):
+        return self.get().tolist()
 
     def __array__(self, dtype=None, copy=None):
         del copy
@@ -547,6 +855,9 @@ class BlockArray:
 
     def __repr__(self):
         return f"BlockArray({self.get()})"
+
+    def __str__(self):
+        return str(self.get())
 
     def __len__(self):
         if self.ndim == 0:

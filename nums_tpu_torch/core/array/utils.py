@@ -28,6 +28,14 @@ def broadcast_shape(shape_a: tuple, shape_b: tuple) -> tuple:
     return tuple(np.broadcast_shapes(shape_a, shape_b))
 
 
+def can_broadcast_shapes(shape_a: tuple, shape_b: tuple) -> bool:
+    try:
+        np.broadcast_shapes(shape_a, shape_b)
+        return True
+    except ValueError:
+        return False
+
+
 def broadcast_block_shape(
     result_shape: tuple,
     shape_a: tuple,
@@ -115,3 +123,9 @@ def is_scalar_like(x) -> bool:
     return isinstance(x, (bool, int, float, complex, np.generic)) or (
         isinstance(x, np.ndarray) and x.ndim == 0
     )
+
+
+def shape_from_block_shape(shape: tuple, block_shape: tuple) -> tuple:
+    """The grid shape implied by (shape, block_shape)."""
+    return tuple(-(-s // b) if s > 0 else 1
+                 for s, b in zip(shape, block_shape))

@@ -16,11 +16,38 @@ def maybe_t(x, transposed: bool):
     return x.permute(*reversed(range(x.ndim))) if transposed else x
 
 
-def tensordot(a, b, axes):
+def _compute_dtype(dt, device):
+    """The dtype a contraction of ``dt`` operands runs in: bool counts in
+    float32 (any positive count is True), and integers run in float64 on
+    the card, whose matmul takes no integer operands (exact below 2^53)."""
+    if dt == torch.bool:
+        return torch.float32
+    if device.type == "cuda" and not (dt.is_floating_point or dt.is_complex):
+        return torch.float64
+    return dt
+
+
+def _contract(fn, a, b):
     dt = torch.promote_types(a.dtype, b.dtype)
-    a, b = a.to(dt), b.to(dt)
+    work = _compute_dtype(dt, a.device)
+    out = fn(a.to(work), b.to(work))
+    if dt == torch.bool:
+        return out != 0
+    return out.to(dt)
+
+
+def tensordot(a, b, axes):
     if axes == 1 and a.ndim <= 2 and b.ndim <= 2 and a.ndim and b.ndim:
-        return torch.matmul(a, b)
+        return _contract(torch.matmul, a, b)
     if isinstance(axes, int):
-        return torch.tensordot(a, b, dims=axes)
-    return torch.tensordot(a, b, dims=[list(axes[0]), list(axes[1])])
+        return _contract(lambda x, y: torch.tensordot(x, y, dims=axes), a, b)
+    dims = [list(axes[0]), list(axes[1])]
+    return _contract(lambda x, y: torch.tensordot(x, y, dims=dims), a, b)
+
+
+def matmul(a, b):
+    """``jnp.matmul`` with batch broadcasting (operands of more than two
+    axes)."""
+    if not torch.is_tensor(b):
+        b = torch.as_tensor(b, device=a.device)
+    return _contract(torch.matmul, a, b)

@@ -10,9 +10,21 @@ import torch
 
 from nums_tpu_torch.core.ops.elementwise import inexact_dtype
 
-_DTYPE_AWARE = {"sum", "mean"}
+_DTYPE_AWARE = {"sum", "mean", "prod"}
+
+
+def _prod(x, dim, keepdim, dtype=None):
+    """``torch.prod`` takes one axis: reduce the axes one at a time, the
+    highest first."""
+    if dtype is not None:
+        x = x.to(dtype)
+    for d in sorted(dim, reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keepdim)
+    return x
+
+
 _FNS = {"sum": torch.sum, "mean": torch.mean, "min": torch.amin,
-        "max": torch.amax}
+        "max": torch.amax, "prod": _prod}
 
 
 def _dims(axis, ndim):
@@ -23,7 +35,7 @@ def _dims(axis, ndim):
 
 
 def reduce(op_name: str, x, axis, keepdims: bool, dtype=None):
-    """``op_name`` in sum|mean|min|max over ``axis`` (None = all)."""
+    """``op_name`` in sum|mean|prod|min|max over ``axis`` (None = all)."""
     if op_name not in _FNS:
         raise NotImplementedError(f"reduction {op_name!r} is not ported")
     fn = _FNS[op_name]

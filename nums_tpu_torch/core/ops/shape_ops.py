@@ -1,8 +1,9 @@
 """Shape ops as plain torch calls.
 
-Counterpart of the concatenate, where3 and row-gather kernels of
-``nums_tpu/core/ops/shape_ops.py`` (a reshape is ``Tensor.reshape``
-itself).
+Counterpart of ``nums_tpu/core/ops/shape_ops.py``: reshape, broadcast,
+expand and squeeze, concatenate, where3 and the row gather. Its
+``slice_to``/``slice_t`` strip the at-rest padding, which the port does
+not keep: they have no counterpart.
 """
 
 import torch
@@ -27,3 +28,31 @@ def take_rows(x, idx):
     idx = idx.to(device=x.device, dtype=torch.int64)
     idx = torch.where(idx < 0, idx + x.shape[0], idx)
     return torch.index_select(x, 0, idx)
+
+
+def reshape(x, shape: tuple):
+    return x.reshape(tuple(shape))
+
+
+def broadcast_to(x, shape: tuple):
+    """``jnp.broadcast_to``, materialized (the reference's XLA program
+    writes the broadcast array; a stride-0 view would reach the kernels,
+    which take contiguous tensors)."""
+    return torch.broadcast_to(x, tuple(shape)).contiguous()
+
+
+def expand_dims(x, axis):
+    """Insert size-1 axes at ``axis`` (an int or a tuple of ints, counted
+    in the result, negative from its end), as ``jnp.expand_dims``."""
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    ndim = x.ndim + len(axes)
+    axes = sorted(a % ndim for a in axes)
+    for a in axes:
+        x = x.unsqueeze(a)
+    return x
+
+
+def squeeze(x):
+    """Drop every size-1 axis."""
+    return x.reshape(tuple(s for s in x.shape if s != 1))
+

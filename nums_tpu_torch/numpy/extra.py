@@ -1,0 +1,1330 @@
+"""The NumPy surface beyond the array API's core.
+
+Counterpart of ``nums_tpu/numpy/extra.py``, name for name (its
+``__all__``): manipulation (stack/tile/roll/flip/sort...), scans
+(cumsum/cumprod), predicates (all/any/isclose), the nan-reductions,
+statistics (median, quantiles, histogram, cov), contraction helpers
+(dot/inner/outer/trace/einsum) and signal helpers. The reference runs each
+as a cached ``jax.jit`` of ``jnp.<name>`` through its pad-and-mask adapter;
+the port keeps no padding at rest, so each is a torch computation on
+``BlockArray.data`` on the array's device, wrapped back. Results follow
+``jnp``'s dtypes and values: its stable sort, its ``linear`` and
+``midpoint`` quantiles, its closed last histogram bin, its integer and
+bool promotions of the scans.
+
+The host steps are the reference's own: the length of ``bincount`` (one
+scalar sync), ``unique`` with ``axis=`` (``np.unique`` on a host copy, as
+``extra.py:474-490`` there) and the index count of the mask functions
+(one scalar sync, in ``masking.device_where``).
+"""
+
+import builtins
+
+import numpy as np
+import torch
+
+from nums_tpu_torch.core.application_manager import instance as _instance
+from nums_tpu_torch.core.array.blockarray import BlockArray
+from nums_tpu_torch.core.array import utils as array_utils
+from nums_tpu_torch.core.grid import ArrayGrid
+from nums_tpu_torch.core.ops import elementwise, linear, masking
+
+
+__all__ = [
+    "prod", "all", "any", "cumsum", "cumprod", "nansum", "nanmean",
+    "nanmax", "nanmin", "nanvar", "nanstd", "median", "nanmedian", "ptp",
+    "count_nonzero", "average", "clip", "around", "round", "round_",
+    "sort", "argsort", "searchsorted", "take", "stack", "vstack",
+    "hstack", "dstack", "column_stack", "row_stack", "tile", "repeat",
+    "roll", "flip", "fliplr", "flipud", "ravel", "swapaxes", "moveaxis",
+    "atleast_1d", "atleast_2d", "broadcast_to", "triu", "tril", "dot",
+    "inner", "outer", "trace", "vdot", "einsum", "kron",
+    "matrix_transpose", "isclose", "array_equal", "real", "imag",
+    "nan_to_num", "diff", "unique", "percentile", "quantile", "histogram",
+    "cov", "corrcoef", "interp", "pad", "bincount", "argwhere",
+    "flatnonzero", "nonzero", "meshgrid", "cross", "convolve", "correlate",
+    "gradient", "trapezoid", "trapz", "sinc", "ediff1d", "vander", "tri",
+    "full_like", "geomspace", "append", "array_split", "vsplit", "hsplit",
+    "dsplit", "atleast_3d", "diagonal", "diagflat", "digitize", "angle",
+    "fix", "divmod", "compress", "extract", "broadcast_arrays",
+    "broadcast_shapes", "asanyarray", "astype", "acos", "acosh", "asin",
+    "asinh", "atan", "atanh", "atan2", "bitwise_invert",
+    "bitwise_left_shift", "bitwise_right_shift", "concat", "pow",
+    "permute_dims",
+]
+
+
+def _to_ba(obj):
+    app = _instance()
+    if isinstance(obj, BlockArray):
+        return obj
+    if isinstance(obj, (bool, int, float, complex, np.generic)):
+        return app.scalar(obj)
+    return app.array(np.asarray(obj), block_shape=None)
+
+
+def _wrap(a, data, block_shape=None):
+    """``data`` as a BlockArray on ``a``'s backend, blocked like ``a``
+    where the ranks agree."""
+    shape = tuple(data.shape)
+    if block_shape is None:
+        block_shape = array_utils.default_block_shape_for(
+            shape, a.block_shape)
+    block_shape = tuple(min(b, s) for b, s in zip(tuple(block_shape), shape))
+    grid = ArrayGrid(shape, block_shape,
+                     array_utils.to_dtype_name(data.dtype))
+    return BlockArray(data, grid, a.backend)
+
+
+def _default_int(a):
+    return elementwise.default_int(a._default_float())
+
+
+def _inexact(t):
+    return t.to(elementwise.inexact_dtype(t.dtype))
+
+
+def _dims(axis, ndim):
+    """``axis`` (None, an int or a tuple) as a tuple of axes in [0, ndim)."""
+    if axis is None:
+        return tuple(range(ndim))
+    axes = (axis,) if isinstance(axis, (int, np.integer)) else tuple(axis)
+    return tuple(int(a) % builtins.max(ndim, 1) for a in axes)
+
+
+def _sum_dtype(dt, a):
+    """``jnp.sum``'s accumulator: the default int for bool and the narrower
+    integers, the input's own dtype otherwise."""
+    if dt == torch.bool or (not (dt.is_floating_point or dt.is_complex)
+                            and dt.itemsize < _default_int(a).itemsize):
+        return _default_int(a)
+    return dt
+
+
+def _promote_all(tensors):
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t.to(dt) for t in tensors]
+
+
+# -- reductions / scans -------------------------------------------------
+
+
+def _reduce_keep(out, x, dims, keepdims):
+    if keepdims:
+        shape = [1 if i in dims else s for i, s in enumerate(x.shape)]
+        out = out.reshape(shape)
+    return out
+
+
+def prod(a, axis=None, keepdims=False, dtype=None):
+    a = _to_ba(a)
+    x = a.data
+    dt = (array_utils.to_torch_dtype(dtype) if dtype is not None
+          else _sum_dtype(x.dtype, a))
+    x = x.to(dt)
+    dims = _dims(axis, x.ndim)
+    for d in sorted(dims, reverse=True):
+        x = torch.prod(x, dim=d, keepdim=True)
+    out = x.reshape([s for i, s in enumerate(x.shape) if i not in dims])
+    return _wrap(a, _reduce_keep(out, a.data, dims, keepdims))
+
+
+def _all_any(fn):
+    def reduce_fn(a, axis=None, keepdims=False):
+        a = _to_ba(a)
+        x = a.data.to(torch.bool)
+        dims = _dims(axis, x.ndim)
+        out = x
+        for d in sorted(dims, reverse=True):
+            out = fn(out, dim=d)
+        return _wrap(a, _reduce_keep(out, x, dims, keepdims))
+
+    return reduce_fn
+
+
+all = _all_any(torch.all)  # noqa: A001 - numpy-compatible name
+any = _all_any(torch.any)  # noqa: A001
+all.__name__, any.__name__ = "all", "any"
+
+
+def _scan(fn, name):
+    def scan(a, axis=None, dtype=None):
+        """``jnp.{name}``: the flattened array for ``axis=None``; bool
+        accumulates in the default int, every other dtype in itself."""
+        a = _to_ba(a)
+        x = a.data
+        if axis is None:
+            x, axis = x.reshape(-1), 0
+        if dtype is not None:
+            dt = array_utils.to_torch_dtype(dtype)
+        else:
+            dt = _default_int(a) if x.dtype == torch.bool else x.dtype
+        return _wrap(a, fn(x.to(dt), dim=int(axis), dtype=dt))
+
+    scan.__name__ = name
+    scan.__doc__ = scan.__doc__.format(name=name)
+    return scan
+
+
+cumsum = _scan(torch.cumsum, "cumsum")
+cumprod = _scan(torch.cumprod, "cumprod")
+
+
+def nansum(a, axis=None, keepdims=False):
+    a = _to_ba(a)
+    x = a.data
+    dims = _dims(axis, x.ndim)
+    dt = _sum_dtype(x.dtype, a)
+    if x.is_floating_point():
+        out = torch.nansum(x, dim=dims, keepdim=keepdims)
+    else:
+        out = torch.sum(x.to(dt), dim=dims, keepdim=keepdims)
+    return _wrap(a, out.to(dt))
+
+
+def _nan_count_sum(x, dims, keepdims):
+    valid = ~torch.isnan(x)
+    n = valid.sum(dim=dims, keepdim=keepdims).to(x.dtype)
+    s = torch.where(valid, x, torch.zeros_like(x)).sum(dim=dims,
+                                                      keepdim=keepdims)
+    return n, s
+
+
+def nanmean(a, axis=None, keepdims=False):
+    a = _to_ba(a)
+    x = _inexact(a.data)
+    dims = _dims(axis, x.ndim)
+    n, s = _nan_count_sum(x, dims, keepdims)
+    return _wrap(a, s / n)
+
+
+def _nan_extreme(fn, fill):
+    def reduce_fn(a, axis=None, keepdims=False):
+        a = _to_ba(a)
+        x = a.data
+        dims = _dims(axis, x.ndim)
+        if not x.is_floating_point():
+            return _wrap(a, fn(x, dim=dims, keepdim=keepdims))
+        nan = torch.isnan(x)
+        out = fn(torch.where(nan, torch.full_like(x, fill), x), dim=dims,
+                 keepdim=keepdims)
+        all_nan = torch.all(nan.reshape(-1)) if x.ndim == 0 else nan
+        for d in sorted(dims, reverse=True):
+            all_nan = all_nan.all(dim=d, keepdim=keepdims)
+        return _wrap(a, torch.where(all_nan, torch.full_like(out, np.nan),
+                                    out))
+
+    return reduce_fn
+
+
+nanmax = _nan_extreme(torch.amax, -np.inf)
+nanmin = _nan_extreme(torch.amin, np.inf)
+nanmax.__name__, nanmin.__name__ = "nanmax", "nanmin"
+
+
+def _nanvar(x, dims, ddof, keepdims):
+    n, s = _nan_count_sum(x, dims, True)
+    mean = s / n
+    valid = ~torch.isnan(x)
+    dev = torch.where(valid, x - mean, torch.zeros_like(x))
+    sq = (dev * dev).sum(dim=dims, keepdim=keepdims)
+    n = n if keepdims else n.reshape(sq.shape)
+    return sq / torch.clamp(n - ddof, min=0)
+
+
+def nanvar(a, axis=None, ddof=0, keepdims=False):
+    a = _to_ba(a)
+    x = _inexact(a.data)
+    return _wrap(a, _nanvar(x, _dims(axis, x.ndim), ddof, keepdims))
+
+
+def nanstd(a, axis=None, ddof=0, keepdims=False):
+    a = _to_ba(a)
+    x = _inexact(a.data)
+    return _wrap(a, torch.sqrt(_nanvar(x, _dims(axis, x.ndim), ddof,
+                                       keepdims)))
+
+
+def _to_last(x, axis):
+    """``x`` with the reduced axes flattened into the last one (``axis``
+    None: the flattened array), and the shape kept for ``keepdims``."""
+    if axis is None:
+        return x.reshape(-1), [1] * x.ndim
+    dims = _dims(axis, x.ndim)
+    keep = [d for d in range(x.ndim) if d not in dims]
+    moved = x.permute(*keep, *dims)
+    kept_shape = [1 if d in dims else s for d, s in enumerate(x.shape)]
+    return moved.reshape([x.shape[d] for d in keep] + [-1]), kept_shape
+
+
+def _quantile(a, q, axis, method, keepdims, squash_nans):
+    """``jnp.quantile``'s ``linear`` and ``midpoint`` methods: the
+    positions ``q·(n - 1)`` of the sorted values (NaN anywhere: NaN;
+    ``squash_nans``: the NaNs dropped), then cast to the input's inexact
+    dtype. Positions and weights are float64 on every device, as jax
+    takes them with x64 on (with x64 off it takes them in float32, which
+    at 2.5M rows rounds a position to a quarter)."""
+    x = _inexact(a.data)
+    if x.is_complex():
+        raise ValueError("quantile does not support complex input")
+    qd = torch.float64
+    q_arr = torch.as_tensor(np.asarray(q, dtype=np.float64), dtype=qd,
+                            device=x.device)
+    if q_arr.ndim > 1:
+        raise ValueError(f"q must be have rank <= 1, got shape "
+                         f"{tuple(q_arr.shape)}")
+    flat, kept_shape = _to_last(x, axis)
+    nan = torch.isnan(flat)
+    s, _ = torch.sort(flat, dim=-1, stable=True)
+    n_last = flat.shape[-1]
+    if squash_nans:
+        counts = (~nan).sum(dim=-1, keepdim=True).to(qd)
+    else:
+        s = torch.where(nan.any(dim=-1, keepdim=True),
+                        torch.full_like(s, np.nan), s)
+        counts = torch.full(s.shape[:-1] + (1,), float(n_last), dtype=qd,
+                            device=x.device)
+    qv = q_arr.reshape((-1,) + (1,) * s.ndim)
+    pos = qv * (counts - 1)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    high_w = pos - low
+    low_w = 1 - high_w
+    lim = counts - 1
+    low = torch.maximum(torch.zeros_like(low), torch.minimum(low, lim))
+    high = torch.maximum(torch.zeros_like(high), torch.minimum(high, lim))
+    sb = s.expand(pos.shape[:1] + s.shape)
+    low_v = torch.gather(sb, -1, low.to(torch.int64))
+    high_v = torch.gather(sb, -1, high.to(torch.int64))
+    if method == "linear":
+        out = low_v.to(qd) * low_w + high_v.to(qd) * high_w
+    else:  # midpoint
+        out = (low_v + high_v) * 0.5
+    out = out[..., 0].to(x.dtype)
+    if keepdims:
+        out = out.reshape(out.shape[:1] + tuple(kept_shape))
+    if q_arr.ndim == 0:
+        out = out[0]
+    return out
+
+
+def median(a, axis=None, keepdims=False):
+    a = _to_ba(a)
+    return _wrap(a, _quantile(a, 0.5, axis, "midpoint", keepdims, False))
+
+
+def nanmedian(a, axis=None, keepdims=False):
+    a = _to_ba(a)
+    return _wrap(a, _quantile(a, 0.5, axis, "midpoint", keepdims, True))
+
+
+def ptp(a, axis=None, keepdims=False):
+    a = _to_ba(a)
+    x = a.data
+    dims = _dims(axis, x.ndim)
+    return _wrap(a, torch.amax(x, dim=dims, keepdim=keepdims)
+                 - torch.amin(x, dim=dims, keepdim=keepdims))
+
+
+def count_nonzero(a, axis=None, keepdims=False):
+    a = _to_ba(a)
+    x = a.data
+    dims = _dims(axis, x.ndim)
+    out = (x != 0).sum(dim=dims, keepdim=keepdims)
+    return _wrap(a, out.to(_default_int(a)))
+
+
+def average(a, axis=None, weights=None):
+    a = _to_ba(a)
+    if weights is None:
+        return _instance().mean(a, axis=axis)
+    w = _to_ba(weights)
+    x, wd = elementwise.promote(a.data, w.data, a._default_float())
+    x, wd = _inexact(x), _inexact(wd)
+    if axis is not None and wd.ndim == 1 and x.ndim > 1:
+        shape = [1] * x.ndim
+        shape[int(axis) % x.ndim] = wd.shape[0]
+        wd = wd.reshape(shape)
+    dims = _dims(axis, x.ndim)
+    wd = torch.broadcast_to(wd, x.shape)
+    return _wrap(a, (x * wd).sum(dim=dims) / wd.sum(dim=dims))
+
+
+# -- rounding / clipping ------------------------------------------------
+
+
+def clip(a, a_min=None, a_max=None):
+    """``jnp.clip``: ``maximum`` with ``a_min``, then ``minimum`` with
+    ``a_max``, each promoting as its ufunc does."""
+    a = _to_ba(a)
+    out = a
+    app = _instance()
+    if a_min is not None:
+        out = app.map_bop("maximum", out, a_min)
+    if a_max is not None:
+        out = app.map_bop("minimum", out, a_max)
+    if out is a:
+        out = a.copy()
+    return _wrap(a, out.data, a.block_shape)
+
+
+def around(a, decimals=0):
+    """``jnp.round``: half to even; with ``decimals``, the value scaled by
+    ``10**decimals`` in its own dtype, rounded and scaled back. Integers
+    are returned as they are."""
+    a = _to_ba(a)
+    x = a.data
+    if not (x.is_floating_point() or x.is_complex()):
+        if decimals < 0:
+            raise NotImplementedError(
+                "integer np.round not implemented for decimals < 0")
+        return _wrap(a, x.clone(), a.block_shape)
+    if decimals == 0:
+        out = torch.round(x)
+    elif decimals > np.log10(torch.finfo(x.dtype).max):
+        out = x.clone()
+    else:
+        factor = torch.full((), 10.0 ** decimals, dtype=x.dtype,
+                            device=x.device)
+        out = torch.round(x * factor) / factor
+    return _wrap(a, out, a.block_shape)
+
+
+round = around  # noqa: A001 - numpy alias
+round_ = around
+
+
+# -- sorting / searching ------------------------------------------------
+
+
+def _sort_input(a, axis):
+    x = a.data
+    if axis is None:
+        return x.reshape(-1), 0
+    return x, int(axis)
+
+
+def sort(a, axis=-1, kind=None, order=None, stable=True, descending=False):
+    """np.sort parity: default axis is -1 (None flattens); stable, as
+    ``jnp.sort`` is (ties keep their order)."""
+    del kind, stable
+    if order is not None:
+        raise NotImplementedError("'order' argument to sort is not supported.")
+    a = _to_ba(a)
+    x, axis = _sort_input(a, axis)
+    return _wrap(a, torch.sort(x, dim=axis, stable=True,
+                               descending=bool(descending)).values)
+
+
+def argsort(a, axis=-1, kind=None, order=None, stable=True,
+            descending=False):
+    """np.argsort parity: default axis is -1; stable."""
+    del kind, stable
+    if order is not None:
+        raise NotImplementedError(
+            "'order' argument to argsort is not supported.")
+    a = _to_ba(a)
+    x, axis = _sort_input(a, axis)
+    out = torch.argsort(x, dim=axis, stable=True, descending=bool(descending))
+    return _wrap(a, out.to(_default_int(a)))
+
+
+def searchsorted(a, v, side="left"):
+    if side not in ("left", "right"):
+        raise ValueError(f"{side!r} is an invalid value for keyword 'side'")
+    a, v = _to_ba(a), _to_ba(v)
+    if a.ndim != 1:
+        raise ValueError("a should be 1-dimensional")
+    seq, vals = _promote_all([a.data, v.data])
+    out = torch.searchsorted(seq.contiguous(), vals.contiguous(),
+                             right=side == "right")
+    dt = torch.int64 if a.shape[0] >= 2**31 - 1 else torch.int32
+    return _wrap(a, out.to(dt))
+
+
+def _normalize_index(idx, n):
+    idx = idx.to(torch.int64)
+    return torch.where(idx < 0, idx + n, idx)
+
+
+def take(a, indices, axis=None):
+    a = _to_ba(a)
+    indices = _to_ba(indices)
+    x = a.data
+    if axis is None:
+        x, axis = x.reshape(-1), 0
+    axis = int(axis) % x.ndim
+    idx = _normalize_index(indices.data.to(x.device), x.shape[axis])
+    out = torch.index_select(x, axis, idx.reshape(-1))
+    shape = x.shape[:axis] + tuple(idx.shape) + x.shape[axis + 1:]
+    return _wrap(a, out.reshape(shape))
+
+
+# -- shape manipulation -------------------------------------------------
+
+
+def _tensors(arrays):
+    bas = [_to_ba(a) for a in arrays]
+    return bas, _promote_all([b.data for b in bas])
+
+
+def stack(arrays, axis=0):
+    bas, ts = _tensors(arrays)
+    return _wrap(bas[0], torch.stack(ts, dim=axis))
+
+
+def vstack(tup):
+    bas, ts = _tensors(tup)
+    ts = [t.reshape(1, -1) if t.ndim <= 1 else t for t in ts]
+    return _wrap(bas[0], torch.cat(ts, dim=0))
+
+
+def hstack(tup):
+    bas, ts = _tensors(tup)
+    ts = [t.reshape(1) if t.ndim == 0 else t for t in ts]
+    return _wrap(bas[0], torch.cat(ts, dim=0 if ts[0].ndim == 1 else 1))
+
+
+def _at_least_3d(t):
+    if t.ndim == 0:
+        return t.reshape(1, 1, 1)
+    if t.ndim == 1:
+        return t.reshape(1, -1, 1)
+    if t.ndim == 2:
+        return t.unsqueeze(-1)
+    return t
+
+
+def dstack(tup):
+    bas, ts = _tensors(tup)
+    return _wrap(bas[0], torch.cat([_at_least_3d(t) for t in ts], dim=2))
+
+
+def column_stack(tup):
+    bas, ts = _tensors(tup)
+    ts = [t.reshape(-1, 1) if t.ndim < 2 else t for t in ts]
+    return _wrap(bas[0], torch.cat(ts, dim=1))
+
+
+def row_stack(tup):
+    return vstack(tup)
+
+
+def tile(a, reps):
+    a = _to_ba(a)
+    reps = tuple(reps) if isinstance(reps, (tuple, list)) else (int(reps),)
+    return _wrap(a, torch.tile(a.data, reps))
+
+
+def repeat(a, repeats, axis=None):
+    a = _to_ba(a)
+    x = a.data
+    if axis is None:
+        x, axis = x.reshape(-1), 0
+    return _wrap(a, torch.repeat_interleave(x, int(repeats), dim=int(axis)))
+
+
+def roll(a, shift, axis=None):
+    a = _to_ba(a)
+    x = a.data
+    if axis is None:
+        out = torch.roll(x.reshape(-1), shift).reshape(x.shape)
+    else:
+        out = torch.roll(x, shift, dims=axis)
+    return _wrap(a, out, a.block_shape)
+
+
+def flip(a, axis=None):
+    a = _to_ba(a)
+    x = a.data
+    return _wrap(a, torch.flip(x, dims=_dims(axis, x.ndim)), a.block_shape)
+
+
+def fliplr(a):
+    return flip(a, axis=1)
+
+
+def flipud(a):
+    return flip(a, axis=0)
+
+
+def ravel(a):
+    a = _to_ba(a)
+    return a.reshape(a.size)
+
+
+def swapaxes(a, axis1, axis2):
+    a = _to_ba(a)
+    perm = list(range(a.ndim))
+    perm[axis1], perm[axis2] = perm[axis2], perm[axis1]
+    return a.transpose(*perm)
+
+
+def moveaxis(a, source, destination):
+    a = _to_ba(a)
+    return _wrap(a, torch.movedim(a.data, source, destination))
+
+
+def atleast_1d(a):
+    a = _to_ba(a)
+    return a if a.ndim >= 1 else a.reshape(1)
+
+
+def atleast_2d(a):
+    a = _to_ba(a)
+    if a.ndim >= 2:
+        return a
+    if a.ndim == 1:
+        return a.reshape(1, a.shape[0])
+    return a.reshape(1, 1)
+
+
+def broadcast_to(a, shape):
+    a = _to_ba(a)
+    return a.broadcast_to(tuple(shape))
+
+
+def triu(a, k=0):
+    a = _to_ba(a)
+    return _wrap(a, torch.triu(a.data, diagonal=int(k)), a.block_shape)
+
+
+def tril(a, k=0):
+    a = _to_ba(a)
+    return _wrap(a, torch.tril(a.data, diagonal=int(k)), a.block_shape)
+
+
+# -- contractions -------------------------------------------------------
+
+
+def dot(a, b):
+    a, b = _to_ba(a), _to_ba(b)
+    if a.ndim == 0 or b.ndim == 0:
+        return a * b
+    if a.ndim <= 2 and b.ndim <= 2:
+        return a @ b
+    # np.dot general case: contract last axis of a with 2nd-to-last of b.
+    return a.tensordot(b, axes=((a.ndim - 1,), (builtins.max(0, b.ndim - 2),)))
+
+
+def inner(a, b):
+    a, b = _to_ba(a), _to_ba(b)
+    if a.ndim == 0 or b.ndim == 0:
+        return a * b
+    return a.tensordot(b, axes=((a.ndim - 1,), (b.ndim - 1,)))
+
+
+def outer(a, b):
+    a, b = _to_ba(a), _to_ba(b)
+    return ravel(a).tensordot(ravel(b), axes=0)
+
+
+def trace(a, offset=0):
+    a = _to_ba(a)
+    d = torch.diagonal(a.data, offset=int(offset))
+    return _wrap(a, d.to(_sum_dtype(d.dtype, a)).sum(dim=-1))
+
+
+def vdot(a, b):
+    a, b = _to_ba(a), _to_ba(b)
+    return ravel(a).tensordot(ravel(b), axes=1)
+
+
+def einsum(subscripts, *operands):
+    bas, ts = _tensors(operands)
+    dt = ts[0].dtype
+    work = linear._compute_dtype(dt, ts[0].device)
+    out = torch.einsum(subscripts, *[t.to(work) for t in ts])
+    out = out != 0 if dt == torch.bool else out.to(dt)
+    return _wrap(bas[0], out)
+
+
+def kron(a, b):
+    a, b = _to_ba(a), _to_ba(b)
+    x, y = _promote_all([a.data, b.data])
+    return _wrap(a, torch.kron(x, y))
+
+
+def matrix_transpose(a):
+    return _to_ba(a).transpose()
+
+
+# -- predicates ---------------------------------------------------------
+
+
+def isclose(a, b, rtol=1e-5, atol=1e-8, equal_nan=False):
+    a, b = _to_ba(a), _to_ba(b)
+    x, y = elementwise.promote(a.data, b.data, a._default_float())
+    if not (x.is_floating_point() or x.is_complex()):
+        return _wrap(a, torch.eq(x, y))
+    return _wrap(a, torch.isclose(x, y, rtol=float(rtol), atol=float(atol),
+                                  equal_nan=bool(equal_nan)))
+
+
+def array_equal(a, b):
+    a, b = _to_ba(a), _to_ba(b)
+    if a.shape != b.shape:
+        return _instance().scalar(False)
+    x, y = elementwise.promote(a.data, b.data, a._default_float())
+    return _wrap(a, torch.eq(x, y).all())
+
+
+def real(a):
+    a = _to_ba(a)
+    x = a.data
+    return _wrap(a, torch.real(x).clone() if x.is_complex() else x.clone(),
+                 a.block_shape)
+
+
+def imag(a):
+    a = _to_ba(a)
+    x = a.data
+    return _wrap(a, torch.imag(x).clone() if x.is_complex()
+                 else torch.zeros_like(x), a.block_shape)
+
+
+def nan_to_num(a, nan=0.0, posinf=None, neginf=None):
+    a = _to_ba(a)
+    x = a.data
+    if not x.is_floating_point():
+        return _wrap(a, x.clone(), a.block_shape)
+    return _wrap(a, torch.nan_to_num(x, nan=nan, posinf=posinf,
+                                     neginf=neginf), a.block_shape)
+
+
+def diff(a, n=1, axis=-1):
+    a = _to_ba(a)
+    x = a.data
+    if n == 0:
+        return _wrap(a, x.clone())
+    axis = int(axis) % x.ndim
+    for _ in range(int(n)):
+        hi = x.narrow(axis, 1, x.shape[axis] - 1)
+        lo = x.narrow(axis, 0, x.shape[axis] - 1)
+        x = hi != lo if x.dtype == torch.bool else hi - lo
+    return _wrap(a, x)
+
+
+def unique(a, return_index=False, return_inverse=False,
+           return_counts=False, axis=None, *, equal_nan=True):
+    """``np.unique`` on the device: one host sync, for the distinct count
+    (``masking.device_unique``). With ``axis``, ``np.unique`` of a host
+    copy, as the reference does (``extra.py:474-490`` there)."""
+    a = _to_ba(a)
+    app = _instance()
+    if axis is not None or a.size == 0:
+        # The reference's host step: unique rows or columns, and the empty
+        # array, go through np.unique on a host copy.
+        outs = np.unique(
+            a.get(), return_index=return_index,
+            return_inverse=return_inverse, return_counts=return_counts,
+            axis=axis, equal_nan=equal_nan,
+        )
+        if not isinstance(outs, tuple):
+            return app.array(outs, block_shape=outs.shape)
+        return tuple(app.array(o, block_shape=o.shape) for o in outs)
+    _, outs = masking.device_unique(
+        a, want_index=return_index, want_inverse=return_inverse,
+        want_counts=return_counts, equal_nan=equal_nan,
+    )
+    dint = _default_int(a)
+    outs = [outs[0]] + [o.to(dint) for o in outs[1:]]
+    wrapped = tuple(
+        BlockArray.from_torch(o, block_shape=tuple(o.shape),
+                              backend=a.backend)
+        for o in outs
+    )
+    return wrapped if len(wrapped) > 1 else wrapped[0]
+
+
+# -- statistics ----------------------------------------------------------
+
+
+def percentile(a, q, axis=None):
+    a = _to_ba(a)
+    q = np.asarray(q, dtype=np.float64) / 100.0
+    return _wrap(a, _quantile(a, q, axis, "linear", False, False))
+
+
+def quantile(a, q, axis=None):
+    a = _to_ba(a)
+    return _wrap(a, _quantile(a, np.asarray(q, dtype=np.float64), axis,
+                              "linear", False, False))
+
+
+def _linspace(start, stop, num, dtype, device):
+    """``jnp.linspace(start, stop, num)`` of two 0-d tensors: the lerp
+    that recovers both ends, the last point ``stop`` itself."""
+    if num == 1:
+        return start.reshape(1).to(dtype)
+    div = num - 1
+    t = torch.arange(div, dtype=dtype, device=device) / div
+    out = start.to(dtype) * (1 - t) + stop.to(dtype) * t
+    return torch.cat([out, stop.to(dtype).reshape(1)])
+
+
+def histogram(a, bins=10, range=None):  # noqa: A002
+    """``jnp.histogram``: ``bins + 1`` edges over ``range`` (the data's
+    min and max, widened by 0.5 each way where they are equal), counts by
+    ``searchsorted(edges, x, side='right')`` with the last bin closed;
+    counted on the device with ``bincount`` (``torch.histogram`` has no
+    CUDA kernel)."""
+    a = _to_ba(a)
+    x = _inexact(a.data).reshape(-1)
+    if not isinstance(bins, int):
+        edges = torch.as_tensor(np.asarray(bins), device=x.device).to(x.dtype)
+    else:
+        if range is None:
+            lo, hi = x.min(), x.max()
+        else:
+            lo = torch.tensor(range[0], dtype=x.dtype, device=x.device)
+            hi = torch.tensor(range[1], dtype=x.dtype, device=x.device)
+        same = hi == lo
+        lo = torch.where(same, lo - 0.5, lo)
+        hi = torch.where(same, hi + 0.5, hi)
+        edges = _linspace(lo, hi, int(bins) + 1, x.dtype, x.device)
+    nb = edges.shape[0]
+    idx = torch.searchsorted(edges, x, right=True)
+    idx = torch.where(x == edges[-1], torch.full_like(idx, nb - 1), idx)
+    counts = torch.bincount(idx, minlength=nb + 1)[1:nb]
+    return _wrap(a, counts.to(x.dtype)), _wrap(a, edges)
+
+
+def _cov(x, rowvar, ddof):
+    x = _inexact(x)
+    X = x.reshape(1, -1) if x.ndim < 2 else x
+    if not rowvar and x.ndim != 1:
+        X = X.T
+    if ddof is None:
+        ddof = 1
+    f = X.shape[1] - ddof
+    X = X - X.mean(dim=1, keepdim=True)
+    out = torch.matmul(X, X.T.conj()) / f
+    return out.squeeze()
+
+
+def cov(m, rowvar=True, ddof=None):
+    m = _to_ba(m)
+    return _wrap(m, _cov(m.data, rowvar, ddof))
+
+
+def corrcoef(m, rowvar=True):
+    m = _to_ba(m)
+    c = _cov(m.data, rowvar, None)
+    if c.ndim == 0:
+        return _wrap(m, c / c)
+    std = torch.sqrt(torch.diagonal(c).real).to(c.dtype)
+    c = c / std[:, None] / std[None, :]
+    return _wrap(m, torch.clamp(c, -1, 1))
+
+
+def interp(x, xp, fp):
+    """``jnp.interp``: linear between the two neighbours of
+    ``searchsorted(xp, x, 'right')``, ``fp[0]`` left of ``xp[0]`` and
+    ``fp[-1]`` right of ``xp[-1]``."""
+    x, xp, fp = _to_ba(x), _to_ba(xp), _to_ba(fp)
+    xd, xpd = elementwise.promote(x.data, xp.data, x._default_float())
+    xd, xpd = _inexact(xd), _inexact(xpd)
+    fpd = _inexact(fp.data)
+    i = torch.clamp(torch.searchsorted(xpd, xd.contiguous(), right=True), 1,
+                    xpd.shape[0] - 1)
+    df = fpd[i] - fpd[i - 1]
+    dx = xpd[i] - xpd[i - 1]
+    delta = xd - xpd[i - 1]
+    eps = np.spacing(np.finfo(
+        str(xpd.dtype).replace("torch.", "")).eps)
+    dx0 = torch.abs(dx) <= eps
+    f = torch.where(dx0, fpd[i - 1],
+                    fpd[i - 1] + (delta / torch.where(
+                        dx0, torch.ones_like(dx), dx)) * df)
+    f = torch.where(xd < xpd[0], fpd[0], f)
+    f = torch.where(xd > xpd[-1], fpd[-1], f)
+    return _wrap(x, f)
+
+
+def _pad_index(n, before, after, mode, device):
+    """Source positions along one axis for ``np.pad``'s ``edge``,
+    ``wrap``, ``reflect`` and ``symmetric`` modes, at any pad width."""
+    i = torch.arange(-before, n + after, device=device)
+    if mode == "edge":
+        return i.clamp(0, n - 1)
+    if mode == "wrap":
+        return torch.remainder(i, n)
+    if mode == "reflect":
+        if n == 1:
+            return torch.zeros_like(i)
+        j = torch.remainder(i, 2 * n - 2)
+        return torch.where(j < n, j, 2 * n - 2 - j)
+    # symmetric
+    j = torch.remainder(i, 2 * n)
+    return torch.where(j < n, j, 2 * n - 1 - j)
+
+
+_PAD_MODES = ("constant", "edge", "wrap", "reflect", "symmetric")
+
+
+def pad(array, pad_width, mode="constant", constant_values=0):
+    """``np.pad`` for the ``constant``, ``edge``, ``wrap``, ``reflect``
+    and ``symmetric`` modes, one axis after the other (the corners take
+    the later axes' values, as in NumPy and jnp)."""
+    a = _to_ba(array)
+    if mode not in _PAD_MODES:
+        raise NotImplementedError(f"pad mode {mode!r} is not supported")
+    if isinstance(pad_width, int):
+        pw = ((pad_width, pad_width),) * a.ndim
+    else:
+        pw = tuple(
+            (w, w) if isinstance(w, int) else tuple(w) for w in pad_width
+        )
+        if len(pw) == 1:
+            pw = pw * a.ndim
+    x = a.data
+    if mode == "constant":
+        values = np.broadcast_to(np.asarray(constant_values),
+                                 (x.ndim, 2))
+    for axis, (before, after) in enumerate(pw):
+        before, after = int(before), int(after)
+        if before == 0 and after == 0:
+            continue
+        if mode == "constant":
+            parts = []
+            for width, value in ((before, values[axis][0]),
+                                 (after, values[axis][1])):
+                shape = list(x.shape)
+                shape[axis] = width
+                parts.append(torch.full(shape, value.item(), dtype=x.dtype,
+                                        device=x.device))
+            x = torch.cat([parts[0], x, parts[1]], dim=axis)
+        else:
+            idx = _pad_index(x.shape[axis], before, after, mode, x.device)
+            x = torch.index_select(x, axis, idx)
+    return _wrap(a, x)
+
+
+def bincount(x, minlength=0):
+    """Output length is max(x)+1, data-dependent: one host sync sizes it,
+    as in the reference; the counting runs on the device."""
+    x = _to_ba(x)
+    length = builtins.max(
+        int(minlength), int(x.max()) + 1 if x.size else 0
+    )
+    out = torch.bincount(x.data.reshape(-1).to(torch.int64),
+                         minlength=length)
+    return _wrap(x, out.to(_default_int(x)))
+
+
+# -- remaining manipulation / misc ---------------------------------------
+
+
+def full_like(a, fill_value, dtype=None, shape=None):
+    a = _to_ba(a)
+    app = _instance()
+    shape = tuple(shape) if shape is not None else a.shape
+    dtype = dtype if dtype is not None else a.dtype
+    block_shape = app.get_block_shape(shape, dtype)
+    return app.full(shape, block_shape, fill_value, dtype)
+
+
+def geomspace(start, stop, num=50, endpoint=True, dtype=None):
+    from nums_tpu_torch.numpy import api as _api
+
+    return _api.logspace(
+        float(np.log10(start)), float(np.log10(stop)), num=num,
+        endpoint=endpoint, dtype=dtype,
+    )
+
+
+def append(arr, values, axis=None):
+    arr, values = _to_ba(arr), _to_ba(values)
+    x, v = _promote_all([arr.data, values.data])
+    if axis is None:
+        return _wrap(arr, torch.cat([x.reshape(-1), v.reshape(-1)]))
+    return _wrap(arr, torch.cat([x, v], dim=int(axis)))
+
+
+def array_split(ary, indices_or_sections, axis=0):
+    ary = _to_ba(ary)
+    if isinstance(indices_or_sections, int):
+        bounds = np.array_split(np.arange(ary.shape[axis]),
+                                indices_or_sections)
+        cuts = [(int(b[0]), int(b[-1]) + 1) for b in bounds if len(b)]
+    else:
+        idx = [0] + list(indices_or_sections) + [ary.shape[axis]]
+        cuts = [(idx[i], idx[i + 1]) for i in range(len(idx) - 1)]
+    out = []
+    for lo, hi in cuts:
+        sel = tuple(
+            slice(lo, hi) if ax == axis else slice(None)
+            for ax in range(ary.ndim)
+        )
+        out.append(ary[sel])
+    return out
+
+
+def vsplit(ary, n):
+    return array_split(ary, n, axis=0)
+
+
+def hsplit(ary, n):
+    return array_split(ary, n, axis=1)
+
+
+def dsplit(ary, n):
+    return array_split(ary, n, axis=2)
+
+
+def atleast_3d(a):
+    a = _to_ba(a)
+    if a.ndim >= 3:
+        return a
+    if a.ndim == 2:
+        return a.reshape(a.shape[0], a.shape[1], 1)
+    if a.ndim == 1:
+        return a.reshape(1, a.shape[0], 1)
+    return a.reshape(1, 1, 1)
+
+
+def diagonal(a, offset=0):
+    a = _to_ba(a)
+    return _wrap(a, torch.diagonal(a.data, offset=int(offset)).clone())
+
+
+def diagflat(v, k=0):
+    v = _to_ba(v)
+    return _wrap(v, torch.diagflat(v.data, offset=int(k)))
+
+
+def digitize(x, bins, right=False):
+    """``jnp.digitize``: ``searchsorted`` on increasing bins (side
+    ``right`` unless ``right=True``), mirrored on decreasing ones."""
+    x, bins = _to_ba(x), _to_ba(bins)
+    if bins.ndim != 1:
+        raise ValueError("digitize: bins must be a 1-dimensional array")
+    b, xd = _promote_all([bins.data, x.data])
+    if b.shape[0] == 0:
+        return _wrap(x, torch.zeros_like(xd, dtype=torch.int32))
+    xd = xd.contiguous()
+    up = torch.searchsorted(b, xd, right=not right)
+    down = b.shape[0] - torch.searchsorted(torch.flip(b, (0,)), xd,
+                                           right=not right)
+    dt = torch.int64 if b.shape[0] >= 2**31 - 1 else torch.int32
+    return _wrap(x, torch.where(b[-1] >= b[0], up, down).to(dt))
+
+
+def angle(z, deg=False):
+    z = _to_ba(z)
+    x = z.data
+    if x.is_complex():
+        out = torch.angle(x)
+    else:
+        x = _inexact(x)
+        out = torch.atan2(torch.zeros_like(x), x)
+    if deg:
+        out = out * (180.0 / np.pi)
+    return _wrap(z, out, z.block_shape)
+
+
+def fix(x):
+    x = _to_ba(x)
+    return x.ufunc("trunc")
+
+
+def divmod(x1, x2):  # noqa: A001
+    """``jnp.divmod``: ``floor_divide`` and ``remainder`` for integers;
+    for floats CPython's float divmod on the truncated remainder, the
+    quotient rounded half to even."""
+    x1 = _to_ba(x1)
+    x2 = _to_ba(x2)
+    a, b = elementwise.promote(x1.data, x2.data, x1._default_float())
+    if a.dtype == torch.bool:
+        a, b = a.to(torch.int32), b.to(torch.int32)
+    if not a.is_floating_point():
+        q = elementwise.bop("floor_divide", a, b, x1._default_float())
+        r = elementwise.bop("remainder", a, b, x1._default_float())
+        return _wrap(x1, q), _wrap(x1, r)
+    q, r = elementwise.float_divmod(a, b)
+    return _wrap(x1, q), _wrap(x1, r)
+
+
+def _mask_indices_1d(condition, device):
+    """The True positions of a flattened condition: a device-held mask on
+    its device (``masking.device_where``, one scalar sync), a host mask by
+    ``np.where``."""
+    if isinstance(condition, BlockArray):
+        flat = condition if condition.ndim == 1 else ravel(condition)
+        _, idx = masking.device_where(flat != 0)
+        return idx[0]
+    return torch.from_numpy(
+        np.where(np.ravel(np.asarray(condition)))[0]).to(device)
+
+
+def compress(condition, a, axis=None):
+    """np.compress with device-resolved mask indices (one scalar sync)."""
+    a = _to_ba(a)
+    idx = _mask_indices_1d(condition, a.data.device)
+    if axis is None:
+        return ravel(a)[idx]
+    sel = tuple(
+        idx if ax == axis else slice(None) for ax in range(a.ndim)
+    )
+    return a[sel]
+
+
+def extract(condition, arr):
+    """np.extract with device-resolved mask indices (one scalar sync)."""
+    arr = _to_ba(arr)
+    return ravel(arr)[_mask_indices_1d(condition, arr.data.device)]
+
+
+def broadcast_arrays(*args):
+    bas = [_to_ba(a) for a in args]
+    target = np.broadcast_shapes(*[b.shape for b in bas])
+    return [b.broadcast_to(target) for b in bas]
+
+
+broadcast_shapes = np.broadcast_shapes
+
+
+def asanyarray(a, dtype=None):
+    from nums_tpu_torch.numpy import api as _api
+
+    return _api.asarray(a, dtype=dtype)
+
+
+def astype(x, dtype):
+    return _to_ba(x).astype(dtype)
+
+
+# NumPy 2 operator aliases.
+def _alias_of(target_name, module=None):
+    def alias(*args, **kwargs):
+        from nums_tpu_torch.numpy import api as _api
+
+        mod = module if module is not None else _api
+        return getattr(mod, target_name)(*args, **kwargs)
+
+    alias.__name__ = target_name
+    return alias
+
+
+acos = _alias_of("arccos")
+acosh = _alias_of("arccosh")
+asin = _alias_of("arcsin")
+asinh = _alias_of("arcsinh")
+atan = _alias_of("arctan")
+atanh = _alias_of("arctanh")
+atan2 = _alias_of("arctan2")
+bitwise_invert = _alias_of("invert")
+bitwise_left_shift = _alias_of("left_shift")
+bitwise_right_shift = _alias_of("right_shift")
+concat = _alias_of("concatenate")
+pow = _alias_of("power")  # noqa: A001
+permute_dims = _alias_of("transpose")
+
+
+# -- signal / misc -------------------------------------------------------
+
+
+def meshgrid(*xi, indexing="xy"):
+    """``np.meshgrid`` (``indexing="xy"`` by default, as in NumPy and
+    jnp; torch's default is ``"ij"``): each output keeps its input's
+    dtype."""
+    if indexing not in ("xy", "ij"):
+        raise ValueError("Valid values for `indexing` are 'xy' and 'ij'.")
+    bas = [_to_ba(x) for x in xi]
+    ts = [b.data.reshape(-1) for b in bas]
+    shape = [t.shape[0] for t in ts]
+    if indexing == "xy" and len(ts) > 1:
+        shape[0], shape[1] = shape[1], shape[0]
+    outs = []
+    for i, t in enumerate(ts):
+        pos = i
+        if indexing == "xy" and len(ts) > 1 and i < 2:
+            pos = 1 - i
+        view = [1] * len(ts)
+        view[pos] = -1
+        outs.append(torch.broadcast_to(t.reshape(view), shape).contiguous())
+    return [_wrap(bas[0], o) for o in outs]
+
+
+def cross(a, b, axis=-1):
+    """``np.cross`` of 2- and 3-vectors along ``axis``; two 2-vectors give
+    the z component alone."""
+    a, b = _to_ba(a), _to_ba(b)
+    x, y = _promote_all([a.data, b.data])
+    x, y = torch.movedim(x, axis, -1), torch.movedim(y, axis, -1)
+    if x.shape[-1] not in (2, 3) or y.shape[-1] not in (2, 3):
+        raise ValueError("incompatible dimensions for cross product")
+    if x.shape[-1] == 2 and y.shape[-1] == 2:
+        return _wrap(a, x[..., 0] * y[..., 1] - x[..., 1] * y[..., 0])
+
+    def parts(t):
+        z = t[..., 2] if t.shape[-1] == 3 else torch.zeros_like(t[..., 0])
+        return t[..., 0], t[..., 1], z
+
+    a0, a1, a2 = parts(x)
+    b0, b1, b2 = parts(y)
+    out = torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                       a0 * b1 - a1 * b0], dim=-1)
+    return _wrap(a, torch.movedim(out, -1, axis))
+
+
+def _conv(x, y, mode, op):
+    """``jnp``'s 1-D ``convolve``/``correlate``: the longer operand
+    slides, the kernel flipped for ``convolve``, the output reversed for a
+    ``correlate`` whose operands were swapped; computed by ``conv1d`` in
+    the operands' inexact dtype."""
+    if x.ndim != 1 or y.ndim != 1:
+        raise ValueError(f"{op}() only support 1-dimensional inputs.")
+    x, y = _promote_all([x, y])
+    x, y = _inexact(x), _inexact(y)
+    if len(x) == 0 or len(y) == 0:
+        raise ValueError(f"{op}: inputs cannot be empty")
+    reverse = False
+    if op == "correlate":
+        y = y.conj()
+        if len(x) < len(y):
+            x, y, reverse = y, x, True
+    else:
+        if len(x) < len(y):
+            x, y = y, x
+        y = torch.flip(y, (0,))
+    m = y.shape[0]
+    if mode == "valid":
+        padding = (0, 0)
+    elif mode == "same":
+        padding = (m // 2, m - m // 2 - 1)
+    elif mode == "full":
+        padding = (m - 1, m - 1)
+    else:
+        raise ValueError("mode must be one of ['full', 'same', 'valid']")
+    xp = torch.nn.functional.pad(x, padding)
+    out = torch.nn.functional.conv1d(xp[None, None, :], y[None, None, :])
+    out = out[0, 0]
+    return torch.flip(out, (0,)) if reverse else out
+
+
+def convolve(a, v, mode="full"):
+    a, v = _to_ba(a), _to_ba(v)
+    return _wrap(a, _conv(a.data, v.data, mode, "convolve"))
+
+
+def correlate(a, v, mode="valid"):
+    a, v = _to_ba(a), _to_ba(v)
+    return _wrap(a, _conv(a.data, v.data, mode, "correlate"))
+
+
+def _gradient_along(x, axis):
+    def sl(start, stop):
+        stop = x.shape[axis] if stop is None else stop % x.shape[axis] \
+            if stop < 0 else stop
+        start = start % x.shape[axis] if start < 0 else start
+        return x.narrow(axis, start, stop - start)
+
+    upper = sl(1, 2) - sl(0, 1)
+    lower = sl(-1, None) - sl(-2, -1)
+    inner = (sl(2, None) - sl(0, -2)) * 0.5
+    return torch.cat([upper, inner, lower], dim=axis)
+
+
+def gradient(f, axis=None):
+    """``jnp.gradient`` at unit spacing: central differences inside,
+    one-sided at the edges; one array per axis (a list for several)."""
+    f = _to_ba(f)
+    x = _inexact(f.data)
+    axes = _dims(axis, x.ndim)
+    if builtins.min(x.shape[i] for i in axes) < 2:
+        raise ValueError("Shape of array too small to calculate a numerical "
+                         "gradient, at least 2 elements are required.")
+    grads = [_wrap(f, _gradient_along(x, ax)) for ax in axes]
+    return grads[0] if len(axes) == 1 else grads
+
+
+def trapezoid(y, x=None, dx=1.0, axis=-1):
+    """``jnp.trapezoid``: ``0.5 · Σ dx · (y[1:] + y[:-1])`` along
+    ``axis``; a scalar ``dx`` is weak, as a Python scalar in jax."""
+    y = _to_ba(y)
+    if x is None:
+        yd, d = _inexact(y.data), float(dx)
+    else:
+        x = _to_ba(x)
+        yd, xd = elementwise.promote(y.data, x.data, y._default_float())
+        yd, xd = _inexact(yd), _inexact(xd)
+        if xd.ndim == 1:
+            d = xd[1:] - xd[:-1]
+        else:
+            d = torch.movedim(torch.diff(xd, dim=axis), axis, -1)
+    yd = torch.movedim(yd, axis, -1)
+    return _wrap(y, 0.5 * (d * (yd[..., 1:] + yd[..., :-1])).sum(-1))
+
+
+trapz = trapezoid
+
+
+def sinc(x):
+    """``jnp.sinc``: ``sin(πx)/(πx)``, 1 at 0."""
+    x = _to_ba(x)
+    t = _inexact(x.data)
+    zero = t == 0
+    pi_x = np.pi * t
+    safe = torch.where(zero, torch.ones_like(t), pi_x)
+    out = torch.where(zero, torch.ones_like(t), torch.sin(safe) / safe)
+    return _wrap(x, out, x.block_shape)
+
+
+def ediff1d(ary):
+    ary = _to_ba(ary)
+    flat = ary.data.reshape(-1)
+    return _wrap(ary, flat[1:] - flat[:-1])
+
+
+def vander(x, N=None, increasing=False):
+    """``jnp.vander``: powers of x by an iota of x's own dtype,
+    decreasing unless ``increasing``."""
+    x = _to_ba(x)
+    xd = x.data
+    if xd.ndim != 1:
+        raise ValueError("x must be a one-dimensional array")
+    n = xd.shape[0] if N is None else int(N)
+    iota = torch.arange(n, device=xd.device).to(xd.dtype)
+    if not increasing:
+        iota = (n - 1) - iota
+    return _wrap(x, elementwise.bop("power", xd[:, None], iota[None, :],
+                                    x._default_float()))
+
+
+def tri(N, M=None, k=0, dtype=float):
+    """Built on the device: ones on and below the k-th diagonal."""
+    app = _instance()
+    dt = array_utils.to_torch_dtype(app.backend.device_dtype(
+        array_utils.to_np_dtype(dtype)))
+    m = int(N) if M is None else int(M)
+    data = torch.tril(torch.ones((int(N), m), device=app.backend.device),
+                      diagonal=int(k)).to(dt)
+    return BlockArray.from_torch(data, backend=app.backend)
+
+
+def argwhere(a):
+    """Device-resolved (one scalar sync); indices stay on the device."""
+    a = _to_ba(a)
+    if a.ndim == 0:
+        out = np.argwhere(a.get())
+        return _instance().array(out, block_shape=out.shape)
+    _, idx = masking.device_where(a != 0)
+    data = torch.stack(idx, dim=-1).to(torch.int64)
+    return BlockArray.from_torch(data, block_shape=tuple(data.shape),
+                                 backend=a.backend)
+
+
+def flatnonzero(a):
+    a = _to_ba(a)
+    if a.ndim == 0:
+        out = np.flatnonzero(a.get())
+        return _instance().array(out, block_shape=out.shape)
+    _, idx = masking.device_where(ravel(a) != 0)
+    return BlockArray.from_torch(idx[0].to(torch.int64), backend=a.backend)
+
+
+def nonzero(a):
+    return _instance().where(_to_ba(a))

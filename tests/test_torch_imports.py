@@ -92,11 +92,17 @@ def test_init_needs_a_card_unless_the_cpu_is_asked_for():
     "nums_tpu_torch.core.array.random",
     "nums_tpu_torch.numpy",
     "nums_tpu_torch.numpy.random",
+    "nums_tpu_torch.numpy.api",
+    "nums_tpu_torch.numpy.extra",
+    "nums_tpu_torch.numpy.extra3",
+    "nums_tpu_torch.numpy.linalg",
+    "nums_tpu_torch.core.trace",
+    "nums_tpu_torch.core.ops.masking",
 ])
 def test_io_and_ooc_modules_import_first(module):
-    """Each module of the I/O, out-of-core, linalg, ingestion and random
-    slices imports as the first module of a process (no import cycle), with jax and nums_tpu
-    blocked."""
+    """Each module of the I/O, out-of-core, linalg, ingestion, random and
+    facade slices imports as the first module of a process (no import
+    cycle), with jax and nums_tpu blocked."""
     probe = _PROBE.split("import nums_tpu_torch\n")[0] + (
         f"import {module}\n"
         "bad = [m for m in sys.modules\n"

@@ -134,3 +134,104 @@ def assert_draw_class(cls, got, ref, dtype_name):
     else:
         assert cls == "looped"
         assert draw_mismatch(got, ref, 1e-5, 1e-5) <= 1e-3
+
+
+# The classes of the facade's parity tests (tests/test_torch_numpy_*.py,
+# tests/test_torch_access.py): (rtol, atol as a fraction of max|ref|) by
+# the reference's dtype; integer, bool, sort, index, set and shape results
+# are exact in every class.
+TOLERANCES = {
+    "elementwise": {"float64": (1e-12, 1e-12), "float32": (2e-6, 1e-6)},
+    "reduction": {"float64": (0.0, 1e-12), "float32": (0.0, 1e-5)},
+    "linalg": {"float64": (0.0, 1e-10), "float32": (0.0, 1e-4)},
+}
+
+
+def host(x):
+    """A result of either package as numpy (nested for tuples/lists)."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(host(v) for v in x) if not hasattr(x, "_fields") \
+            else tuple(host(v) for v in x)
+    if hasattr(x, "get") and hasattr(x, "grid"):
+        return np.asarray(x.get())
+    return x
+
+
+def run_parity(fn):
+    """``fn()`` as (result on the host, None) or (None, exception type)."""
+    try:
+        with np.errstate(all="ignore"):
+            return host(fn()), None
+    except Exception as e:  # noqa: BLE001 - the type is what is compared
+        return None, type(e)
+
+
+def _complex_parts(x):
+    return (x.real, x.imag) if np.iscomplexobj(x) else (x,)
+
+
+def assert_values(got, ref, tol="elementwise"):
+    """Shape, dtype and value of one result against the reference's."""
+    if isinstance(ref, (tuple, list)):
+        assert isinstance(got, (tuple, list)) and len(got) == len(ref), (
+            got, ref)
+        for g, r in zip(got, ref):
+            assert_values(g, r, tol)
+        return
+    if not isinstance(ref, np.ndarray) and not isinstance(ref, np.generic):
+        assert got == ref, (got, ref)
+        return
+    got = np.asarray(got)
+    assert got.shape == ref.shape and got.dtype == ref.dtype, (
+        got.shape, got.dtype, ref.shape, ref.dtype)
+    if ref.dtype.kind in "biuUSO" or tol == "exact":
+        assert np.array_equal(got, ref, equal_nan=ref.dtype.kind in "fc"), (
+            got, ref)
+        return
+    name = "float32" if ref.dtype in (np.float32, np.complex64) else "float64"
+    rtol, atol = TOLERANCES[tol][name]
+    for g, r in zip(_complex_parts(got), _complex_parts(ref)):
+        g, r = g.astype(np.float64), r.astype(np.float64)
+        assert np.array_equal(np.isnan(g), np.isnan(r)), (g, r)
+        inf = np.isinf(r)
+        assert np.array_equal(g[inf], r[inf]), (g, r)
+        fin = np.isfinite(r)
+        if fin.any():
+            scale = np.max(np.abs(r[fin]))
+            err = np.abs(g[fin] - r[fin])
+            assert np.all(err <= rtol * np.abs(r[fin]) + atol * scale), (
+                float(err.max()), scale, g, r)
+
+
+def assert_parity(got, ref, tol="elementwise"):
+    """Two ``run_parity`` outcomes agree: the same exception type, or the
+    same values (``assert_values``)."""
+    (g, g_exc), (r, r_exc) = got, ref
+    if r_exc is not None:
+        assert g_exc is r_exc, (g_exc, r_exc)
+        return
+    assert g_exc is None, g_exc
+    assert_values(g, r, tol)
+
+
+@pytest.fixture()
+def apps(jax_app, torch_app):
+    """Both serial applications, each its package's current instance for
+    the test (a test with ``padded_jax_app`` replaces the reference's)."""
+    from nums_tpu.core import application_manager as jam
+    from nums_tpu_torch.core import application_manager as tam
+
+    jam.set_instance(jax_app)
+    tam.set_instance(torch_app)
+    return jax_app, torch_app
+
+
+def facade_parity(apps, fn, tol="elementwise"):
+    """``fn(nps, app)`` through ``nums_tpu.numpy`` and
+    ``nums_tpu_torch.numpy``, compared by ``assert_parity``."""
+    import nums_tpu.numpy as jnps
+    import nums_tpu_torch.numpy as tnps
+
+    jax_app, torch_app = apps
+    assert_parity(run_parity(lambda: fn(tnps, torch_app)),
+                  run_parity(lambda: fn(jnps, jax_app)), tol)
