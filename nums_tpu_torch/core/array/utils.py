@@ -22,6 +22,11 @@ _NP_TO_TORCH = {
     np.dtype(np.complex128): torch.complex128,
 }
 _TORCH_TO_NP = {t: n for n, t in _NP_TO_TORCH.items()}
+# torch's uint16, uint32 and uint64 hold data but have no arithmetic (no
+# sum, product, division or shift kernels): the port refuses them with a
+# TypeError that names the type, where the reference computes in them.
+_UNSUPPORTED = (np.dtype(np.uint16), np.dtype(np.uint32),
+                np.dtype(np.uint64))
 
 
 def broadcast_shape(shape_a: tuple, shape_b: tuple) -> tuple:
@@ -114,9 +119,17 @@ def to_dtype_name(dtype) -> str:
 
 
 def to_torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a dtype-like; ``TypeError`` for a dtype the port
+    does not hold (uint16/32/64, strings, objects...)."""
     if isinstance(dtype, torch.dtype):
         return dtype
-    return _NP_TO_TORCH[to_np_dtype(dtype)]
+    np_dtype = to_np_dtype(dtype)
+    if np_dtype not in _NP_TO_TORCH:
+        why = (" (torch has no arithmetic for it; use int64)"
+               if np_dtype in _UNSUPPORTED else "")
+        raise TypeError(f"nums_tpu_torch does not support dtype "
+                        f"{np_dtype.name}{why}")
+    return _NP_TO_TORCH[np_dtype]
 
 
 def is_scalar_like(x) -> bool:

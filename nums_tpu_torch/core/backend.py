@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from nums_tpu_torch.core import settings
+from nums_tpu_torch.core.array import utils as array_utils
 from nums_tpu_torch.core.grid import ArrayGrid
 
 
@@ -57,6 +58,7 @@ class Backend:
         del grid
         array = np.array(array, order="C", copy=True)
         array = array.astype(self.device_dtype(array.dtype), copy=False)
+        array_utils.to_torch_dtype(array.dtype)  # TypeError if not held
         return torch.from_numpy(array).to(self.device)
 
     def get(self, tensor) -> np.ndarray:

@@ -19,7 +19,12 @@ scalars) rather than torch's own rules where the two differ:
 * the integer division family, the shifts and ``power`` compute bool in
   int32, and an integer divisor of 0 gives jax's values, not an error;
 * an op that ``jnp`` refuses for a dtype raises the same exception type
-  (``TypeError`` or ``ValueError``) before any torch call.
+  (``TypeError`` or ``ValueError``) before any torch call;
+* complex numbers are ordered as ``jnp`` orders them, by real part and
+  then by imaginary part (the comparisons, ``maximum`` and ``minimum``),
+  and the complex ``sign`` is ``z/|z|`` (0 at 0);
+* a float-to-integer ``astype`` saturates as XLA's conversion does
+  (``float_to_int``), on every device.
 
 The one exception is ``power`` of integers to a negative integer
 exponent: the port keeps torch's truncated value (0 for a base of
@@ -84,7 +89,15 @@ def _spacing(x):
 
 
 def _sign(x):
-    """``jnp.sign``: NaN stays NaN (torch's sign gives 0)."""
+    """``jnp.sign``: NaN stays NaN (torch's sign gives 0); a complex x
+    gives ``x/|x|``, its parts divided by the real magnitude, and 0 at
+    0."""
+    if x.is_complex():
+        mag = torch.abs(x)
+        zero = mag == 0
+        safe = torch.where(zero, torch.ones_like(mag), mag)
+        out = torch.complex(x.real / safe, x.imag / safe)
+        return torch.where(zero, torch.zeros_like(x), out)
     out = torch.sign(x)
     if x.is_floating_point():
         out = torch.where(torch.isnan(x), x, out)
@@ -146,7 +159,40 @@ def _fmod(a, b):
     return torch.fmod(a, b)
 
 
+def lex_order(op, a, b):
+    """``op`` (``torch.lt``/``le``/``gt``/``ge``) in jnp's order of
+    complex numbers: on the imaginary parts where the real parts are
+    equal, else on the real parts (``jnp``'s ``_complex_comparison``)."""
+    return torch.where(a.real == b.real, op(a.imag, b.imag),
+                       op(a.real, b.real))
+
+
+def _maximum(a, b):
+    if a.is_complex():
+        return torch.where(lex_order(torch.gt, a, b), a, b)
+    return torch.maximum(a, b)
+
+
+def _minimum(a, b):
+    if a.is_complex():
+        return torch.where(lex_order(torch.lt, a, b), a, b)
+    return torch.minimum(a, b)
+
+
+def _ordered(op):
+    def compare(a, b):
+        return lex_order(op, a, b) if a.is_complex() else op(a, b)
+
+    return compare
+
+
 _CUSTOM = {
+    "maximum": _maximum,
+    "minimum": _minimum,
+    "less": _ordered(torch.lt),
+    "less_equal": _ordered(torch.le),
+    "greater": _ordered(torch.gt),
+    "greater_equal": _ordered(torch.ge),
     "sign": _sign,
     "cbrt": _cbrt,
     "spacing": _spacing,
@@ -363,7 +409,35 @@ def bop(name: str, a, b, default_float: torch.dtype):
     return fn(a, b)
 
 
+def float_to_int(x, dtype: torch.dtype):
+    """XLA's float-to-integer conversion, which the reference's ``astype``
+    makes: toward 0, NaN to 0, and values beyond the target's range (±inf
+    too) clamped to its limits. A plain ``Tensor.to`` is undefined there
+    and differs between the host and the card. The clamp stays below
+    ``2^k`` in x's own dtype (2^31 - 1 would round up to 2^31 in
+    float32), and what reaches ``2^k`` is set to the maximum after the
+    conversion."""
+    info = torch.iinfo(dtype)
+    if x.dtype.itemsize < 4:
+        x = x.float()  # a half float cannot hold the limits of every target
+    t = torch.trunc(x)
+    top = float(info.max) + 1.0          # 2^k: exact in float32 and float64
+    below = top * (1.0 - torch.finfo(x.dtype).eps / 2)  # the float below it
+    out = t.clamp(float(info.min), below).to(dtype)
+    out.masked_fill_(t >= top, info.max)
+    out.masked_fill_(torch.isnan(t), 0)
+    return out
+
+
 def astype(x, dtype: torch.dtype):
+    """``jnp``'s ``astype``: a complex source casts its real part, and a
+    float source to an integer dtype saturates (``float_to_int``)."""
+    if x.is_complex() and not dtype.is_complex and dtype != torch.bool:
+        x = x.real
+    if x.is_floating_point() and not (dtype.is_floating_point
+                                      or dtype.is_complex
+                                      or dtype == torch.bool):
+        return float_to_int(x, dtype)
     return x.to(dtype)
 
 

@@ -23,8 +23,26 @@ def _prod(x, dim, keepdim, dtype=None):
     return x
 
 
-_FNS = {"sum": torch.sum, "mean": torch.mean, "min": torch.amin,
-        "max": torch.amax, "prod": _prod}
+def _extreme(fn, fill):
+    """``amax``/``amin`` in jnp's order of complex numbers: the extreme
+    real part, then the extreme imaginary part among the elements that
+    hold it (without NaNs, the lexicographic maximum or minimum)."""
+
+    def reduce_fn(x, dim, keepdim):
+        if not x.is_complex():
+            return fn(x, dim=dim, keepdim=keepdim)
+        re = fn(x.real, dim=dim, keepdim=True)
+        im = fn(torch.where(x.real == re, x.imag,
+                            torch.full_like(x.imag, fill)),
+                dim=dim, keepdim=keepdim)
+        return torch.complex(re.reshape(im.shape), im)
+
+    return reduce_fn
+
+
+_FNS = {"sum": torch.sum, "mean": torch.mean,
+        "min": _extreme(torch.amin, float("inf")),
+        "max": _extreme(torch.amax, float("-inf")), "prod": _prod}
 
 
 def _dims(axis, ndim):

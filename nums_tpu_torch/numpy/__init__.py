@@ -1,25 +1,31 @@
 """nums_tpu_torch.numpy: the NumPy-shaped public surface.
 
-Counterpart of ``nums_tpu/numpy/__init__.py``: ``api``, ``extra`` and
-``extra3`` (only ``vecdot`` so far) star-imported, and the submodules
-``linalg`` and ``random``. Every other numpy callable is filled with a
-``_not_implemented`` stub that raises ``NotImplementedError``, so a program
-that reaches a name not ported yet (those of the reference's ``extra2``,
-``extra3``, ``extra4``, ``tail``, ``compat`` and ``fft``) fails loudly.
+Counterpart of ``nums_tpu/numpy/__init__.py``: ``api``, ``extra``,
+``extra2``, ``extra3``, ``extra4``, ``compat`` and ``tail`` star-imported,
+and the submodules ``linalg``, ``random`` and ``fft``. It implements every
+name the reference implements; any other numpy callable (one newer than
+the reference's numpy, say) is filled with a ``_not_implemented`` stub
+that raises ``NotImplementedError``, so a program that reaches it fails
+loudly. ``python -m nums_tpu_torch.cmds.api_coverage`` reports the
+surface.
 """
 
 import inspect as _inspect
-import types as _types
 
 import numpy as _np
 
 from nums_tpu_torch.numpy import api as _api  # noqa: F401
 from nums_tpu_torch.numpy.api import *  # noqa: F401,F403
 from nums_tpu_torch.numpy.extra import *  # noqa: F401,F403
+from nums_tpu_torch.numpy.extra2 import *  # noqa: F401,F403
 from nums_tpu_torch.numpy.extra3 import *  # noqa: F401,F403
+from nums_tpu_torch.numpy.extra4 import *  # noqa: F401,F403
+from nums_tpu_torch.numpy.compat import *  # noqa: F401,F403
+from nums_tpu_torch.numpy.tail import *  # noqa: F401,F403
 from nums_tpu_torch.numpy.api import _not_implemented
 from nums_tpu_torch.numpy import linalg  # noqa: F401
 from nums_tpu_torch.numpy import random  # noqa: F401
+from nums_tpu_torch.numpy import fft  # noqa: F401
 from nums_tpu_torch.core.array.blockarray import BlockArray  # noqa: F401
 
 
@@ -35,18 +41,5 @@ def _fill_missing():
             g[name] = _not_implemented(obj)
 
 
-def _stub_module(name, source):
-    """A submodule not ported yet: each public callable of ``source``
-    (numpy's own) as a raising stub."""
-    mod = _types.ModuleType(f"{__name__}.{name}",
-                            f"numpy.{name}: not ported yet (stubs).")
-    for attr in dir(source):
-        obj = getattr(source, attr)
-        if not attr.startswith("_") and callable(obj):
-            setattr(mod, attr, _not_implemented(obj))
-    return mod
-
-
 _fill_missing()
-fft = _stub_module("fft", _np.fft)
-del _fill_missing, _stub_module
+del _fill_missing

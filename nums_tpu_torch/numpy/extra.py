@@ -356,8 +356,14 @@ def average(a, axis=None, weights=None):
 
 def clip(a, a_min=None, a_max=None):
     """``jnp.clip``: ``maximum`` with ``a_min``, then ``minimum`` with
-    ``a_max``, each promoting as its ufunc does."""
+    ``a_max``, each promoting as its ufunc does; complex input or bounds
+    raise ``ValueError``, as in jnp."""
     a = _to_ba(a)
+    if builtins.any(b.dtype.kind == "c" if isinstance(b, BlockArray)
+                    else np.iscomplexobj(b) for b in (a, a_min, a_max)
+                    if b is not None):
+        raise ValueError("Clip received a complex value either through the "
+                         "input or the min/max keywords.")
     out = a
     app = _instance()
     if a_min is not None:
@@ -380,15 +386,22 @@ def around(a, decimals=0):
             raise NotImplementedError(
                 "integer np.round not implemented for decimals < 0")
         return _wrap(a, x.clone(), a.block_shape)
-    if decimals == 0:
-        out = torch.round(x)
-    elif decimals > np.log10(torch.finfo(x.dtype).max):
-        out = x.clone()
+    if x.is_complex():  # each part on its own
+        out = torch.complex(_round_real(x.real, decimals),
+                            _round_real(x.imag, decimals))
     else:
-        factor = torch.full((), 10.0 ** decimals, dtype=x.dtype,
-                            device=x.device)
-        out = torch.round(x * factor) / factor
+        out = _round_real(x, decimals)
     return _wrap(a, out, a.block_shape)
+
+
+def _round_real(x, decimals):
+    if decimals == 0:
+        return torch.round(x)
+    if decimals > np.log10(torch.finfo(x.dtype).max):
+        return x.clone()
+    factor = torch.full((), 10.0 ** decimals, dtype=x.dtype,
+                        device=x.device)
+    return torch.round(x * factor) / factor
 
 
 round = around  # noqa: A001 - numpy alias
@@ -413,8 +426,7 @@ def sort(a, axis=-1, kind=None, order=None, stable=True, descending=False):
         raise NotImplementedError("'order' argument to sort is not supported.")
     a = _to_ba(a)
     x, axis = _sort_input(a, axis)
-    return _wrap(a, torch.sort(x, dim=axis, stable=True,
-                               descending=bool(descending)).values)
+    return _wrap(a, masking.sort(x, axis, bool(descending))[0])
 
 
 def argsort(a, axis=-1, kind=None, order=None, stable=True,
@@ -426,7 +438,7 @@ def argsort(a, axis=-1, kind=None, order=None, stable=True,
             "'order' argument to argsort is not supported.")
     a = _to_ba(a)
     x, axis = _sort_input(a, axis)
-    out = torch.argsort(x, dim=axis, stable=True, descending=bool(descending))
+    out = masking.argsort(x, axis, bool(descending))
     return _wrap(a, out.to(_default_int(a)))
 
 
@@ -437,8 +449,7 @@ def searchsorted(a, v, side="left"):
     if a.ndim != 1:
         raise ValueError("a should be 1-dimensional")
     seq, vals = _promote_all([a.data, v.data])
-    out = torch.searchsorted(seq.contiguous(), vals.contiguous(),
-                             right=side == "right")
+    out = masking.searchsorted(seq, vals, right=side == "right")
     dt = torch.int64 if a.shape[0] >= 2**31 - 1 else torch.int32
     return _wrap(a, out.to(dt))
 
@@ -764,26 +775,30 @@ def _linspace(start, stop, num, dtype, device):
     return torch.cat([out, stop.to(dtype).reshape(1)])
 
 
+def hist_edges(x, bins, range):  # noqa: A002
+    """``jnp.histogram_bin_edges`` of a 1-D inexact tensor: ``bins`` as
+    given, or ``bins + 1`` points over ``range`` (the data's min and max,
+    widened by 0.5 each way where they are equal)."""
+    if not isinstance(bins, (int, np.integer)):
+        return torch.as_tensor(np.asarray(bins), device=x.device).to(x.dtype)
+    if range is None:
+        lo, hi = x.min(), x.max()
+    else:
+        lo = torch.tensor(range[0], dtype=x.dtype, device=x.device)
+        hi = torch.tensor(range[1], dtype=x.dtype, device=x.device)
+    same = hi == lo
+    lo = torch.where(same, lo - 0.5, lo)
+    hi = torch.where(same, hi + 0.5, hi)
+    return _linspace(lo, hi, int(bins) + 1, x.dtype, x.device)
+
+
 def histogram(a, bins=10, range=None):  # noqa: A002
-    """``jnp.histogram``: ``bins + 1`` edges over ``range`` (the data's
-    min and max, widened by 0.5 each way where they are equal), counts by
-    ``searchsorted(edges, x, side='right')`` with the last bin closed;
-    counted on the device with ``bincount`` (``torch.histogram`` has no
-    CUDA kernel)."""
+    """``jnp.histogram``: ``hist_edges``, counts by ``searchsorted(edges,
+    x, side='right')`` with the last bin closed; counted on the device
+    with ``bincount`` (``torch.histogram`` has no CUDA kernel)."""
     a = _to_ba(a)
     x = _inexact(a.data).reshape(-1)
-    if not isinstance(bins, int):
-        edges = torch.as_tensor(np.asarray(bins), device=x.device).to(x.dtype)
-    else:
-        if range is None:
-            lo, hi = x.min(), x.max()
-        else:
-            lo = torch.tensor(range[0], dtype=x.dtype, device=x.device)
-            hi = torch.tensor(range[1], dtype=x.dtype, device=x.device)
-        same = hi == lo
-        lo = torch.where(same, lo - 0.5, lo)
-        hi = torch.where(same, hi + 0.5, hi)
-        edges = _linspace(lo, hi, int(bins) + 1, x.dtype, x.device)
+    edges = hist_edges(x, bins, range)
     nb = edges.shape[0]
     idx = torch.searchsorted(edges, x, right=True)
     idx = torch.where(x == edges[-1], torch.full_like(idx, nb - 1), idx)

@@ -15,12 +15,21 @@ values; the integer divisors hold 0.
 The one case kept apart is ``power`` of integers to a negative integer
 exponent: jax wraps around (2 ** -3 gives 2305843009213693952 in int64)
 and NumPy raises; the port keeps torch's truncated value, pinned below.
+
+The repairs of the facade's casts and complex order follow: a float to
+integer ``astype`` saturates as XLA's conversion does (NaN to 0, ±inf and
+out-of-range values to the target's limits), exactly equal to the
+reference; complex numbers sort, reduce, compare and clip in jnp's order
+(real part, then imaginary part), ``sign`` is z/|z| and ``round`` rounds
+each part; uint16/32/64 raise a ``TypeError`` that names the type.
 """
 
 import numpy as np
 import pytest
 
-from torch_parity import jax_app, torch_app  # noqa: F401
+from torch_parity import (  # noqa: F401
+    apps, facade_parity, jax_app, torch_app,
+)
 
 from nums_tpu.numpy import api as japi
 from nums_tpu_torch.numpy import api as tapi
@@ -180,3 +189,101 @@ def test_negative_integer_power_is_torchs_truncation(torch_app):
     exp = torch_app.array(np.array([-3, -3, -3, -3, -2, -2, -1]))
     assert (base ** exp).get().tolist() == [0, 0, 1, -1, 1, 1, 0]
     assert (2 ** torch_app.array(np.array([-1, -3]))).get().tolist() == [0, 0]
+
+
+CAST_SOURCE = np.array([np.nan, np.inf, -np.inf, 3e9, -3e9, 1e20, 2.7, -2.7,
+                        300.5, -129.0])
+
+
+@pytest.mark.parametrize("source", ["float64", "float32"])
+@pytest.mark.parametrize("dtype", ["int8", "int16", "int32", "int64",
+                                   "uint8", "bool"])
+def test_float_to_int_cast_saturates(apps, dtype, source):
+    x = CAST_SOURCE.astype(source)
+
+    def fn(nps, app):
+        return [app.array(x).astype(dtype), nps.asarray(app.array(x),
+                                                        dtype=dtype),
+                nps.array(x).astype(np.dtype(dtype))]
+
+    facade_parity(apps, fn, "exact")
+
+
+def test_float_to_int_never_rounds_the_limit_up():
+    """The clamp stays below 2^k in the source's own float: the largest
+    float32 below 2^31 converts exactly, 2^31 itself to the maximum."""
+    import torch
+    from nums_tpu_torch.core.ops import elementwise
+
+    x = torch.tensor([2147483520.0, 2147483648.0, -2147483648.0,
+                      -2147483904.0], dtype=torch.float32)
+    assert elementwise.float_to_int(x, torch.int32).tolist() == [
+        2147483520, 2147483647, -2147483648, -2147483648]
+    y = torch.tensor([2.0 ** 63 - 1024, 2.0 ** 63, -(2.0 ** 63)],
+                     dtype=torch.float64)
+    assert elementwise.float_to_int(y, torch.int64).tolist() == [
+        2 ** 63 - 1024, 2 ** 63 - 1, -(2 ** 63)]
+    h = torch.tensor([70000.0, -1.5, float("nan")]).to(torch.float16)
+    assert elementwise.float_to_int(h, torch.int16).tolist() == [
+        32767, -1, 0]
+
+
+@pytest.mark.parametrize("dtype", ["uint16", "uint32", "uint64"])
+def test_unsigned_wide_types_raise_naming_the_type(torch_app, dtype):
+    """torch holds uint16/32/64 but has no arithmetic for them: the port
+    refuses them with a TypeError that names the type (the reference
+    computes in them)."""
+    import nums_tpu_torch.numpy as tnps
+
+    with pytest.raises(TypeError, match=dtype):
+        torch_app.array(CAST_SOURCE).astype(dtype)
+    with pytest.raises(TypeError, match=dtype):
+        tnps.array(np.arange(3, dtype=dtype))
+    with pytest.raises(TypeError, match=dtype):
+        tnps.zeros(3, dtype=dtype)
+
+
+NANC = complex(np.nan, 0)
+CX = np.array([1 + 2j, 1 - 1j, NANC, complex(0, np.nan), -1 + 5j, 1 + 2j,
+               2 + 0j, 0j, complex(np.nan, np.nan), complex(1, np.nan)])
+CY = np.array([1 + 2j, 1 - 1j, -1 + 5j, 2 + 0j, 0j, 1 + 3j, -0.0 + 1j,
+               2 - 1j])
+COMPLEX_ORDER = {
+    "sort": lambda n: [n.sort(n.array(CX)), n.sort(n.array(CY)),
+                       n.sort(n.array(CY), descending=True)],
+    "argsort": lambda n: [n.argsort(n.array(CX)), n.argsort(n.array(CY))],
+    "sort_axis0": lambda n: n.sort(n.array(CY.reshape(2, 4)), axis=0),
+    "unique": lambda n: n.unique(n.array(np.concatenate([CY, CY[::2]])),
+                                 return_index=True, return_inverse=True,
+                                 return_counts=True),
+    "max_min": lambda n: [n.max(n.array(CY)), n.min(n.array(CY)),
+                          n.max(n.array(CY.reshape(2, 4)), axis=0),
+                          n.min(n.array(CY.reshape(2, 4)), axis=1),
+                          n.array(CY).max()],
+    "maximum_minimum": lambda n: [n.maximum(n.array(CX), n.array(CX[::-1])),
+                                  n.minimum(n.array(CX), n.array(CX[::-1]))],
+    "comparisons": lambda n: [n.array(CX) < n.array(CX[::-1]),
+                              n.array(CX) <= n.array(CX[::-1]),
+                              n.array(CX) > n.array(CX[::-1]),
+                              n.array(CX) >= n.array(CX[::-1]),
+                              n.less(n.array(CY), 1 + 0j),
+                              n.greater_equal(n.array(CY), 1 + 2j)],
+    "clip": lambda n: n.clip(n.array(CY), 0.5, 1.5),
+    "clip_complex_bound": lambda n: n.clip(n.array(np.arange(3.0)),
+                                           0.5 + 1j, 1.5),
+    "searchsorted": lambda n: [
+        n.searchsorted(n.sort(n.array(CY)), n.array(CX)),
+        n.searchsorted(n.sort(n.array(CY)), n.array(CX), side="right")],
+    "sign": lambda n: n.sign(n.array(np.concatenate([CX, [
+        0j, -3 + 4j, complex(np.inf, 0), complex(np.inf, 1), -2.5 + 0j]]))),
+    "round": lambda n: [n.round(n.array(np.array([1.5 + 2.5j, -0.5 - 1.5j,
+                                                  2.567 + 1.234j])), 1),
+                        n.around(n.array(np.array([1.5 + 2.5j,
+                                                   -0.5 - 1.5j]))),
+                        n.round(n.array(CY.astype(np.complex64)))],
+}
+
+
+@pytest.mark.parametrize("case", sorted(COMPLEX_ORDER))
+def test_complex_order(apps, case):
+    facade_parity(apps, lambda nps, app: COMPLEX_ORDER[case](nps))

@@ -94,7 +94,13 @@ def test_init_needs_a_card_unless_the_cpu_is_asked_for():
     "nums_tpu_torch.numpy.random",
     "nums_tpu_torch.numpy.api",
     "nums_tpu_torch.numpy.extra",
+    "nums_tpu_torch.numpy.extra2",
     "nums_tpu_torch.numpy.extra3",
+    "nums_tpu_torch.numpy.extra4",
+    "nums_tpu_torch.numpy.compat",
+    "nums_tpu_torch.numpy.tail",
+    "nums_tpu_torch.numpy.fft",
+    "nums_tpu_torch.cmds.api_coverage",
     "nums_tpu_torch.numpy.linalg",
     "nums_tpu_torch.core.trace",
     "nums_tpu_torch.core.ops.masking",

@@ -11,10 +11,11 @@ port raises the same exception type. The cases are those of
 tests/numpy/test_api.py, test_api_guards.py, test_creation_manipulation.py,
 test_np_reduction.py and test_np_utils.py.
 
-The surface test holds every public name of the reference's ``api``,
-``extra`` and ``linalg`` to a real function in the port, every other
-numpy callable to a stub that raises ``NotImplementedError``, and prints
-the stubs: what the next slice of the port has to implement.
+The surface test holds every public name of the reference's modules
+(``api``, ``extra``, ``extra2``, ``extra3``, ``extra4``, ``compat``,
+``tail``, ``linalg`` and ``fft``) to a real function in the port, and
+every callable that ``nums_tpu.numpy`` and ``nums_tpu.numpy.fft``
+implement (not stub) to one that is not a stub.
 """
 
 import itertools
@@ -28,7 +29,11 @@ from torch_parity import (  # noqa: F401
 
 import nums_tpu.numpy as jnps
 import nums_tpu_torch.numpy as tnps
-from nums_tpu.numpy import api as japi, extra as jextra, linalg as jlinalg
+from nums_tpu.numpy import (
+    api as japi, compat as jcompat, extra as jextra, extra2 as jextra2,
+    extra3 as jextra3, extra4 as jextra4, fft as jfft, linalg as jlinalg,
+    tail as jtail,
+)
 from nums_tpu_torch.core.grid import ArrayGrid
 
 RS = np.random.RandomState(0)
@@ -290,49 +295,50 @@ def _is_stub(obj):
     return getattr(obj, "_nums_tpu_stub", False)
 
 
-def test_surface(capsys):
-    """Every public name of the reference's ``numpy.api``, ``.extra`` and
-    ``.linalg`` is in the port and is not a stub; every other callable of
-    ``nums_tpu.numpy`` is a stub in the port that raises
-    ``NotImplementedError``. Prints the stubs: the next slice's list."""
-    ported = set()
-    for jmod, tmod in ((japi, tnps), (jextra, tnps),
-                       (jlinalg, tnps.linalg)):
+def test_surface():
+    """Every public name of the reference's facade modules is in the port
+    and is not a stub, and so is every callable that ``nums_tpu.numpy``
+    and ``nums_tpu.numpy.fft`` implement: the port stubs nothing the
+    reference implements."""
+    for jmod, tmod in ((japi, tnps), (jextra, tnps), (jextra2, tnps),
+                       (jextra3, tnps), (jextra4, tnps), (jcompat, tnps),
+                       (jtail, tnps), (jlinalg, tnps.linalg),
+                       (jfft, tnps.fft)):
         for name in _public(jmod):
-            if name in ("np", "BlockArray"):
+            if name in ("np", "BlockArray") or not callable(
+                    getattr(jmod, name)):
                 continue
             assert hasattr(tmod, name), (jmod.__name__, name)
             assert not _is_stub(getattr(tmod, name)), (jmod.__name__, name)
-            if tmod is tnps:
-                ported.add(name)
-    stubs = []
-    for name in sorted(vars(jnps)):
-        obj = getattr(jnps, name)
-        if name.startswith("_") or name in ported or not callable(obj) \
-                or isinstance(obj, type):
-            continue
-        if name in ("BlockArray", "vecdot"):
-            continue
-        got = getattr(tnps, name, None)
-        assert got is not None, name
-        assert _is_stub(got), name
-        stubs.append(name)
-    with pytest.raises(NotImplementedError):
-        tnps.busday_count("2026-01-01", "2026-02-01")
-    with pytest.raises(NotImplementedError):
-        tnps.fft.fft2(np.ones((2, 2)))
-    with capsys.disabled():
-        print(f"\nnums_tpu_torch.numpy stubs ({len(stubs)}): "
-              + " ".join(stubs))
-    assert len(ported) >= 240
+    for jmod, tmod in ((jnps, tnps), (jnps.fft, tnps.fft)):
+        names = [n for n in sorted(vars(jmod)) if not n.startswith("_")
+                 and callable(getattr(jmod, n))
+                 and not isinstance(getattr(jmod, n), type)
+                 and not _is_stub(getattr(jmod, n))]
+        assert len(names) >= (18 if jmod is jnps.fft else 360)
+        for name in names:
+            got = getattr(tmod, name, None)
+            assert got is not None, (jmod.__name__, name)
+            assert not _is_stub(got), (jmod.__name__, name)
+    assert not _is_stub(tnps.fft.fft2)
+    assert int(tnps.busday_count("2026-01-01", "2026-02-01")) == 22
 
 
 # The facade's host steps, each the reference's own: ``unique`` with
 # ``axis=`` or of an empty array (nums_tpu/numpy/extra.py:474-494),
 # ``eig``/``eigvals`` through LAPACK (nums_tpu/numpy/linalg.py:188-251),
 # ``argwhere``/``flatnonzero`` of a 0-d array (extra.py:930-945).
+# Those of the later modules: ``delete``/``insert`` at array-valued
+# positions, ``poly`` of a square matrix, ``roots`` (extra3.py:398-443),
+# the set operations' and ``trim_zeros``' empty-array short cuts, ``place``
+# (extra4.py:62-72), printing, and tail.py's passthroughs (its
+# ``_dehost``).
 HOST_STEPS = {"extra.unique", "linalg._host_eig", "extra.argwhere",
-              "extra.flatnonzero"}
+              "extra.flatnonzero", "extra3.delete", "extra3.insert",
+              "extra3.poly", "extra3.roots", "extra3._device_unique_1d",
+              "extra3._unique_result", "extra3.trim_zeros", "extra4.place",
+              "compat.array_repr", "compat.array_str",
+              "compat.array2string", "tail._dehost"}
 
 
 def test_no_facade_function_moves_an_operand_to_the_host():
@@ -345,7 +351,8 @@ def test_no_facade_function_moves_an_operand_to_the_host():
 
     root = pathlib.Path(tnps.__file__).parent
     found = set()
-    for mod in ("api", "extra", "extra3", "linalg"):
+    for mod in ("api", "extra", "extra2", "extra3", "extra4", "compat",
+                "tail", "fft", "linalg"):
         tree = ast.parse((root / f"{mod}.py").read_text())
         for fn in ast.walk(tree):
             if not isinstance(fn, ast.FunctionDef):

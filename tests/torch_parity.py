@@ -144,6 +144,7 @@ TOLERANCES = {
     "elementwise": {"float64": (1e-12, 1e-12), "float32": (2e-6, 1e-6)},
     "reduction": {"float64": (0.0, 1e-12), "float32": (0.0, 1e-5)},
     "linalg": {"float64": (0.0, 1e-10), "float32": (0.0, 1e-4)},
+    "poly": {"float64": (0.0, 1e-8), "float32": (0.0, 1e-4)},
 }
 
 
