@@ -1,9 +1,10 @@
 """Smoke run of nums_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py                 # phases 1-13
+    python3 chip_smoke.py                 # phases 1-14
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check
     python3 chip_smoke.py --random-only   # phases 1 and 11
     python3 chip_smoke.py --facade-only   # phases 1, 2, 12 and 13
+    python3 chip_smoke.py --models-only   # phases 1, 2 and 14
 
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi);
@@ -63,7 +64,10 @@ Phases, each printing one JSON line:
      on the DiskArray (K1 per panel, the moments of one streamed pass) and
      its ``transform`` to a new DiskArray, held to a float64 covariance,
      to the same fits with the gram gate off and to the in-core
-     ``transform`` of the first and last panel;
+     ``transform`` of the first and last panel; KMeans(16) on the
+     DiskArray (two passes at tol 0, the final inertia pass, no kernel)
+     within 1e-4 of in-core Lloyd's from the same first-panel seeding, and
+     its ``predict_ooc`` labels equal to the in-core ``predict``;
   9. linalg: on phase 4's X, its columns scaled to a decaying spectrum,
      ``randomized_svd`` and the randomized PCA; then, X freed, the linalg
      entry points on A = N(0,1) at 2^24 x 128 fp32 (8.6 GB) with a planted
@@ -147,6 +151,28 @@ Phases, each printing one JSON line:
      the card against the CPU route (equal, else within 4 ulp); ``roots``
      of degree 20, ``apply_along_axis`` on 100,000 rows, ``select`` and
      ``piecewise`` on X; ``nancumsum`` timed; the coverage report.
+ 14. models: (a) ``GBTClassifier(n_estimators=20, max_depth=4, n_bins=64,
+     learning_rate=0.3)`` on scripts/benchmark_models.py's 1,000,000 x 28
+     data, a cold and a warm fit (bitwise equal), train accuracy above
+     0.8, ``predict`` equal to a numpy evaluation of the decision tables,
+     the card against the CPU route on the first 100,000 rows (the same
+     edges and splits, leaf values within 1e-5), a 3-class one-vs-rest
+     fit on the score's terciles (``predict_proba`` rows sum to 1 within
+     1e-6); (d) on phase 4's X and labels, the mean logistic loss in
+     ``nps`` ops: ``value_and_grad`` and ``hvp`` within 1e-4 of float64,
+     the gradient of sum(W ∘ XᵀX) through K1 (one launch) within 1e-5 of
+     float64 X(W+Wᵀ) on 4096 rows, 100 adam steps of ``minimize`` eager
+     and fused (the same n_iter, x within 1e-6, the loss falls), a host
+     sync inside the function raising; (b) ``KMeans(16)`` on X plus 16
+     planted centers (added in place): the first k-means++ row the
+     reference's (a known answer computed with jax), the planted partition
+     recovered exactly, centers and inertia within 1e-5 of float64 Lloyd's
+     on the final assignment, two fits bitwise equal, one Lloyd iteration
+     timed; one GBDT fit and one KMeans fit under torch.profiler (device
+     time by kernel, idle share). Each step's host-clock seconds after a
+     synchronize, its bound, its peak device memory and its launches are
+     in the phase's line; no kernel but that one K1 launch; the phase
+     within 90 s.
 Then the kernels as one JSON line (each with its bound, the least time
 the card could take for its work at this run's shapes), and last
 {"ok": true, "device": {...}}. A failed phase prints its traceback and
@@ -920,6 +946,18 @@ def _profiled(torch, fn):
     return wall_ms, kernels, calls
 
 
+def _profile_summary(torch, fn):
+    """One call of ``fn`` under torch.profiler: (wall and device ms, the
+    device's idle share and the eight kernels that took longest; calls by
+    kernel name)."""
+    wall_ms, kernels, calls = _profiled(torch, fn)
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms, "kernels_ms": dict(top),
+            "kernel_calls": {k: calls[k] for k, _ in top}}, calls
+
+
 def phase_profile(torch, X, y):
     """Device time by kernel over one 10-iteration fit (torch.profiler),
     and the fit's launch counts (set to 0 just before it, read just
@@ -928,18 +966,13 @@ def phase_profile(torch, X, y):
 
     LogisticRegression(**FIT).fit(X, y)  # warm-up
     _reset_counts()
-    wall_ms, kernels, calls = _profiled(
+    summary, calls = _profile_summary(
         torch, lambda: LogisticRegression(**FIT).fit(X, y))
     counts = _counts()
-    busy = sum(kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     stage_calls = sum(c for k, c in calls.items() if "gram_stage" in k)
     assert stage_calls == 1, ("one staging pass per fit", calls)
-    emit({"phase": "profile", "wall_ms": wall_ms, "device_ms": busy,
-          "idle_share": 1.0 - busy / wall_ms,
-          "kernels_ms": dict(top),
-          "kernel_calls": {k: calls[k] for k, _ in top},
-          "gram_stage_calls": stage_calls, "launches": counts})
+    emit({"phase": "profile", **summary, "gram_stage_calls": stage_calls,
+          "launches": counts})
     return counts
 
 
@@ -1407,6 +1440,46 @@ def _ooc_decomposition(torch, app, launches, x, g64, dX, root):
     return out
 
 
+def _ooc_kmeans(torch, app, launches, X, dX, root, base):
+    """KMeans(16) on the DiskArray, ``KM_OOC_ITER`` passes at tol 0 and
+    the final inertia pass, against in-core Lloyd's from the same
+    first-panel seeding; ``predict_ooc`` against the in-core ``predict``;
+    its own peak device memory above ``base``."""
+    from nums_tpu_torch.models import cluster
+
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    km, out["fit_s"], c = _ooc_counted(torch, launches, lambda: cluster.KMeans(
+        n_clusters=KM_K, max_iter=KM_OOC_ITER, tol=0.0,
+        seed=KM_SEED).fit(dX))
+    assert not any(c.values()), c
+    assert km.n_iter_ == KM_OOC_ITER, km.n_iter_
+    out["fit_s_per_pass"] = out["fit_s"] / (KM_OOC_ITER + 1)
+    labels_ooc, out["predict_ooc_s"], c = _ooc_counted(
+        torch, launches, lambda: km.predict_ooc(
+            dX, out=os.path.join(root, "km_labels")))
+    assert not any(c.values()), c
+    out["peak_above_base_bytes"] = torch.cuda.max_memory_allocated() - base
+    x = X.data
+    sample = x[:dX.grid.block_shape[0]]
+    centers = cluster._plusplus_init(KM_K, KM_SEED, sample,
+                                     cluster._row_sq_norms(sample), False)
+    xx = cluster._row_sq_norms(x)
+    for _ in range(KM_OOC_ITER):
+        _, sums, counts = cluster._assign_stats(x, centers, KM_K, xx)
+        centers, _ = cluster._update(centers, sums, counts)
+    _, out["centers_rel_err_vs_in_core"] = rel_err(
+        km.cluster_centers_.data, centers)
+    assert out["centers_rel_err_vs_in_core"] <= KM_OOC_REL, out
+    got = np.concatenate([p for _, p in labels_ooc.iter_row_panels()])
+    want = km.predict(X).get()
+    out["predict_mismatch_rows"] = int((got != want).sum())
+    assert got.dtype == want.dtype and out["predict_mismatch_rows"] == 0, out
+    out["inertia"] = km.inertia_
+    return out
+
+
 def phase_ooc(torch, smi, app, X, y, model, acc_true):
     """Out of core at full width: phase 4's X and y written to disk in
     panels of OOC_PANEL_ROWS rows and streamed back through the public
@@ -1422,6 +1495,7 @@ def phase_ooc(torch, smi, app, X, y, model, acc_true):
     | PCA / TruncatedSVD .fit(dX)        | K1 (the streamed moments)     |
     | their .transform(dX)               | none (one fp32 GEMM)          |
     | model.predict_ooc, save, load      | none (host panels)            |
+    | KMeans(16).fit(dX), predict_ooc    | none (one fp32 GEMM a panel)  |
 
     The launch counts of each step are set to 0 just before it and read
     just after; the peak device memory of the streamed steps is taken
@@ -1545,8 +1619,10 @@ def phase_ooc(torch, smi, app, X, y, model, acc_true):
         out["decomposition"] = _ooc_decomposition(
             torch, app, launches, x, g64, dX, root)
         del g64
-        out["peak_above_base_bytes"] = (torch.cuda.max_memory_allocated()
-                                        - base)
+        peak = torch.cuda.max_memory_allocated()
+        out["kmeans"] = _ooc_kmeans(torch, app, launches, X, dX, root, base)
+        out["peak_above_base_bytes"] = (
+            max(peak, torch.cuda.max_memory_allocated()) - base)
         out["peak_limit_bytes"] = OOC_PEAK_PANELS * panel_bytes
         assert out["peak_above_base_bytes"] <= out["peak_limit_bytes"], out
 
@@ -3574,6 +3650,362 @@ def _facade_tail_steps(torch, app, cpu_app, X, step, out):
                          "quantile_ulps": 1}
 
 
+# Phase 14: the models beside the GLMs. The GBDT runs at
+# scripts/benchmark_models.py's default (1,000,000 x 28, its iota sin/cos
+# generator and label); KMeans, autodiff and optimize on phase 4's X,
+# 2.5M x 1000 fp32, not cut.
+GBDT_N, GBDT_D = 1_000_000, 28
+GBDT = dict(n_estimators=20, max_depth=4, n_bins=64, learning_rate=0.3)
+GBDT_ACC = 0.8               # the reference's own assert (benchmark_models)
+GBDT_CPU_ROWS = 100_000      # card vs the CPU route
+GBDT_LEAF_REL = 1e-5         # leaf values, card vs CPU route, of max|ref|
+PROBA_SUM_ABS = 1e-6         # OvR predict_proba rows vs 1
+KM_K, KM_SEED = 16, 0
+KM_DATA_SEED = 1414          # the planted centers and partition (numpy)
+# Planted centers N(0, 100^2): |ci - cj|^2 ~ 2e7, 1e4 times a cluster's own
+# squared distances (~2000), so that k-means++ seeds every cluster (a
+# draw in a seeded cluster wins the Gumbel max with odds about 1e-4 to 1).
+KM_CENTER_SCALE = 100.0
+KM_REL = 1e-5                # centers and inertia vs float64 Lloyd's
+# jax.random.randint(jax.random.fold_in(jax.random.key(0), 0), (), 0,
+# 2_500_000) with x64 off (the card's mode): the first k-means++ row.
+KM_FIRST_INDEX = 423887
+KM_OOC_ITER = 2              # phase 8: two passes, tol 0
+KM_OOC_REL = 1e-4            # phase 8: streamed centers vs in-core Lloyd's
+AD_REL = 1e-4                # value_and_grad and hvp vs float64, of max|ref|
+GRAM_GRAD_ROWS = 4096
+GRAM_GRAD_REL = 1e-5         # K1's fp32 backward vs float64 X(W+W^T)
+OPT = dict(method="adam", learning_rate=0.01, steps=100, tol=0.0)
+OPT_X_ABS = 1e-6             # eager vs fused minimize
+MODELS_LIMIT_S = 90.0
+
+
+def draw_labels(torch, app, X):
+    """Phase 4's labels: its beta and u, drawn after X on X's stream
+    (resumed at the counter the X draw leaves), y = (σ(Xβ) > u)."""
+    rs = app.random_state(RANDOM_KNOWN["seed"])
+    state = rs.get_state()
+    state["counter"] = RANDOM_KNOWN["counter"]
+    rs.set_state(state)
+    beta_true = rs.normal(scale=0.1, shape=(D_FULL,), dtype=np.float32)
+    u = rs.uniform(shape=(N_FULL,), dtype=np.float32)
+    eta = X @ beta_true
+    return (app.one / (app.one + app.exp(-eta)) > u).astype(np.float32)
+
+
+def _gbdt_data(torch, n, d):
+    """benchmark_models.py's GBDT data: X = sin(7e-4·i + 0.7·j) +
+    0.5·cos(1.3e-3·i) over the float32 iotas, the score sin(3·x0) +
+    x5·x11, y = score > 0.2."""
+    i = torch.arange(n, dtype=torch.float32, device=DEVICE)[:, None]
+    j = torch.arange(d, dtype=torch.float32, device=DEVICE)[None, :]
+    x = torch.sin(i * 7e-4 + j * 0.7) + torch.cos(i * 1.3e-3) * 0.5
+    score = torch.sin(x[:, 0] * 3.0) + x[:, 5] * x[:, 11]
+    return x, score, (score > 0.2).to(torch.float32)
+
+
+def _tables_numpy(x, model):
+    """Raw scores of a fitted binary GBT by numpy alone: the bins by
+    ``np.searchsorted`` (side left) on its edges, the leaf of each tree
+    from its (feature, cut) table, the leaf values added in tree order in
+    float32."""
+    edges = model._edges.cpu().numpy()
+    feats, cuts, vals = (t.cpu().numpy() for t in model._trees)
+    xb = np.stack([np.searchsorted(edges[:, j], x[:, j], side="left")
+                   for j in range(x.shape[1])], axis=1)
+    pred = np.full(x.shape[0], np.float32(model._base), np.float32)
+    for t in range(feats.shape[0]):
+        leaf = np.zeros(x.shape[0], np.int64)
+        for lvl in range(feats.shape[1]):
+            leaf = leaf * 2 + (xb[:, feats[t, lvl]] > cuts[t, lvl])
+        pred = pred + vals[t][leaf]
+    return pred
+
+
+def _same_trees(torch, a, b):
+    return (torch.equal(a._edges, b._edges)
+            and all(torch.equal(u, v) for u, v in zip(a._trees, b._trees)))
+
+
+def _models_gbdt(torch, app, cpu_app, step, out):
+    """Step a: the GBDT at 1,000,000 x 28."""
+    from nums_tpu_torch.core.array.blockarray import BlockArray
+    from nums_tpu_torch.models.trees import GBTClassifier
+
+    n, d = GBDT_N, GBDT_D
+    x, score, y = _gbdt_data(torch, n, d)
+    X = BlockArray.from_torch(x, backend=app.backend)
+    Y = BlockArray.from_torch(y, backend=app.backend)
+    levels = GBDT["n_estimators"] * GBDT["max_depth"]
+    # A level reads the bins (int32) and g, h, and writes the leaf ids.
+    fit_bytes = levels * (4.0 * n * d + 16.0 * n) + 4.0 * n * d
+    m1 = step("gbdt_fit_cold", lambda: GBTClassifier(**GBDT).fit(X, Y),
+              fit_bytes)
+    m2 = step("gbdt_fit_warm", lambda: GBTClassifier(**GBDT).fit(X, Y),
+              fit_bytes)
+    assert _same_trees(torch, m1, m2), "two GBDT fits differ"
+    m3 = []
+    out["gbdt_fit_profile"], _ = _profile_summary(torch, lambda: m3.append(
+        GBTClassifier(**GBDT).fit(X, Y)))
+    assert _same_trees(torch, m1, m3[0]), "a profiled GBDT fit differs"
+    pred = step("gbdt_predict", lambda: m1.predict(X),
+                4.0 * n * d + 8.0 * n)
+    out["gbdt_accuracy"] = float((pred.data == y).to(torch.float64).mean())
+    assert out["gbdt_accuracy"] > GBDT_ACC, out
+    raw = m1._raw_predict(X)
+    x_host = x.cpu().numpy()
+    raw_np = _tables_numpy(x_host, m1)
+    assert np.array_equal(raw.cpu().numpy(), raw_np), "predict vs numpy"
+    want = m1.classes_[(torch.sigmoid(torch.from_numpy(raw_np)) > 0.5)
+                       .numpy().astype(np.int64)]
+    assert np.array_equal(pred.get(), want.astype(np.float32)), "labels"
+
+    # The card against the CPU route on the first rows: the same bins and
+    # splits, the leaf values within GBDT_LEAF_REL.
+    r = GBDT_CPU_ROWS
+    card = GBTClassifier(**GBDT).fit(
+        BlockArray.from_torch(x[:r].contiguous(), backend=app.backend),
+        BlockArray.from_torch(y[:r].contiguous(), backend=app.backend))
+    t0 = time.perf_counter()
+    with _current(cpu_app):
+        host = GBTClassifier(**GBDT).fit(
+            BlockArray.from_torch(x[:r].cpu(), backend=cpu_app.backend),
+            BlockArray.from_torch(y[:r].cpu(), backend=cpu_app.backend))
+    out["gbdt_cpu_route_fit_s"] = time.perf_counter() - t0
+    assert torch.equal(card._edges.cpu(), host._edges), "edges"
+    for a, b in zip(card._trees[:2], host._trees[:2]):
+        assert torch.equal(a.cpu(), b), "splits, card vs CPU route"
+    _, out["gbdt_leaf_rel_err_card_vs_cpu"] = rel_err(card._trees[2].cpu(),
+                                                      host._trees[2])
+    assert out["gbdt_leaf_rel_err_card_vs_cpu"] <= GBDT_LEAF_REL, out
+
+    # Three classes, one-vs-rest: the terciles of the score.
+    q = torch.quantile(score[::10].double(), torch.tensor(
+        [1 / 3, 2 / 3], dtype=torch.float64, device=DEVICE)).float()
+    y3 = (score > q[0]).to(torch.float32) + (score > q[1]).to(torch.float32)
+    Y3 = BlockArray.from_torch(y3, backend=app.backend)
+    m3 = step("gbdt_ovr3_fit", lambda: GBTClassifier(**GBDT).fit(X, Y3),
+              3 * fit_bytes)
+    proba = step("gbdt_ovr3_predict_proba", lambda: m3.predict_proba(X),
+                 4.0 * n * d + 12.0 * n)
+    out["gbdt_ovr3_proba_sum_max_abs_err"] = float(
+        (proba.data.double().sum(dim=1) - 1.0).abs().max())
+    assert out["gbdt_ovr3_proba_sum_max_abs_err"] <= PROBA_SUM_ABS, out
+    out["gbdt_ovr3_accuracy"] = float(
+        (m3.predict(X).data == y3).to(torch.float64).mean())
+
+
+def _logistic_ref64(torch, x, y, beta, v, chunk=1 << 18):
+    """Float64 Xᵀ(σ(Xβ) − y)/n and Xᵀdiag(s)X·v/n, s = σ(1 − σ)."""
+    n = x.shape[0]
+    b64, v64 = beta.double(), v.double()
+    g = torch.zeros(x.shape[1], dtype=torch.float64, device=x.device)
+    hv = torch.zeros_like(g)
+    for i in range(0, n, chunk):
+        xc = x[i:i + chunk].double()
+        p = torch.sigmoid(xc @ b64)
+        g += xc.T @ (p - y[i:i + chunk].double())
+        hv += xc.T @ (p * (1 - p) * (xc @ v64))
+    return g / n, hv / n
+
+
+def _models_autodiff(torch, app, X, y, step, out):
+    """Step d: autodiff and optimize on X and the phase 4 labels."""
+    import nums_tpu_torch.numpy as nps
+    from nums_tpu_torch import autodiff, optimize
+    from nums_tpu_torch.core.array.blockarray import BlockArray
+
+    n, d = X.shape
+    x_bytes = 4.0 * n * d
+
+    def loss(b):
+        eta = X @ b
+        return nps.mean(nps.logaddexp(0.0, eta) - y * eta)
+
+    rng = np.random.RandomState(KM_DATA_SEED + 1)
+    beta = app.array((0.02 * rng.randn(d)).astype(np.float32))
+    v = app.array(rng.randn(d).astype(np.float32))
+    val, g = step("value_and_grad", lambda: autodiff.value_and_grad(loss)(
+        beta), 2 * x_bytes)
+    hv = step("hvp", lambda: autodiff.hvp(loss)(beta, v), 4 * x_bytes)
+    g64, hv64 = _logistic_ref64(torch, X.data, y.data, beta.data, v.data)
+    _, out["grad_rel_err_vs_f64"] = rel_err(g.data, g64)
+    _, out["hvp_rel_err_vs_f64"] = rel_err(hv.data, hv64)
+    assert out["grad_rel_err_vs_f64"] <= AD_REL, out
+    assert out["hvp_rel_err_vs_f64"] <= AD_REL, out
+    assert bool(torch.isfinite(val.data))
+
+    # The gram's gradient: K1 forward (one launch), fp32 backward.
+    w = torch.from_numpy(rng.randn(d, d).astype(np.float32)).to(DEVICE)
+    W = BlockArray.from_torch(w, backend=app.backend)
+    gx = step("gram_grad", lambda: autodiff.grad(
+        lambda x: (W * (x.T @ x)).sum())(X),
+        2 * x_bytes + 4.0 * d * d, tc_flops=_triangle_flops(n, d),
+        flops=2.0 * n * d * d)
+    assert out["steps"]["gram_grad"]["launches"] == {"gram": 1}, out
+    rows = GRAM_GRAD_ROWS
+    want = X.data[:rows].double() @ (w + w.T).double()
+    _, out["gram_grad_rel_err_vs_f64"] = rel_err(gx.data[:rows], want)
+    assert out["gram_grad_rel_err_vs_f64"] <= GRAM_GRAD_REL, out
+    del gx, want
+
+    # minimize: adam, eager and fused, from 0.
+    b0 = app.array(np.zeros(d, np.float32))
+    loss0 = float(loss(b0).get())
+    res = {}
+    for kind in ("eager", "fused"):
+        res[kind] = step(f"minimize_{kind}", lambda kind=kind:
+                         optimize.minimize(loss, b0, fused=kind == "fused",
+                                           **OPT),
+                         2 * x_bytes * OPT["steps"])
+        out[f"minimize_{kind}"] = {
+            "n_iter": res[kind].n_iter, "fun": res[kind].fun,
+            "grad_max": res[kind].grad_max,
+            "seconds_per_step": out["steps"][f"minimize_{kind}"]["seconds"]
+            / res[kind].n_iter,
+            "bound_ms_per_step": _bound(2 * x_bytes, 0.0)[0]}
+    assert res["eager"].n_iter == res["fused"].n_iter == OPT["steps"], out
+    out["minimize_x_max_abs_diff"] = float(
+        (res["eager"].x.data - res["fused"].x.data).abs().max())
+    assert out["minimize_x_max_abs_diff"] <= OPT_X_ABS, out
+    out["loss_at_0"] = loss0
+    assert res["eager"].fun < loss0 and res["fused"].fun < loss0, out
+
+    def impure(b):
+        out_ = loss(b)
+        out_.get()  # a host sync inside the differentiated function
+        return out_
+
+    try:
+        autodiff.grad(impure)(beta)
+    except RuntimeError as e:
+        assert "INSIDE the traced function" in str(e)
+        out["purity_guard"] = "raised"
+    else:
+        raise AssertionError("a host sync inside f did not raise")
+
+
+def _planted_partition(torch, X):
+    """X plus one of KM_K planted centers per row, added in place a row
+    chunk at a time: the planted labels on the card."""
+    rng = np.random.RandomState(KM_DATA_SEED)
+    centers = torch.from_numpy(
+        (KM_CENTER_SCALE * rng.randn(KM_K, D_FULL)).astype(np.float32)
+    ).to(DEVICE)
+    labels = torch.from_numpy(rng.randint(0, KM_K, N_FULL)).to(DEVICE)
+    for i in range(0, N_FULL, 1 << 18):
+        X.data[i:i + (1 << 18)] += centers[labels[i:i + (1 << 18)]]
+    return labels
+
+
+def _lloyd64(torch, x, labels, k, chunk=1 << 18):
+    """Float64 centers of an assignment and its inertia."""
+    d = x.shape[1]
+    sums = torch.zeros(k, d, dtype=torch.float64, device=x.device)
+    for i in range(0, x.shape[0], chunk):
+        sums.index_add_(0, labels[i:i + chunk], x[i:i + chunk].double())
+    counts = torch.bincount(labels, minlength=k).double()
+    centers = sums / counts[:, None]
+    inertia = 0.0
+    for i in range(0, x.shape[0], chunk):
+        diff = x[i:i + chunk].double() - centers[labels[i:i + chunk]]
+        inertia += float((diff * diff).sum())
+    return centers, inertia
+
+
+def _models_kmeans(torch, app, X, step, out):
+    """Step b: KMeans(16) at 2.5M x 1000 on X plus planted centers."""
+    from nums_tpu_torch.core.ops import random_ops, threefry
+    from nums_tpu_torch.models import cluster
+
+    n, d = X.shape
+    x_bytes = 4.0 * n * d
+    planted = _planted_partition(torch, X)
+    first = random_ops.jr_randint(
+        threefry.fold_in(threefry.seed_key(KM_SEED, False), 0), (), 0, n,
+        torch.int32, DEVICE, False)
+    assert int(first) == KM_FIRST_INDEX, int(first)
+    seeded = []
+    plusplus = cluster._plusplus_init
+
+    def spy(*args):
+        seeded.append(plusplus(*args))
+        return seeded[-1]
+
+    cluster._plusplus_init = spy
+    try:
+        km = step("kmeans_fit", lambda: cluster.KMeans(
+            n_clusters=KM_K, seed=KM_SEED).fit(X), 0.0)
+    finally:
+        cluster._plusplus_init = plusplus
+    assert torch.equal(seeded[0][0], X.data[KM_FIRST_INDEX]), "first row"
+    out["kmeans_fit_profile"], _ = _profile_summary(
+        torch, lambda: cluster.KMeans(n_clusters=KM_K, seed=KM_SEED).fit(X))
+    out["kmeans_n_iter"] = km.n_iter_
+    # Bound of the fit: one read of X per distance pass (k - 1 seeding
+    # passes, one per Lloyd iteration, one for the labels).
+    out["steps"]["kmeans_fit"].update(zip(
+        ("bound_ms", "bound_by"),
+        _bound(x_bytes * (KM_K + km.n_iter_), 0.0)))
+    labels = km.labels_.data.to(torch.int64)
+    table = torch.bincount(labels * KM_K + planted,
+                           minlength=KM_K * KM_K).view(KM_K, KM_K)
+    nonzero = table > 0
+    assert bool((nonzero.sum(0) == 1).all() and (nonzero.sum(1) == 1).all()
+                ), "the planted partition was not recovered"
+    c64, inertia64 = _lloyd64(torch, X.data, labels, KM_K)
+    _, out["kmeans_centers_rel_err_vs_f64"] = rel_err(
+        km.cluster_centers_.data, c64)
+    out["kmeans_inertia_rel_err_vs_f64"] = abs(
+        km.inertia_ - inertia64) / inertia64
+    assert out["kmeans_centers_rel_err_vs_f64"] <= KM_REL, out
+    assert out["kmeans_inertia_rel_err_vs_f64"] <= KM_REL, out
+    km2 = cluster.KMeans(n_clusters=KM_K, seed=KM_SEED).fit(X)
+    assert torch.equal(km2.cluster_centers_.data, km.cluster_centers_.data)
+    assert torch.equal(km2.labels_.data, km.labels_.data)
+    assert km2.inertia_ == km.inertia_ and km2.n_iter_ == km.n_iter_
+    centers = km.cluster_centers_.data
+    xd = X.data
+    step("kmeans_lloyd_iteration",
+         lambda: cluster._update(centers, *cluster._assign_stats(
+             xd, centers, KM_K)[1:3]), x_bytes)
+    step("kmeans_predict", lambda: km.predict(X), x_bytes)
+
+
+def phase_models(torch, smi, app, X, y):
+    """Phase 14 (the module docstring lists its checks): the GBDT, KMeans,
+    autodiff and optimize at full width. Any breach raises. No kernel but
+    K1 (once, in the gram's gradient) may launch."""
+    from nums_tpu_torch.core import application_manager, settings
+
+    t_phase = time.perf_counter()
+    out = {"phase": "models", "nvidia_smi": smi, "shape": [N_FULL, D_FULL],
+           "steps": {}}
+    application_manager.set_instance(app)
+    step = _stepper(torch, out["steps"])
+    saved = settings.default_float_for
+    settings.default_float_for = lambda device: np.dtype(np.float32)
+    try:
+        cpu_app = application_manager.create(device="cpu")
+    finally:
+        settings.default_float_for = saved
+    _reset_counts()
+    _models_gbdt(torch, app, cpu_app, step, out)
+    torch.cuda.empty_cache()
+    _models_autodiff(torch, app, X, y, step, out)
+    torch.cuda.empty_cache()
+    _models_kmeans(torch, app, X, step, out)
+    out["launches"] = _counts()
+    assert out["launches"] == {**{k: 0 for k in out["launches"]},
+                               "gram": 1}, out["launches"]
+    out["peak_bytes"] = max(s["peak_bytes"] for s in out["steps"].values())
+    out["seconds"] = time.perf_counter() - t_phase
+    out["limit_seconds"] = MODELS_LIMIT_S
+    emit(out)
+    assert out["seconds"] <= MODELS_LIMIT_S, out["seconds"]
+    return out
+
+
 KERNELS = (
     ("gram", "nums_tpu_torch/csrc/gram.cu",
      "nums_tpu/core/ops/pallas_gram.py:139"),
@@ -3585,7 +4017,7 @@ KERNELS = (
 
 
 def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
-                 facade):
+                 facade, models):
     """One entry per kernel: "launches" counts the main path (phase 4),
     "launches_per_fit" one fit (phase 6), "launches_ooc" the streamed
     steps of phase 8 (the PCA and TruncatedSVD fits among them),
@@ -3595,7 +4027,8 @@ def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
     phase 8, and "panel_bound_ms" that panel's bound; "higgs_ms" its time
     at phase 10's shape (8.8M x 28 for K1, x 29 for K2 and K3, K3 on X
     staged once), beside that shape's plain version and bound;
-    "launches_facade" phase 12's facade path (K1: one per contraction form).
+    "launches_facade" phase 12's facade path (K1: one per contraction form),
+    "launches_models" phase 14's (K1: the forward of the gram's gradient).
     gram.cu's weighted launches ("gram_weighted") on these paths are K3's
     Hessian, and K2 proper in phase 8's pass with the Newton gate off."""
     return [
@@ -3615,7 +4048,8 @@ def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
          "higgs_ms": higgs["kernels"][name]["ms"],
          "higgs_plain_ms": higgs["kernels"][name]["plain_ms"],
          "higgs_bound_ms": higgs["kernels"][name]["bound_ms"],
-         "launches_facade": facade["launches"][name]}
+         "launches_facade": facade["launches"][name],
+         "launches_models": models["launches"][name]}
         for name, src, rep in KERNELS
     ]
 
@@ -3639,6 +4073,16 @@ def main(argv):
             phase_random(torch, smi, nums_tpu_torch.init(), None)
             return 0
         phase_build()
+        if "--models-only" in argv:
+            import nums_tpu_torch
+
+            app = nums_tpu_torch.init()
+            X, _ = draw_facade_x(torch, app)
+            phase_models(torch, smi, app, X, draw_labels(torch, app, X))
+            emit({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}})
+            return 0
         if "--facade-only" in argv:
             import nums_tpu_torch
 
@@ -3675,9 +4119,12 @@ def main(argv):
         facade = phase_facade(torch, smi, app, X, draw_seconds)
         torch.cuda.empty_cache()
         phase_facade_tail(torch, smi, app, X)
+        torch.cuda.empty_cache()
+        models = phase_models(torch, smi, app, X, draw_labels(torch, app, X))
         del X
         emit({"kernels": kernels_line(counts, fit_counts, times, ooc,
-                                      linalg_launches, higgs, facade)})
+                                      linalg_launches, higgs, facade,
+                                      models)})
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})

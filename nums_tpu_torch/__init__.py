@@ -6,6 +6,7 @@ kernels written for Hopper (``nums_tpu_torch/csrc``), built at first use.
 This package imports ``torch`` and never ``jax`` or ``nums_tpu``.
 """
 
+from nums_tpu_torch._version import __version__
 from nums_tpu_torch.api import (delete, read, read_csv, read_parquet, write,
                                 write_parquet)
 from nums_tpu_torch.core import application_manager
@@ -25,4 +26,4 @@ def init(device=None):
 
 
 __all__ = ["read", "write", "delete", "read_csv", "read_parquet",
-           "write_parquet", "init"]
+           "write_parquet", "init", "__version__"]

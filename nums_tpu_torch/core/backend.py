@@ -7,12 +7,24 @@ at-rest shape equals the logical shape: the reference pads the minor
 axis to the TPU's 128 lanes, and nothing here needs that.
 """
 
+import threading
+
 import numpy as np
 import torch
 
 from nums_tpu_torch.core import settings
 from nums_tpu_torch.core.array import utils as array_utils
 from nums_tpu_torch.core.grid import ArrayGrid
+
+# Transfers to the host made by this thread (``Backend.get``, which
+# ``BlockArray.get``, ``float()``, ``bool()``, ``item()`` and ``print``
+# go through): ``autodiff`` raises when one fires inside a differentiated
+# function, as the reference's ``lazy.materialize_count`` lets it.
+_tls = threading.local()
+
+
+def host_sync_count() -> int:
+    return getattr(_tls, "count", 0)
 
 
 class Backend:
@@ -62,6 +74,7 @@ class Backend:
         return torch.from_numpy(array).to(self.device)
 
     def get(self, tensor) -> np.ndarray:
+        _tls.count = host_sync_count() + 1
         return tensor.detach().cpu().numpy()
 
 

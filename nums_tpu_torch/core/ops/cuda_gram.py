@@ -26,6 +26,14 @@ gram of their own bf16 operand.
 version, ``gram_plain``, for a CPU tensor; any other device raises. The
 plain version is the kernels' arithmetic in torch ops: the same bf16
 rounding, an f32 matmul (TF32 off), and the same mirror.
+
+Where autograd records (grad enabled and X requiring grad), ``gram`` of X
+alone runs through ``GramFunction``: the same forward on either device,
+and the backward ``Ḡ ↦ X·(Ḡ + Ḡᵀ)`` in X's dtype from the unrounded X.
+The reference has no backward kernel for the gram (no ``custom_vjp``):
+its gradient is XLA's plain product, so this one is ``torch.matmul``
+(TF32 off), written in differentiable ops so that a second derivative
+(``autodiff.hvp``) runs through it.
 """
 
 import numpy as np
@@ -198,11 +206,36 @@ def gram_staged(xt, d, weighted):
     return g
 
 
+class GramFunction(torch.autograd.Function):
+    """K1 under autograd: the forward of ``gram(x)`` (kernel or plain
+    version, one launch counted as ever), the backward X·(Ḡ + Ḡᵀ)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _gram(x, None, MODE_X)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.matmul(x, g + g.T)
+
+
 def gram(x, s=None, mode=None):
     """G = XᵀX, or Xᵀ·diag(s)·X for ``s`` of shape (n,), s >= 0, with the
     bf16 rounding of ``mode`` (default: ``MODE_X`` without s,
-    ``MODE_SCALE_F32`` with it)."""
+    ``MODE_SCALE_F32`` with it). A gradient flows through X alone
+    (``GramFunction``); the weighted modes take no gradient."""
     mode = _mode(s, mode)
+    if torch.is_grad_enabled() and x.requires_grad:
+        if mode != MODE_X:
+            raise NotImplementedError(
+                "gram: the weighted modes have no backward")
+        return GramFunction.apply(x)
+    return _gram(x, s, mode)
+
+
+def _gram(x, s, mode):
     if x.device.type == "cpu":
         return gram_plain(x, s, mode)
     if x.device.type != "cuda":

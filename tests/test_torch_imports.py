@@ -1,5 +1,5 @@
-"""The port stands alone: nums_tpu_torch and chip_smoke.py import neither
-jax nor nums_tpu, and chip_smoke.py refuses to run without a CUDA card.
+"""The port stands alone: nums_tpu_torch and chip_smoke.py import none of
+jax, optax and nums_tpu, and chip_smoke.py refuses to run without a CUDA card.
 ``nums_tpu_torch.init()`` runs on the card: without one it raises, and
 ``init(device="cpu")`` is how a caller asks for the CPU.
 """
@@ -23,12 +23,12 @@ import importlib, pkgutil, sys
 
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "nums_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "nums_tpu", "optax"):
             raise ImportError("blocked: " + name)
         return None
 
 for name in [m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "nums_tpu")]:
+             if m.split(".")[0] in ("jax", "jaxlib", "nums_tpu", "optax")]:
     del sys.modules[name]
 sys.meta_path.insert(0, Block())
 import nums_tpu_torch
@@ -36,7 +36,8 @@ for mod in pkgutil.walk_packages(nums_tpu_torch.__path__, "nums_tpu_torch."):
     importlib.import_module(mod.name)
 app = nums_tpu_torch.init(device="cpu")
 print(app.backend.device.type)
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "nums_tpu")]
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "nums_tpu", "optax")]
 assert not bad, bad
 # The optional dependencies of the I/O layer load inside the functions
 # that need them, not when a module is imported.
@@ -104,15 +105,21 @@ def test_init_needs_a_card_unless_the_cpu_is_asked_for():
     "nums_tpu_torch.numpy.linalg",
     "nums_tpu_torch.core.trace",
     "nums_tpu_torch.core.ops.masking",
+    "nums_tpu_torch._version",
+    "nums_tpu_torch.autodiff",
+    "nums_tpu_torch.optimize",
+    "nums_tpu_torch.models.cluster",
+    "nums_tpu_torch.models.trees",
+    "nums_tpu_torch.experimental.nums_xgb",
 ])
 def test_io_and_ooc_modules_import_first(module):
-    """Each module of the I/O, out-of-core, linalg, ingestion, random and
-    facade slices imports as the first module of a process (no import
-    cycle), with jax and nums_tpu blocked."""
+    """Each module of the I/O, out-of-core, linalg, ingestion, random,
+    facade and models slices imports as the first module of a process (no
+    import cycle), with jax, nums_tpu and optax blocked."""
     probe = _PROBE.split("import nums_tpu_torch\n")[0] + (
         f"import {module}\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'jaxlib', 'nums_tpu')]\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'nums_tpu', 'optax')]\n"
         "assert not bad, bad\n"
     )
     out = subprocess.run(
@@ -137,9 +144,8 @@ def test_no_jax_import_statements(path):
         else:
             continue
         for name in names:
-            assert name.split(".")[0] not in ("jax", "jaxlib", "nums_tpu"), (
-                path, name,
-            )
+            assert name.split(".")[0] not in (
+                "jax", "jaxlib", "nums_tpu", "optax"), (path, name)
 
 
 def test_chip_smoke_needs_a_card():
@@ -162,3 +168,11 @@ def test_chip_smoke_alone_fails(tmp_path):
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_version_is_the_reference_version():
+    import nums_tpu
+    import nums_tpu_torch
+
+    assert nums_tpu_torch.__version__ == nums_tpu.__version__ == "0.1.0"
+    assert "__version__" in nums_tpu_torch.__all__
