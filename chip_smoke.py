@@ -5,6 +5,7 @@
     python3 chip_smoke.py --random-only   # phases 1 and 11
     python3 chip_smoke.py --facade-only   # phases 1, 2, 12 and 13
     python3 chip_smoke.py --models-only   # phases 1, 2 and 14
+    python3 chip_smoke.py --mesh-only     # phases 1, 2 and 15 on every card
 
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi);
@@ -173,6 +174,35 @@ Phases, each printing one JSON line:
      synchronize, its bound, its peak device memory and its launches are
      in the phase's line; no kernel but that one K1 launch; the phase
      within 90 s.
+ 15. mesh: the mesh backend (``MeshBackend``: one process per card under
+     torch.distributed, arrays as DTensors). In the full run, on this card
+     alone: a world-1 NCCL group (a file:// rendezvous under a temporary
+     directory), phase 4's X drawn again on the mesh (its known answers,
+     and its bits' checksum phase 4's), ``X.T @ X`` under ``auto``
+     (``LAST_DISPATCH`` "xla", as the reference's on one device) and the
+     fused fit on ``draw_labels``' labels: G, beta and the accuracy bit
+     for bit phase 4's, K1 once, the statistics ten times and one stage;
+     the all-reduce of H timed. With ``--mesh-only``, one process per
+     visible card (``spawn``, NCCL), each on its own card, its output in
+     ``mesh_logs/mesh_rank<r>.log``, at 10,000,000 x 1000 fp32 on the
+     (cards, 1) mesh: the draw (each shard's first rows a serial draw of
+     their positions, the known answers where a shard holds them), ``X.T
+     @ X`` under the default route (K1 + all-reduce) and ``auto`` (K1 +
+     reduce-scatter, "tn"), each within 1e-4 of a float64 gram (of
+     max|G|, the diagonal) and its off-diagonal entries within 1e-2 of
+     their own max, and the two routes within 1e-5 of each other; ``X @
+     Xs.T`` ("nt", Xs 1024 rows) and ``X @ W`` under ``ring`` (W 1000 x
+     1000 row-sharded; "xla" under auto, as in the reference) within 1e-5 of float64 products of each rank's
+     rows; the fused logistic fit (K3 ten times and one stage a card,
+     beta within 1e-2 of a float64 Newton fit, the accuracy within 0.01 of
+     the planted beta's); then on a (2, cards/2) mesh X drawn as (5M,
+     500) blocks (one range of positions per row; the first 64 rows of
+     each the serial draw's) and ``X @ W`` under ``summa`` within 1e-5 of
+     float64. Each
+     step's time (CUDA events after a barrier, the slowest rank's), the
+     all-reduce of g and H alone, each card's peak memory and each card's
+     name and power limit; the run fails unless every rank exits 0 within
+     840 s.
 Then the kernels as one JSON line (each with its bound, the least time
 the card could take for its work at this run's shapes), and last
 {"ok": true, "device": {...}}. A failed phase prints its traceback and
@@ -721,13 +751,16 @@ def phase_main_path(torch):
     beta_h = torch.cat([ref.coef_.data, ref.intercept_.data[None]])
     _, beta_rel = rel_err(beta_k, beta_h)
     assert beta_rel <= BETA_REL, ("beta: kernels vs highest", beta_rel)
+    # Phase 15 holds the mesh's draw, gram, beta and accuracy to these.
+    keep = {"gram": G.data.cpu(), "beta": beta_k.cpu(), "accuracy": acc,
+            "x_checksum": int(_x_checksum(torch, X.data))}
     emit({"phase": "main_path", "shape": [N_FULL, D_FULL],
           "seconds": main_secs, "launches": counts, "draw": draw,
           "max_memory_allocated_bytes": peak_bytes,
           "gram_rel_err_vs_f64": gram_rel, "gram_tolerance": BF16_REL,
           "accuracy": acc, "accuracy_true_beta": acc_true,
           "beta_rel_err_vs_highest": beta_rel, "beta_tolerance": BETA_REL})
-    return app, X, y, model, counts, ref, acc_true, draw
+    return app, X, y, model, counts, ref, acc_true, draw, keep
 
 
 def _bound(bytes_moved, tc_flops, f32_flops=0.0):
@@ -3683,14 +3716,22 @@ MODELS_LIMIT_S = 90.0
 def draw_labels(torch, app, X):
     """Phase 4's labels: its beta and u, drawn after X on X's stream
     (resumed at the counter the X draw leaves), y = (σ(Xβ) > u)."""
+    return planted_labels(torch, app, X)[0]
+
+
+def planted_labels(torch, app, X):
+    """(``draw_labels``' y, the planted β) for X of any shape drawn from
+    phase 4's seed."""
+    n, d = X.shape
     rs = app.random_state(RANDOM_KNOWN["seed"])
     state = rs.get_state()
     state["counter"] = RANDOM_KNOWN["counter"]
     rs.set_state(state)
-    beta_true = rs.normal(scale=0.1, shape=(D_FULL,), dtype=np.float32)
-    u = rs.uniform(shape=(N_FULL,), dtype=np.float32)
+    beta_true = rs.normal(scale=0.1, shape=(d,), dtype=np.float32)
+    u = rs.uniform(shape=(n,), dtype=np.float32)
     eta = X @ beta_true
-    return (app.one / (app.one + app.exp(-eta)) > u).astype(np.float32)
+    y = (app.one / (app.one + app.exp(-eta)) > u).astype(np.float32)
+    return y, beta_true
 
 
 def _gbdt_data(torch, n, d):
@@ -4006,6 +4047,664 @@ def phase_models(torch, smi, app, X, y):
     return out
 
 
+# Phase 15, the mesh backend: in the full run on this card alone (a
+# world-1 NCCL group, phase 4's main path bit for bit); with --mesh-only,
+# one process per visible card at the reference's 4-GPU size.
+MESH_N = 10_000_000          # --mesh-only rows: x 1000 fp32 = 40 GB
+MESH_NT_ROWS = 1024          # Xs of X @ Xs.T: the product is 10 GB a card
+MESH_NT_SEED, MESH_RING_SEED, MESH_SUMMA_SEED = 2718, 3141, 1618
+MESH_CHECK_ROWS = 4096       # each shard's first rows held to a serial draw
+MESH_SUMMA_CHECK_ROWS = 64   # ... and each (2, 2) block's, a row at a time
+SCHED_REL = 1e-5             # fp32 products (TF32 off) over k <= 1000 vs
+                             # float64, of max|ref|
+ROUTES_REL = SMALL_REL       # the two gram routes: the same K1 partials,
+                             # summed by an all-reduce or a reduce-scatter
+MESH_GRAM_REL = 1e-4         # K1's G at 10M rows vs float64, of max|G| (the
+                             # diagonal, about n): both routes read 9.05e-6
+                             # at 10M x 1000 on four H100s at 700 W
+MESH_GRAM_OFF_REL = 1e-2     # ... its off-diagonal entries, of their own
+                             # max (about 4.5 sqrt(n)): bf16 rounding of X
+                             # alone gives about 2e-3 at any n; a zeroed or
+                             # misplaced off-diagonal reads about 1
+MESH_CHUNK = 1 << 18         # rows of a float64 reference at a time
+MESH_REPS = 3
+MESH_DEADLINE_S = 840.0      # every rank exits 0 within, or the run fails
+
+
+def _x_checksum(torch, x, chunk=1 << 18):
+    """Sum of X's float32 bit patterns as int64, a chunk of rows at a
+    time: equal for equal bits."""
+    total = torch.zeros((), dtype=torch.int64, device=x.device)
+    for i in range(0, x.shape[0], chunk):
+        total += x[i:i + chunk].view(torch.int32).sum(dtype=torch.int64)
+    return total
+
+
+def _known_draws(torch, local, r0, d):
+    """RANDOM_KNOWN's normals at the flat positions of a (4·N_FULL, D_FULL)
+    draw that this shard, from row ``r0``, holds: (checked, max_abs_err)."""
+    positions = RANDOM_KNOWN["positions"] + RANDOM_KNOWN[
+        "positions_beyond_2_32"]
+    flat = local.reshape(-1)
+    lo, hi = r0 * d, r0 * d + flat.numel()
+    errs = []
+    for p, v in zip(positions, RANDOM_KNOWN["normal"]):
+        if lo <= p < hi:
+            got = float(flat[p - lo])
+            assert abs(got - v) <= NORMAL_KNOWN_REL * abs(v) + \
+                NORMAL_KNOWN_ABS, (p, got, v)
+            errs.append(abs(got - v))
+    return len(errs), max(errs, default=0.0)
+
+
+def _mesh_sync(torch):
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _all_max(torch, value):
+    import torch.distributed as dist
+
+    t = torch.tensor([float(value)], dtype=torch.float64,
+                     device=_mesh_device(torch))
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t.item())
+
+
+def _mesh_device(torch):
+    import torch.distributed as dist
+
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _mesh_time_ms(torch, fn, reps=MESH_REPS):
+    """Median of ``reps`` timed calls after a warm-up, each started after a
+    barrier (CUDA events on the card); the slowest rank's."""
+    from nums_tpu_torch.core import multiprocess
+
+    fn()
+    _mesh_sync(torch)
+    times = []
+    for _ in range(reps):
+        multiprocess.barrier("time")
+        if DEVICE == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return _all_max(torch, statistics.median(times))
+
+
+def _mesh_seconds(torch, fn):
+    """(fn(), host seconds from a barrier to its end on this rank, the
+    slowest rank's)."""
+    from nums_tpu_torch.core import multiprocess
+
+    multiprocess.barrier("clock")
+    t0 = time.perf_counter()
+    out = fn()
+    _mesh_sync(torch)
+    return out, _all_max(torch, time.perf_counter() - t0)
+
+
+def _draw_mesh_x(torch, app, n, d):
+    rows = -(-n // app.backend.num_devices)
+    return app.random_state(RANDOM_KNOWN["seed"]).normal(
+        shape=(n, d), block_shape=(rows, d), dtype=np.float32)
+
+
+def phase_mesh(torch, smi, keep):
+    """Phase 15 in the full run: a world-1 NCCL group (a file:// rendezvous
+    under a temporary directory) and a MeshBackend over this card; phase
+    4's draw, X.T @ X under ``auto`` and the fused fit on it, each bit for
+    bit phase 4's (an all-reduce over one rank is the identity), with
+    their launches (K1 once, the statistics 10 times, one stage)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from nums_tpu_torch.core import application_manager, settings
+    from nums_tpu_torch.core.ops import summa
+    from nums_tpu_torch.models.glms import LogisticRegression
+
+    t_phase = time.perf_counter()
+    saved = application_manager._instance
+    out = {"phase": "mesh", "nvidia_smi": smi, "world": 1,
+           "shape": [N_FULL, D_FULL]}
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if DEVICE == "cuda" else "gloo",
+            init_method="file://" + os.path.join(tmp, "rendezvous"),
+            world_size=1, rank=0)
+        try:
+            app = application_manager.create(
+                device=None if DEVICE == "cuda" else DEVICE, backend="mesh")
+            application_manager.set_instance(app)
+            _reset_counts()
+            X = _draw_mesh_x(torch, app, N_FULL, D_FULL)
+            local = X.raw.to_local()
+            out["known_answers"], _ = _known_draws(torch, local, 0, D_FULL)
+            assert int(_x_checksum(torch, local)) == keep["x_checksum"]
+            settings.collective_matmul = "auto"
+            try:
+                G = X.T @ X
+                G.touch()
+            finally:
+                settings.collective_matmul = "0"
+            out["last_dispatch"] = summa.LAST_DISPATCH
+            assert summa.LAST_DISPATCH == "xla", summa.LAST_DISPATCH
+            assert torch.equal(G.data.full_tensor().cpu(), keep["gram"])
+            y = draw_labels(torch, app, X)
+            model = LogisticRegression(**FIT).fit(X, y)
+            beta = torch.cat([model.coef_.data.full_tensor(),
+                              model.intercept_.data.full_tensor()[None]])
+            assert torch.equal(beta.cpu(), keep["beta"]), "beta vs phase 4"
+            out["accuracy"] = float(model.score(X, y))
+            assert out["accuracy"] == keep["accuracy"], out["accuracy"]
+            out["launches"] = _counts()
+            assert out["launches"] == {"gram": 1, "gram_weighted": 10,
+                                       "newton_stage": 1,
+                                       "newton_stats": 10}, out["launches"]
+            h = torch.zeros((D_FULL + 1, D_FULL + 1), dtype=torch.float32,
+                            device=local.device)
+            out["all_reduce_h_ms"] = _mesh_time_ms(torch,
+                                                   lambda: dist.all_reduce(h))
+            del X, G, y, model, local, h
+            app.backend.shutdown()
+        finally:
+            application_manager.set_instance(saved)
+            dist.destroy_process_group()
+    out["bitwise_vs_phase_4"] = ["draw", "gram", "beta", "accuracy"]
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+class _Tee:
+    def __init__(self, *streams):
+        self._streams = streams
+
+    def write(self, text):
+        for s in self._streams:
+            s.write(text)
+            s.flush()
+        return len(text)
+
+    def flush(self):
+        for s in self._streams:
+            s.flush()
+
+
+def _mesh_rank(rank, world, init_file, cfg):
+    """One process of --mesh-only, on ``cuda:<rank>``: joins the NCCL group
+    through the file:// rendezvous and runs ``_mesh_cards``. Its output
+    goes to ``mesh_logs/mesh_rank<rank>.log`` (rank 0's to standard
+    output too); a traceback of every thread goes there if it hangs."""
+    import faulthandler
+
+    global DEVICE
+    DEVICE = cfg["device"]
+    log = open(os.path.join(cfg["out_dir"], f"mesh_rank{rank}.log"), "w")
+    sys.stdout = _Tee(sys.stdout, log) if rank == 0 else _Tee(log)
+    sys.stderr = _Tee(sys.stderr, log)
+    faulthandler.dump_traceback_later(cfg["deadline"] - 30, file=log)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host
+    os.environ.update({
+        "LOCAL_RANK": str(rank), "NUMS_TPU_TORCH_INIT_FILE": init_file,
+        "NUMS_TPU_TORCH_NUM_PROCESSES": str(world),
+        "NUMS_TPU_TORCH_PROCESS_ID": str(rank)})
+    sys.path.insert(0, cfg["root"])
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from nums_tpu_torch.core import multiprocess
+
+        if DEVICE == "cuda":
+            torch.cuda.set_device(rank)
+        multiprocess.initialize(DEVICE)
+        _mesh_cards(torch, cfg)
+        multiprocess.barrier("done")
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - the parent sees the exit code
+        traceback.print_exc()
+        sys.stdout.flush()
+        log.flush()
+        os._exit(1)
+    faulthandler.cancel_dump_traceback_later()
+    sys.stdout, sys.stderr = sys.__stdout__, sys.__stderr__
+    log.close()
+
+
+def _mesh_cards(torch, cfg):
+    """Every step of --mesh-only on this rank (the module docstring lists
+    them); rank 0 prints one JSON line a step."""
+    import torch.distributed as dist
+
+    from nums_tpu_torch.core import application_manager
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n, d = cfg["n"], cfg["d"]
+    app = application_manager.create(
+        device=None if DEVICE == "cuda" else DEVICE, backend="mesh",
+        cluster_shape=(world, 1))
+    application_manager.set_instance(app)
+    say = emit if rank == 0 else (lambda obj: print(json.dumps(obj)))
+    head = {"world": world, "shape": [n, d], "cluster_shape": [world, 1]}
+    X = _mesh_draw_step(torch, app, n, d, cfg, say, head)
+    _mesh_gram_step(torch, app, X, say, head)
+    _mesh_nt_step(torch, app, X, cfg, say, head)
+    _mesh_ring_step(torch, app, X, say, head)
+    _mesh_fit_step(torch, app, X, d, say, head)
+    del X
+    _mesh_free(torch)
+    if world % 2 == 0 and world >= 4:
+        _mesh_summa_step(torch, n, d, world, say, head)
+    peaks = [None] * world
+    dist.all_gather_object(peaks, _mesh_peak(torch))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip().splitlines() if DEVICE == "cuda" else []
+    say({"phase": "mesh", "step": "cards", **head,
+         "peak_bytes_per_card": peaks, "nvidia_smi_per_card": smi})
+
+
+def _mesh_free(torch):
+    import gc
+
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _mesh_peak(torch):
+    return torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+
+
+def _mesh_draw_step(torch, app, n, d, cfg, say, head):
+    """X drawn on the mesh from phase 4's seed: each shard's first rows
+    equal to a serial draw of those flat positions, RANDOM_KNOWN's normals
+    wherever a shard holds them."""
+    import torch.distributed as dist
+
+    from nums_tpu_torch.core.ops import random_ops, threefry
+
+    _reset_counts()
+    X, secs = _mesh_seconds(torch, lambda: _draw_mesh_x(torch, app, n, d))
+    local = X.raw.to_local()
+    (r0, r1), _ = app.backend.region((n, d), X.raw.placements)
+    k = min(cfg["check_rows"], r1 - r0)
+    key = threefry.fold_in(threefry.seed_key(RANDOM_KNOWN["seed"], False),
+                           RANDOM_KNOWN["counter"])
+    serial = random_ops.jr_normal(key, (n, d), torch.float32, local.device,
+                                  flat_range=(r0 * d, (r0 + k) * d))
+    assert torch.equal(local[:k].reshape(-1), serial), "shard vs serial"
+    known, err = _known_draws(torch, local, r0, d)
+    counts = [None] * app.backend.num_devices
+    dist.all_gather_object(counts, (r0, r1, known))
+    if n * d >= 4 * N_FULL * D_FULL:  # every known position is held
+        assert sum(c[2] for c in counts) == len(RANDOM_KNOWN["normal"])
+    say({"phase": "mesh", "step": "draw", **head, "seconds": secs,
+         "rows_per_rank": [[c[0], c[1]] for c in counts],
+         "known_answers_per_rank": [c[2] for c in counts],
+         "known_max_abs_err": _all_max(torch, err),
+         "serial_rows_checked": k, "bound_ms": _bound(4.0 * n * d / len(
+             counts), 0.0)[0]})
+    return X
+
+
+def _mesh_gram_step(torch, app, X, say, head):
+    """X.T @ X under the default route (K1 + all-reduce) and under auto
+    (``tn``: K1 + reduce-scatter), each held to a float64 gram (each
+    rank's rows, all-reduced in float64), whole and off the diagonal, and
+    to each other."""
+    import torch.distributed as dist
+
+    from nums_tpu_torch.core import settings
+    from nums_tpu_torch.core.ops import cuda_gram, summa
+
+    local = X.raw.to_local()
+    g64 = _gram64(local)
+    dist.all_reduce(g64)
+    out, grams = {}, {}
+    for route, mode in (("default", "0"), ("tn", "auto")):
+        settings.collective_matmul = mode
+        try:
+            summa.LAST_DISPATCH = None
+            _reset_counts()
+            G = X.T @ X
+            G.touch()
+            launches = _counts()["gram"]
+            dispatch = summa.LAST_DISPATCH
+            grams[route] = G.data.full_tensor()
+            _, rel = rel_err(grams[route], g64)
+            off = _offdiag_rel(torch, grams[route], g64)
+            ms = _mesh_time_ms(torch, lambda: (X.T @ X).touch())
+        finally:
+            settings.collective_matmul = "0"
+        assert launches == 1, (route, launches)
+        assert rel <= MESH_GRAM_REL, (route, rel)
+        assert off <= MESH_GRAM_OFF_REL, (route, "off-diagonal", off)
+        want = None if mode == "0" else (
+            "tn" if app.backend.num_devices > 1 else "xla")
+        assert dispatch == want, (route, dispatch)
+        out[route] = {"ms": ms, "rel_err_vs_f64": rel,
+                      "offdiag_rel_err_vs_f64": off,
+                      "k1_launches_per_rank": launches,
+                      "last_dispatch": dispatch}
+        del G
+    _, routes = rel_err(grams["tn"], grams["default"])
+    assert routes <= ROUTES_REL, routes
+    n_local, d = local.shape
+    out["k1_local_ms"] = _mesh_time_ms(torch, lambda: cuda_gram.gram(local))
+    g = torch.zeros((d, d), dtype=torch.float32, device=local.device)
+    out["all_reduce_g_ms"] = _mesh_time_ms(torch, lambda: dist.all_reduce(g))
+    out["k1_bound_ms"], out["k1_bound_by"] = _gram_bound(n_local, d)
+    say({"phase": "mesh", "step": "gram", **head, **out,
+         "routes_rel_err": routes, "tolerance": MESH_GRAM_REL,
+         "offdiag_tolerance": MESH_GRAM_OFF_REL})
+
+
+def _offdiag_rel(torch, got, ref):
+    """max|got - ref| over the off-diagonal entries, of their own
+    max|ref|: a fault there is not hidden under the diagonal's scale."""
+    off = ~torch.eye(ref.shape[0], dtype=torch.bool, device=ref.device)
+    err = float((got.double() - ref)[off].abs().max())
+    return err / float(ref[off].abs().max())
+
+
+def _chunked_rel(torch, got, ref_fn, rows, chunk=MESH_CHUNK):
+    """(max|got - ref|, max|ref|) over row chunks, ``ref_fn(i, j)`` the
+    float64 reference of rows [i, j), the slowest rank's maxima."""
+    err = scale = 0.0
+    for i in range(0, rows, chunk):
+        j = min(i + chunk, rows)
+        ref = ref_fn(i, j)
+        err = max(err, float((got[i:j].double() - ref).abs().max()))
+        scale = max(scale, float(ref.abs().max()))
+        del ref
+    return _all_max(torch, err), _all_max(torch, scale)
+
+
+def _mesh_nt_step(torch, app, X, cfg, say, head):
+    """X @ Xs.T under auto (``nt``): Xs's rows all-gathered, a local
+    product; held to a float64 product of each rank's rows."""
+    from nums_tpu_torch.core import settings
+    from nums_tpu_torch.core.ops import summa
+
+    world = app.backend.num_devices
+    rows = cfg["nt_rows"]
+    Xs = app.random_state(MESH_NT_SEED).normal(
+        shape=(rows, X.shape[1]), block_shape=(-(-rows // world),
+                                               X.shape[1]),
+        dtype=np.float32)
+    settings.collective_matmul = "auto"
+    try:
+        summa.LAST_DISPATCH = None
+        P = X @ Xs.T
+        P.touch()
+        dispatch = summa.LAST_DISPATCH
+        xs = Xs.data.full_tensor().double()
+        local, p_loc = X.raw.to_local(), P.raw.to_local()
+        err, scale = _chunked_rel(
+            torch, p_loc, lambda i, j: local[i:j].double() @ xs.T,
+            local.shape[0])
+        del P, p_loc, xs
+        _mesh_free(torch)
+        ms = _mesh_time_ms(torch, lambda: (X @ Xs.T).touch())
+    finally:
+        settings.collective_matmul = "0"
+    assert dispatch == ("nt" if world > 1 else "xla"), dispatch
+    assert err <= SCHED_REL * scale, (err, scale)
+    _mesh_free(torch)
+    say({"phase": "mesh", "step": "nt", **head, "xs_rows": rows,
+         "last_dispatch": dispatch, "ms": ms, "rel_err_vs_f64": err / scale,
+         "tolerance": SCHED_REL,
+         "output_bytes_per_card": 4.0 * X.shape[0] * rows / world})
+
+
+def _mesh_ring_step(torch, app, X, say, head):
+    """X @ W under ``ring``, W row-sharded; under auto the same shape goes
+    to the default route, as in the reference (its B panel is under the
+    gather budget). Held to a float64 product of each rank's rows."""
+    from nums_tpu_torch.core import settings
+    from nums_tpu_torch.core.ops import summa
+
+    world, d = app.backend.num_devices, X.shape[1]
+    W = app.random_state(MESH_RING_SEED).normal(
+        shape=(d, d), block_shape=(-(-d // world), d), dtype=np.float32)
+    auto = summa.choose_schedule(app.backend, False, False,
+                                 X._raw_physical(), W._raw_physical(), 4)
+    assert auto is None, auto
+    settings.collective_matmul = "ring"
+    try:
+        summa.LAST_DISPATCH = None
+        P = X @ W
+        P.touch()
+        dispatch = summa.LAST_DISPATCH
+        w = W.data.full_tensor().double()
+        local, p_loc = X.raw.to_local(), P.raw.to_local()
+        err, scale = _chunked_rel(
+            torch, p_loc, lambda i, j: local[i:j].double() @ w,
+            local.shape[0])
+        del P, p_loc, w
+        _mesh_free(torch)
+        ms = _mesh_time_ms(torch, lambda: (X @ W).touch())
+    finally:
+        settings.collective_matmul = "0"
+    assert dispatch == ("ring" if world > 1 else "xla"), dispatch
+    assert err <= SCHED_REL * scale, (err, scale)
+    _mesh_free(torch)
+    say({"phase": "mesh", "step": "ring", **head, "last_dispatch": dispatch,
+         "auto_dispatch": auto or "xla", "ms": ms,
+         "rel_err_vs_f64": err / scale, "tolerance": SCHED_REL})
+
+
+def _newton64(torch, x, y, iters, chunk=MESH_CHUNK):
+    """A float64 Newton logistic fit from zeros on each rank's rows, the
+    ones column appended, g and H all-reduced in float64 each step: the
+    reference of the fused fit."""
+    import torch.distributed as dist
+
+    da = x.shape[1] + 1
+    beta = torch.zeros(da, dtype=torch.float64, device=x.device)
+    for _ in range(iters):
+        g = torch.zeros(da, dtype=torch.float64, device=x.device)
+        H = torch.zeros((da, da), dtype=torch.float64, device=x.device)
+        for i in range(0, x.shape[0], chunk):
+            xc = torch.cat([x[i:i + chunk].double(), torch.ones(
+                (min(chunk, x.shape[0] - i), 1), dtype=torch.float64,
+                device=x.device)], dim=1)
+            mu = torch.sigmoid(xc @ beta)
+            g += xc.T @ (mu - y[i:i + chunk].double())
+            H += (xc * (mu * (1 - mu))[:, None]).T @ xc
+            del xc
+        dist.all_reduce(g)
+        dist.all_reduce(H)
+        beta = beta - torch.linalg.solve(H, g)
+    return beta
+
+
+def _mesh_fit_step(torch, app, X, d, say, head):
+    """The fused logistic fit on phase 4's labels: each rank stages its
+    rows once and runs K3 ten times, one all-reduce of g and H a step;
+    β held to a float64 Newton fit, the accuracy to the planted β's."""
+    import torch.distributed as dist
+
+    from nums_tpu_torch.core.ops import cuda_newton, summa
+    from nums_tpu_torch.models import fast_glm
+    from nums_tpu_torch.models.glms import LogisticRegression
+
+    y, beta_true = planted_labels(torch, app, X)
+    _reset_counts()
+    model, fit_secs = _mesh_seconds(
+        torch, lambda: LogisticRegression(**FIT).fit(X, y))
+    launches = _counts()
+    assert launches == {"gram": 0, "gram_weighted": FIT["max_iter"],
+                        "newton_stage": 1,
+                        "newton_stats": FIT["max_iter"]}, launches
+    beta = torch.cat([model.coef_.data.full_tensor(),
+                      model.intercept_.data.full_tensor()[None]])
+    rows = summa.row_layout(X.raw)
+    local = X.raw.to_local()
+    yl = y.raw.redistribute(app.backend.mesh, rows).to_local()
+    beta64 = _newton64(torch, local, yl, FIT["max_iter"])
+    _, beta_rel = rel_err(beta, beta64)
+    assert beta_rel <= BETA_REL, beta_rel
+    acc = float(model.score(X, y))
+    acc_true = float((((X @ beta_true) > 0).astype(np.float32) == y).mean())
+    assert abs(acc - acc_true) <= ACC_SLACK, (acc, acc_true)
+    fit_ms = _mesh_time_ms(torch, lambda: LogisticRegression(**FIT).fit(
+        X, y), reps=1)
+    # One Newton step alone (K3 on the staged rows, the all-reduce, the
+    # replicated solve), and the all-reduce of g and H alone.
+    xa = torch.cat([local, torch.ones((local.shape[0], 1), dtype=local.dtype,
+                                      device=local.device)], dim=1)
+    staged = cuda_newton.prepare(xa)
+    del xa
+    reduce = fast_glm.mesh_reduce(app.backend.mesh, rows)
+    b0 = torch.zeros(d + 1, dtype=torch.float32, device=local.device)
+    step_ms = _mesh_time_ms(torch, lambda: fast_glm._newton_step_penalized(
+        "logistic", staged, yl, b0, None, kernels=True, reduce=reduce))
+    k3_ms = _mesh_time_ms(torch, lambda: cuda_newton.stats(
+        staged, yl, b0, "logistic"))
+    del staged
+    h = torch.zeros((d + 1) * (d + 2), dtype=torch.float32,
+                    device=local.device)
+    ar_ms = _mesh_time_ms(torch, lambda: dist.all_reduce(h))
+    say({"phase": "mesh", "step": "fit", **head, "seconds": fit_secs,
+         "fit_ms": fit_ms, "newton_step_ms": step_ms, "k3_local_ms": k3_ms,
+         "all_reduce_g_h_ms": ar_ms, "all_reduce_bytes": 4 * h.numel(),
+         "launches_per_rank": launches, "beta_rel_err_vs_f64": beta_rel,
+         "beta_tolerance": BETA_REL, "accuracy": acc,
+         "accuracy_true_beta": acc_true})
+    _mesh_free(torch)
+
+
+def _mesh_summa_step(torch, n, d, world, say, head):
+    """X @ W on a (2, world/2) mesh under ``summa``: X drawn again from its
+    seed as (n/2, d/(world/2)) blocks (one range of positions per local
+    row; the first rows held to the serial draw), A's row panel
+    all-gathered over m1 and B's column panel over m0. Held to a float64
+    product: each rank's rows times its own columns' rows of W, summed
+    over m1 a chunk of rows at a time."""
+    import torch.distributed as dist
+
+    from nums_tpu_torch.core import application_manager, settings
+    from nums_tpu_torch.core.ops import random_ops, summa, threefry
+
+    shape = (2, world // 2)
+    app = application_manager.create(
+        device=None if DEVICE == "cuda" else DEVICE, backend="mesh",
+        cluster_shape=shape)
+    application_manager.set_instance(app)
+    block = (-(-n // shape[0]), -(-d // shape[1]))
+    X, draw_secs = _mesh_seconds(
+        torch, lambda: app.random_state(RANDOM_KNOWN["seed"]).normal(
+            shape=(n, d), block_shape=block, dtype=np.float32))
+    W = app.random_state(MESH_SUMMA_SEED).normal(
+        shape=(d, d), block_shape=block[1:] * 2, dtype=np.float32)
+    settings.collective_matmul = "summa"
+    try:
+        summa.LAST_DISPATCH = None
+        P = X @ W
+        P.touch()
+        dispatch = summa.LAST_DISPATCH
+    finally:
+        settings.collective_matmul = "0"
+    assert dispatch == "summa", dispatch
+    local, p_loc = X.raw.to_local(), P.raw.to_local()
+    (r0, _), (k0, k1) = app.backend.region((n, d), X.raw.placements)
+    # This block's first rows (one range of positions each) are the
+    # serial draw's, each row drawn alone as a flat range.
+    key = threefry.fold_in(threefry.seed_key(RANDOM_KNOWN["seed"], False),
+                           RANDOM_KNOWN["counter"])
+    for i in range(min(MESH_SUMMA_CHECK_ROWS, local.shape[0])):
+        at = ((r0 + i) * d + k0, (r0 + i) * d + k1)
+        assert torch.equal(local[i], random_ops.jr_normal(
+            key, (n, d), torch.float32, local.device, flat_range=at)), i
+    (_, _), (c0, c1) = app.backend.region(tuple(P.shape), P.raw.placements)
+    w = W.data.full_tensor().double()
+    group = app.backend.mesh.get_group(1)
+
+    def ref(i, j):
+        q = local[i:j].double() @ w[k0:k1]
+        dist.all_reduce(q, group=group)
+        return q[:, c0:c1]
+
+    err, scale = _chunked_rel(torch, p_loc, ref, local.shape[0],
+                              chunk=MESH_CHUNK // 4)
+    assert err <= SCHED_REL * scale, (err, scale)
+    del P, p_loc, w
+    _mesh_free(torch)
+    settings.collective_matmul = "summa"
+    try:
+        ms = _mesh_time_ms(torch, lambda: (X @ W).touch())
+    finally:
+        settings.collective_matmul = "0"
+    say({"phase": "mesh", "step": "summa", **head,
+         "cluster_shape": list(shape), "x_local_shape": list(local.shape),
+         "draw_seconds": draw_secs, "last_dispatch": dispatch, "ms": ms,
+         "rel_err_vs_f64": err / scale, "tolerance": SCHED_REL,
+         "a_panel_bytes_per_card": 4.0 * local.shape[0] * d})
+    del X, W, local
+    _mesh_free(torch)
+
+
+def phase_mesh_cards(torch, smi):
+    """--mesh-only: one process per visible card (``spawn``, NCCL, a
+    file:// rendezvous under a temporary directory). Fails unless every
+    rank exits 0 before ``MESH_DEADLINE_S``; a rank that fails ends the
+    run at once. Returns the number of ranks."""
+    import multiprocessing as mp
+    import tempfile
+
+    world = torch.cuda.device_count() if DEVICE == "cuda" else 4
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "mesh_logs")
+    os.makedirs(out_dir, exist_ok=True)
+    cfg = {"n": MESH_N, "d": D_FULL, "nt_rows": MESH_NT_ROWS,
+           "check_rows": MESH_CHECK_ROWS, "device": DEVICE,
+           "deadline": MESH_DEADLINE_S, "out_dir": out_dir, "root": root}
+    emit({"phase": "mesh_start", "world": world, "nvidia_smi": smi,
+          "shape": [cfg["n"], cfg["d"]]})
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        init = os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_mesh_rank, args=(r, world, init, cfg))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MESH_DEADLINE_S
+        while any(p.is_alive() for p in procs):
+            failed = [p for p in procs
+                      if p.exitcode is not None and p.exitcode != 0]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    assert codes == [0] * world, ("mesh ranks' exit codes", codes)
+    emit({"phase": "mesh_done", "world": world, "exit_codes": codes,
+          "seconds": time.perf_counter() - t0})
+    return world
+
+
 KERNELS = (
     ("gram", "nums_tpu_torch/csrc/gram.cu",
      "nums_tpu/core/ops/pallas_gram.py:139"),
@@ -4017,7 +4716,7 @@ KERNELS = (
 
 
 def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
-                 facade, models):
+                 facade, models, mesh):
     """One entry per kernel: "launches" counts the main path (phase 4),
     "launches_per_fit" one fit (phase 6), "launches_ooc" the streamed
     steps of phase 8 (the PCA and TruncatedSVD fits among them),
@@ -4028,7 +4727,8 @@ def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
     at phase 10's shape (8.8M x 28 for K1, x 29 for K2 and K3, K3 on X
     staged once), beside that shape's plain version and bound;
     "launches_facade" phase 12's facade path (K1: one per contraction form),
-    "launches_models" phase 14's (K1: the forward of the gram's gradient).
+    "launches_models" phase 14's (K1: the forward of the gram's gradient),
+    "launches_mesh" phase 15's main path on the mesh of this card alone.
     gram.cu's weighted launches ("gram_weighted") on these paths are K3's
     Hessian, and K2 proper in phase 8's pass with the Newton gate off."""
     return [
@@ -4049,7 +4749,8 @@ def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
          "higgs_plain_ms": higgs["kernels"][name]["plain_ms"],
          "higgs_bound_ms": higgs["kernels"][name]["bound_ms"],
          "launches_facade": facade["launches"][name],
-         "launches_models": models["launches"][name]}
+         "launches_models": models["launches"][name],
+         "launches_mesh": mesh["launches"][name]}
         for name, src, rep in KERNELS
     ]
 
@@ -4073,6 +4774,12 @@ def main(argv):
             phase_random(torch, smi, nums_tpu_torch.init(), None)
             return 0
         phase_build()
+        if "--mesh-only" in argv:
+            world = phase_mesh_cards(torch, smi)
+            emit({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": world}})
+            return 0
         if "--models-only" in argv:
             import nums_tpu_torch
 
@@ -4098,8 +4805,8 @@ def main(argv):
         phase_small(torch)
         if "--kernels-only" in argv:
             return 0
-        app, X, y, model, counts, ref, acc_true, draw = phase_main_path(
-            torch)
+        app, X, y, model, counts, ref, acc_true, draw, keep = (
+            phase_main_path(torch))
         times = phase_times(torch, smi, X, y, model)
         fit_counts = phase_profile(torch, X, y)
         phase_glm_families(torch, app, X, y, ref)
@@ -4122,9 +4829,11 @@ def main(argv):
         torch.cuda.empty_cache()
         models = phase_models(torch, smi, app, X, draw_labels(torch, app, X))
         del X
+        torch.cuda.empty_cache()
+        mesh = phase_mesh(torch, smi, keep)
         emit({"kernels": kernels_line(counts, fit_counts, times, ooc,
                                       linalg_launches, higgs, facade,
-                                      models)})
+                                      models, mesh)})
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})

@@ -12,16 +12,20 @@ from nums_tpu_torch.api import (delete, read, read_csv, read_parquet, write,
 from nums_tpu_torch.core import application_manager
 
 
-def init(device=None):
+def init(device=None, backend=None, cluster_shape=None):
     """Initialize the backend and return the ``ArrayApplication``.
 
-    It runs on ``device``, by default ``cuda:0``, and raises
-    ``RuntimeError`` where CUDA is missing: ``init(device="cpu")`` asks for
-    the CPU. With a ``device``, a new application on it replaces any
+    It runs on ``device``, by default ``cuda:0`` (on the mesh, the card of
+    this process's local rank), and raises ``RuntimeError`` where CUDA is
+    missing: ``init(device="cpu")`` asks for the CPU. ``backend`` is
+    ``"serial"`` or ``"mesh"`` (default ``settings.backend_name``), and
+    ``cluster_shape`` the mesh's shape, whose product must be the number
+    of processes. With any argument, a new application replaces any
     earlier one; without, an application that exists is returned."""
-    if device is not None:
+    if device is not None or backend is not None or cluster_shape is not None:
         application_manager.destroy()
-        application_manager.set_instance(application_manager.create(device))
+        application_manager.set_instance(application_manager.create(
+            device, backend=backend, cluster_shape=cluster_shape))
     return application_manager.instance()
 
 

@@ -15,8 +15,10 @@ application's ``FileSystem`` (``write_fs``/``read_fs``/``verify_fs``/
 ``delete_fs``), and the streamed ops on a ``DiskArray`` (``gram_ooc``, the
 column reductions, ``tsqr_r_ooc``, ``linear_regression_ooc``), with the
 panel helpers that the GLMs' out-of-core fits share (``ooc_put``,
-``ooc_accumulator``, ``ooc_panels``, ``_ooc_y_getter``). The mesh
-backend's row-sharded panels are a later port.
+``ooc_accumulator``, ``ooc_panels``, ``_ooc_y_getter``). On the mesh
+backend the constructors place each array by the grid (a constant fill
+makes only this process's region), and ``get`` is collective; the mesh's
+row-sharded panels for out of core are a later port.
 """
 
 import numpy as np
@@ -31,7 +33,7 @@ from nums_tpu_torch.core.array.diskarray import DiskArray
 from nums_tpu_torch.core.array.random import NumsRandomState
 from nums_tpu_torch.core.io.filesystem import FileSystem, _fs_path
 from nums_tpu_torch.core.ops import (
-    creation, elementwise, linalg, shape_ops, streaming,
+    creation, elementwise, linalg, masking, shape_ops, streaming,
 )
 
 
@@ -125,7 +127,8 @@ class ArrayApplication:
     def compute_block_shape(self, shape: tuple, dtype, cluster_shape=None,
                             num_cores=None):
         """Small arrays (< 100 MB) get a single block; otherwise the grid
-        is sized to about the device count, weighted toward long axes."""
+        is sized to about the device count, weighted toward long axes and
+        aligned to the mesh's ``cluster_shape``."""
         dtype = array_utils.to_np_dtype(dtype)
         size = int(np.prod(shape)) * dtype.itemsize if len(shape) else (
             dtype.itemsize
@@ -135,7 +138,9 @@ class ArrayApplication:
         if num_cores is None:
             num_cores = self.num_cores_total()
         if cluster_shape is None:
-            cluster_shape = (1, 1)
+            # On the mesh the grid aligns to the mesh (application.py:
+            # 253-275 of the reference).
+            cluster_shape = getattr(self.backend, "cluster_shape", (1, 1))
         if len(shape) < len(cluster_shape):
             cluster_shape = cluster_shape[: len(shape)]
         elif len(shape) > len(cluster_shape):
@@ -189,10 +194,19 @@ class ArrayApplication:
             dtype = self.backend.default_float
         grid = ArrayGrid(tuple(shape), tuple(block_shape),
                          array_utils.to_dtype_name(dtype))
-        data = creation.new_array(
-            op_name, grid.shape, array_utils.to_torch_dtype(dtype),
-            self.backend.device,
-        )
+        return self._filled(grid, lambda shape: creation.new_array(
+            op_name, shape, array_utils.to_torch_dtype(dtype),
+            self.backend.device))
+
+    def _filled(self, grid, make):
+        """A constant fill: ``make(shape)`` of this process's region only
+        (the whole array on one device)."""
+        box = self.backend.local_region(grid)
+        if box is None:
+            return BlockArray(make(grid.shape), grid, self.backend)
+        local = make(tuple(b - a for a, b in box))
+        data = self.backend.from_local(local, grid.shape,
+                                       self.backend.sharding_for_grid(grid))
         return BlockArray(data, grid, self.backend)
 
     def zeros(self, shape, block_shape, dtype=None):
@@ -209,10 +223,9 @@ class ArrayApplication:
             dtype = np.asarray(fill_value).dtype
         grid = ArrayGrid(tuple(shape), tuple(block_shape),
                          array_utils.to_dtype_name(dtype))
-        data = creation.full(grid.shape, fill_value,
-                             array_utils.to_torch_dtype(dtype),
-                             self.backend.device)
-        return BlockArray(data, grid, self.backend)
+        return self._filled(grid, lambda shape: creation.full(
+            shape, fill_value, array_utils.to_torch_dtype(dtype),
+            self.backend.device))
 
     def eye(self, shape, block_shape, dtype=None):
         assert len(shape) == len(block_shape) == 2
@@ -395,6 +408,7 @@ class ArrayApplication:
         index array per axis (``numpy.where``'s order), resolved on the
         device by ``torch.nonzero`` (one host sync, for the count)."""
         if x is None and y is None:
+            masking.refuse_dtensor(condition.data, "aten.nonzero")
             index_arrays = torch.nonzero(condition.data.to(torch.bool),
                                          as_tuple=True)
             result = []
@@ -576,19 +590,40 @@ class ArrayApplication:
         ) * lamb
         return self.inv(lamb_eye + R.T @ R) @ (X.T @ y)
 
+    def _whole(self, X: BlockArray, op: str):
+        """X's tensor whole on this process. On the mesh the small
+        factorizations run on each process's copy of a replicated value,
+        as XLA keeps it replicated (DTensor has no strategy for them); the
+        result, the same everywhere, is placed by its grid. A sharded
+        operand raises ``NotImplementedError`` naming ``op``: it is never
+        gathered to every process."""
+        if self.backend.mesh is None:
+            return X.data
+        from torch.distributed.tensor import Replicate
+
+        data = X.data
+        if all(isinstance(p, Replicate) for p in data.placements):
+            return data.to_local()
+        raise NotImplementedError(
+            f"{op}: DTensor has no sharding strategy for it, and a sharded "
+            f"operand (placements {tuple(data.placements)}) is not gathered "
+            "(the mesh backend's distributed factorizations are not ported)")
+
     def inv(self, X: BlockArray) -> BlockArray:
         assert X.ndim == 2 and X.shape[0] == X.shape[1]
-        return BlockArray(linalg.inv(X.data), X.grid.copy(), self.backend)
+        return BlockArray(linalg.inv(self._whole(X, "inv")), X.grid.copy(),
+                          self.backend)
 
     def cholesky(self, X: BlockArray) -> BlockArray:
         assert X.ndim == 2 and X.shape[0] == X.shape[1]
-        return BlockArray(linalg.cholesky(X.data), X.grid.copy(),
-                          self.backend)
+        return BlockArray(linalg.cholesky(self._whole(X, "cholesky")),
+                          X.grid.copy(), self.backend)
 
     def posdef_solve(self, A: BlockArray, b: BlockArray) -> BlockArray:
         """Cholesky solve of A·x = b, the eager Newton-type solvers' step;
         NaN when A is not positive definite, with no host sync."""
-        data = linalg.posdef_solve(A.data, b.data)
+        data = linalg.posdef_solve(self._whole(A, "posdef_solve"),
+                                   self._whole(b, "posdef_solve"))
         lshape = tuple(data.shape)
         return BlockArray(
             data,

@@ -13,7 +13,13 @@ new tensor and rebinds it, as the reference's ``_store`` does.
 
 ``x.T @ x`` on float32 goes to the gram kernel (``ops/cuda_gram.py``) in
 the bf16-MAC precision class, as the reference's ``_pallas_gram_fast``
-goes to its Pallas kernel.
+goes to its Pallas kernel. On the mesh backend the tensor is a DTensor,
+placed by the grid when the BlockArray takes it (``MeshBackend.place``),
+and most ops are DTensor's own; ``x.T @ x`` runs the kernel on each
+process's rows and one all-reduce, and ``settings.collective_matmul``
+sends 2-D products through the hand-scheduled schedules of
+``ops/summa.py``. An op that DTensor has no sharding strategy for raises
+``NotImplementedError`` naming it.
 """
 
 import numpy as np
@@ -23,7 +29,7 @@ from nums_tpu_torch.core import trace
 from nums_tpu_torch.core.grid import ArrayGrid
 from nums_tpu_torch.core.array import utils as array_utils
 from nums_tpu_torch.core.ops import (
-    cuda_gram, elementwise, linear, masking, reductions, shape_ops,
+    cuda_gram, elementwise, linear, masking, reductions, shape_ops, summa,
 )
 
 
@@ -67,6 +73,10 @@ class BlockArray:
         raw_logical = (
             tuple(reversed(grid.shape)) if transposed else tuple(grid.shape)
         )
+        if backend is not None and tuple(data.shape) == raw_logical:
+            # On the mesh: a DTensor redistributed to the grid's placement,
+            # a plain tensor (the whole value) cut to this process's region.
+            data = backend.place(data, grid, transposed)
         if tuple(data.shape) != raw_logical:
             raise ValueError(
                 f"tensor shape {tuple(data.shape)} does not match grid "
@@ -132,6 +142,8 @@ class BlockArray:
         )
         assert tuple(data.shape) == raw_logical, (data.shape, raw_logical)
         assert data.dtype == self._data.dtype, (data.dtype, self._data.dtype)
+        if self.backend is not None:
+            data = self.backend.place(data, self.grid, transposed)
         self._data = data
         self._transposed = transposed
 
@@ -249,12 +261,32 @@ class BlockArray:
             new_shape = self.shape
         if new_shape == self.shape and block_shape is None:
             return self
-        data = shape_ops.reshape(self.data, new_shape)
+        data = self._reshaped(new_shape)
         if block_shape is None:
             block_shape = array_utils.default_block_shape_for(new_shape)
         grid = ArrayGrid(new_shape, tuple(block_shape),
                          array_utils.to_dtype_name(data.dtype))
         return BlockArray(data, grid, self.backend)
+
+    def _reshaped(self, new_shape):
+        """The tensor in ``new_shape``. On the mesh, a reshape that keeps
+        axis 0 of an array sharded on axis 0 alone reshapes each process's
+        rows in place; any other is taken through ``redistribute`` to a
+        replicated value (DTensor refuses to flatten an uneven shard)."""
+        data = self.data
+        if self.backend.mesh is None:
+            return shape_ops.reshape(data, new_shape)
+        if (new_shape[:1] == self.shape[:1] and self.ndim >= 1
+                and all(not p.is_shard() or p.dim == 0
+                        for p in data.placements)):
+            local = shape_ops.reshape(
+                data.to_local(), (-1,) + tuple(new_shape[1:]))
+            return self.backend.from_local(local, new_shape, data.placements)
+        whole = data.redistribute(self.backend.mesh,
+                                  self.backend.replicated())
+        return self.backend.from_local(
+            shape_ops.reshape(whole.to_local(), new_shape), new_shape,
+            self.backend.replicated())
 
     def broadcast_to(self, shape):
         return self._new(shape_ops.broadcast_to(self.data, tuple(shape)))
@@ -284,8 +316,10 @@ class BlockArray:
         trace.log_op(op_name, self)
         axis = _norm_axis(axis)
         dt = None if dtype is None else array_utils.to_torch_dtype(dtype)
-        data = reductions.reduce(op_name, self.data, axis, bool(keepdims),
-                                 dt)
+        x = self.data
+        if self.backend.mesh is not None and op_name in ("min", "max"):
+            x = self.backend.without_empty_shards(x)
+        data = reductions.reduce(op_name, x, axis, bool(keepdims), dt)
         bs = array_utils.reduced_block_shape(self.block_shape, axis,
                                              keepdims)
         return self._new(data, bs)
@@ -496,6 +530,9 @@ class BlockArray:
         else:
             static_axes = tuple(tuple(a) for a in axes)
         trace.log_op("tensordot", self, other)
+        collective = self._collective_matmul(other, static_axes)
+        if collective is not None:
+            return collective
         if other._data is self._data:
             fast = self._gram_fast(other, static_axes)
             if fast is not None:
@@ -527,10 +564,86 @@ class BlockArray:
                                        self._data.dtype)
         ):
             return None
-        data = cuda_gram.gram(self._data.contiguous())
+        if self.backend.mesh is not None:
+            # Each process's rows through the kernel, one all-reduce.
+            data = summa.gram_all_reduce(self.backend, self._data)
+        else:
+            data = cuda_gram.gram(self._data.contiguous())
         bs = array_utils.tensordot_block_shape(
             self.block_shape, other.block_shape, 1
         )
+        return self._new(data, bs)
+
+    def _raw_physical(self):
+        """The reference's padded at-rest shape of the raw tensor: the
+        schedules dispatch on it."""
+        shape, gshape = self.shape, self.grid_shape
+        if self._transposed:
+            shape, gshape = tuple(reversed(shape)), tuple(reversed(gshape))
+        return tuple(self.backend.physical_shape(shape, gshape))
+
+    @staticmethod
+    def _explicit_choice(backend, mode, ta, tb, a_phys, b_phys):
+        """Schedule for an explicit mode (ring|summa): the transposed
+        patterns take their own schedule; NN (and TT, NN on the swapped
+        raws) takes the NAMED one where the shapes divide the mesh, else
+        None (the default route). As blockarray.py:783-804 of the
+        reference."""
+        if ta != tb:
+            name, ok = (("tn", summa.tn_supported) if ta
+                        else ("nt", summa.nt_supported))
+            return name if ok(backend, a_phys, b_phys) else None
+        if ta and tb:
+            a_phys, b_phys = b_phys, a_phys
+        if mode == "ring" and summa.ring_supported(backend, a_phys, b_phys):
+            return "ring"
+        if mode == "summa" and summa.supported(backend, a_phys, b_phys):
+            return "summa"
+        return None
+
+    def _collective_matmul(self, other, static_axes):
+        """A hand-scheduled mesh GEMM (``settings.collective_matmul`` ring|
+        summa|auto; ``core/ops/summa.py``), or None for the default route.
+        All four transpose patterns: TN is the local product (the gram
+        kernel for x.T @ x) and one reduce-scatter; NT all-gathers B's
+        panel; NN rides the ring or SUMMA; TT runs NN on the swapped raws
+        and marks the result transposed. The dispatched schedule ("xla"
+        for none) is recorded in ``summa.LAST_DISPATCH``, as the
+        reference's (blockarray.py:806-872)."""
+        from nums_tpu_torch.core import settings
+
+        mode = settings.collective_matmul
+        if mode not in ("ring", "summa", "auto"):
+            return None
+        if (static_axes != 1 or self.ndim != 2 or other.ndim != 2
+                or self.backend.mesh is None):
+            return None
+        ta, tb = self._transposed, other._transposed
+        a_phys, b_phys = self._raw_physical(), other._raw_physical()
+        if mode == "auto":
+            choice = summa.choose_schedule(
+                self.backend, ta, tb, a_phys, b_phys,
+                np.dtype(self.dtype).itemsize)
+        else:
+            choice = self._explicit_choice(self.backend, mode, ta, tb,
+                                           a_phys, b_phys)
+        summa.LAST_DISPATCH = choice or "xla"
+        if choice is None:
+            return None
+        run = summa.SCHEDULES[choice]
+        lshape = (self.shape[0], other.shape[1])
+        bs = array_utils.tensordot_block_shape(
+            self.block_shape, other.block_shape, 1)
+        if ta and tb:
+            # C = Aᵀ·Bᵀ = (Braw @ Araw)ᵀ
+            data = run(self.backend, other._data, self._data)
+            grid = ArrayGrid(lshape, bs, array_utils.to_dtype_name(data.dtype))
+            return BlockArray(data, grid, self.backend, transposed=True)
+        if choice == "tn":
+            data = run(self.backend, self._data, other._data,
+                       same=other._data is self._data)
+        else:
+            data = run(self.backend, self._data, other._data)
         return self._new(data, bs)
 
     def __matmul__(self, other):

@@ -7,7 +7,9 @@ Counterpart of ``nums_tpu/core/array/random.py``, with the same surface
 (``core/ops/threefry.py``), and a sample is one whole array at the logical
 shape. So the same (seed, call number) draws the reference's values, on
 any device and under any block shape, and a state saved by either package
-(``get_state``) resumes the stream in the other.
+(``get_state``) resumes the stream in the other. On the mesh each process
+draws only the positions it holds (``random_ops.sample_region``), so a
+sharded draw equals the one-device draw bit for bit.
 
 Dtypes. The reference runs in one of two modes, and a backend reproduces
 the one its device implies. A CPU backend (default float float64) draws as
@@ -115,7 +117,18 @@ class NumsRandomState:
                       rfunc_args) -> BlockArray:
         dtype = self._float_dtype(dtype)
         grid = self._grid(shape, block_shape, array_utils.to_dtype_name(dtype))
-        if random_ops.supported(rfunc_name):
+        box = self._backend.local_region(grid)
+        if random_ops.supported(rfunc_name) and box is not None:
+            # A mesh process draws its own positions only: the array equals
+            # the one-device draw bit for bit.
+            local = random_ops.sample_region(
+                rfunc_name, self._next_key(), grid.shape, box,
+                array_utils.to_torch_dtype(dtype), self._device, self._x64,
+                *[float(a) for a in rfunc_args],
+            )
+            data = self._backend.from_local(
+                local, grid.shape, self._backend.sharding_for_grid(grid))
+        elif random_ops.supported(rfunc_name):
             data = random_ops.sample(
                 rfunc_name, self._next_key(), grid.shape,
                 array_utils.to_torch_dtype(dtype), self._device, self._x64,

@@ -1,10 +1,13 @@
 """Execution backend: where arrays live.
 
-Counterpart of ``Backend`` and ``SerialBackend`` in
-``nums_tpu/core/backend.py:25-161``. An array is ONE ``torch.Tensor`` on
-the backend's ``torch.device``; every op is a torch call on it. The
-at-rest shape equals the logical shape: the reference pads the minor
-axis to the TPU's 128 lanes, and nothing here needs that.
+Counterpart of ``nums_tpu/core/backend.py``. On ``SerialBackend`` an
+array is ONE ``torch.Tensor`` on the backend's ``torch.device``; every op
+is a torch call on it. On ``MeshBackend`` it is one ``DTensor`` over a
+``DeviceMesh`` of one process per device, placed by the reference's rule
+(``MeshBackend._axis_plan``). The at-rest shape equals the logical shape
+on both: the reference pads the minor axis to the TPU's 128 lanes and, on
+the mesh, ragged axes to the mesh multiple; DTensor's uneven shards give
+every device the same rows without the pad.
 """
 
 import threading
@@ -14,7 +17,7 @@ import torch
 
 from nums_tpu_torch.core import settings
 from nums_tpu_torch.core.array import utils as array_utils
-from nums_tpu_torch.core.grid import ArrayGrid
+from nums_tpu_torch.core.grid import ArrayGrid, DeviceGrid, shard_region
 
 # Transfers to the host made by this thread (``Backend.get``, which
 # ``BlockArray.get``, ``float()``, ``bool()``, ``item()`` and ``print``
@@ -77,6 +80,22 @@ class Backend:
         _tls.count = host_sync_count() + 1
         return tensor.detach().cpu().numpy()
 
+    @property
+    def mesh(self):
+        return None
+
+    def place(self, data, grid: ArrayGrid, transposed=False):
+        """``data`` laid out as ``grid`` says (a BlockArray's tensor goes
+        through here): one device holds it whole."""
+        del grid, transposed
+        return data
+
+    def local_region(self, grid: ArrayGrid):
+        """The box of ``grid``'s array that this process holds, or None
+        where it holds the whole array."""
+        del grid
+        return None
+
 
 class SerialBackend(Backend):
     """Single-device backend on an explicit ``torch.device``. The default
@@ -104,7 +123,252 @@ class SerialBackend(Backend):
         return 1
 
 
-_BACKENDS = {"serial": SerialBackend}
+def _contiguous_stride(shape):
+    stride, acc = [], 1
+    for s in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= max(int(s), 1)
+    return tuple(reversed(stride))
+
+
+class MeshBackend(Backend):
+    """SPMD backend: one process per device, arrays as DTensors.
+
+    Counterpart of nums_tpu's ``MeshBackend``, whose mesh is one
+    controller over all devices (a ``NamedSharding`` partitioned by XLA):
+    here each process drives its own device, joined by ``torch.distributed``
+    (NCCL on the card, gloo on the CPU; ``core/multiprocess.py``), and an
+    array is a ``DTensor`` with one placement per mesh dimension. Array
+    axis ``k`` is sharded over mesh dimension ``m{k}`` by the reference's
+    rule (``_axis_plan``); a result that DTensor leaves elsewhere (a
+    ``Partial`` sum, a replicated slice) is redistributed to that rule
+    when a BlockArray takes it, as XLA places an output by its sharding.
+    A plain tensor handed to a BlockArray is the whole value, the same on
+    every process, and each keeps its own region of it.
+
+    ``cluster_shape`` (default: (processes, 1)) must have as many devices
+    as the group has processes; a process with no group forms a mesh of
+    one device. The CPU runs only when asked for (``device="cpu"``)."""
+
+    name = "mesh"
+
+    def __init__(self, cluster_shape: tuple = None, device=None):
+        self._cluster_shape = cluster_shape
+        self._asked = device
+        self.device = None
+        self.device_grid = None
+        self._mesh = None
+        self._own_group = False
+
+    def init(self):
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from nums_tpu_torch.core import multiprocess
+
+        self.device = multiprocess.device_for(self._asked)
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        joined = multiprocess.initialize(self.device.type)
+        world = dist.get_world_size() if joined else 1
+        shape = tuple(self._cluster_shape or settings.cluster_shape
+                      or (world, 1))
+        if int(np.prod(shape)) != world:
+            raise ValueError(
+                f"mesh {shape} needs {int(np.prod(shape))} processes; the "
+                f"group has {world} (one process per device)"
+            )
+        if not joined:
+            multiprocess.initialize_single(self.device.type)
+            self._own_group = True
+        self.device_grid = DeviceGrid(shape)
+        self._mesh = DeviceMesh(
+            self.device.type, torch.arange(world).reshape(shape),
+            mesh_dim_names=self.device_grid.axis_names,
+        )
+        return self
+
+    def shutdown(self):
+        import torch.distributed as dist
+
+        self._mesh = None
+        if self._own_group and dist.is_initialized():
+            dist.destroy_process_group()
+        self._own_group = False
+
+    @property
+    def mesh(self):
+        return self._mesh
+
+    @property
+    def num_devices(self):
+        return self.device_grid.num_devices
+
+    @property
+    def cluster_shape(self):
+        return self.device_grid.mesh_shape
+
+    # -- the reference's placement rule (nums_tpu backend.py:216-277) ----
+
+    def _axis_plan(self, shape: tuple, grid_shape: tuple = None):
+        """Per axis: (the reference's padded length, the mesh axis name,
+        a tuple of names, or None). Axis ``k`` maps to ``m{k}`` when it is
+        at least as long as the mesh there and its grid has more than one
+        block; a 1-D array goes over the flattened mesh, else over ``m0``;
+        with ``pad_shard`` off an axis the mesh does not divide is
+        replicated."""
+        pad = settings.pad_shard
+
+        def fit(dim, m):
+            if m <= 1 or dim < m:
+                return None
+            if dim % m == 0:
+                return dim
+            return -(-dim // m) * m if pad else None
+
+        mesh_shape = self.device_grid.mesh_shape
+        if len(shape) == 1:
+            dim = shape[0]
+            if grid_shape is None or grid_shape[0] > 1:
+                p = fit(dim, self.device_grid.num_devices)
+                if p is not None:
+                    return [(p, self.device_grid.axis_names)]
+                p = fit(dim, mesh_shape[0] if mesh_shape else 1)
+                if p is not None:
+                    return [(p, self.device_grid.axis_names[0])]
+            return [(dim, None)]
+        plan = []
+        for k, dim in enumerate(shape):
+            hint_ok = grid_shape is None or grid_shape[k] > 1
+            p = (fit(dim, mesh_shape[k])
+                 if k < len(mesh_shape) and hint_ok else None)
+            if p is None:
+                plan.append((dim, None))
+            else:
+                plan.append((p, self.device_grid.axis_names[k]))
+        return plan
+
+    def spec_for_shape(self, shape: tuple, grid_shape: tuple = None):
+        """The reference's PartitionSpec entries, as a tuple."""
+        return tuple(ax for _, ax in self._axis_plan(shape, grid_shape))
+
+    def physical_shape(self, shape: tuple, grid_shape: tuple = None):
+        """The reference's padded at-rest extents: the schedules of
+        ``core/ops/summa.py`` dispatch on them, so every shape takes the
+        reference's schedule. The port keeps the logical shape at rest."""
+        if len(shape) == 0:
+            return ()
+        return tuple(p for p, _ in self._axis_plan(shape, grid_shape))
+
+    def sharding_for_shape(self, shape: tuple, grid_shape: tuple = None):
+        """DTensor placements (one per mesh dimension) for a shape."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        out = [Replicate()] * len(self.device_grid.mesh_shape)
+        if len(shape) == 0:
+            return tuple(out)
+        names = self.device_grid.axis_names
+        for k, ax in enumerate(self.spec_for_shape(shape, grid_shape)):
+            for name in (ax if isinstance(ax, tuple) else (ax,)):
+                if name is not None:
+                    out[names.index(name)] = Shard(k)
+        return tuple(out)
+
+    def sharding_for_grid(self, grid: ArrayGrid):
+        if grid is None:
+            return self.replicated()
+        return self.sharding_for_shape(grid.shape, grid.grid_shape)
+
+    def replicated(self):
+        from torch.distributed.tensor import Replicate
+
+        return (Replicate(),) * len(self.device_grid.mesh_shape)
+
+    # -- regions and DTensors --------------------------------------------
+
+    def region(self, shape, placements, coord=None):
+        """The box of an array of ``shape`` under ``placements`` that the
+        mesh coordinate ``coord`` (default: this process's) holds."""
+        dims = [p.dim if p.is_shard() else None for p in placements]
+        if coord is None:
+            coord = self._mesh.get_coordinate()
+        return shard_region(shape, dims, self.device_grid.mesh_shape, coord)
+
+    def local_region(self, grid: ArrayGrid):
+        return self.region(grid.shape, self.sharding_for_grid(grid))
+
+    def without_empty_shards(self, data):
+        """``data``, replicated where some process holds none of it (an
+        uneven shard can be empty, and a min or max of nothing fails)."""
+        import itertools
+
+        mesh_shape = self.device_grid.mesh_shape
+        for coord in itertools.product(*(range(m) for m in mesh_shape)):
+            box = self.region(tuple(data.shape), data.placements, coord)
+            if any(b <= a for a, b in box):
+                return data.redistribute(self._mesh, self.replicated())
+        return data
+
+    def from_local(self, local, shape, placements):
+        """The DTensor of global ``shape`` whose region here is ``local``
+        (no communication)."""
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(
+            local, self._mesh, placements, run_check=False,
+            shape=torch.Size(shape), stride=_contiguous_stride(shape),
+        )
+
+    def scatter_full(self, full, placements):
+        """A whole value, the same on every process, as a DTensor: each
+        process keeps a copy of its own region (no communication)."""
+        box = self.region(tuple(full.shape), placements)
+        local = full
+        if box != tuple((0, int(s)) for s in full.shape):
+            local = full[tuple(slice(a, b) for a, b in box)].clone()
+        return self.from_local(local, tuple(full.shape), placements)
+
+    def place(self, data, grid: ArrayGrid, transposed=False):
+        from torch.distributed.tensor import DTensor
+
+        shape, gshape = grid.shape, grid.grid_shape
+        if transposed:
+            shape, gshape = tuple(reversed(shape)), tuple(reversed(gshape))
+        want = self.sharding_for_shape(shape, gshape)
+        if not isinstance(data, DTensor):
+            return self.scatter_full(data, want)
+        if tuple(data.placements) != want:
+            data = data.redistribute(self._mesh, want)
+        return data
+
+    def device_put(self, array: np.ndarray, grid: ArrayGrid = None):
+        """Each process copies its own region of the host value (which
+        every controller holds) to its device: no communication."""
+        array = np.asarray(array)
+        array = array.astype(self.device_dtype(array.dtype), copy=False)
+        array_utils.to_torch_dtype(array.dtype)  # TypeError if not held
+        placements = self.sharding_for_grid(grid)
+        box = self.region(array.shape, placements)
+        local = np.array(array[tuple(slice(a, b) for a, b in box)],
+                         order="C", copy=True)
+        return self.from_local(torch.from_numpy(local).to(self.device),
+                               array.shape, placements)
+
+    def device_reshard(self, data, grid: ArrayGrid):
+        """An on-device value laid out as ``grid`` says (``redistribute``
+        for a DTensor)."""
+        return self.place(data, grid)
+
+    def get(self, tensor) -> np.ndarray:
+        """The whole value on every process (collective: ``full_tensor``)."""
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(tensor, DTensor):
+            tensor = tensor.full_tensor()
+        return super().get(tensor)
+
+
+_BACKENDS = {"serial": SerialBackend, "mesh": MeshBackend}
 
 
 def make_backend(name: str = None, **kwargs) -> Backend:

@@ -5,6 +5,7 @@ in it): a logical shape is partitioned into a grid of blocks of
 ``block_shape`` with ragged final blocks allowed. The grid is pure
 metadata — the data lives in one ``torch.Tensor`` — but it still drives
 the block-shape policy and the block shapes of derived arrays.
+``DeviceGrid`` names the mesh backend's device arrangement.
 """
 
 import itertools
@@ -22,6 +23,25 @@ def array_split_partitions(dim, block_dim):
     if dim == 0:
         return [(0, 0)]
     return [(i, min(i + block_dim, dim)) for i in range(0, dim, block_dim)]
+
+
+def shard_region(shape, dims, mesh_shape, coord):
+    """The box ((start, stop) per axis) that the mesh coordinate ``coord``
+    holds of an array of ``shape``, where mesh dimension j shards array
+    axis ``dims[j]`` (None: replicated). DTensor's rule: each sharding
+    mesh dimension, in order, splits its axis's current extent into
+    chunks of ceil(extent / size), the last ones short or empty — for one
+    mesh dimension, the rows the reference's padded layout gives each
+    device."""
+    box = [(0, int(s)) for s in shape]
+    for j, axis in enumerate(dims):
+        if axis is None:
+            continue
+        a, b = box[axis]
+        chunk = cdiv(b - a, int(mesh_shape[j]))
+        lo = min(a + chunk * int(coord[j]), b)
+        box[axis] = (lo, min(lo + chunk, b))
+    return tuple(box)
 
 
 class ArrayGrid:
@@ -102,3 +122,21 @@ class ArrayGrid:
             f"ArrayGrid(shape={self.shape}, block_shape={self.block_shape}, "
             f"grid_shape={self.grid_shape}, dtype={self.dtype})"
         )
+
+
+class DeviceGrid:
+    """Logical device grid of the mesh backend (``nums_tpu/core/grid.py``
+    ``DeviceGrid``): a k-D arrangement of devices, its axes named
+    ``m0, m1, ...``, onto which array axes map."""
+
+    AXIS_PREFIX = "m"
+
+    def __init__(self, mesh_shape: tuple):
+        self.mesh_shape = tuple(int(m) for m in mesh_shape)
+        self.axis_names = tuple(
+            f"{self.AXIS_PREFIX}{i}" for i in range(len(self.mesh_shape))
+        )
+
+    @property
+    def num_devices(self):
+        return int(np.prod(self.mesh_shape))

@@ -1,0 +1,221 @@
+"""Multi-controller SPMD: one process per device under torch.distributed.
+
+Counterpart of ``nums_tpu/core/multiprocess.py``. The reference's mesh is
+one controller over many devices, and its multi-host form joins
+``jax.distributed``; PyTorch has only the second model, so the port's mesh
+is always one process per device. Every process runs the same program in
+the same order; an operation documented as collective (``get``, any
+computation on a sharded array) is called by every process.
+
+``initialize`` joins the group from one of two sources:
+
+* the triple ``NUMS_TPU_TORCH_COORDINATOR`` (``host:port`` or a URL),
+  ``NUMS_TPU_TORCH_NUM_PROCESSES`` and ``NUMS_TPU_TORCH_PROCESS_ID``
+  (nums_tpu's ``NUMS_TPU_COORDINATOR`` triple); ``NUMS_TPU_TORCH_INIT_FILE``
+  may stand in for the coordinator (a ``file://`` rendezvous, no port);
+* or torchrun's ``RANK`` / ``WORLD_SIZE`` (``env://``).
+
+NCCL joins the processes on the card, gloo on the CPU. Each process takes
+``cuda:<local rank>`` (``LOCAL_RANK``, else the process index: one host)
+and raises where that card is missing; it never shares a card and never
+drops to gloo.
+"""
+
+import contextlib
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def _up() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def process_count() -> int:
+    return dist.get_world_size() if _up() else 1
+
+
+def process_index() -> int:
+    return dist.get_rank() if _up() else 0
+
+
+def is_multiprocess() -> bool:
+    return process_count() > 1
+
+
+def _env_config():
+    """(init method, world size, rank) from the environment, or None."""
+    env = os.environ
+    coord = env.get("NUMS_TPU_TORCH_COORDINATOR")
+    init_file = env.get("NUMS_TPU_TORCH_INIT_FILE")
+    if coord or init_file:
+        if init_file:
+            method = "file://" + os.path.abspath(init_file)
+        else:
+            method = coord if "://" in coord else "tcp://" + coord
+        return (method, int(env["NUMS_TPU_TORCH_NUM_PROCESSES"]),
+                int(env["NUMS_TPU_TORCH_PROCESS_ID"]))
+    if "RANK" in env and "WORLD_SIZE" in env:
+        return "env://", int(env["WORLD_SIZE"]), int(env["RANK"])
+    return None
+
+
+def local_rank() -> int:
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    if _up():
+        return dist.get_rank()
+    cfg = _env_config()
+    return cfg[2] if cfg is not None else 0
+
+
+def device_for(device=None) -> torch.device:
+    """This process's device: ``device`` when the caller names one (the
+    CPU runs only when asked for), else ``cuda:<local rank>``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "nums_tpu_torch: no CUDA device (torch.cuda.is_available() is "
+            "false); to run on the CPU, ask for it: "
+            "nums_tpu_torch.init(device=\"cpu\")"
+        )
+    rank = local_rank()
+    if rank >= torch.cuda.device_count():
+        raise RuntimeError(
+            f"nums_tpu_torch: local rank {rank} has no card of its own "
+            f"({torch.cuda.device_count()} visible); one process per card"
+        )
+    return torch.device("cuda", rank)
+
+
+def _backend_for(device_type: str) -> str:
+    return "nccl" if device_type == "cuda" else "gloo"
+
+
+def initialize(device_type: str = "cuda") -> bool:
+    """Join the process group named by the environment (idempotent).
+    Returns whether a group is up."""
+    if _up():
+        return True
+    cfg = _env_config()
+    if cfg is None:
+        return False
+    method, world, rank = cfg
+    dist.init_process_group(_backend_for(device_type), init_method=method,
+                            world_size=world, rank=rank)
+    return True
+
+
+def initialize_single(device_type: str):
+    """A group of this process alone (an in-memory store, no port): the
+    mesh of one device."""
+    dist.init_process_group(_backend_for(device_type), store=dist.HashStore(),
+                            world_size=1, rank=0)
+
+
+def _flag_device() -> torch.device:
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def allgather_to_host(tensor) -> np.ndarray:
+    """The full value on EVERY process (collective for a DTensor)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tensor, DTensor):
+        tensor = tensor.full_tensor()
+    return tensor.detach().cpu().numpy()
+
+
+def barrier(name: str):
+    """Block until every process reaches this point (collective)."""
+    del name
+    if not is_multiprocess():
+        return
+    flag = torch.zeros(1, dtype=torch.int32, device=_flag_device())
+    dist.all_reduce(flag)
+    flag.item()
+
+
+def checked_barrier(name: str, ok: bool, what: str):
+    """A barrier that also agrees on success: every process contributes
+    its ``ok`` flag to one all-reduce; if any process failed, every OTHER
+    process raises (the failing one re-raises its own exception at the
+    call site), so no process waits at the next collective for a peer
+    that left. Call pattern as nums_tpu's ``checked_barrier``."""
+    if not is_multiprocess():
+        return
+    flag = torch.tensor([0 if ok else 1], dtype=torch.int32,
+                        device=_flag_device())
+    dist.all_reduce(flag)
+    if int(flag.item()) != 0 and ok:
+        raise RuntimeError(
+            f"{what} failed on a peer process at stage {name!r} "
+            "(see its traceback)"
+        )
+
+
+@contextlib.contextmanager
+def publishing(tag: str, marker: str):
+    """Process-0 side of the collective publish protocol (nums_tpu's
+    ``publishing``): consume a stale failure marker, drop a new one on
+    failure BEFORE the barrier releases the peers, and always run the
+    barrier."""
+    try:
+        os.remove(marker)
+    except OSError:
+        pass
+    try:
+        yield
+    except BaseException:
+        try:
+            open(marker, "w").close()
+        except OSError:
+            pass
+        raise
+    finally:
+        barrier(tag)
+
+
+def await_published(tag: str, marker: str, what: str):
+    """Peer side of :func:`publishing`: wait for process 0's release
+    barrier, then turn its failure marker into an error."""
+    barrier(tag)
+    if os.path.exists(marker):
+        raise RuntimeError(f"{what} failed on process 0 "
+                           "(see its traceback)")
+
+
+def owned_regions(tensor):
+    """(index, np.ndarray) for each distinct region of ``tensor`` that this
+    process owns: a region held by several processes (a replicated one)
+    is claimed by the lowest rank that holds it, so a writer never writes
+    a block twice. Empty regions are nobody's."""
+    from torch.distributed.tensor import DTensor
+
+    from nums_tpu_torch.core.grid import shard_region
+
+    shape = tuple(tensor.shape)
+    if not isinstance(tensor, DTensor):
+        if process_index() != 0:
+            return []
+        return [(tuple(slice(0, s) for s in shape),
+                 tensor.detach().cpu().numpy())]
+    mesh = tensor.device_mesh
+    dims = [p.dim if p.is_shard() else None for p in tensor.placements]
+    ranks = mesh.mesh.cpu().numpy()
+    owner = {}
+    for rank in sorted(int(r) for r in ranks.reshape(-1)):
+        coord = [int(c) for c in np.argwhere(ranks == rank)[0]]
+        region = shard_region(shape, dims, ranks.shape, coord)
+        if all(b > a for a, b in region):
+            owner.setdefault(region, rank)
+    mine = shard_region(shape, dims, ranks.shape, mesh.get_coordinate())
+    if owner.get(mine) != process_index():
+        return []
+    return [(tuple(slice(a, b) for a, b in mine),
+             tensor.to_local().detach().cpu().numpy())]

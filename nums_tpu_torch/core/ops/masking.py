@@ -16,6 +16,19 @@ import torch
 NONZERO_MAX_ELEMENTS = 2**31 - 1
 
 
+def refuse_dtensor(tensor, op: str):
+    """A data-dependent shape has no DTensor sharding strategy: on the mesh
+    backend ``op`` raises ``NotImplementedError`` naming it, and never
+    gathers the array to one process. The mesh's masking is a later
+    port."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tensor, DTensor):
+        raise NotImplementedError(
+            f"{op}: DTensor has no sharding strategy for it (the mesh "
+            "backend's masking and unique are not ported)")
+
+
 def _flat_nonzero(flat):
     """Positions of the True elements of a 1-D bool tensor, int64, in
     order; a tensor longer than ``NONZERO_MAX_ELEMENTS`` a chunk at a time
@@ -33,6 +46,7 @@ def device_where(mask_block_array):
     one index tensor per axis, int64, in row-major order; one host sync
     for the count (one a chunk above ``NONZERO_MAX_ELEMENTS`` elements)."""
     data = mask_block_array.data.to(torch.bool)
+    refuse_dtensor(data, "aten.nonzero")
     if data.numel() <= NONZERO_MAX_ELEMENTS:
         idx = torch.nonzero(data, as_tuple=True)
     else:

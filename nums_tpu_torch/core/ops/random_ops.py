@@ -83,11 +83,17 @@ def _scale_unit(floats, dtype, minval, maxval):
 
 
 def _flat_draw(key, shape, dtype, device, width, transform, flat_range,
-               chunk):
+               chunk, runs=None):
     """A new tensor of ``shape`` (or, with ``flat_range=(start, stop)``,
-    that 1-d range of its row-major positions) filled chunk by chunk with
-    ``transform(bits)``."""
+    that 1-d range of its row-major positions; or, with ``runs=(starts,
+    length)``, one row of ``length`` positions from each start) filled
+    chunk by chunk with ``transform(bits)``."""
     shape = tuple(int(s) for s in shape)
+    if runs is not None:
+        starts, length = runs
+        out = torch.empty((int(starts.numel()), int(length)), dtype=dtype,
+                          device=device)
+        return threefry.fill_runs(key, out, width, starts, transform, chunk)
     if flat_range is None:
         out = torch.empty(shape, dtype=dtype, device=device)
         threefry.fill_bits(key, out.view(-1), width, 0, transform, chunk)
@@ -99,7 +105,7 @@ def _flat_draw(key, shape, dtype, device, width, transform, flat_range,
 
 
 def jr_uniform(key, shape, dtype, device, minval=0.0, maxval=1.0,
-               flat_range=None, chunk=None):
+               flat_range=None, chunk=None, runs=None):
     """``jax.random.uniform``: 32 bits per float32, 64 per float64."""
     _np_float(dtype)
     width = 32 if dtype == torch.float32 else 64
@@ -107,7 +113,7 @@ def jr_uniform(key, shape, dtype, device, minval=0.0, maxval=1.0,
         key, shape, dtype, device, width,
         lambda bits: _scale_unit(_bits_to_unit(bits, dtype), dtype,
                                  minval, maxval),
-        flat_range, chunk)
+        flat_range, chunk, runs)
 
 
 # Giles' single-precision erfinv (the polynomial XLA evaluates for a
@@ -166,7 +172,8 @@ def _normal_bounds(dtype):
     return float(np.nextafter(npdt(-1.0), npdt(0.0), dtype=npdt)), 1.0
 
 
-def jr_normal(key, shape, dtype, device, flat_range=None, chunk=None):
+def jr_normal(key, shape, dtype, device, flat_range=None, chunk=None,
+              runs=None):
     """``jax.random.normal``: a uniform on (nextafter(-1, 0), 1) through
     sqrt(2)·erfinv, chunk by chunk."""
     lo, hi = _normal_bounds(dtype)
@@ -175,7 +182,7 @@ def jr_normal(key, shape, dtype, device, flat_range=None, chunk=None):
         key, shape, dtype, device, width,
         lambda bits: _normal_of_uniform(_scale_unit(
             _bits_to_unit(bits, dtype), dtype, lo, hi)),
-        flat_range, chunk)
+        flat_range, chunk, runs)
 
 
 def _wrap_signed(x, nbits):
@@ -1010,6 +1017,63 @@ def sample(dist_name: str, key, shape: tuple, dtype: torch.dtype, device,
     """Draw ``dist_name`` at the logical ``shape``."""
     return _DISTS[dist_name](key, tuple(int(s) for s in shape), dtype,
                              device, x64, *params)
+
+
+# The samplers whose value at a flat position depends on the bits at that
+# position alone: a region of the array is drawn by itself (``where``: the
+# ``flat_range`` or ``runs`` keyword of the draw).
+_FLAT = {
+    "random": lambda key, shape, dtype, device, where: jr_uniform(
+        key, shape, dtype, device, **where),
+    "uniform": lambda key, shape, dtype, device, where, low, high:
+        jr_uniform(key, shape, dtype, device, low, high, **where),
+    "normal": lambda key, shape, dtype, device, where, loc, scale: _affine(
+        jr_normal(key, shape, dtype, device, **where), loc, scale),
+}
+
+
+def sample_region(dist_name: str, key, shape: tuple, region, dtype, device,
+                  x64: bool, *params):
+    """The box ``region`` ((start, stop) per axis) of the draw
+    ``sample(dist_name, key, shape, ...)``, equal to that box of the whole
+    draw: a mesh process draws only its own positions. The box is one
+    range of C-order positions per combination of its leading indices, up
+    to its last axis that is not whole: one range for whole rows, one per
+    row for a column shard. A sampler that is not position-wise (not in
+    ``_FLAT``) draws only a box that is the whole array, and raises
+    ``NotImplementedError`` naming itself for a smaller one: a process
+    never draws the whole array to keep a shard of it."""
+    shape = tuple(int(s) for s in shape)
+    region = tuple((int(a), int(b)) for a, b in region)
+    out_shape = tuple(b - a for a, b in region)
+    if dist_name not in _FLAT:
+        if out_shape == shape:
+            return sample(dist_name, key, shape, dtype, device, x64,
+                          *params)
+        raise NotImplementedError(
+            f"{dist_name}: a shard of this draw is not drawn alone (the "
+            "sampler is not position-wise; the mesh backend's draw of it "
+            "is not ported)")
+    fn = _FLAT[dist_name]
+    if 0 in out_shape:
+        return torch.empty(out_shape, dtype=dtype, device=device)
+    partial = [k for k, ((a, b), s) in enumerate(zip(region, shape))
+               if b - a != s]
+    last = partial[-1] if partial else 0
+    stride = [_size(shape[k + 1:]) for k in range(len(shape))]
+    if last == 0:
+        start = region[0][0] * stride[0] if shape else 0
+        where = {"flat_range": (start, start + _size(out_shape))}
+        return fn(key, shape, dtype, device, where, *params).reshape(
+            out_shape)
+    starts = torch.zeros((), dtype=torch.int64, device=device)
+    for k in range(last):
+        idx = torch.arange(*region[k], dtype=torch.int64, device=device)
+        starts = (starts[..., None] + idx * stride[k]).reshape(-1)
+    starts = starts + region[last][0] * stride[last]
+    length = (region[last][1] - region[last][0]) * stride[last]
+    where = {"runs": (starts.reshape(-1), length)}
+    return fn(key, shape, dtype, device, where, *params).reshape(out_shape)
 
 
 def integers(key, shape: tuple, dtype: torch.dtype, device, x64: bool,

@@ -198,6 +198,30 @@ def fill_bits(key, out_flat, width: int, start: int, transform=None,
     return out_flat
 
 
+def fill_runs(key, out, width: int, starts, transform=None,
+              chunk: int = None):
+    """Row ``r`` of the 2-d tensor ``out`` gets the draw's flat positions
+    ``[starts[r], starts[r] + out.shape[1])`` (``starts``: an int64 tensor
+    on ``out``'s device), a block of rows at a time: one range per row, as
+    a column shard of a mesh holds them. ``transform`` as in
+    ``fill_bits``."""
+    rows, length = out.shape
+    step = max(1, (chunk or CHUNK) // max(length, 1))
+    cols = torch.arange(length, dtype=torch.int64, device=out.device)
+    for a in range(0, rows, step):
+        b = min(a + step, rows)
+        pos = (starts[a:b, None] + cols[None, :]).reshape(-1)
+        # The low word as its int32 bit pattern (int64 -> int32 keeps the
+        # low 32 bits), the high word as it is.
+        words = _threefry_inplace(key[0], key[1],
+                                  (pos >> 32).to(torch.int32),
+                                  pos.to(torch.int32))
+        bits = _pack(*words, width)
+        out[a:b] = (bits if transform is None
+                    else transform(bits)).reshape(b - a, length)
+    return out
+
+
 def random_bits(key, shape, width: int = 32, device="cpu", start: int = 0,
                 stop: int = None, chunk: int = None):
     """Uniform random bits of the row-major array ``shape`` under ``key``.

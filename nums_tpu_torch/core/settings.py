@@ -1,7 +1,8 @@
 """Global configuration for nums_tpu_torch.
 
-Counterpart of ``nums_tpu/core/settings.py``: the backend name, the
-data directory and the checkpoint settings, the matmul precision, the
+Counterpart of ``nums_tpu/core/settings.py``: the backend name and the
+mesh's shape, the hand-scheduled collective matmul and the ragged-shard
+rule, the data directory and the checkpoint settings, the matmul precision, the
 kernel gates, the default dtypes and the operator alias tables. Every
 value is read from the environment at import and may be reassigned on the
 module afterwards; the code reads it at call time.
@@ -11,8 +12,32 @@ import os
 
 import numpy as np
 
-# Backend: "serial" (one device). The mesh backend is a later port.
+
+def _env_tuple(name, default):
+    raw = os.environ.get(name, "")
+    if not raw:
+        return default
+    return tuple(int(x) for x in raw.split(",") if x.strip())
+
+
+# Backend: "serial" (one device) or "mesh" (one process per device under
+# torch.distributed; arrays are DTensors over a DeviceMesh).
 backend_name = os.environ.get("NUMS_TPU_TORCH_BACKEND", "serial")
+
+# Mesh shape (nums_tpu's NUMS_TPU_CLUSTER_SHAPE). Empty = (world size, 1).
+# Its product must equal the number of processes.
+cluster_shape = _env_tuple("NUMS_TPU_TORCH_CLUSTER_SHAPE", ())
+
+# Hand-scheduled collective matmul on the mesh (nums_tpu's
+# NUMS_TPU_COLLECTIVE_MATMUL): "0" (default) runs a local product and lets
+# DTensor (or, for x.T @ x, one all-reduce) join the parts; "ring",
+# "summa" and "auto" as in ``core/ops/summa.py``.
+collective_matmul = os.environ.get("NUMS_TPU_TORCH_COLLECTIVE_MATMUL", "0")
+
+# Ragged axes on the mesh (nums_tpu's NUMS_TPU_PAD_SHARD): "1" shards an
+# axis that the mesh does not divide (DTensor's uneven shards: the same
+# rows the reference's padded layout gives each device); "0" replicates it.
+pad_shard = os.environ.get("NUMS_TPU_TORCH_PAD_SHARD", "1") == "1"
 
 # Directory that relative checkpoint, DiskArray and model names live under
 # (nums_tpu's NUMS_TPU_DATA_DIR).

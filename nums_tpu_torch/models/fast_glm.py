@@ -17,6 +17,8 @@ what its reference returns.
   scalars cross.
 * ``newton_fit_ooc`` trains on a DiskArray, streaming its row panels
   through the device once per iteration (K3 per panel on the card).
+* ``newton_fit_mesh`` is ``newton_fit`` on the mesh backend: each process
+  runs the statistics on its own rows and one all-reduce joins them.
 
 The solves use ``core/ops/linalg.posdef_solve`` (``cholesky_ex``): NaN for
 a matrix that is not positive definite, as ``jnp.linalg.cholesky``
@@ -28,7 +30,7 @@ import math
 import numpy as np
 import torch
 
-from nums_tpu_torch.core.ops import cuda_gram, cuda_newton
+from nums_tpu_torch.core.ops import cuda_gram, cuda_newton, summa
 from nums_tpu_torch.core.ops.linalg import posdef_solve as _posdef_solve
 
 
@@ -94,9 +96,14 @@ _STEPS = {
 }
 
 
-def _newton_step_penalized(kind, X, y, beta, lambda_vec, kernels=False):
-    """One Newton step with l2 penalty: g += λ∘β; H += diag(λ)."""
+def _newton_step_penalized(kind, X, y, beta, lambda_vec, kernels=False,
+                           reduce=None):
+    """One Newton step with l2 penalty: g += λ∘β; H += diag(λ). On the mesh
+    ``reduce`` sums the (g, H) of each process's rows over the processes
+    (one all-reduce) before the penalty and the solve."""
     g, H = _newton_stats(kind, X, y, beta, kernels)
+    if reduce is not None:
+        g, H = reduce(g, H)
     if lambda_vec is not None:
         g = g + lambda_vec * beta
         H = H + torch.diag(lambda_vec)
@@ -104,13 +111,15 @@ def _newton_step_penalized(kind, X, y, beta, lambda_vec, kernels=False):
 
 
 def newton_fit(X, y, beta0, tol, kind="logistic", max_iter=10,
-               penalized=False, lambda_vec=None, kernels=False):
+               penalized=False, lambda_vec=None, kernels=False, reduce=None):
     """Newton training with on-device convergence, as the reference's
     ``lax.while_loop`` (max|g| <= tol after each update). No host sync:
     every one of ``max_iter`` steps runs, and each output is frozen by
     ``torch.where`` once converged. On the Newton-stats kernel X is
     staged once, before the loop, and the staged copy is freed when the
-    fit returns. Returns ``(beta, gmax, it)``."""
+    fit returns. With ``reduce`` (``newton_fit_mesh``) X and y are one
+    process's rows and each step's statistics are summed over the
+    processes. Returns ``(beta, gmax, it)``."""
     lv = lambda_vec if penalized else None
     dev = X.device
     beta = beta0
@@ -121,11 +130,44 @@ def newton_fit(X, y, beta0, tol, kind="logistic", max_iter=10,
     for _ in range(int(max_iter)):
         active = gmax > tol
         new_beta, g = _newton_step_penalized(kind, Xs, y, beta, lv,
-                                             kernels=kernels)
+                                             kernels=kernels, reduce=reduce)
         beta = torch.where(active, new_beta, beta)
         gmax = torch.where(active, g.abs().max(), gmax)
         it = it + active.to(torch.int32)
     return beta, gmax, it
+
+
+def newton_fit_mesh(X, y, beta0, tol, kind="logistic", max_iter=10,
+                    penalized=False, lambda_vec=None, kernels=False):
+    """``newton_fit`` on the mesh: X (n, d) and y (n,) are DTensors,
+    ``beta0`` and ``lambda_vec`` replicated ones. Each process stages its
+    own rows once and runs the statistics (K3 on the card) on them; one
+    all-reduce (SUM) of g and H, packed in one buffer, over the mesh
+    dimensions that shard the rows follows each call; the Newton solve is
+    replicated, the same on every process (the reference keeps β, g and H
+    replicated). Returns ``(beta, gmax, it)`` as whole tensors, the same on
+    every process."""
+    rows = summa.row_layout(X)
+    Xl, yl = summa.local_part(X, rows), summa.local_part(y, rows)
+    lv = lambda_vec.full_tensor() if lambda_vec is not None else None
+    kernels = kernels and cuda_gram.supported(tuple(Xl.shape), Xl.dtype)
+    return newton_fit(Xl, yl, beta0.full_tensor(), tol, kind=kind,
+                      max_iter=max_iter, penalized=penalized, lambda_vec=lv,
+                      kernels=kernels, reduce=mesh_reduce(X.device_mesh, rows))
+
+
+def mesh_reduce(mesh, rows):
+    """(g, H) -> their sums over the processes that hold other rows
+    (``rows``: ``summa.row_layout``'s placements): one all-reduce of g and
+    H packed in one buffer."""
+
+    def reduce(g, H):
+        d = g.shape[0]
+        packed = summa.all_reduce_rows(
+            mesh, rows, torch.cat([g.reshape(-1), H.reshape(-1)]))
+        return packed[:d], packed[d:].reshape(H.shape)
+
+    return reduce
 
 
 def newton_train(X, y, beta0, kind="logistic", num_iters=10):

@@ -240,7 +240,10 @@ class GLM:
         family has no fused kind (glms.py:256-308 of the reference). The
         kernels take the fp32 design matrix by dtype and the precision
         setting alone (the reference also needs a lane-padded buffer); a
-        failed kernel raises and is never replaced by the eager route."""
+        failed kernel raises and is never replaced by the eager route. On
+        the mesh each process runs the kernels on its own rows
+        (``fast_glm.newton_fit_mesh``), where the reference's mesh takes
+        no Pallas route (glms.py:273 there)."""
         from nums_tpu_torch.core import settings
         from nums_tpu_torch.models import fast_glm
 
@@ -251,7 +254,9 @@ class GLM:
             tuple(Xd.shape), Xd.dtype
         )
         lv = self._lambda_vec.data if self._lambda_vec is not None else None
-        beta_data, _, _ = fast_glm.newton_fit(
+        fit = (fast_glm.newton_fit if X.backend.mesh is None
+               else fast_glm.newton_fit_mesh)
+        beta_data, _, _ = fit(
             Xd, y.data, beta.data, self._tol,
             kind=self._fused_kind, max_iter=int(max_iter),
             penalized=lv is not None, lambda_vec=lv, kernels=kernels,
@@ -719,13 +724,23 @@ def gd(model, beta, X, y, tol, max_iter, lr):
     return beta
 
 
+def _solve_small(app, H, g):
+    """x of the (d, d) system H·x = g, by Cholesky on each process's own
+    copy: H and g are re-blocked to one block first (replicated on the
+    mesh: the d² values the fused path all-reduces), and x takes g's
+    blocks."""
+    x = app.posdef_solve(H.reshape(block_shape=H.shape),
+                         g.reshape(block_shape=g.shape))
+    return x.reshape(block_shape=g.block_shape)
+
+
 def newton(app, model, beta, X, y, tol, max_iter):
     """Eager Newton: a Cholesky solve of the Hessian per iteration, and
     one host sync per iteration for the convergence test."""
     for _ in range(max_iter):
         mu = model.forward(X, beta)
         g = model.gradient(X, y, mu, beta=beta)
-        beta += -app.posdef_solve(model.hessian(X, y, mu), g)
+        beta += -_solve_small(app, model.hessian(X, y, mu), g)
         if app.max(app.abs(g)) <= tol:
             break
     return beta
@@ -738,7 +753,7 @@ def irls(app, model, beta, X, y, tol, max_iter):
         s = mu * (1 - mu) + 1e-16
         XT_s = X.T * s
         z = eta + (y - mu) / s
-        beta = app.posdef_solve(XT_s @ X, XT_s @ z)
+        beta = _solve_small(app, XT_s @ X, XT_s @ z)
         # Freed here, not when the next iteration rebinds it: XT_s is as
         # large as X, and two of them would be alive at once.
         del XT_s

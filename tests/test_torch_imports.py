@@ -111,10 +111,14 @@ def test_init_needs_a_card_unless_the_cpu_is_asked_for():
     "nums_tpu_torch.models.cluster",
     "nums_tpu_torch.models.trees",
     "nums_tpu_torch.experimental.nums_xgb",
+    "nums_tpu_torch.core.multiprocess",
+    "nums_tpu_torch.core.ops.summa",
+    "nums_tpu_torch.core.backend",
+    "nums_tpu_torch.core.application_manager",
 ])
 def test_io_and_ooc_modules_import_first(module):
     """Each module of the I/O, out-of-core, linalg, ingestion, random,
-    facade and models slices imports as the first module of a process (no
+    facade, models and mesh slices imports as the first module of a process (no
     import cycle), with jax, nums_tpu and optax blocked."""
     probe = _PROBE.split("import nums_tpu_torch\n")[0] + (
         f"import {module}\n"
@@ -127,6 +131,31 @@ def test_io_and_ooc_modules_import_first(module):
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
+
+
+def test_mesh_init_needs_a_card_unless_the_cpu_is_asked_for():
+    """``init(backend="mesh")`` takes the card of its local rank and
+    raises without one; with ``device="cpu"`` a process alone is a mesh of
+    one device over gloo."""
+    probe = ("import nums_tpu_torch\n"
+             "print(nums_tpu_torch.init(backend='mesh').backend.device)")
+    out = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0 and out.stdout.strip() == ""
+    assert "RuntimeError" in out.stderr and 'device="cpu"' in out.stderr
+    probe = ("import nums_tpu_torch, torch.distributed as dist\n"
+             "app = nums_tpu_torch.init(backend='mesh', device='cpu')\n"
+             "print(app.backend.name, app.backend.cluster_shape,\n"
+             "      dist.get_backend())")
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE.split("import nums_tpu_torch\n")[0]
+         + probe], cwd=REPO, env=_env(), capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["mesh", "(1,", "1)", "gloo"]
 
 
 @pytest.mark.parametrize(

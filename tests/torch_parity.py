@@ -236,3 +236,175 @@ def facade_parity(apps, fn, tol="elementwise"):
     jax_app, torch_app = apps
     assert_parity(run_parity(lambda: fn(tnps, torch_app)),
                   run_parity(lambda: fn(jnps, jax_app)), tol)
+
+
+# ---------------------------------------------------------------------
+# A pool of 4 gloo processes for the mesh tests (tests/test_torch_mesh*.py,
+# test_torch_summa.py, test_torch_multiprocess.py)
+# ---------------------------------------------------------------------
+
+MESH_WORLD = 4
+# Every wait on the workers has a deadline: on expiry they are killed and
+# the case fails, so no collective left waiting can hang the suite.
+MESH_CASE_SECONDS = 60.0
+_BLOCKED = ("jax", "jaxlib", "nums_tpu", "optax")
+
+
+class _Block:
+    """A meta-path finder that refuses the reference's packages: the
+    workers run the port alone."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in _BLOCKED:
+            raise ImportError("blocked in a mesh worker: " + name)
+        return None
+
+
+def _mesh_worker(rank, world, init_file, inbox, outbox):
+    import os
+    import sys
+    import traceback
+
+    sys.meta_path.insert(0, _Block())
+    os.environ.update({
+        "NUMS_TPU_TORCH_INIT_FILE": init_file,
+        "NUMS_TPU_TORCH_NUM_PROCESSES": str(world),
+        "NUMS_TPU_TORCH_PROCESS_ID": str(rank),
+        "CUDA_VISIBLE_DEVICES": "",
+    })
+    import torch as _torch
+
+    _torch.set_num_threads(1)
+    from nums_tpu_torch.core import multiprocess
+
+    multiprocess.initialize("cpu")
+    while True:
+        item = inbox.get()
+        if item is None:
+            break
+        fn, args, kwargs = item
+        try:
+            outbox.put((rank, True, fn(*args, **kwargs)))
+        except BaseException:  # noqa: BLE001 - sent back to the test
+            outbox.put((rank, False, traceback.format_exc()))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+class MeshPool:
+    """``MESH_WORLD`` worker processes (``spawn``), joined once into a gloo
+    group through a ``file://`` rendezvous under ``root`` (no port). ``run``
+    calls a top-level function on every rank and returns rank 0's result;
+    a rank that raised fails the call with its traceback. Workers never
+    import jax, jaxlib, optax or nums_tpu (their imports are blocked), so
+    a case function's module keeps those imports inside its tests."""
+
+    def __init__(self, root, world=MESH_WORLD):
+        self.root, self.world, self._generation = root, world, 0
+        self._procs = []
+
+    def _start(self):
+        import multiprocessing as mp
+        import os
+
+        self._generation += 1
+        init_file = os.path.join(str(self.root),
+                                 f"rendezvous{self._generation}")
+        ctx = mp.get_context("spawn")
+        self._outbox = ctx.Queue()
+        self._inboxes = [ctx.Queue() for _ in range(self.world)]
+        self._procs = [
+            ctx.Process(target=_mesh_worker, daemon=True, args=(
+                r, self.world, init_file, self._inboxes[r], self._outbox))
+            for r in range(self.world)
+        ]
+        for p in self._procs:
+            p.start()
+
+    def kill(self):
+        for p in self._procs:
+            if p.is_alive():
+                p.kill()
+            p.join(5)
+        self._procs = []
+
+    def run(self, fn, *args, timeout=MESH_CASE_SECONDS, **kwargs):
+        import queue
+        import time
+
+        if not self._procs or not all(p.is_alive() for p in self._procs):
+            self.kill()
+            self._start()
+        for box in self._inboxes:
+            box.put((fn, args, kwargs))
+        deadline = time.monotonic() + timeout
+        results = {}
+        while len(results) < self.world:
+            try:
+                rank, ok, value = self._outbox.get(
+                    timeout=max(0.05, deadline - time.monotonic()))
+            except queue.Empty:
+                self.kill()
+                said = "\n".join(f"rank {r}: {v}" for r, (ok, v)
+                                 in sorted(results.items()) if not ok)
+                raise AssertionError(
+                    f"{fn.__name__}: {self.world - len(results)} rank(s) "
+                    f"did not answer within {timeout} s; workers killed\n"
+                    + said)
+            results[rank] = (ok, value)
+        failed = {r: v for r, (ok, v) in results.items() if not ok}
+        if failed:
+            raise AssertionError(f"{fn.__name__} failed on ranks "
+                                 f"{sorted(failed)}:\n" + "\n".join(
+                                     failed.values()))
+        return results[0][1]
+
+    def close(self):
+        for box in getattr(self, "_inboxes", []):
+            box.put(None)
+        for p in self._procs:
+            p.join(10)
+        self.kill()
+
+
+@pytest.fixture(scope="module")
+def mesh_pool(tmp_path_factory):
+    pool = MeshPool(tmp_path_factory.mktemp("mesh"))
+    yield pool
+    pool.close()
+
+
+_MESH_APPS = {}
+
+
+def mesh_app(cluster_shape=(4, 1)):
+    """In a mesh worker: the port's mesh application on the CPU over the
+    pool's group (one per cluster shape, kept for the worker's life: a
+    DeviceMesh makes process groups), made current."""
+    from nums_tpu_torch.core import application_manager
+
+    cluster_shape = tuple(cluster_shape)
+    if cluster_shape not in _MESH_APPS:
+        _MESH_APPS[cluster_shape] = application_manager.create(
+            device="cpu", backend="mesh", cluster_shape=cluster_shape)
+    app = _MESH_APPS[cluster_shape]
+    application_manager.set_instance(app)
+    return app
+
+
+@pytest.fixture()
+def jax_mesh():
+    """nums_tpu's mesh application on a (4, 1) mesh of the 8 virtual CPU
+    devices, made current; the application before it is restored after."""
+    from nums_tpu.core import application_manager
+    from nums_tpu.core.array.application import ArrayApplication
+    from nums_tpu.core.backend import MeshBackend
+    from nums_tpu.core.io.filesystem import FileSystem
+
+    backend = MeshBackend(cluster_shape=(4, 1)).init()
+    app = ArrayApplication(backend, FileSystem(backend))
+    old = application_manager._instance
+    application_manager.set_instance(app)
+    yield app
+    application_manager.set_instance(old)
