@@ -1,11 +1,11 @@
 """Smoke run of nums_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py                 # phases 1-14
+    python3 chip_smoke.py                 # phases 1-16
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check
     python3 chip_smoke.py --random-only   # phases 1 and 11
     python3 chip_smoke.py --facade-only   # phases 1, 2, 12 and 13
     python3 chip_smoke.py --models-only   # phases 1, 2 and 14
-    python3 chip_smoke.py --mesh-only     # phases 1, 2 and 15 on every card
+    python3 chip_smoke.py --mesh-only     # phases 1, 2, 15 and 16 on every card
 
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi);
@@ -202,7 +202,41 @@ Phases, each printing one JSON line:
      step's time (CUDA events after a barrier, the slowest rank's), the
      all-reduce of g and H alone, each card's peak memory and each card's
      name and power limit; the run fails unless every rank exits 0 within
-     840 s.
+     840 s (and phase 16's own deadline).
+ 16. mesh_ooc: out of core on the mesh, each step a JSON line's entry with
+     its seconds (host clock after a barrier, the slowest rank's), each
+     card's launches of K1/K2/K3 (set to 0 just before it, read just
+     after), bytes read through ``PanelRef.load`` and peak above what was
+     allocated before it. In the full run on the world-1 mesh of phase 15,
+     X of 1,000,000 x 1000 fp32 (phase 4's first rows) in 4 panels, under
+     ``settings.data_dir`` (14 GB free needed, removed at the end); with
+     ``--mesh-only`` on phase 15's X (its 2.5M rows a card the panels,
+     each rank reading its quarter of each), after the I/O at realistic
+     size: a 2.5M x 1000 slice (10 GB) written with two replicas, rank 0's
+     block corrupted by the last rank and read through the failover, the
+     collective ``verify_fs(repair=True)`` (one report on every rank) and
+     ``delete_fs``, the slice through ``s3://`` on the file-backed fake,
+     phase 10's HIGGS text (11M x 29) through ``read_csv`` (each rank
+     parsing its rows) and, where pyarrow is installed, ``read_parquet``,
+     both bitwise. The steps: ``write_fs`` (each rank its own block
+     files), ``read_fs`` bitwise, the collective ``verify_fs`` and
+     ``delete_fs``; ``spill`` of X and y; ``gram_ooc`` (K1 once a panel)
+     within 1e-3 of the in-core gram; the logistic fit on the DiskArray
+     (K3 one-shot a panel and pass, the in-core fit's iteration count, beta
+     within 1e-2 of the in-core fit's); one statistics pass with the
+     Newton gate off (K2) against K3's (g 1e-3, H 4e-3);
+     ``linear_regression_ooc`` within 1e-2 of float64 normal equations;
+     ``tsqr_r_ooc``, RᵀR within 1e-4 of the float64 gram;
+     ``predict_ooc`` against the in-core ``predict`` (at most 1e-4 of the
+     rows differ); PCA(16)'s fit (K1 once a panel; variances within 2e-3
+     of float64, components orthonormal) and transform (within 1e-4 of a
+     float64 projection); KMeans(16), two passes at tol 0 and
+     ``predict_ooc``, held on one card to in-core Lloyd's and with
+     ``--mesh-only`` by the parent to the same fit on a world-1 mesh of the
+     first card (centers within 1e-4); then one pass taken apart on each
+     rank (host read, host to device, K3, the all-reduce) and K1, K2 and
+     K3 on a rank's rows of one panel against their plain versions. The
+     phase fails past 900 s on any rank.
 Then the kernels as one JSON line (each with its bound, the least time
 the card could take for its work at this run's shapes), and last
 {"ok": true, "device": {...}}. A failed phase prints its traceback and
@@ -4220,14 +4254,17 @@ def phase_mesh(torch, smi, keep):
             out["all_reduce_h_ms"] = _mesh_time_ms(torch,
                                                    lambda: dist.all_reduce(h))
             del X, G, y, model, local, h
+            torch.cuda.empty_cache()
+            out["seconds"] = time.perf_counter() - t_phase
+            out["bitwise_vs_phase_4"] = ["draw", "gram", "beta", "accuracy"]
+            emit(out)
+            # Phase 16 on the same world-1 mesh.
+            ooc = phase_mesh_ooc(torch, smi, app)
             app.backend.shutdown()
         finally:
             application_manager.set_instance(saved)
             dist.destroy_process_group()
-    out["bitwise_vs_phase_4"] = ["draw", "gram", "beta", "accuracy"]
-    out["seconds"] = time.perf_counter() - t_phase
-    emit(out)
-    return out
+    return out, ooc
 
 
 class _Tee:
@@ -4302,11 +4339,14 @@ def _mesh_cards(torch, cfg):
     say = emit if rank == 0 else (lambda obj: print(json.dumps(obj)))
     head = {"world": world, "shape": [n, d], "cluster_shape": [world, 1]}
     X = _mesh_draw_step(torch, app, n, d, cfg, say, head)
-    _mesh_gram_step(torch, app, X, say, head)
+    G = _mesh_gram_step(torch, app, X, say, head)
     _mesh_nt_step(torch, app, X, cfg, say, head)
     _mesh_ring_step(torch, app, X, say, head)
-    _mesh_fit_step(torch, app, X, d, say, head)
-    del X
+    y, beta, iters = _mesh_fit_step(torch, app, X, d, say, head)
+    # Phase 16 on the same X, held to these in-core results.
+    _mesh_ooc_cards(torch, app, X, y, {"gram": G, "beta": beta,
+                                       "iterations": iters}, cfg, say, head)
+    del X, y, G
     _mesh_free(torch)
     if world % 2 == 0 and world >= 4:
         _mesh_summa_step(torch, n, d, world, say, head)
@@ -4414,6 +4454,7 @@ def _mesh_gram_step(torch, app, X, say, head):
     say({"phase": "mesh", "step": "gram", **head, **out,
          "routes_rel_err": routes, "tolerance": MESH_GRAM_REL,
          "offdiag_tolerance": MESH_GRAM_OFF_REL})
+    return grams["default"]
 
 
 def _offdiag_rel(torch, got, ref):
@@ -4590,6 +4631,7 @@ def _mesh_fit_step(torch, app, X, d, say, head):
          "beta_tolerance": BETA_REL, "accuracy": acc,
          "accuracy_true_beta": acc_true})
     _mesh_free(torch)
+    return y, beta, launches["newton_stats"]
 
 
 def _mesh_summa_step(torch, n, d, world, say, head):
@@ -4670,39 +4712,774 @@ def phase_mesh_cards(torch, smi):
     import multiprocessing as mp
     import tempfile
 
+    import shutil
+
+    from nums_tpu_torch.core import settings
+
     world = torch.cuda.device_count() if DEVICE == "cuda" else 4
     root = os.path.dirname(os.path.abspath(__file__))
     out_dir = os.path.join(root, "mesh_logs")
     os.makedirs(out_dir, exist_ok=True)
+    # Phase 16's files: X spilled (4·N·d bytes) and what comes of it, or
+    # the 2.5M-row slice and its replica before it; N is cut to a multiple
+    # of 1,000,000 rows only where the disk cannot hold them.
+    os.makedirs(settings.data_dir, exist_ok=True)
+    free = shutil.disk_usage(settings.data_dir).free
+    fixed = max(8.0 * MESH_OOC_SLICE * D_FULL, 6e9) + MESH_OOC_MARGIN_BYTES
+    ooc_n = MESH_N
+    while ooc_n > 1_000_000 and free < max(fixed, 4.0 * ooc_n * D_FULL * 1.1
+                                           + MESH_OOC_MARGIN_BYTES):
+        ooc_n = (ooc_n - 1) // 1_000_000 * 1_000_000
+    assert free >= max(fixed, 4.0 * ooc_n * D_FULL * 1.1
+                       + MESH_OOC_MARGIN_BYTES), (
+        f"phase 16 cannot fit under {settings.data_dir}: {free / 1e9:.1f} "
+        "GB are free")
+    ooc_root = tempfile.mkdtemp(prefix="chip_smoke_mesh_ooc-",
+                                dir=settings.data_dir)
     cfg = {"n": MESH_N, "d": D_FULL, "nt_rows": MESH_NT_ROWS,
            "check_rows": MESH_CHECK_ROWS, "device": DEVICE,
-           "deadline": MESH_DEADLINE_S, "out_dir": out_dir, "root": root}
+           "deadline": MESH_DEADLINE_S + MESH_OOC_DEADLINE_S,
+           "out_dir": out_dir, "root": root, "ooc_root": ooc_root,
+           "ooc_n": ooc_n}
     emit({"phase": "mesh_start", "world": world, "nvidia_smi": smi,
-          "shape": [cfg["n"], cfg["d"]]})
+          "shape": [cfg["n"], cfg["d"]], "data_dir_free_bytes": free,
+          "mesh_ooc_rows": ooc_n, "mesh_ooc_cut": ooc_n != MESH_N})
     ctx = mp.get_context("spawn")
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        init = os.path.join(tmp, "rendezvous")
-        procs = [ctx.Process(target=_mesh_rank, args=(r, world, init, cfg))
-                 for r in range(world)]
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + MESH_DEADLINE_S
-        while any(p.is_alive() for p in procs):
-            failed = [p for p in procs
-                      if p.exitcode is not None and p.exitcode != 0]
-            if failed or time.monotonic() > deadline:
-                break
-            time.sleep(0.5)
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-            p.join()
-    codes = [p.exitcode for p in procs]
-    assert codes == [0] * world, ("mesh ranks' exit codes", codes)
-    emit({"phase": "mesh_done", "world": world, "exit_codes": codes,
-          "seconds": time.perf_counter() - t0})
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            init = os.path.join(tmp, "rendezvous")
+            procs = [ctx.Process(target=_mesh_rank,
+                                 args=(r, world, init, cfg))
+                     for r in range(world)]
+            for p in procs:
+                p.start()
+            deadline = time.monotonic() + cfg["deadline"]
+            while any(p.is_alive() for p in procs):
+                failed = [p for p in procs
+                          if p.exitcode is not None and p.exitcode != 0]
+                if failed or time.monotonic() > deadline:
+                    break
+                time.sleep(0.5)
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        assert codes == [0] * world, ("mesh ranks' exit codes", codes)
+        emit({"phase": "mesh_done", "world": world, "exit_codes": codes,
+              "seconds": time.perf_counter() - t0})
+        _mesh_ooc_world1_kmeans(torch, ooc_root, world)
+    finally:
+        shutil.rmtree(ooc_root, ignore_errors=True)
     return world
+
+
+# Phase 16, out of core on the mesh: in the full run on this card alone (a
+# world-1 mesh of MESH_OOC_N1 rows in MESH_OOC_PANELS1 panels, the mesh
+# branch of ooc_put and the streamed folds); with --mesh-only, on every
+# card at phase 15's X and against its in-core results.
+MESH_OOC_N1 = 1_000_000        # the default run: 1M x 1000 fp32, 4 GB
+MESH_OOC_PANELS1 = 4
+MESH_OOC_SLICE = 2_500_000     # --mesh-only I/O checks: a 10 GB slice
+MESH_OOC_MARGIN_BYTES = 10e9   # free space kept beyond the phase's files
+MESH_OOC_DEADLINE_S = 900.0    # the phase's own deadline, every rank: it
+                               # took 497 s on four H100s (I/O included)
+MESH_OOC_TSQR_REL = 1e-4       # RᵀR (fp32 Householder) vs the float64 gram
+MESH_OOC_CHECK_ROWS = 4096     # transform rows held to a float64 projection
+
+
+def _whole(t):
+    """A (replicated) DTensor's value as one plain tensor."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _ooc_mesh_step(torch, steps, name, fn):
+    """fn() as one step of phase 16: after a barrier, the launch counts
+    and the bytes read through ``PanelRef.load`` set to 0 and the peak
+    device memory reset; after it (synchronized) the host-clock seconds
+    (the slowest rank's), each card's launches, bytes read and peak above
+    what was allocated before the step, in ``steps[name]``. Returns
+    (fn(), this rank's launch counts)."""
+    import torch.distributed as dist
+
+    from nums_tpu_torch.core import multiprocess
+    from nums_tpu_torch.core.array import diskarray
+
+    multiprocess.barrier(name)
+    _mesh_sync(torch)
+    base = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    diskarray.PANEL_BYTES_READ["bytes"] = 0
+    t0 = time.perf_counter()
+    out = fn()
+    _mesh_sync(torch)
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    mine = {"launches": counts,
+            "panel_bytes_read": diskarray.PANEL_BYTES_READ["bytes"],
+            "peak_above_before_bytes": (
+                torch.cuda.max_memory_allocated() - base
+                if DEVICE == "cuda" else 0)}
+    per = [None] * dist.get_world_size()
+    dist.all_gather_object(per, mine)
+    steps[name] = {
+        "seconds": _all_max(torch, secs),
+        "launches_per_card": [p["launches"] for p in per],
+        "panel_bytes_read_per_rank": [p["panel_bytes_read"] for p in per],
+        "peak_above_before_bytes_per_card": [
+            p["peak_above_before_bytes"] for p in per]}
+    return out, counts
+
+
+def _rank_rows(app, rows):
+    """(lo, hi): this rank's rows of a streamed panel of ``rows`` rows."""
+    from nums_tpu_torch.core.ops import streaming
+
+    (lo, hi), = app.backend.region((rows,), streaming.row_placements(
+        app.backend.mesh))
+    return lo, hi
+
+
+def _panels_with_rows(app, dX):
+    """The panels of ``dX`` of which this rank holds rows, and its rows of
+    them all."""
+    spans = [_rank_rows(app, b - a) for a, b in dX.grid.grid_slices[0]]
+    return sum(1 for lo, hi in spans if hi > lo), sum(hi - lo
+                                                      for lo, hi in spans)
+
+
+def _counting_block_writes(written):
+    """Wrap the checkpoint writer's block engine and np.save to record the
+    block files this process writes; returns the undo."""
+    from nums_tpu_torch.core.io import filesystem
+
+    native, save = filesystem.shard_native.write_shards, filesystem.np.save
+
+    def write_shards(items):
+        written.extend(os.path.basename(p) for p, _ in items)
+        return native(items)
+
+    def np_save(path, arr, *args, **kwargs):
+        written.append(os.path.basename(str(path)))
+        return save(path, arr, *args, **kwargs)
+
+    filesystem.shard_native.write_shards = write_shards
+    filesystem.np.save = np_save
+
+    def undo():
+        filesystem.shard_native.write_shards = native
+        filesystem.np.save = save
+
+    return undo
+
+
+def _bits_same(torch, a, b):
+    """Equal shape and bits, on the card."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def _all_true(torch, flag):
+    """Whether ``flag`` holds on every rank."""
+    return _all_max(torch, 0.0 if flag else 1.0) == 0.0
+
+
+def _mesh_stats_pass(torch, app, dX, y_at, beta, kind):
+    """(g, H) of one streamed Newton statistics pass on the mesh, as
+    ``newton_fit_ooc`` makes it: each rank's rows of each panel augmented
+    on its card and folded by ``streaming.glm_stats_update_aug``, one
+    all-reduce after the pass."""
+    from nums_tpu_torch.core.array.application import ooc_panels, ooc_put
+    from nums_tpu_torch.core.ops import streaming
+
+    da = dX.shape[1] + 1
+    dev = app.backend.device
+    g = torch.zeros(da, device=dev)
+    H = torch.zeros(da, da, device=dev)
+    for start, panel in ooc_panels(dX):
+        p, _ = ooc_put(app.backend, panel)
+        yp, _ = ooc_put(app.backend, y_at(start, panel.shape[0]))
+        x = streaming.local_rows(p)
+        if x.shape[0]:
+            streaming.glm_stats_update_aug(kind, g, H, streaming.augment_ones(
+                x), streaming.local_rows(yp), beta)
+    streaming.reduce_rows(app.backend.mesh, [g, H])
+    return g, H
+
+
+def _rows64(torch, x, y=None, chunk=MESH_CHUNK):
+    """Float64 column sums of ``x`` and xᵀy (None without y), a chunk of
+    rows at a time."""
+    s = torch.zeros(x.shape[1], dtype=torch.float64, device=x.device)
+    b = None if y is None else torch.zeros_like(s)
+    for i in range(0, x.shape[0], chunk):
+        c = x[i:i + chunk].double()
+        s += c.sum(dim=0)
+        if y is not None:
+            b += c.T @ y[i:i + chunk].double()
+    return s, b
+
+
+def _mesh_ooc_pass_parts(torch, app, dX, dy, beta):
+    """One mesh pass taken apart on this rank: the host read of its rows
+    of every panel, their moves to the card, K3 one-shot on them, and the
+    all-reduce of g and H; then K1, K2 and K3 on its rows of the first
+    panel against their plain versions (``_kernels_at``)."""
+    import torch.distributed as dist
+
+    from nums_tpu_torch.core import multiprocess
+    from nums_tpu_torch.core.ops import cuda_newton, streaming
+
+    multi = multiprocess.is_multiprocess()
+    spans = [(i, _rank_rows(app, b - a))
+             for i, (a, b) in enumerate(dX.grid.grid_slices[0])]
+    refs = dict(enumerate(r for _, r in dX.iter_panel_refs()))
+    yrefs = dict(enumerate(r for _, r in dy.iter_panel_refs()))
+    host, read_s = [], 0.0
+    for i, (lo, hi) in spans:
+        if hi <= lo:
+            continue
+        t0 = time.perf_counter()
+        x = refs[i].load(lo, hi) if multi else dX.row_panel(i)[lo:hi]
+        read_s += time.perf_counter() - t0
+        host.append((x, yrefs[i].load(lo, hi)))
+    put_s, k3_ms, dev = 0.0, 0.0, app.backend.device
+    for x, yh in host:
+        _mesh_sync(torch)
+        t0 = time.perf_counter()
+        xd = torch.from_numpy(x).to(dev)
+        _mesh_sync(torch)
+        put_s += time.perf_counter() - t0
+        pa = streaming.augment_ones(xd)
+        yd = torch.from_numpy(yh).to(dev)
+        del xd
+        k3_ms += time_ms(lambda: cuda_newton.stats(pa, yd, beta, "logistic")) \
+            if DEVICE == "cuda" else 0.0
+        del pa, yd
+    da = dX.shape[1] + 1
+    packed = torch.zeros(da * (da + 1), device=dev)
+    ar_ms = _mesh_time_ms(torch, lambda: dist.all_reduce(packed))
+    x, yh = host[0]
+    p = torch.from_numpy(x).to(dev)
+    kernels = (_kernels_at(torch, p, streaming.augment_ones(p),
+                           torch.from_numpy(yh).to(dev), beta)
+               if DEVICE == "cuda" else {})
+    mine = {"host_read_s": read_s, "host_to_device_s": put_s,
+            "k3_one_shot_ms_all_panels": k3_ms, "rows": sum(
+                x.shape[0] for x, _ in host)}
+    per = [None] * dist.get_world_size()
+    dist.all_gather_object(per, mine)
+    return {"per_rank": per, "all_reduce_g_h_ms": ar_ms,
+            "all_reduce_bytes": 4 * packed.numel(),
+            "panel_kernels_rank0": kernels,
+            "panel_rows": int(p.shape[0])}
+
+
+def _mesh_ooc_kmeans64(torch, local, rows, k_iters):
+    """In-core Lloyd's from the first-panel seeding on ``local`` (the
+    whole X on a world-1 mesh): phase 8's reference."""
+    from nums_tpu_torch.models import cluster
+
+    sample = local[:rows]
+    centers = cluster._plusplus_init(KM_K, KM_SEED, sample,
+                                     cluster._row_sq_norms(sample), False)
+    xx = cluster._row_sq_norms(local)
+    for _ in range(k_iters):
+        _, sums, counts = cluster._assign_stats(local, centers, KM_K, xx)
+        centers, _ = cluster._update(centers, sums, counts)
+    return centers
+
+
+def _mesh_ooc(torch, app, X, y, ref, root, say, head, t_phase=None):
+    """Phase 16's steps on this rank (the module docstring lists them) on
+    X (its row blocks the panels) and labels y, against ``ref``: phase 15's
+    (or this X's) in-core gram ("gram"), fitted β ("beta") and Newton
+    iterations ("iterations"). The phase's seconds count from ``t_phase``
+    (default: now). Returns the phase's totals."""
+    import torch.distributed as dist
+
+    from nums_tpu_torch.core import settings
+    from nums_tpu_torch.core.array.application import _ooc_y_getter
+    from nums_tpu_torch.core.array.blockarray import BlockArray
+    from nums_tpu_torch.core.grid import ArrayGrid
+    from nums_tpu_torch.core.ops import cuda_gram, streaming, summa
+    from nums_tpu_torch.models import cluster
+    from nums_tpu_torch.models.decomposition import PCA
+    from nums_tpu_torch.models.glms import LogisticRegression
+
+    t_phase = time.perf_counter() if t_phase is None else t_phase
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n, d = X.shape
+    rows = X.block_shape[0]
+    local = X.raw.to_local()
+    (r0, r1), _ = app.backend.region((n, d), X.raw.placements)
+    steps = {}
+    out = {"phase": "mesh_ooc", **head, "panel_rows": rows,
+           "panels": -(-n // rows), "steps": steps}
+
+    def step(name, fn):
+        return _ooc_mesh_step(torch, steps, name, fn)
+
+    # 1. The checkpoint: each rank writes its own block files.
+    ck = os.path.join(root, "ckpt")
+    written = []
+    undo = _counting_block_writes(written)
+    try:
+        step("write_fs", lambda: app.write_fs(X, ck))
+    finally:
+        undo()
+    blocks = [None] * world
+    dist.all_gather_object(blocks, sorted(written))
+    out["block_files_written_per_rank"] = [len(b) for b in blocks]
+    names = [f for b in blocks for f in b]
+    assert len(names) == len(set(names)), "a block written twice"
+    if world > 1:
+        assert out["block_files_written_per_rank"] == [1] * world, blocks
+    back, _ = step("read_fs", lambda: app.read_fs(ck))
+    same = _bits_same(torch, back.raw.to_local(), local)
+    assert _all_true(torch, same), "read_fs is not write_fs's X bit for bit"
+    del back
+    _mesh_free(torch)
+    report, _ = step("verify_fs", lambda: app.verify_fs(ck, repair=True))
+    reports = [None] * world
+    dist.all_gather_object(reports, report)
+    assert report["ok"] and all(r == report for r in reports), reports
+    flags, _ = step("delete_fs", lambda: app.delete_fs(ck))
+    assert bool(flags[0]) and not os.path.exists(ck), flags
+    out["checkpoint"] = {"bitwise": True, "blocks": report["blocks"],
+                         "same_report_on_every_rank": True}
+
+    # 2. The spill of X and of y (y in X's row blocks).
+    yb = BlockArray.from_torch(y.data, block_shape=(rows,),
+                               backend=app.backend)
+    (dX, dy), _ = step("spill", lambda: (
+        app.spill(X, os.path.join(root, "X")),
+        app.spill(yb, os.path.join(root, "y"))))
+    npanels, my_rows = _panels_with_rows(app, dX)
+    assert dX.num_row_panels == dy.num_row_panels == out["panels"], dX
+    share = my_rows * d * 4
+
+    # 3. gram_ooc: K1 on this rank's rows of each panel.
+    G, c = step("gram_ooc", lambda: _whole(app.gram_ooc(dX).data))
+    assert c["gram"] == npanels and c["gram_weighted"] == 0, c
+    assert c["newton_stats"] == 0, c
+    if world > 1:
+        assert steps["gram_ooc"]["panel_bytes_read_per_rank"][rank] == share
+    _, out["gram_rel_err_vs_in_core"] = rel_err(G, ref["gram"])
+    assert out["gram_rel_err_vs_in_core"] <= FULL_REL, out
+    g64 = _gram64(local)
+    dist.all_reduce(g64)
+    _, out["gram_rel_err_vs_f64"] = rel_err(G, g64)
+    del G
+
+    # 4. The logistic fit on the DiskArray: K3 one-shot on this rank's
+    # rows of each panel, one all-reduce of g and H a pass.
+    passes = []
+    newton_update = streaming.newton_update
+    streaming.newton_update = (
+        lambda *a: passes.append(1) or newton_update(*a))
+    try:
+        model, c = step("fit", lambda: LogisticRegression(**FIT).fit(dX, dy))
+    finally:
+        streaming.newton_update = newton_update
+    it = len(passes)
+    out["fit_iterations"], out["in_core_iterations"] = it, ref["iterations"]
+    assert it == ref["iterations"], (it, ref["iterations"])
+    assert c["newton_stats"] == c["newton_stage"] == c["gram_weighted"] \
+        == it * npanels, (c, it, npanels)
+    assert c["gram"] == 0, c
+    beta = torch.cat([_whole(model.coef_.data),
+                      _whole(model.intercept_.data)[None]])
+    _, out["beta_rel_err_vs_in_core"] = rel_err(beta, ref["beta"])
+    assert out["beta_rel_err_vs_in_core"] <= BETA_REL, out
+
+    # 5. One statistics pass with the Newton gate off (K2) against K3's.
+    beta_half = cuda_gram.round_bf16(0.5 * beta)
+    y_at = _ooc_y_getter(dX, dy)
+    (g3, h3), c = step("k3_pass", lambda: _mesh_stats_pass(
+        torch, app, dX, y_at, beta_half, "logistic"))
+    assert c["newton_stats"] == c["gram_weighted"] == npanels, c
+    gate, settings.newton_kernel = settings.newton_kernel, "0"
+    try:
+        (g2, h2), c = step("k2_pass", lambda: _mesh_stats_pass(
+            torch, app, dX, y_at, beta_half, "logistic"))
+    finally:
+        settings.newton_kernel = gate
+    assert c["gram_weighted"] == npanels and c["gram"] == 0, c
+    assert c["newton_stats"] == c["newton_stage"] == 0, c
+    _, out["k2_vs_k3_g_rel_err"] = rel_err(g2, g3)
+    _, out["k2_vs_k3_h_rel_err"] = rel_err(h2, h3)
+    assert out["k2_vs_k3_g_rel_err"] <= FULL_REL, out
+    assert out["k2_vs_k3_h_rel_err"] <= STATS_BF16_REL, out
+    del g2, h2, g3, h3
+
+    # 6. linear_regression_ooc (K1) against float64 normal equations.
+    w = torch.from_numpy(np.random.default_rng(MESH_NT_SEED).standard_normal(
+        d).astype(np.float32)).to(local.device)
+    yl = local @ w
+    by_lin = BlockArray(app.backend.from_local(
+        yl, (n,), streaming.row_placements(app.backend.mesh)),
+        ArrayGrid((n,), (rows,), "float32"), app.backend)
+    theta, c = step("linear_regression_ooc", lambda: _whole(
+        app.linear_regression_ooc(dX, by_lin).data))
+    assert c["gram"] == npanels and c["gram_weighted"] == 0, c
+    mu64, b64 = _rows64(torch, local, yl)
+    dist.all_reduce(mu64)
+    dist.all_reduce(b64)
+    mu64 /= n
+    theta64 = torch.linalg.solve(g64, b64)
+    _, out["linear_regression_rel_err_vs_f64"] = rel_err(theta, theta64)
+    assert out["linear_regression_rel_err_vs_f64"] <= BETA_REL, out
+    del by_lin, yl, theta
+
+    # 7. tsqr_r_ooc: each rank's R of its rows, the R's stacked and
+    # factored once; RᵀR against the float64 gram.
+    R, c = step("tsqr_r_ooc", lambda: _whole(app.tsqr_r_ooc(dX).data))
+    assert not any(c.values()), c
+    _, out["tsqr_rtr_rel_err_vs_f64"] = rel_err(R.double().T @ R.double(),
+                                                g64)
+    assert out["tsqr_rtr_rel_err_vs_f64"] <= MESH_OOC_TSQR_REL, out
+    del R
+
+    # 8. predict_ooc (host, each rank its rows) against the in-core
+    # predict of the same model.
+    pred, c = step("predict_ooc", lambda: model.predict_ooc(
+        dX, out=os.path.join(root, "pred")))
+    assert not any(c.values()), c
+    labels = model.predict(X)
+    mine = summa.local_part(labels.raw, summa.row_layout(X.raw)).cpu()
+    got = np.concatenate([pred.row_panel(i)
+                          for i in range(pred.num_row_panels)])[r0:r1]
+    assert got.shape == (r1 - r0,), got.shape
+    wrong = int(_sum_all(torch, float((got != mine.numpy()).sum())))
+    out["predict_mismatch_share"] = wrong / n
+    assert out["predict_mismatch_share"] <= OOC_LABEL_MISMATCH, out
+    del labels, mine, got
+
+    # 9. PCA(16): the moments of one streamed pass (K1), the transform.
+    pca, c = step("pca_fit", lambda: PCA(n_components=OOC_COMPONENTS).fit(
+        dX))
+    assert c["gram"] == npanels and c["gram_weighted"] == 0, c
+    cov = (g64 - n * torch.outer(mu64, mu64)) / (n - 1)
+    ev_ref = torch.linalg.eigvalsh(cov).flip(0)[:OOC_COMPONENTS]
+    _, out["pca_explained_variance_rel_err_vs_f64"] = rel_err(
+        _whole(pca.explained_variance_.data), ev_ref)
+    assert out["pca_explained_variance_rel_err_vs_f64"] <= BF16_REL, out
+    comps = _whole(pca.components_.data)
+    eye = torch.eye(OOC_COMPONENTS, device=comps.device)
+    out["pca_orthonormal_abs_err"] = float((comps @ comps.T - eye).abs().max())
+    assert out["pca_orthonormal_abs_err"] <= ORTHONORMAL_ABS, out
+    del cov
+    T, c = step("pca_transform", lambda: pca.transform(
+        dX, out=os.path.join(root, "pcaT")))
+    assert not any(c.values()), c
+    k = min(MESH_OOC_CHECK_ROWS, r1 - r0)
+    if k:
+        start = dX.grid.grid_slices[0][r0 // rows][0]
+        got = torch.from_numpy(T.row_panel(r0 // rows)[r0 - start:r0 - start
+                                                       + k]).double()
+        want = (local[:k].double() - _whole(pca.mean_.data).double()) @ \
+            comps.double().T
+        _, t_rel = rel_err(got.to(want.device), want)
+    else:
+        t_rel = 0.0
+    out["pca_transform_rel_err_vs_f64"] = _all_max(torch, t_rel)
+    assert out["pca_transform_rel_err_vs_f64"] <= OOC_TRANSFORM_REL, out
+    del pca, comps, T
+
+    # 10. KMeans(16): two passes at tol 0 and the inertia pass, then
+    # predict_ooc; no kernel.
+    km, c = step("kmeans_fit", lambda: cluster.KMeans(
+        n_clusters=KM_K, max_iter=KM_OOC_ITER, tol=0.0, seed=KM_SEED).fit(dX))
+    assert not any(c.values()) and km.n_iter_ == KM_OOC_ITER, (c, km.n_iter_)
+    centers = km._centers_data()
+    km_labels, c = step("kmeans_predict_ooc", lambda: km.predict_ooc(
+        dX, out=os.path.join(root, "km_labels")))
+    assert not any(c.values()), c
+    assert km_labels.shape == (n,), km_labels.shape
+    if world == 1:
+        want = _mesh_ooc_kmeans64(torch, local, rows, KM_OOC_ITER)
+        _, out["kmeans_centers_rel_err_vs_in_core"] = rel_err(centers, want)
+        assert out["kmeans_centers_rel_err_vs_in_core"] <= KM_OOC_REL, out
+    elif rank == 0:  # held by the parent to a world-1 fit of the file
+        np.save(os.path.join(root, "km_centers.npy"), centers.cpu().numpy())
+    del km, km_labels, centers
+
+    out["pass_parts"] = _mesh_ooc_pass_parts(torch, app, dX, dy, beta_half)
+    del dX, dy, model
+    _mesh_free(torch)
+    totals = {}
+    for s in steps.values():
+        for key, v in s["launches_per_card"][rank].items():
+            totals[key] = totals.get(key, 0) + v
+    out["launches"] = totals
+    out["seconds"] = _all_max(torch, time.perf_counter() - t_phase)
+    out["deadline_s"] = MESH_OOC_DEADLINE_S
+    assert out["seconds"] <= MESH_OOC_DEADLINE_S, out["seconds"]
+    say(out)
+    return out
+
+
+def _sum_all(torch, value):
+    import torch.distributed as dist
+
+    t = torch.tensor([float(value)], dtype=torch.float64,
+                     device=_mesh_device(torch))
+    dist.all_reduce(t)
+    return float(t.item())
+
+
+def _higgs_rows(lo, hi, beta):
+    """Rows [lo, hi) of phase 10's table (label, then the features) in
+    float32, drawn again from the chunks' seeds."""
+    parts = []
+    for i, start in enumerate(range(0, HIGGS_ROWS, HIGGS_CHUNK_ROWS)):
+        stop = min(start + HIGGS_CHUNK_ROWS, HIGGS_ROWS)
+        if stop <= lo or start >= hi:
+            continue
+        x, y = _higgs_chunk(i, stop - start, beta)
+        table = np.concatenate([y[:, None], x], axis=1)
+        parts.append(table[max(lo, start) - start:min(hi, stop) - start])
+    if not parts:
+        return np.zeros((0, HIGGS_FEATURES + 1), np.float32)
+    return np.concatenate(parts).astype(np.float32)
+
+
+def _mesh_ooc_io(torch, app, root, say, head):
+    """Phase 16's I/O at realistic size on every rank: a 2.5M x 1000 slice
+    of X (10 GB) written with two replicas, rank 0's block corrupted by the
+    last rank and read back through the failover, the collective
+    ``verify_fs(repair=True)`` (one report on every rank) and
+    ``delete_fs``; the slice through ``s3://`` on the file-backed fake in
+    a shared directory; phase 10's HIGGS text (11M x 29) through
+    ``read_csv`` (each rank parses its rows) and, where pyarrow is
+    installed, a Parquet file of it through ``read_parquet``, bitwise."""
+    import importlib.util
+
+    import torch.distributed as dist
+
+    import nums_tpu_torch
+    from nums_tpu_torch.core import multiprocess
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    steps = {}
+    out = {"phase": "mesh_ooc_io", **head,
+           "slice_shape": [MESH_OOC_SLICE, D_FULL], "steps": steps}
+
+    def step(name, fn):
+        return _ooc_mesh_step(torch, steps, name, fn)
+
+    S = _draw_mesh_x(torch, app, MESH_OOC_SLICE, D_FULL)
+    sl = S.raw.to_local()
+    path = os.path.join(root, "slice")
+    step("write_fs_replicas", lambda: app.write_fs(S, path, replicas=2))
+    multiprocess.barrier("pre-corrupt")
+    if rank == world - 1:  # rank 0's block, from another rank
+        victim = os.path.join(path, "block_0_0.npy")
+        with open(victim, "r+b") as f:
+            f.seek(os.path.getsize(victim) // 2)  # past the header
+            f.write(b"\xde\xad\xbe\xef" * 64)
+    multiprocess.barrier("post-corrupt")
+    back, _ = step("read_fs_verify", lambda: app.read_fs(path, verify=True))
+    assert _all_true(torch, _bits_same(torch, back.raw.to_local(), sl)), \
+        "failover read"
+    del back
+    _mesh_free(torch)
+    report, _ = step("verify_fs_repair", lambda: app.verify_fs(
+        path, repair=True))
+    reports = [None] * world
+    dist.all_gather_object(reports, report)
+    assert all(r == report for r in reports), reports
+    assert [f for _, f in report["bad"]] == ["block_0_0.npy"], report
+    assert report["repaired"] and not report["unrecoverable"], report
+    out["repair_report"] = {k: report[k] for k in ("blocks", "copies", "ok")}
+    out["repair_report"]["bad"] = [f for _, f in report["bad"]]
+    flags, _ = step("delete_fs", lambda: app.delete_fs(path))
+    assert bool(flags[0]) and not os.path.exists(path), flags
+
+    fake = os.path.join(root, "fake_s3")
+    os.environ["NUMS_TPU_TORCH_FAKE_S3_DIR"] = fake
+    try:
+        if rank == 0:
+            app.fs._s3_client().create_bucket(Bucket="bkt")
+        multiprocess.barrier("bucket")
+        step("write_s3", lambda: nums_tpu_torch.api.write(S, "s3://bkt/x"))
+        back, _ = step("read_s3", lambda: nums_tpu_torch.api.read(
+            "s3://bkt/x"))
+        assert _all_true(torch, _bits_same(torch, back.raw.to_local(), sl))
+        del back
+        step("delete_s3", lambda: nums_tpu_torch.api.delete("s3://bkt/x"))
+        multiprocess.barrier("deleted")
+        left = [k for k in os.listdir(os.path.join(fake, "bkt"))
+                if not k.startswith("#")]
+        assert not left, left
+    finally:
+        del os.environ["NUMS_TPU_TORCH_FAKE_S3_DIR"]
+    del S, sl
+    _mesh_free(torch)
+
+    # HIGGS: rank 0 writes the text, every rank parses its rows.
+    beta_true = (0.3 * np.random.default_rng(HIGGS_SEED).standard_normal(
+        HIGGS_FEATURES)).astype(np.float32)
+    csv = os.path.join(root, "higgs.csv")
+    writers = max(1, min(HIGGS_WRITERS, os.cpu_count() or 1))
+    multiprocess.stage("higgs-csv", "the HIGGS text", lambda: _higgs_write_csv(
+        csv, beta_true, writers), only0=True)
+    out["csv_bytes"] = os.path.getsize(csv)
+    Xc, _ = step("read_csv", lambda: nums_tpu_torch.api.read_csv(csv))
+    (c0, c1), _ = app.backend.region(tuple(Xc.shape), Xc.raw.placements)
+    want = _higgs_rows(c0, c1, beta_true)
+    got = Xc.raw.to_local().cpu().numpy()
+    assert Xc.shape == (HIGGS_ROWS, HIGGS_FEATURES + 1), Xc.shape
+    assert _all_true(torch, _bits_equal(got, want)), "read_csv rows"
+    rows = [None] * world
+    dist.all_gather_object(rows, [int(c0), int(c1)])
+    out["csv_rows_per_rank"] = rows
+    del Xc, got
+    if importlib.util.find_spec("pyarrow") is None:
+        out["parquet"] = "not run: pyarrow is not installed here"
+    else:
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+
+        pq_path = os.path.join(root, "higgs.parquet")
+
+        def write_parquet():
+            with pq.ParquetWriter(pq_path, pa.schema(
+                    [(f"c{j}", pa.float32())
+                     for j in range(HIGGS_FEATURES + 1)])) as w:
+                for lo in range(0, HIGGS_ROWS, 1_000_000):
+                    t = _higgs_rows(lo, min(lo + 1_000_000, HIGGS_ROWS),
+                                    beta_true)
+                    w.write_table(pa.table({f"c{j}": t[:, j] for j in
+                                            range(t.shape[1])}))
+
+        multiprocess.stage("higgs-parquet", "the HIGGS Parquet file",
+                           write_parquet, only0=True)
+        Xp, _ = step("read_parquet", lambda: nums_tpu_torch.api.read_parquet(
+            pq_path))
+        (c0, c1), _ = app.backend.region(tuple(Xp.shape), Xp.raw.placements)
+        got = Xp.raw.to_local().cpu().numpy()
+        assert _all_true(torch, _bits_equal(got, _higgs_rows(
+            c0, c1, beta_true))), "read_parquet rows"
+        out["parquet"] = "bitwise"
+        del Xp
+    say(out)
+    return out
+
+
+def _mesh_ooc_refs(torch, app, n, d, rows):
+    """X of ``n`` rows drawn from phase 4's seed in row blocks of ``rows``,
+    its planted labels, and the in-core references of phase 16: the gram
+    (K1 on the mesh), the fused fit's β and its iterations (K3's
+    launches)."""
+    from nums_tpu_torch.models.glms import LogisticRegression
+
+    X = app.random_state(RANDOM_KNOWN["seed"]).normal(
+        shape=(n, d), block_shape=(rows, d), dtype=np.float32)
+    y, _ = planted_labels(torch, app, X)
+    G = _whole((X.T @ X).data).clone()
+    _reset_counts()
+    model = LogisticRegression(**FIT).fit(X, y)
+    iters = _counts()["newton_stats"]
+    beta = torch.cat([_whole(model.coef_.data),
+                      _whole(model.intercept_.data)[None]])
+    return X, y, {"gram": G, "beta": beta, "iterations": iters}
+
+
+def phase_mesh_ooc(torch, smi, app):
+    """Phase 16 in the full run: on the world-1 mesh of phase 15, X of
+    MESH_OOC_N1 rows in MESH_OOC_PANELS1 panels (4 GB) spilled under
+    ``settings.data_dir`` and streamed back through the mesh branch of
+    ``ooc_put`` and the folds (``_mesh_ooc``); removed at the end."""
+    import shutil
+    import tempfile
+
+    from nums_tpu_torch.core import settings
+
+    n, d = MESH_OOC_N1, D_FULL
+    rows = -(-n // MESH_OOC_PANELS1)
+    os.makedirs(settings.data_dir, exist_ok=True)
+    free = shutil.disk_usage(settings.data_dir).free
+    need = 4.0 * n * d + MESH_OOC_MARGIN_BYTES
+    assert free >= need, (
+        f"phase 16 needs {need / 1e9:.0f} GB free under {settings.data_dir};"
+        f" {free / 1e9:.1f} GB are free")
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_ooc-",
+                            dir=settings.data_dir)
+    head = {"world": 1, "shape": [n, d], "cluster_shape": [1, 1],
+            "nvidia_smi": smi, "data_dir_free_bytes": free}
+    try:
+        X, y, ref = _mesh_ooc_refs(torch, app, n, d, rows)
+        out = _mesh_ooc(torch, app, X, y, ref, root, emit, head)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _mesh_ooc_cards(torch, app, X, y, ref, cfg, say, head):
+    """Phase 16 under --mesh-only, on this rank: the I/O at realistic
+    size, then ``_mesh_ooc`` on phase 15's X and against its in-core
+    results (or, where the free disk cut N, on X drawn again at the cut
+    and against its own)."""
+    root = cfg["ooc_root"]
+    t_phase = time.perf_counter()
+    _mesh_ooc_io(torch, app, root, say, head)
+    n = cfg["ooc_n"]
+    if n != X.shape[0]:
+        del X, y
+        _mesh_free(torch)
+        X, y, ref = _mesh_ooc_refs(torch, app, n, X.shape[1],
+                                   -(-n // app.backend.num_devices))
+    return _mesh_ooc(torch, app, X, y, ref, root, say,
+                     {**head, "shape": [n, X.shape[1]]}, t_phase)
+
+
+def _mesh_ooc_world1_kmeans(torch, root, world):
+    """The parent's last step of phase 16: KMeans(16) on the DiskArray the
+    ranks spilled, on a world-1 mesh of the first card alone, two passes at
+    tol 0, its centers held to the ranks' (KM_OOC_REL)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from nums_tpu_torch.core import application_manager
+    from nums_tpu_torch.models import cluster
+
+    saved = application_manager._instance
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if DEVICE == "cuda" else "gloo",
+            init_method="file://" + os.path.join(tmp, "rendezvous"),
+            world_size=1, rank=0)
+        try:
+            app = application_manager.create(
+                device=None if DEVICE == "cuda" else DEVICE, backend="mesh")
+            application_manager.set_instance(app)
+            dX = app.open_fs(os.path.join(root, "X"))
+            t0 = time.perf_counter()
+            km = cluster.KMeans(n_clusters=KM_K, max_iter=KM_OOC_ITER,
+                                tol=0.0, seed=KM_SEED).fit(dX)
+            secs = time.perf_counter() - t0
+            want = torch.from_numpy(np.load(os.path.join(
+                root, "km_centers.npy")))
+            _, rel = rel_err(km._centers_data().cpu(), want)
+            app.backend.shutdown()
+        finally:
+            application_manager.set_instance(saved)
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    assert rel <= KM_OOC_REL, rel
+    out = {"phase": "mesh_ooc_kmeans_world1", "ranks": world,
+           "shape": list(dX.shape), "fit_s": secs,
+           "centers_rel_err_vs_ranks": rel, "tolerance": KM_OOC_REL}
+    emit(out)
+    return out
 
 
 KERNELS = (
@@ -4716,7 +5493,7 @@ KERNELS = (
 
 
 def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
-                 facade, models, mesh):
+                 facade, models, mesh, mesh_ooc):
     """One entry per kernel: "launches" counts the main path (phase 4),
     "launches_per_fit" one fit (phase 6), "launches_ooc" the streamed
     steps of phase 8 (the PCA and TruncatedSVD fits among them),
@@ -4728,7 +5505,10 @@ def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
     staged once), beside that shape's plain version and bound;
     "launches_facade" phase 12's facade path (K1: one per contraction form),
     "launches_models" phase 14's (K1: the forward of the gram's gradient),
-    "launches_mesh" phase 15's main path on the mesh of this card alone.
+    "launches_mesh" phase 15's main path on the mesh of this card alone,
+    "launches_mesh_ooc" phase 16's streamed steps on it (the mesh branch
+    of ``ooc_put``), and "mesh_panel_ms" its time on this card's rows of
+    one panel there, beside that panel's bound.
     gram.cu's weighted launches ("gram_weighted") on these paths are K3's
     Hessian, and K2 proper in phase 8's pass with the Newton gate off."""
     return [
@@ -4750,7 +5530,12 @@ def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
          "higgs_bound_ms": higgs["kernels"][name]["bound_ms"],
          "launches_facade": facade["launches"][name],
          "launches_models": models["launches"][name],
-         "launches_mesh": mesh["launches"][name]}
+         "launches_mesh": mesh["launches"][name],
+         "launches_mesh_ooc": mesh_ooc["launches"][name],
+         "mesh_panel_ms": mesh_ooc["pass_parts"]["panel_kernels_rank0"][
+             name]["ms"],
+         "mesh_panel_bound_ms": mesh_ooc["pass_parts"][
+             "panel_kernels_rank0"][name]["bound_ms"]}
         for name, src, rep in KERNELS
     ]
 
@@ -4830,10 +5615,10 @@ def main(argv):
         models = phase_models(torch, smi, app, X, draw_labels(torch, app, X))
         del X
         torch.cuda.empty_cache()
-        mesh = phase_mesh(torch, smi, keep)
+        mesh, mesh_ooc = phase_mesh(torch, smi, keep)
         emit({"kernels": kernels_line(counts, fit_counts, times, ooc,
                                       linalg_launches, higgs, facade,
-                                      models, mesh)})
+                                      models, mesh, mesh_ooc)})
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})

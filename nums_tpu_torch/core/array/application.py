@@ -17,8 +17,12 @@ column reductions, ``tsqr_r_ooc``, ``linear_regression_ooc``), with the
 panel helpers that the GLMs' out-of-core fits share (``ooc_put``,
 ``ooc_accumulator``, ``ooc_panels``, ``_ooc_y_getter``). On the mesh
 backend the constructors place each array by the grid (a constant fill
-makes only this process's region), and ``get`` is collective; the mesh's
-row-sharded panels for out of core are a later port.
+makes only this process's region), and ``get`` is collective. Out of core
+on the mesh, each panel is row-sharded over the whole mesh (``ooc_put``:
+this process moves only its own rows, and under several processes reads
+only those from disk); a fold runs on this process's rows of each panel
+and ends the pass with one all-reduce over the mesh
+(``streaming.reduce_rows``), its carry replicated.
 """
 
 import numpy as np
@@ -42,16 +46,56 @@ def _device_dtype(backend, dtype) -> torch.dtype:
     return array_utils.to_torch_dtype(backend.device_dtype(dtype))
 
 
+def _device_rows(panel, lo, hi):
+    """Host rows [lo, hi) of a panel: a host array's slice, or what a lazy
+    ``PanelRef`` loads of them from disk (this process's rows alone)."""
+    if hasattr(panel, "load"):
+        return panel.load(lo, hi)
+    return panel[lo:hi]
+
+
+def _global_put(backend, get_rows, gshape, dtype):
+    """A row-sharded DTensor of global shape ``gshape`` on the mesh: this
+    process moves only the rows of its region, ``get_rows(lo, hi)``, to
+    its device (``from_local``, no communication). The reference's
+    ``_global_put``."""
+    placements = streaming.row_placements(backend.mesh)
+    (lo, hi) = backend.region(gshape, placements)[0]
+    host = np.ascontiguousarray(get_rows(lo, hi))
+    local = torch.from_numpy(host).to(backend.device).to(dtype)
+    return backend.from_local(local, gshape, placements)
+
+
 def ooc_put(backend, panel, augment_ones=False):
-    """Host panel -> the backend's device, whole (the serial backend has
-    no pad rows). Returns (device panel, its row count). With
-    ``augment_ones`` the (rows, d) panel moves as it is and the
-    intercept-augmented (rows, d + 1) panel, ones in the last column, is
-    built on the device, not in host memory. The device dtype is
-    ``_device_dtype``'s."""
+    """Host panel -> the backend's device. Returns (device panel, its row
+    count); the device dtype is ``_device_dtype``'s.
+
+    On the serial backend the panel moves whole. With ``augment_ones`` it
+    moves as it is and the intercept-augmented (rows, d + 1) panel, ones
+    in the last column, is built on the device, not in host memory.
+
+    On the mesh backend it becomes a DTensor whose rows are sharded over
+    the whole mesh (``streaming.row_placements``): each process moves only
+    its own rows, and where ``panel`` is a lazy ``PanelRef`` (several
+    processes: ``ooc_panels``), reads only those from disk. DTensor's
+    uneven shards carry no pad rows, where the reference pads the panel to
+    the device multiple and masks the pad. ``augment_ones`` is serial-only,
+    as in the reference: a mesh fold augments its local rows
+    (``streaming.augment_ones``)."""
     dtype = _device_dtype(backend, panel.dtype)
-    host = torch.from_numpy(np.ascontiguousarray(panel))
     rows = int(panel.shape[0])
+    if backend.mesh is not None:
+        if augment_ones:
+            raise ValueError(
+                "augment_ones is serial-backend only: augment this "
+                "process's rows of the mesh panel (streaming.augment_ones)"
+            )
+        gshape = tuple(int(s) for s in panel.shape)
+        return _global_put(backend, lambda lo, hi: _device_rows(
+            panel, lo, hi), gshape, dtype), rows
+    if hasattr(panel, "full"):
+        panel = panel.full()
+    host = torch.from_numpy(np.ascontiguousarray(panel))
     if not augment_ones:
         return host.to(backend.device).to(dtype), rows
     out = torch.empty((rows, int(panel.shape[1]) + 1), dtype=dtype,
@@ -62,14 +106,36 @@ def ooc_put(backend, panel, augment_ones=False):
 
 
 def ooc_accumulator(backend, value):
-    """A fold's accumulator: ``value`` (a host array or a tensor) on the
-    backend's device. The mesh port replicates it over the mesh here."""
+    """A fold's accumulator or carry: ``value`` (a host array or a tensor)
+    on the backend's device. On the mesh it is replicated: each process
+    holds the same whole value, and a fold's partial sums over this
+    process's rows meet in the all-reduce that ends the pass."""
     return torch.as_tensor(value, device=backend.device)
 
 
 def ooc_panels(X):
-    """The row-panel stream of a fold: host panels, prefetched."""
+    """The row-panel stream of a fold: host panels, prefetched; under
+    several processes lazy ``PanelRef``s, so that each process reads only
+    its own rows."""
+    from nums_tpu_torch.core import multiprocess
+
+    if multiprocess.is_multiprocess():
+        return X.iter_panel_refs()
     return X.iter_row_panels()
+
+
+def gather_rows(backend, local, shape):
+    """The whole (rows, ...) value on every process from this process's
+    rows ``local`` of a row-sharded panel (``ooc_put``'s layout): an
+    all-gather under several processes, ``local`` itself otherwise.
+    Returns a host array."""
+    from nums_tpu_torch.core import multiprocess
+
+    if backend.mesh is None:
+        return backend.get(local)
+    dt = backend.from_local(local.contiguous(), tuple(shape),
+                            streaming.row_placements(backend.mesh))
+    return multiprocess.allgather_to_host(dt)
 
 
 def _ooc_y_getter(X, y):
@@ -83,6 +149,13 @@ def _ooc_y_getter(X, y):
             "y DiskArray must share X's row partitioning"
         )
         index = {s: i for i, (s, _) in enumerate(y.grid.grid_slices[0])}
+        from nums_tpu_torch.core import multiprocess
+
+        if multiprocess.is_multiprocess():
+            from nums_tpu_torch.core.array.diskarray import PanelRef
+
+            # Lazy, as X's panels: ooc_put reads this process's rows.
+            return lambda start, length: PanelRef(y, index[start], length)
 
         def get(start, length):
             arr = y.row_panel(index[start])
@@ -728,17 +801,25 @@ class ArrayApplication:
         self.write_fs(ba, filename, replicas=replicas)
         return self.open_fs(filename)
 
-    def _ooc_accumulate(self, X, init, update):
-        """Fold ``update(acc, device panel)`` over X's row panels."""
+    def _ooc_accumulate(self, X, init, update, op="sum"):
+        """Fold ``update(acc, this process's rows of the device panel)``
+        over X's row panels (a process with no rows of a panel skips it:
+        the accumulator's identity stays), then, on the mesh, one
+        all-reduce ``op`` over the mesh (None: the caller combines)."""
         acc = ooc_accumulator(self.backend, init)
         for _, panel in ooc_panels(X):
             p, _ = ooc_put(self.backend, panel)
-            acc = update(acc, p)
+            x = streaming.local_rows(p)
+            if x.shape[0]:
+                acc = update(acc, x)
+        if op is not None:
+            streaming.reduce_rows(self.backend.mesh, [acc], op)
         return acc
 
     def gram_ooc(self, X, dtype=None) -> BlockArray:
         """XᵀX of a DiskArray in one streamed pass; each panel's product
-        rides the gram kernel where ``streaming._sym_gram`` takes it."""
+        rides the gram kernel where ``streaming._sym_gram`` takes it (on
+        the mesh, on each process's rows, then one all-reduce)."""
         assert X.ndim == 2
         d = X.shape[1]
         dt = _device_dtype(self.backend, dtype or X.dtype)
@@ -761,7 +842,7 @@ class ArrayApplication:
         shape = (d,) if X.ndim == 2 else ()
         acc = self._ooc_accumulate(
             X, torch.full(shape, init_val, dtype=dt),
-            lambda a, p: streaming.reduce0_update(op, a, p.to(dt)),
+            lambda a, p: streaming.reduce0_update(op, a, p.to(dt)), op=op,
         )
         return BlockArray.from_torch(acc, backend=self.backend)
 
@@ -780,7 +861,9 @@ class ArrayApplication:
 
     def tsqr_r_ooc(self, X) -> BlockArray:
         """R factor of a DiskArray by the streamed Householder combine
-        R <- qr_r([R; panel]), stable at any conditioning."""
+        R <- qr_r([R; panel]), stable at any conditioning. On the mesh each
+        process combines its own rows, then the R's of every process are
+        stacked and factored once (``streaming.tsqr_r_combine``)."""
         assert X.ndim == 2
         d = X.shape[1]
         dt = _device_dtype(self.backend, X.dtype)
@@ -788,7 +871,9 @@ class ArrayApplication:
         R = self._ooc_accumulate(
             X, torch.zeros((d, d), dtype=dt),
             lambda acc, p: streaming.tsqr_r_update(chunk, acc, p.to(dt)),
+            op=None,
         )
+        R = streaming.tsqr_r_combine(self.backend.mesh, chunk, R)
         return BlockArray.from_torch(R, backend=self.backend)
 
     def linear_regression_ooc(self, X, y, lamb: float = 0.0) -> BlockArray:
@@ -804,7 +889,10 @@ class ArrayApplication:
         for start, panel in ooc_panels(X):
             p, _ = ooc_put(self.backend, panel)
             yp, _ = ooc_put(self.backend, y_at(start, panel.shape[0]))
-            streaming.normal_eq_update(G, b, p.to(dt), yp.to(dt))
+            x, yl = streaming.local_rows(p), streaming.local_rows(yp)
+            if x.shape[0]:
+                streaming.normal_eq_update(G, b, x.to(dt), yl.to(dt))
+        streaming.reduce_rows(self.backend.mesh, [G, b])
         if lamb:
             G = G + lamb * torch.eye(d, dtype=dt, device=G.device)
         theta = linalg.posdef_solve(G, b)

@@ -1,8 +1,7 @@
 """Out-of-core arrays: a block checkpoint on disk, read one row panel at a
 time.
 
-Counterpart of ``nums_tpu/core/array/diskarray.py`` in one process. A
-``DiskArray`` is a ``write_fs`` directory (one ``.npy`` per grid block and
+Counterpart of ``nums_tpu/core/array/diskarray.py``. A ``DiskArray`` is a ``write_fs`` directory (one ``.npy`` per grid block and
 ``meta.pkl``, with the replicas and CRCs of ``core/io/filesystem.py``)
 viewed as an array. The streamed ops (``ArrayApplication.*_ooc`` and the
 GLMs' out-of-core fits) read its row panels on the host, a prefetch thread
@@ -18,8 +17,12 @@ Usage::
     G = app.gram_ooc(dX)             # XᵀX, one streamed pass
     model.fit(dX, y)                 # GLMs train out of core
 
-The multi-process forms (``PanelRef``, ``iter_panel_refs`` and the
-collective ``from_panels``) come with the mesh backend, a later port.
+Under several processes each process streams only its own rows of each
+panel: ``iter_panel_refs`` yields lazy ``PanelRef``s, whose ``load(lo,
+hi)`` reads just those rows through a memory map, so P processes each
+read 1/P of the file. ``from_panels`` is then collective: every process
+drains the panel stream (it may hold collectives), process 0 writes, and
+every process opens the result.
 """
 
 import os
@@ -30,6 +33,45 @@ import numpy as np
 
 from nums_tpu_torch.core.grid import ArrayGrid
 from nums_tpu_torch.core.io import filesystem as _fs
+
+
+# Bytes this process has read through ``PanelRef.load`` (the rows of its
+# regions of the panels): a reader sets it to 0 and reads it back.
+PANEL_BYTES_READ = {"bytes": 0}
+
+
+class PanelRef:
+    """A lazy handle to one row panel of a DiskArray: its shape and dtype,
+    and the rows [lo, hi) on request, read through the memory-mapped
+    primaries (``DiskArray._mmap_block``: only the pages of those rows),
+    with the replica failover and CRCs of a full load where a primary does
+    not open. Nothing is read until ``load`` or ``full``."""
+
+    def __init__(self, da, panel_index: int, nrows: int):
+        self._da = da
+        self._i = int(panel_index)
+        self.shape = (nrows,) if da.ndim == 1 else (nrows, da.shape[1])
+        self.dtype = da.dtype
+
+    def full(self) -> np.ndarray:
+        """The whole panel (``DiskArray.row_panel``)."""
+        return self._da.row_panel(self._i)
+
+    def load(self, lo: int, hi: int) -> np.ndarray:
+        """Host rows [lo, hi) of this panel (panel-relative), read now into
+        a C-ordered array of their own."""
+        assert 0 <= lo <= hi <= self.shape[0], (lo, hi, self.shape)
+        da = self._da
+        if da.ndim == 1:
+            out = np.array(
+                da._mmap_block(_fs._block_fname((self._i,)))[lo:hi])
+        else:
+            cols = [np.array(
+                da._mmap_block(_fs._block_fname((self._i, j)))[lo:hi])
+                for j in range(da.grid.grid_shape[1])]
+            out = cols[0] if len(cols) == 1 else np.concatenate(cols, 1)
+        PANEL_BYTES_READ["bytes"] += out.nbytes
+        return out
 
 
 class DiskArray:
@@ -133,6 +175,12 @@ class DiskArray:
                     fut = ex.submit(self.row_panel, i + 1)
                 yield starts[i], panel
 
+    def iter_panel_refs(self):
+        """Yield (start_row, PanelRef) in row order: ``iter_row_panels``
+        without reading, so that each process loads only its own rows."""
+        for i, (start, stop) in enumerate(self.grid.grid_slices[0]):
+            yield start, PanelRef(self, i, stop - start)
+
     @classmethod
     def from_panels(cls, path: str, fs, panels, shape, dtype,
                     block_rows: int):
@@ -143,9 +191,47 @@ class DiskArray:
         publish is ``write_fs``'s: a tmp directory, CRCs, ``meta.pkl``
         last and fsynced, and a rename that keeps an earlier version as an
         ``.old-`` backup until the new one is in place. Host memory holds
-        one panel."""
-        return cls._write_panels_p0(_fs._fs_path(path), fs, panels, shape,
-                                    dtype, block_rows)
+        one panel.
+
+        Collective under several processes: every process iterates the
+        same stream in step (a producer may hold collectives, as the
+        streamed predictions' gathers); process 0 alone writes to the
+        shared filesystem, and the others open the result after its
+        release barrier (``multiprocess.publishing``)."""
+        from nums_tpu_torch.core import multiprocess as _mp
+
+        path = _fs._fs_path(path)
+        if not _mp.is_multiprocess():
+            return cls._write_panels_p0(path, fs, panels, shape, dtype,
+                                        block_rows)
+        tag = f"DiskArray.from_panels:{path}"
+        marker = f"{path}.ingest-failed"
+        what = f"DiskArray.from_panels({path!r})"
+        if _mp.process_index() != 0:
+            try:
+                for _ in panels:  # in step with process 0's collectives
+                    pass
+            except BaseException:
+                # Release process 0 first (it waits at the barrier),
+                # then raise this process's own failure.
+                _mp.barrier(tag)
+                raise
+            _mp.await_published(tag, marker, what)
+            return cls(path, fs)
+        with _mp.publishing(tag, marker):
+            try:
+                return cls._write_panels_p0(path, fs, panels, shape, dtype,
+                                            block_rows)
+            except BaseException:
+                # A failed write leaves the stream midway: drain it, so
+                # that a producer's collectives stay matched with the
+                # peers'. A producer that raised is closed already.
+                try:
+                    for _ in panels:
+                        pass
+                except BaseException:  # noqa: BLE001 - keep the first
+                    pass
+                raise
 
     @classmethod
     def _write_panels_p0(cls, path, fs, panels, shape, dtype, block_rows):

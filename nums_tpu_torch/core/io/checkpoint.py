@@ -107,7 +107,22 @@ def save_async(ba, name: str, step: int, keep: int = 2,
     ``result()`` is the step, or raises the write's error. One worker, so
     saves publish in order."""
     global _async_executor
+    from nums_tpu_torch.core import multiprocess
+
     ba.touch()
+    if multiprocess.is_multiprocess():
+        # The write is collective: on a background thread its barriers
+        # could interleave with the caller's collectives and deadlock.
+        # Under several processes the save runs here, and the Future is
+        # already done.
+        from concurrent.futures import Future
+
+        fut = Future()
+        try:
+            fut.set_result(save(ba, name, step, keep, replicas))
+        except Exception as e:  # an interrupt still propagates
+            fut.set_exception(e)
+        return fut
     if _async_executor is None:
         _async_executor = ThreadPoolExecutor(max_workers=1,
                                              thread_name_prefix="ckpt-save")

@@ -1,11 +1,21 @@
 """Block checkpoints on the local filesystem and in S3, and parallel
 text ingestion.
 
-Counterpart of ``nums_tpu/core/io/filesystem.py``, in one process. An
-array on disk is a directory with one ``.npy`` file per grid block
+Counterpart of ``nums_tpu/core/io/filesystem.py``. An array on disk is
+a directory with one ``.npy`` file per grid block
 (``block_<i>_<j>.npy``) and ``meta.pkl`` = ``{"grid": grid.to_meta(),
 "checksums": {file name: crc32}}``, byte for byte the format that
 ``nums_tpu`` writes, so a checkpoint moves between the two packages.
+
+Under several processes (``multiprocess.process_count() > 1``, on a
+shared filesystem) every verb is collective, as in the reference: each
+process writes only the blocks its region holds (the stored grid is the
+mesh's shard grid) into the shared ``.tmp-0`` directories and process 0
+publishes; a read loads only the blocks that overlap this process's
+region and builds its DTensor with ``MeshBackend.from_local``; process 0
+alone deletes and scrubs; ``read_csv`` parses only this process's rows.
+Each stage ends in ``multiprocess.checked_barrier``, so a failure on one
+process fails them all.
 
 A write is crash-consistent: blocks land in a ``.tmp-<pid>`` directory,
 ``meta.pkl`` is written last, files and directories are fsynced, and the
@@ -40,9 +50,12 @@ from concurrent.futures import ThreadPoolExecutor
 from io import StringIO
 
 import numpy as np
+import torch
 
+from nums_tpu_torch.core import multiprocess as _mp
 from nums_tpu_torch.core import settings
-from nums_tpu_torch.core.grid import ArrayGrid
+from nums_tpu_torch.core.array import utils as array_utils
+from nums_tpu_torch.core.grid import ArrayGrid, cdiv
 from nums_tpu_torch.core.array.blockarray import BlockArray
 from nums_tpu_torch.core.io import _native, shard_native
 
@@ -62,7 +75,8 @@ def _block_fname(grid_entry: tuple) -> str:
 
 
 def _block_crc(block: np.ndarray) -> int:
-    return zlib.crc32(np.ascontiguousarray(block).tobytes())
+    # The buffer itself, not a bytes copy of it (a block may be 10 GB).
+    return zlib.crc32(memoryview(np.ascontiguousarray(block)).cast("B"))
 
 
 def _replica_paths(final_path: str, count: int):
@@ -251,7 +265,12 @@ def _recover_fs_dir(path: str) -> bool:
 def _host_block(data, grid: ArrayGrid, grid_entry: tuple) -> np.ndarray:
     """One block of ``data`` (a tensor in logical layout) as a C-ordered
     host array: only that block leaves the device. A 0-d array's block
-    has shape (1,), as nums_tpu's block writer stores it."""
+    has shape (1,), as nums_tpu's block writer stores it. A DTensor here
+    is on a mesh of this process alone, which holds all of it."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(data, DTensor):
+        data = data.to_local()
     return np.ascontiguousarray(
         data[grid.get_slice(grid_entry)].cpu().numpy())
 
@@ -259,6 +278,66 @@ def _host_block(data, grid: ArrayGrid, grid_entry: tuple) -> np.ndarray:
 def _place(out, dst, blk):
     """out[dst] = blk, where a 0-d ``out`` takes its (1,) block."""
     out[dst] = blk.reshape(()) if out.ndim == 0 else blk
+
+
+def row_region_loader(logical_shape, dtype, fill_rows):
+    """A region loader over a 2-D row-major source for
+    :func:`region_array`: allocates the box and hands the rows and columns
+    it covers to ``fill_rows(r0, r1, c0, c1, out)`` (skipped for an empty
+    box). The multi-process CSV and Parquet readers share it. The
+    reference's also zero-fills the pad rows of its padded layout; the
+    port's uneven shards have none."""
+    n, d = logical_shape
+
+    def load_region(box):
+        (r0, r1), (c0, c1) = box
+        out = np.zeros((r1 - r0, c1 - c0), dtype=dtype)
+        if r0 < min(r1, n) and c0 < min(c1, d):
+            fill_rows(r0, r1, c0, c1, out)
+        return out
+
+    return load_region
+
+
+def region_array(backend, grid: ArrayGrid, load_region) -> BlockArray:
+    """The BlockArray of ``grid`` on a mesh backend, built from this
+    process's region alone: ``load_region(box)`` returns the host values
+    of the box ((start, stop) per axis) that the grid's placement gives
+    this process, which go to its device as the local part of a DTensor
+    (``from_local``, no communication). The reference's
+    ``jax.make_array_from_callback``."""
+    placements = backend.sharding_for_grid(grid)
+    box = backend.region(grid.shape, placements)
+    host = np.asarray(load_region(box))
+    host = host.astype(backend.device_dtype(host.dtype), copy=False)
+    local = torch.from_numpy(np.ascontiguousarray(host)).to(backend.device)
+    data = backend.from_local(local, grid.shape, placements)
+    return BlockArray(data, ArrayGrid(grid.shape, grid.block_shape,
+                                      array_utils.to_dtype_name(
+                                          local.dtype)), backend)
+
+
+def _overlaps(grid: ArrayGrid, box):
+    """(grid entry, src, dst) for each stored block that overlaps ``box``:
+    ``src`` the window of the block, ``dst`` its place in the box."""
+    starts = [a for a, _ in box]
+    stops = [b for _, b in box]
+    out = []
+    for entry in grid.get_entry_iterator():
+        rect = grid.get_slice_tuples(entry)
+        lo = [max(a, r0) for a, (r0, _) in zip(starts, rect)]
+        hi = [min(b, r1) for b, (_, r1) in zip(stops, rect)]
+        if any(l >= h for l, h in zip(lo, hi)):
+            continue
+        src = tuple(slice(l - r0, h - r0)
+                    for l, h, (r0, _) in zip(lo, hi, rect))
+        dst = tuple(slice(l - a, h - a) for l, h, a in zip(lo, hi, starts))
+        out.append((entry, src, dst))
+    return out
+
+
+def _tag(filename: str) -> str:
+    return filename.replace(os.sep, "_")
 
 
 def _s3_parse(filename: str):
@@ -284,6 +363,8 @@ class FileSystem:
         holds one batch. Returns one True per block."""
         if replicas is None:
             replicas = settings.checkpoint_replicas
+        if _mp.is_multiprocess():
+            return self._write_fs_multiprocess(ba, filename, replicas)
         final_path = _fs_path(filename)
         targets = [final_path] + _replica_paths(final_path, max(1, replicas))
         tmps = [f"{p}.tmp-{os.getpid()}" for p in targets]
@@ -317,6 +398,137 @@ class FileSystem:
             if stale not in targets:
                 shutil.rmtree(stale, ignore_errors=True)
         return np.ones(len(entries), dtype=bool)
+
+    def _shard_grid_blocks(self, ba: BlockArray):
+        """(grid, [(entry, host block)]) for the multi-process writers.
+
+        The stored grid is the shard grid of the value's placement: along
+        each axis, blocks of ceil(n / m) where m devices shard it, clipped
+        to the logical shape, trailing empty shards dropped, the
+        reference's rule. DTensor's uneven shards are exactly those
+        blocks (``torch.chunk`` extents: ceil(n / m), then the rest), so
+        each distinct region is one block, claimed by the lowest rank that
+        holds it (``multiprocess.owned_regions``); the names and shapes
+        are the reference's. Where an axis is split by several mesh
+        dimensions in turn (a 1-D array over a 2-D mesh), DTensor's
+        regions are not that grid's blocks: the value is gathered
+        (collective) and block i is written by process i mod P."""
+        backend = self.backend
+        logical = tuple(ba.grid.shape)
+        if backend.mesh is None:  # a whole array on every process
+            grid = ba.grid
+            blocks = []
+            if _mp.process_index() == 0:
+                data = ba.data
+                blocks = [(e, _host_block(data, grid, e))
+                          for e in grid.get_entry_iterator()]
+            return grid, blocks
+        # The value as it is laid out (a lazy transpose keeps its
+        # buffer's sharding, as the reference's writer does).
+        from torch.distributed.tensor import DTensor
+
+        data = ba.data
+        if not isinstance(data, DTensor):
+            data = backend.place(data, ba.grid)
+        want = tuple(data.placements)
+        mesh_shape = backend.device_grid.mesh_shape
+        parts = [1] * len(logical)
+        for j, p in enumerate(want):
+            if p.is_shard():
+                parts[p.dim] *= mesh_shape[j]
+        block_shape = tuple(min(cdiv(n, m), n) if n else 0
+                            for n, m in zip(logical, parts))
+        grid = ArrayGrid(logical, block_shape, ba.grid.dtype)
+        if not logical:
+            return grid, [((), _host_block(data.full_tensor(), grid, ()))
+                          ] if _mp.process_index() == 0 else []
+
+        def is_block(box):
+            return all(a == b or (a % bs == 0 and b == min(a + bs, n))
+                       for (a, b), bs, n in zip(box, block_shape, logical))
+
+        import itertools
+
+        boxes = [backend.region(logical, want, c) for c in
+                 itertools.product(*(range(m) for m in mesh_shape))]
+        if all(is_block(b) for b in boxes):
+            blocks = []
+            for index, arr in _mp.owned_regions(data):
+                entry = tuple(s.start // bs
+                              for s, bs in zip(index, block_shape))
+                blocks.append((entry, np.ascontiguousarray(arr)))
+            return grid, blocks
+        full = data.full_tensor()
+        rank, world = _mp.process_index(), _mp.process_count()
+        return grid, [(e, _host_block(full, grid, e)) for i, e in
+                      enumerate(grid.get_entry_iterator())
+                      if i % world == rank]
+
+    def _write_fs_multiprocess(self, ba: BlockArray, filename: str,
+                               replicas: int):
+        """The collective checkpoint write (every process calls it; the
+        filesystem is shared). Each process writes only its own blocks
+        (``_shard_grid_blocks``), in every copy, into the shared
+        ``.tmp-0`` directories (the fixed suffix ``_cleanup_orphans`` and
+        ``_recover_fs_dir`` treat as a serial write's) with a CRC sidecar;
+        process 0 merges the sidecars into ``meta.pkl`` and publishes.
+        Every stage ends in a checked barrier. Returns one True per block
+        this process wrote (``[True]`` where it wrote none)."""
+        final_path = _fs_path(filename)
+        targets = [final_path] + _replica_paths(final_path, max(1, replicas))
+        tmps = [f"{p}.tmp-0" for p in targets]
+        tag = _tag(filename)
+        what = f"write_fs({filename!r})"
+        grid, owned = self._shard_grid_blocks(ba)
+
+        def prepare():
+            for t in tmps:
+                if os.path.isdir(t):
+                    shutil.rmtree(t)
+                os.makedirs(t, exist_ok=True)
+
+        _mp.stage(f"write_fs:prepare:{tag}", what + " prepare", prepare,
+                  only0=True)
+
+        def write_blocks():
+            checksums = {}
+            items = []
+            for entry, block in owned:
+                fname = _block_fname(entry)
+                checksums[fname] = _block_crc(block)
+                items.extend((os.path.join(t, fname), block) for t in tmps)
+            if items and not shard_native.write_shards(items):
+                for p, blk in items:
+                    np.save(p, blk)
+            side = f"checksums.{_mp.process_index()}.pkl"
+            for t in tmps:
+                with open(os.path.join(t, side), "wb") as f:
+                    f.write(pickle.dumps(checksums))
+
+        _mp.stage(f"write_fs:blocks:{tag}", what + " blocks", write_blocks)
+
+        def publish():
+            merged = {}
+            for entry in sorted(os.listdir(tmps[0])):
+                if entry.startswith("checksums.") and entry.endswith(".pkl"):
+                    with open(os.path.join(tmps[0], entry), "rb") as f:
+                        merged.update(pickle.load(f))
+            for t in tmps:
+                for entry in os.listdir(t):
+                    if entry.startswith("checksums."):
+                        os.remove(os.path.join(t, entry))
+                _write_meta(t, {"grid": grid.to_meta(), "checksums": merged})
+            _publish_tmps(tmps, targets)
+            _cleanup_orphans(final_path)
+            if settings.checkpoint_fsync:
+                _fsync_path(os.path.dirname(final_path) or ".")
+            for stale in _existing_replicas(final_path):
+                if stale not in targets:
+                    shutil.rmtree(stale, ignore_errors=True)
+
+        _mp.stage(f"write_fs:publish:{tag}", what + " publish", publish,
+                  only0=True)
+        return np.ones(max(1, len(owned)), dtype=bool)
 
     def read_meta_fs(self, filename: str) -> dict:
         path = _fs_path(filename)
@@ -362,6 +574,10 @@ class FileSystem:
         alt_dirs = _existing_replicas(path)
         checks = meta.get("checksums")
         grid = ArrayGrid.from_meta(meta["grid"])
+        if (_mp.is_multiprocess() and self.backend.mesh is not None
+                and grid.shape):
+            return self._read_fs_region(path, grid, alt_dirs, checks,
+                                        verify)
         out = np.zeros(grid.shape, dtype=np.dtype(grid.dtype))
         jobs = []
         for entry in grid.get_entry_iterator():
@@ -381,11 +597,57 @@ class FileSystem:
         return BlockArray.from_np(out, block_shape=grid.block_shape,
                                   backend=self.backend)
 
+    def _read_fs_region(self, path, grid, alt_dirs, checks, verify):
+        """``read_fs`` under several processes (collective): this process
+        loads only the stored blocks that overlap its region, windows read
+        by the native engine, or whole blocks with the replica failover
+        and CRCs (``verify``), and builds its part of the DTensor
+        (``region_array``). No process assembles the whole array, and any
+        stored grid reads under any mesh."""
+        dtype = np.dtype(grid.dtype)
+
+        def load_region(box):
+            out = np.zeros(tuple(b - a for a, b in box), dtype=dtype)
+            jobs = [(os.path.join(path, _block_fname(e)), src, dst)
+                    for e, src, dst in _overlaps(grid, box)]
+            if verify or not shard_native.read_block_windows(jobs, out):
+                for p, src, dst in jobs:
+                    if not verify:
+                        try:
+                            out[dst] = np.load(p, mmap_mode="r")[src]
+                            continue
+                        except Exception:
+                            pass  # fail over to the replicas
+                    out[dst] = self._load_block_checked(
+                        p, alt_dirs, checks)[src]
+            return out
+
+        what = f"read_fs({path!r})"
+        arr = _mp.stage(f"read_fs:{_tag(path)}", what,
+                        lambda: region_array(self.backend, grid,
+                                             load_region))
+        return arr
+
     def delete_fs(self, filename: str):
         """Delete the checkpoint, its replicas and its publish orphans (an
         orphan left behind would bring the checkpoint back on the next
-        read). Returns ``[existed]``."""
+        read). Returns ``[existed]``. Under several processes it is
+        collective: every process looks before any deletes, so all return
+        the same flag, and process 0 alone deletes (rmtrees racing on a
+        shared filesystem fail each other)."""
         path = _fs_path(filename)
+        if _mp.is_multiprocess():
+            exists = os.path.isdir(path)
+            _mp.barrier(f"delete_fs:probe:{_tag(filename)}")
+
+            def remove():
+                _cleanup_orphans(path, include_replicas=True)
+                if exists:
+                    shutil.rmtree(path)
+
+            _mp.stage(f"delete_fs:done:{_tag(filename)}",
+                      f"delete_fs({filename!r})", remove, only0=True)
+            return np.array([exists], dtype=bool)
         _cleanup_orphans(path, include_replicas=True)
         exists = os.path.isdir(path)
         if exists:
@@ -403,7 +665,43 @@ class FileSystem:
              "bad": [(dir, fname)], # failures found (before repair)
              "repaired": [(dir, fname)],
              "unrecoverable": [fname]}  # no intact copy anywhere
+
+        ``repair=True`` under several processes is collective: process 0
+        scrubs (repairers racing on the same files would clash, and a
+        scrub on every process reads every copy P times) and leaves its
+        report in a sidecar on the shared filesystem, which every process
+        reads, so all return the same report.
         """
+        if repair and _mp.is_multiprocess():
+            tag = _tag(filename)
+            sidecar = _fs_path(filename) + ".scrub-report.pkl"
+            what = f"verify_fs({filename!r})"
+
+            def scrub():
+                report = self._verify_fs_impl(filename, True)
+                tmp = f"{sidecar}.tmp-{os.getpid()}"
+                with open(tmp, "wb") as f:
+                    f.write(pickle.dumps(report))
+                os.replace(tmp, sidecar)
+
+            _mp.stage(f"verify_fs:scrub:{tag}", what + " scrub", scrub,
+                      only0=True)
+
+            def read_report():
+                with open(sidecar, "rb") as f:
+                    return pickle.load(f)
+
+            report = _mp.stage(f"verify_fs:read:{tag}", what + " report",
+                               read_report)
+            if _mp.process_index() == 0:
+                try:
+                    os.remove(sidecar)
+                except OSError:
+                    pass
+            return report
+        return self._verify_fs_impl(filename, repair)
+
+    def _verify_fs_impl(self, filename: str, repair: bool) -> dict:
         path = _fs_path(filename)
         meta = self.read_meta_fs(filename)
         checks = meta.get("checksums") or {}
@@ -480,6 +778,8 @@ class FileSystem:
         nums_tpu reads too), then the grid's meta object: readers key on
         it, so a writer that fails midway never exposes a grid with
         missing blocks. Returns one True per block."""
+        if _mp.is_multiprocess():
+            return self._write_s3_multiprocess(ba, filename)
         client = self._s3_client()
         bucket, key = _s3_parse(filename)
         data = ba.data
@@ -497,6 +797,33 @@ class FileSystem:
         )
         return np.array(results, dtype=bool)
 
+    def _write_s3_multiprocess(self, ba: BlockArray, filename: str):
+        """The collective S3 write: each process puts only the objects of
+        its own blocks (``_shard_grid_blocks``, the checkpoint writer's
+        grid); after a checked barrier, process 0 puts the meta object, on
+        which readers key, so none sees a grid whose blocks are not all
+        there. Puts are atomic per key: no rename. Returns one True per
+        object this process put (``[True]`` where it put none)."""
+        client = self._s3_client()
+        bucket, key = _s3_parse(filename)
+        grid, owned = self._shard_grid_blocks(ba)
+        what = f"write_s3({filename!r})"
+
+        def put_blocks():
+            for entry, block in owned:
+                client.put_object(Bucket=bucket,
+                                  Key=_s3_block_key(key, entry),
+                                  Body=pickle.dumps(block))
+
+        _mp.stage(f"write_s3:blocks:{_tag(key)}", what + " blocks",
+                  put_blocks)
+        _mp.stage(f"write_s3:meta:{_tag(key)}", what + " meta",
+                  lambda: client.put_object(
+                      Bucket=bucket, Key=f"{key}_meta",
+                      Body=pickle.dumps({"grid": grid.to_meta()})),
+                  only0=True)
+        return np.ones(max(1, len(owned)), dtype=bool)
+
     def read_meta_s3(self, filename: str) -> dict:
         client = self._s3_client()
         bucket, key = _s3_parse(filename)
@@ -509,6 +836,22 @@ class FileSystem:
         client = self._s3_client()
         bucket, key = _s3_parse(filename)
         grid = ArrayGrid.from_meta(self.read_meta_s3(filename)["grid"])
+        if (_mp.is_multiprocess() and self.backend.mesh is not None
+                and grid.shape):
+            # Collective: each process fetches only the objects that
+            # overlap its region.
+            def load_region(box):
+                out = np.zeros(tuple(b - a for a, b in box),
+                               dtype=np.dtype(grid.dtype))
+                for entry, src, dst in _overlaps(grid, box):
+                    obj = client.get_object(
+                        Bucket=bucket, Key=_s3_block_key(key, entry))
+                    out[dst] = pickle.loads(obj["Body"].read())[src]
+                return out
+
+            return _mp.stage(f"read_s3:{_tag(key)}", f"read_s3({filename!r})",
+                             lambda: region_array(self.backend, grid,
+                                                  load_region))
         out = np.zeros(grid.shape, dtype=np.dtype(grid.dtype))
         for grid_entry in grid.get_entry_iterator():
             obj = client.get_object(
@@ -519,18 +862,30 @@ class FileSystem:
                                   backend=self.backend)
 
     def delete_s3(self, filename: str):
+        """Delete the array's objects. Under several processes process 0
+        deletes, after every process has read the grid (collective)."""
         client = self._s3_client()
         bucket, key = _s3_parse(filename)
         grid = ArrayGrid.from_meta(self.read_meta_s3(filename)["grid"])
         keys = [f"{key}_meta"] + [
             _s3_block_key(key, e) for e in grid.get_entry_iterator()
         ]
-        # DeleteObjects takes at most 1000 keys per request.
-        for i in range(0, len(keys), 1000):
-            client.delete_objects(
-                Bucket=bucket,
-                Delete={"Objects": [{"Key": k} for k in keys[i:i + 1000]]},
-            )
+
+        def remove():
+            # DeleteObjects takes at most 1000 keys per request.
+            for i in range(0, len(keys), 1000):
+                client.delete_objects(
+                    Bucket=bucket,
+                    Delete={"Objects": [{"Key": k}
+                                        for k in keys[i:i + 1000]]},
+                )
+
+        if _mp.is_multiprocess():
+            _mp.barrier(f"delete_s3:probe:{_tag(key)}")
+            _mp.stage(f"delete_s3:done:{_tag(key)}",
+                      f"delete_s3({filename!r})", remove, only0=True)
+        else:
+            remove()
         return np.array([True] * len(keys), dtype=bool)
 
     # -- parallel text ingestion ----------------------------------------
@@ -560,10 +915,96 @@ class FileSystem:
     def _default_workers(self) -> int:
         return max(self.backend.num_devices, os.cpu_count() or 1)
 
+    def _read_csv_multiprocess(self, filename, dtype, delimiter,
+                               has_header) -> BlockArray:
+        """``read_csv`` under several processes (collective; a shared
+        filesystem). The file is cut into newline-aligned byte ranges whose
+        non-blank lines the processes count round-robin (one all-reduce of
+        the counts); then each process finds the byte span of its region's
+        rows and parses that span alone with the native parser
+        (``np.loadtxt`` where it declines), so each reads about 1/P of the
+        file. Every line is one data row."""
+        nproc, pidx = _mp.process_count(), _mp.process_index()
+        size = os.path.getsize(filename)
+        ranges = self._byte_ranges(filename, max(16, 4 * nproc))
+        counts = np.zeros(len(ranges), np.int64)
+        with open(filename, "rb") as f:
+            for i in range(pidx, len(ranges), nproc):
+                start, stop = ranges[i]
+                f.seek(start)
+                # Non-blank lines only: the parsers skip blank ones. The
+                # last part is the unterminated tail of the file's last
+                # range (a row if not blank), else b"".
+                parts = f.read(stop - start).split(b"\n")
+                counts[i] = sum(1 for ln in parts[:-1] if ln.strip())
+                counts[i] += 1 if parts[-1].strip() else 0
+        counts = _mp.host_sum(counts)
+        cum = np.concatenate([[0], np.cumsum(counts)])
+        header = 1 if has_header else 0
+        total_rows = int(cum[-1]) - header
+        assert total_rows > 0, f"{filename}: no data rows"
+        with open(filename, "rb") as f:
+            line = f.readline()
+            if has_header:
+                line = f.readline()
+        ncols = len(line.decode().strip().split(delimiter))
+        out_dtype = np.dtype(dtype)
+        block_shape = (max(1, total_rows // max(1, self.backend.num_devices)),
+                       ncols)
+        grid = ArrayGrid((total_rows, ncols), block_shape, out_dtype.name)
+
+        def line_offset(f, line_idx):
+            """The byte offset of non-blank line ``line_idx``: its range
+            from the counts, then a scan of that range."""
+            if line_idx >= cum[-1]:
+                return size
+            i = int(np.searchsorted(cum, line_idx, side="right")) - 1
+            start, stop = ranges[i]
+            need = int(line_idx - cum[i])
+            f.seek(start)
+            raw = f.read(stop - start)
+            ofs, seen = 0, 0
+            while ofs <= len(raw):
+                nl = raw.find(b"\n", ofs)
+                end = nl if nl >= 0 else len(raw)
+                if raw[ofs:end].strip():
+                    if seen == need:
+                        return start + ofs
+                    seen += 1
+                if nl < 0:
+                    break
+                ofs = nl + 1
+            return stop
+
+        def fill_rows(r0, r1, c0, c1, out):
+            with open(filename, "rb") as f:
+                b0 = line_offset(f, header + r0)
+                b1 = line_offset(f, header + r1)
+                f.seek(b0)
+                raw = f.read(b1 - b0)
+            arr, ok = _native.parse_bytes(raw, delimiter)
+            if not ok:
+                arr = np.loadtxt(StringIO(raw.decode()), dtype=out_dtype,
+                                 delimiter=delimiter, ndmin=2)
+            arr = arr.astype(out_dtype, copy=False)
+            assert arr.shape == (r1 - r0, ncols), (
+                arr.shape, (r1 - r0, ncols), "malformed CSV region")
+            out[:, :] = arr[:, c0:c1]
+
+        load_region = row_region_loader((total_rows, ncols), out_dtype,
+                                        fill_rows)
+        return _mp.stage(f"read_csv:{_tag(filename)}",
+                         f"read_csv({filename!r})",
+                         lambda: region_array(self.backend, grid,
+                                              load_region))
+
     def read_csv(
         self, filename, dtype=float, delimiter=",", has_header=False,
         num_workers=None,
     ) -> BlockArray:
+        if _mp.is_multiprocess() and self.backend.mesh is not None:
+            return self._read_csv_multiprocess(filename, dtype, delimiter,
+                                               has_header)
         arr = self.read_csv_host(
             filename, dtype=dtype, delimiter=delimiter,
             has_header=has_header, num_workers=num_workers,

@@ -131,6 +131,44 @@ def allgather_to_host(tensor) -> np.ndarray:
     return tensor.detach().cpu().numpy()
 
 
+def host_sum(array) -> np.ndarray:
+    """The elementwise sum over every process of a small host array
+    (collective; one all-reduce): where each process filled its own
+    entries and left the others 0, every process gets them all."""
+    array = np.asarray(array)
+    if not is_multiprocess():
+        return array.copy()
+    t = torch.from_numpy(np.ascontiguousarray(array)).to(_flag_device())
+    dist.all_reduce(t)
+    return t.cpu().numpy()
+
+
+def broadcast_from_zero(tensor):
+    """``tensor`` replaced in place by process 0's (collective): a carry
+    that every process must hold bit for bit."""
+    if is_multiprocess():
+        dist.broadcast(tensor, src=0)
+    return tensor
+
+
+def stage(name: str, what: str, fn, only0: bool = False):
+    """One stage of a collective operation: ``fn()`` on every process (on
+    process 0 alone with ``only0``), then a :func:`checked_barrier`, so a
+    stage that failed anywhere fails everywhere and no process waits at
+    the next collective. Returns ``fn()``'s value (None where it did not
+    run)."""
+    ok, err, out = True, None, None
+    if not only0 or process_index() == 0:
+        try:
+            out = fn()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            ok, err = False, e
+    checked_barrier(name, ok, what)
+    if err is not None:
+        raise err
+    return out
+
+
 def barrier(name: str):
     """Block until every process reaches this point (collective)."""
     del name

@@ -16,12 +16,72 @@ kernel (K1), and ``glm_stats_update_aug`` the Newton statistics kernel
 weighted gram kernel (K2) for H. On a CPU tensor the kernel wrappers take
 their plain versions; otherwise the plain ops run in the panel's dtype
 (TF32 off).
+
+On the mesh a panel is row-sharded over the whole mesh (``row_placements``)
+and each step runs on this process's rows (``local_rows``), the kernels
+on each card's share; the partial sums of a pass meet in one all-reduce
+after it (``reduce_rows``), where the reference sums each panel's rows
+across the mesh inside its jitted step. A process with no rows of a panel
+(an uneven shard can be empty) adds nothing: no kernel is launched on 0
+rows, and no min or max is taken of nothing.
 """
 
 import torch
 
 from nums_tpu_torch.core.ops import cuda_gram, cuda_newton
 from nums_tpu_torch.core.ops import linalg as _linalg
+from nums_tpu_torch.core.ops import summa
+
+
+def row_placements(mesh):
+    """DTensor placements of a streamed panel on ``mesh``: its rows split
+    over every mesh dimension in turn (the reference's panel spec, rows
+    over the flattened mesh), every other axis whole."""
+    from torch.distributed.tensor import Shard
+
+    return (Shard(0),) * mesh.ndim
+
+
+def local_rows(panel):
+    """This process's rows of a panel (the tensor itself off the mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    return panel.to_local() if isinstance(panel, DTensor) else panel
+
+
+_OPS = {"sum": "SUM", "min": "MIN", "max": "MAX"}
+
+
+def reduce_rows(mesh, tensors, op="sum"):
+    """Combine a pass's partial results over the processes that hold other
+    rows of its panels, in place: one all-reduce (``op`` in sum, min, max)
+    of ``tensors`` packed in one buffer. Nothing off the mesh or on a mesh
+    of one device."""
+    import torch.distributed as dist
+
+    if mesh is None or mesh.size() == 1:
+        return tensors
+    rows = row_placements(mesh)
+    red = getattr(dist.ReduceOp, _OPS[op])
+    if len(tensors) == 1:
+        summa.all_reduce_rows(mesh, rows, tensors[0], red)
+        return tensors
+    packed = torch.cat([t.reshape(-1) for t in tensors])
+    summa.all_reduce_rows(mesh, rows, packed, red)
+    at = 0
+    for t in tensors:
+        t.copy_(packed[at:at + t.numel()].view(t.shape))
+        at += t.numel()
+    return tensors
+
+
+def augment_ones(x):
+    """[x, 1]: the intercept-augmented copy of this process's rows, built
+    on their device."""
+    out = x.new_empty((x.shape[0], x.shape[1] + 1))
+    out[:, :-1] = x
+    out[:, -1] = 1
+    return out
 
 
 def _sym_gram(panel):
@@ -90,6 +150,20 @@ def tsqr_r_update(chunk, R, panel):
     """R of qr([R; panel]): the Householder combine, stable at any
     conditioning. Returns a new R."""
     return _linalg._tsqr_r_impl(torch.cat([R, panel], dim=0), chunk)
+
+
+def tsqr_r_combine(mesh, chunk, R):
+    """The R of the whole matrix from each process's R of its own rows:
+    the R's of every process gathered, stacked in rank order and factored
+    once, the same on every process. ``R`` itself off the mesh or on a
+    mesh of one device."""
+    import torch.distributed as dist
+
+    if mesh is None or mesh.size() == 1:
+        return R
+    parts = [torch.empty_like(R) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, R.contiguous())
+    return _linalg._tsqr_r_impl(torch.cat(parts, dim=0), chunk)
 
 
 def _mean_weight(kind, eta):

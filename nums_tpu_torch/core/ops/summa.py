@@ -160,13 +160,15 @@ def row_layout(t):
                  for p in t.placements)
 
 
-def all_reduce_rows(mesh, rows, tensor):
+def all_reduce_rows(mesh, rows, tensor, op=None):
     """Sum ``tensor`` (in place) over the processes that hold other rows:
     one all-reduce over each mesh dimension whose placement in ``rows``
-    (``row_layout``'s) shards them."""
+    (``row_layout``'s) shards them. ``op`` (a ``dist.ReduceOp``; default
+    SUM) combines them otherwise."""
+    op = dist.ReduceOp.SUM if op is None else op
     for j, p in enumerate(rows):
         if p.is_shard() and mesh.size(j) > 1:
-            dist.all_reduce(tensor, group=mesh.get_group(j))
+            dist.all_reduce(tensor, op=op, group=mesh.get_group(j))
     return tensor
 
 

@@ -1,8 +1,9 @@
 """DataFrame to BlockArray conversion (pandas and Modin).
 
-Counterpart of ``nums_tpu/experimental/nums_modin.py``, in one process:
-the row partitions are assembled into one host array and placed on the
-device once. ``from_pandas`` needs pandas; ``from_modin`` takes Modin's
+Counterpart of ``nums_tpu/experimental/nums_modin.py``: the row
+partitions are assembled into one host array and placed on the device
+once; on a mesh backend each process assembles only the rows of its own
+region (``filesystem.region_array``). ``from_pandas`` needs pandas; ``from_modin`` takes Modin's
 row partitions where modin is importable and raises otherwise. Both are
 imported inside the functions: importing this module imports neither.
 """
@@ -26,6 +27,23 @@ def _from_row_parts(parts, dtype=None, block_shape=None):
     n, d = sum(rows), parts[0].shape[1]
     if block_shape is None:
         block_shape = app.get_block_shape((n, d), dtype)
+    if app.backend.mesh is not None:
+        from nums_tpu_torch.core.grid import ArrayGrid
+        from nums_tpu_torch.core.io.filesystem import region_array
+
+        starts = np.concatenate([[0], np.cumsum(rows)])
+
+        def load_region(box):
+            (r0, r1), (c0, c1) = box
+            out = np.zeros((r1 - r0, c1 - c0), dtype=dtype)
+            for p, s0, s1 in zip(parts, starts[:-1], starts[1:]):
+                lo, hi = max(r0, s0), min(r1, s1)
+                if lo < hi:
+                    out[lo - r0:hi - r0] = p[lo - s0:hi - s0, c0:c1]
+            return out
+
+        grid = ArrayGrid((n, d), block_shape, np.dtype(dtype).name)
+        return region_array(app.backend, grid, load_region)
     out = np.zeros((n, d), dtype=dtype)
     start = 0
     for p in parts:

@@ -180,20 +180,29 @@ class KMeans:
         over the row panels, accumulating per-cluster sums and counts.
         Seeding is k-means++ on the FIRST panel; one scalar (shift) sync
         per pass, and one more pass for the final inertia. Labels come
-        from ``predict_ooc``."""
+        from ``predict_ooc``. On the mesh every process seeds from the
+        whole first panel and takes process 0's centers (the carry is
+        replicated, bit for bit); each pass adds each process's rows and
+        ends in one all-reduce of the sums, counts and inertia."""
+        from nums_tpu_torch.core import multiprocess
         from nums_tpu_torch.core.array.application import (
-            ooc_accumulator, ooc_panels, ooc_put,
+            _device_dtype, ooc_accumulator, ooc_panels, ooc_put,
         )
+        from nums_tpu_torch.core.ops import streaming
 
         k = self.n_clusters
         backend = X.backend
         first = next(iter(X.iter_row_panels(prefetch=False)))[1]
-        sample, _ = ooc_put(backend, first)
+        sample = torch.from_numpy(np.ascontiguousarray(first)).to(
+            backend.device).to(_device_dtype(backend, first.dtype))
+        del first
         sample = sample.to(torch.float32)
         assert sample.shape[0] >= k, "first panel smaller than n_clusters"
         centers = _plusplus_init(k, self.seed, sample,
                                  _row_sq_norms(sample), _x64(backend))
         del sample
+        if backend.mesh is not None:
+            multiprocess.broadcast_from_zero(centers)
         d = X.shape[1]
 
         def one_pass(centers, with_inertia=False):
@@ -201,12 +210,16 @@ class KMeans:
             counts = ooc_accumulator(backend, np.zeros((k,), np.float64))
             inertia = ooc_accumulator(backend, np.zeros((), np.float32))
             for _, panel in ooc_panels(X):
-                p, nv = ooc_put(backend, panel)
-                p = p[:nv].to(torch.float32)
+                p, _ = ooc_put(backend, panel)
+                p = streaming.local_rows(p).to(torch.float32)
+                if not p.shape[0]:
+                    continue
                 assign, s, c = _assign_stats(p, centers, k)
                 sums, counts = sums + s, counts + c
                 if with_inertia:
                     inertia = inertia + _inertia(p, centers, assign)
+            streaming.reduce_rows(backend.mesh, [sums, counts])
+            streaming.reduce_rows(backend.mesh, [inertia])
             return sums, counts, inertia
 
         it = 0
@@ -227,26 +240,39 @@ class KMeans:
 
     def predict_ooc(self, X, out: str = None):
         """Labels for a DiskArray, written as a 1-D int32 DiskArray."""
-        from nums_tpu_torch.core.array.application import ooc_panels, ooc_put
+        from nums_tpu_torch.core.array.application import (
+            gather_rows, ooc_panels, ooc_put,
+        )
         from nums_tpu_torch.core.array.diskarray import DiskArray
+        from nums_tpu_torch.core.ops import streaming
 
         assert self.cluster_centers_ is not None, "fit first"
         backend = X.backend
-        centers = self.cluster_centers_.data.to(
-            device=backend.device, dtype=torch.float32)
+        centers = self._centers_data().to(device=backend.device,
+                                          dtype=torch.float32)
         out = out or X.path + ".labels"
 
         def panels():
+            # On the mesh each process labels its own rows; the labels
+            # are gathered for the collective from_panels.
             for _, panel in ooc_panels(X):
-                p, nv = ooc_put(backend, panel)
-                lab = torch.argmin(_dists2(p.to(torch.float32), centers),
-                                   dim=1)
-                yield lab[:nv].to(torch.int32).cpu().numpy()
+                p, rows = ooc_put(backend, panel)
+                x = streaming.local_rows(p).to(torch.float32)
+                lab = torch.argmin(_dists2(x, centers), dim=1)
+                yield gather_rows(backend, lab.to(torch.int32), (rows,))
 
         return DiskArray.from_panels(
             out, X._fs, panels(), (X.shape[0],), np.int32,
             X.grid.block_shape[0],
         )
+
+    def _centers_data(self):
+        """The fitted centers as one plain tensor (whole on every process
+        of a mesh)."""
+        from torch.distributed.tensor import DTensor
+
+        c = self.cluster_centers_.data
+        return c.full_tensor() if isinstance(c, DTensor) else c
 
     @property
     def labels_(self):

@@ -12,8 +12,9 @@ gram (on the gram kernel where its gate is on) and its column sums to the
 moments on the device, and the eigendecomposition of the (d, d) gram or
 covariance runs on the host in float64. ``transform`` then streams the
 panels through one projection each on the device and writes the result as
-a new DiskArray. The multi-process branch of the reference's streamed
-transform comes with the mesh backend.
+a new DiskArray. On the mesh each process adds the moments of its own
+rows of each panel (one all-reduce ends the pass) and projects its own
+rows, gathered for the collective ``DiskArray.from_panels``.
 
 sklearn-compatible surface: fit / transform / fit_transform /
 inverse_transform, components_, explained_variance_(ratio_),
@@ -26,13 +27,21 @@ import torch
 
 from nums_tpu_torch.core.application_manager import instance as _instance
 from nums_tpu_torch.core.array.application import (
-    _device_dtype, ooc_accumulator, ooc_panels, ooc_put,
+    _device_dtype, gather_rows, ooc_accumulator, ooc_panels, ooc_put,
 )
 from nums_tpu_torch.core.array.diskarray import DiskArray
 from nums_tpu_torch.core.ops import streaming
 from nums_tpu_torch.models._common import (
     _to_ba, load_model_arrays, save_model_arrays,
 )
+
+
+def _whole(t):
+    """A model array's tensor as one plain tensor (whole on every process
+    of a mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def _project(p, comps, shift, scale):
@@ -135,7 +144,10 @@ class _BaseSVDModel:
         s = ooc_accumulator(backend, torch.zeros((d,), dtype=dt))
         for _, panel in ooc_panels(X):
             p, _ = ooc_put(backend, panel)
-            streaming.gram_and_sum_update(G, s, p.to(dt))
+            x = streaming.local_rows(p)
+            if x.shape[0]:
+                streaming.gram_and_sum_update(G, s, x.to(dt))
+        streaming.reduce_rows(backend.mesh, [G, s])
         G = backend.get(G).astype(np.float64)
         mu = backend.get(s).astype(np.float64) / X.shape[0]
         return G, mu
@@ -161,19 +173,20 @@ class _BaseSVDModel:
         the result is written with ``DiskArray.from_panels``."""
         backend = X.backend
         dt = _device_dtype(backend, X.dtype)
-        comps = self.components_.data.to(dt)
+        comps = _whole(self.components_.data).to(dt)
         k, d = comps.shape
         shift, scale = self._ooc_shift(), self._ooc_scale()
         shift = (torch.zeros((d,), dtype=dt, device=backend.device)
-                 if shift is None else shift.to(dt))
+                 if shift is None else _whole(shift).to(dt))
         scale = (torch.ones((k,), dtype=dt, device=backend.device)
-                 if scale is None else scale.to(dt))
+                 if scale is None else _whole(scale).to(dt))
 
         def panels():
             for _, panel in ooc_panels(X):
-                p, nv = ooc_put(backend, panel)
-                yield backend.get(_project(p.to(dt), comps, shift,
-                                           scale))[:nv]
+                p, rows = ooc_put(backend, panel)
+                t = _project(streaming.local_rows(p).to(dt), comps, shift,
+                             scale)
+                yield gather_rows(backend, t, (rows, k))
 
         return DiskArray.from_panels(
             out or X.path + ".transformed", X._fs, panels(),

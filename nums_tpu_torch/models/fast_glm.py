@@ -549,6 +549,12 @@ def newton_fit_ooc(X_disk, y, tol, kind="logistic", max_iter=10,
     agree. beta, g and H have width d + 1: the kernels pad inside their
     staging pass, and no lane padding is needed.
 
+    On the mesh the carry (beta, λ, g, H) is replicated: each process
+    augments its own rows of each panel on its device and adds their
+    statistics (K3 one-shot on each card's rows), one all-reduce of g and
+    H packed in one buffer ends each pass (as ``newton_fit_mesh`` does a
+    step), and the Newton step is the same on every process.
+
     y: a host array, a BlockArray (fetched to the host once), or a 1-D
     DiskArray with X's row partitioning. Returns (beta with the intercept
     last, max|g|, iterations)."""
@@ -559,6 +565,7 @@ def newton_fit_ooc(X_disk, y, tol, kind="logistic", max_iter=10,
 
     assert X_disk.ndim == 2
     backend = X_disk.backend
+    mesh = backend.mesh
     dt = _device_dtype(backend, dtype or X_disk.dtype)
     y_at = _ooc_y_getter(X_disk, y)
     da = X_disk.shape[1] + 1
@@ -572,9 +579,18 @@ def newton_fit_ooc(X_disk, y, tol, kind="logistic", max_iter=10,
         H = ooc_accumulator(backend, torch.zeros((da, da), dtype=dt))
         for start, panel in ooc_panels(X_disk):
             yp, _ = ooc_put(backend, y_at(start, panel.shape[0]))
-            pa, _ = ooc_put(backend, panel, augment_ones=True)
+            if mesh is None:
+                pa, _ = ooc_put(backend, panel, augment_ones=True)
+            else:
+                p, _ = ooc_put(backend, panel)
+                x, yp = streaming.local_rows(p), streaming.local_rows(yp)
+                if not x.shape[0]:
+                    continue
+                pa = streaming.augment_ones(x)
+                del p, x
             streaming.glm_stats_update_aug(kind, g, H, pa.to(dt), yp.to(dt),
                                            beta)
+        streaming.reduce_rows(mesh, [g, H])
         beta, gmax = streaming.newton_update(bool(penalized), beta, g, H,
                                              lv)
         if float(gmax) <= tol:  # one host sync per pass

@@ -221,9 +221,13 @@ class GLM:
         G = ooc_accumulator(backend, torch.zeros((da, da), dtype=dt))
         q = ooc_accumulator(backend, torch.zeros((da,), dtype=dt))
         for start, panel in ooc_panels(X):
-            p, nv = ooc_put(backend, panel)
+            p, _ = ooc_put(backend, panel)
             yp, _ = ooc_put(backend, y_at(start, panel.shape[0]))
-            streaming.normal_eq_aug_update(G, q, p.to(dt), yp.to(dt), nv)
+            x, yl = streaming.local_rows(p), streaming.local_rows(yp)
+            if x.shape[0]:
+                streaming.normal_eq_aug_update(G, q, x.to(dt), yl.to(dt),
+                                               x.shape[0])
+        streaming.reduce_rows(backend.mesh, [G, q])
         beta0 = ooc_accumulator(backend, torch.zeros((da,), dtype=dt))
         lam = ooc_accumulator(backend, torch.as_tensor(
             np.zeros(da) if lv is None else lv).to(dt))
@@ -343,16 +347,35 @@ class GLM:
         """Predictions for an out-of-core design matrix, computed on the
         host panel by panel and streamed to a new 1-D DiskArray (``out``
         defaults to ``<X.path>.pred``), as the reference computes them
-        (glms.py:381-403 there)."""
+        (glms.py:381-403 there). Under several processes each process
+        computes its own rows of each panel (a ``PanelRef`` reads only
+        those) and the predictions are gathered (``gather_rows``) for the
+        collective ``DiskArray.from_panels``: the same numbers, 1/P of the
+        reads."""
+        from nums_tpu_torch.core import multiprocess
+        from nums_tpu_torch.core.array.application import gather_rows
+        from nums_tpu_torch.core.ops import streaming
+
         assert isinstance(X, DiskArray), type(X)
         assert self._beta is not None, "fit must be called first"
         coef = np.asarray(self._beta.get())
         b0 = float(self._beta0.get())
         out = out or X.path + ".pred"
+        backend = X.backend
 
         def panels():
-            for _, p in X.iter_row_panels():
-                yield np.asarray(self._host_link(p @ coef + b0))
+            if backend.mesh is None or not multiprocess.is_multiprocess():
+                for _, p in X.iter_row_panels():
+                    yield np.asarray(self._host_link(p @ coef + b0))
+                return
+            placements = streaming.row_placements(backend.mesh)
+            for _, ref in X.iter_panel_refs():
+                rows = ref.shape[0]
+                (lo, hi), = backend.region((rows,), placements)
+                host = np.asarray(self._host_link(ref.load(lo, hi) @ coef
+                                                  + b0))
+                local = torch.from_numpy(np.ascontiguousarray(host))
+                yield gather_rows(backend, local.to(backend.device), (rows,))
 
         dtype = self._host_link(np.zeros(1)).dtype
         return DiskArray.from_panels(

@@ -115,10 +115,14 @@ def test_init_needs_a_card_unless_the_cpu_is_asked_for():
     "nums_tpu_torch.core.ops.summa",
     "nums_tpu_torch.core.backend",
     "nums_tpu_torch.core.application_manager",
+    "nums_tpu_torch.core.array.application",
+    "nums_tpu_torch.models.fast_glm",
+    "nums_tpu_torch.models.glms",
 ])
 def test_io_and_ooc_modules_import_first(module):
     """Each module of the I/O, out-of-core, linalg, ingestion, random,
-    facade, models and mesh slices imports as the first module of a process (no
+    facade, models and mesh slices (and of their multi-process branches)
+    imports as the first module of a process (no
     import cycle), with jax, nums_tpu and optax blocked."""
     probe = _PROBE.split("import nums_tpu_torch\n")[0] + (
         f"import {module}\n"
