@@ -1,11 +1,12 @@
 """Smoke run of nums_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py                 # phases 1-16
+    python3 chip_smoke.py                 # phases 1-17
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check
     python3 chip_smoke.py --random-only   # phases 1 and 11
     python3 chip_smoke.py --facade-only   # phases 1, 2, 12 and 13
     python3 chip_smoke.py --models-only   # phases 1, 2 and 14
     python3 chip_smoke.py --mesh-only     # phases 1, 2, 15 and 16 on every card
+    python3 chip_smoke.py --masks-only    # phases 1, 2 and 17 on every card
 
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi);
@@ -237,6 +238,30 @@ Phases, each printing one JSON line:
      rank (host read, host to device, K3, the all-reduce) and K1, K2 and
      K3 on a rank's rows of one panel against their plain versions. The
      phase fails past 900 s on any rank.
+ 17. masks: filter, encode and fit through the mesh's data-dependent ops
+     (``core/ops/mesh_ops.py``). X's rows filtered twice, evenly
+     (``X[X[:, 0] > 0]``, half the rows of every card) and skewed (``X[t >=
+     0.7 N]`` for t = arange(N): the last 30% of the rows, on the last
+     cards, re-placed to an even share of each card); then ``unique`` (with
+     counts and inverse) of c = floor(U(0, 1000)) as int64, ``isin`` of c
+     in 50 categories, ``digitize`` of a column at 32 quantile edges and
+     ``bincount`` of its bins, ``histogram`` of a column in 64 bins, and
+     ``where`` of the even mask; then ``Xs.T @ Xs`` (K1), the fused
+     logistic fit on the skewed rows (K3) and ``predict``. Each step's
+     seconds and the bytes each rank sent (with ``--masks-only`` the
+     filters, K1 and the fit also timed warm by CUDA events, the slowest
+     rank's). In the full run on phase 15's
+     world-1 mesh and its X (2.5M x 1000), every result bit for bit the
+     serial backend's on the same tensors, K1 once and K3 ten times in
+     each. With ``--masks-only``, one process per card at 10,000,000 x
+     1000 fp32 on the (cards, 1) mesh: every integer output equal to
+     numpy's on the columns gathered to the host; each rank's filtered rows
+     X's rows at the positions it holds (float64 row sums equal exactly,
+     64 rows bit for bit the serial draw of their positions); G within
+     1e-4 and beta within 1e-2 of float64 on each rank's rows, predict
+     within 1e-4 of the rows' own labels; K1 once and K3 ten times a card;
+     each card's peak below X's bytes (no card holds X whole);
+     every rank exits 0 within 600 s.
 Then the kernels as one JSON line (each with its bound, the least time
 the card could take for its work at this run's shapes), and last
 {"ok": true, "device": {...}}. A failed phase prints its traceback and
@@ -4253,18 +4278,22 @@ def phase_mesh(torch, smi, keep):
                             device=local.device)
             out["all_reduce_h_ms"] = _mesh_time_ms(torch,
                                                    lambda: dist.all_reduce(h))
-            del X, G, y, model, local, h
+            del G, model, local, h
             torch.cuda.empty_cache()
             out["seconds"] = time.perf_counter() - t_phase
             out["bitwise_vs_phase_4"] = ["draw", "gram", "beta", "accuracy"]
             emit(out)
+            # Phase 17 on the same world-1 mesh and X.
+            masks = phase_masks(torch, smi, app, X, y)
+            del X, y
+            torch.cuda.empty_cache()
             # Phase 16 on the same world-1 mesh.
             ooc = phase_mesh_ooc(torch, smi, app)
             app.backend.shutdown()
         finally:
             application_manager.set_instance(saved)
             dist.destroy_process_group()
-    return out, ooc
+    return out, ooc, masks
 
 
 class _Tee:
@@ -4310,7 +4339,7 @@ def _mesh_rank(rank, world, init_file, cfg):
         if DEVICE == "cuda":
             torch.cuda.set_device(rank)
         multiprocess.initialize(DEVICE)
-        _mesh_cards(torch, cfg)
+        globals()[cfg.get("entry", "_mesh_cards")](torch, cfg)
         multiprocess.barrier("done")
         dist.destroy_process_group()
     except BaseException:  # noqa: BLE001 - the parent sees the exit code
@@ -4709,10 +4738,8 @@ def phase_mesh_cards(torch, smi):
     file:// rendezvous under a temporary directory). Fails unless every
     rank exits 0 before ``MESH_DEADLINE_S``; a rank that fails ends the
     run at once. Returns the number of ranks."""
-    import multiprocessing as mp
-    import tempfile
-
     import shutil
+    import tempfile
 
     from nums_tpu_torch.core import settings
 
@@ -4744,28 +4771,9 @@ def phase_mesh_cards(torch, smi):
     emit({"phase": "mesh_start", "world": world, "nvidia_smi": smi,
           "shape": [cfg["n"], cfg["d"]], "data_dir_free_bytes": free,
           "mesh_ooc_rows": ooc_n, "mesh_ooc_cut": ooc_n != MESH_N})
-    ctx = mp.get_context("spawn")
     t0 = time.perf_counter()
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            init = os.path.join(tmp, "rendezvous")
-            procs = [ctx.Process(target=_mesh_rank,
-                                 args=(r, world, init, cfg))
-                     for r in range(world)]
-            for p in procs:
-                p.start()
-            deadline = time.monotonic() + cfg["deadline"]
-            while any(p.is_alive() for p in procs):
-                failed = [p for p in procs
-                          if p.exitcode is not None and p.exitcode != 0]
-                if failed or time.monotonic() > deadline:
-                    break
-                time.sleep(0.5)
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                p.join()
-        codes = [p.exitcode for p in procs]
+        codes = _spawn_ranks(world, cfg)
         assert codes == [0] * world, ("mesh ranks' exit codes", codes)
         emit({"phase": "mesh_done", "world": world, "exit_codes": codes,
               "seconds": time.perf_counter() - t0})
@@ -5482,6 +5490,368 @@ def _mesh_ooc_world1_kmeans(torch, root, world):
     return out
 
 
+# Phase 17, masks and the data-dependent ops on the mesh: filter, encode
+# and fit. In the full run on phase 15's world-1 mesh and its X, every
+# result bit for bit the serial backend's; with --masks-only on every card
+# at 10M x 1000.
+MASK_KEEP = 0.7              # the skewed filter keeps t >= 0.7 N, the last
+                             # 30% of the rows by time
+MASK_C_SEED = 1717           # the categorical column c = floor(U(0, 1000))
+MASK_CATEGORIES = 1000
+MASK_ISIN = 50               # isin(c, every 20th category)
+MASK_EDGES = 32              # digitize's quantile edges
+MASK_HIST_BINS = 64
+MASK_SAMPLE_ROWS = 64        # filtered rows a rank holds to X's, bitwise
+MASK_DEADLINE_S = 600.0      # every rank exits 0 within, or the run fails
+
+
+def _mask_columns(torch, app, X):
+    """t = arange(N) and c = floor(U(0, 1000)) as int64, laid out as X's
+    rows (one block of X's rows each)."""
+    import nums_tpu_torch.numpy as nps
+
+    n, rows = X.shape[0], X.block_shape[0]
+    t = app.arange((n,), (rows,))
+    u = app.random_state(MASK_C_SEED).uniform(
+        0.0, float(MASK_CATEGORIES), shape=(n,), block_shape=(rows,),
+        dtype=np.float32)
+    return t, nps.floor(u).astype(np.int64)
+
+
+def _masks_steps(torch, app, X, y, t, c):
+    """Every step of phase 17 on X's app (the mesh, or the serial backend
+    with the same tensors): (results by step, seconds and bytes sent by
+    step, launches of the gram, fit and predict). A column is taken as a
+    one-column block reshaped in place, so that it stays laid out as X's
+    rows."""
+    import nums_tpu_torch.numpy as nps
+    from nums_tpu_torch.core import multiprocess
+    from nums_tpu_torch.models.glms import LogisticRegression
+
+    n, rows = X.shape[0], X.block_shape[0]
+    res, info = {}, {}
+
+    def col(j):
+        return X[:, j:j + 1].reshape(n, block_shape=(rows,))
+
+    def step(name, fn):
+        before = multiprocess.EXCHANGED["bytes_sent"]
+        res[name], secs = _mesh_seconds(torch, fn)
+        info[name] = {"seconds": secs, "bytes_sent": multiprocess.EXCHANGED[
+            "bytes_sent"] - before}
+        return res[name]
+
+    even = step("mask_even", lambda: col(0) > 0)
+    step("filter_even", lambda: X[even])
+    skew = step("mask_skewed", lambda: t >= int(MASK_KEEP * n))
+    Xs = step("filter_skewed", lambda: X[skew])
+    ys = step("labels_skewed", lambda: y[skew])
+    step("unique", lambda: nps.unique(c, return_counts=True,
+                                      return_inverse=True))
+    cats = np.arange(0, MASK_CATEGORIES, MASK_CATEGORIES // MASK_ISIN)
+    step("isin", lambda: nps.isin(c, app.array(cats, block_shape=(
+        len(cats),))))
+    c1 = col(1)
+    # the edges: quantiles of the column read to the host (40 MB at 10M)
+    edges = step("quantile_edges", lambda: app.array(np.quantile(
+        np.asarray(c1.get()), np.linspace(0.0, 1.0, MASK_EDGES)).astype(
+            np.float32), block_shape=(MASK_EDGES,)))
+    bins = step("digitize", lambda: nps.digitize(c1, edges))
+    step("bincount", lambda: nps.bincount(bins))
+    step("histogram", lambda: nps.histogram(col(2), MASK_HIST_BINS))
+    step("where", lambda: app.where(even))
+    _reset_counts()
+    step("gram", lambda: Xs.T @ Xs)
+    model = step("fit", lambda: LogisticRegression(**FIT).fit(Xs, ys))
+    step("predict", lambda: model.predict(Xs))
+    launches = _counts()
+    res["beta"] = torch.cat([model.coef_.data, model.intercept_.data[None]])
+    res["col0"], res["col1"], res["col2"] = col(0), c1, col(2)
+    return res, info, launches
+
+
+def _local(a):
+    """A BlockArray's tensor on this process (a DTensor's own part)."""
+    from nums_tpu_torch.core.ops import mesh_ops
+
+    t = a.raw
+    return t.to_local() if mesh_ops.is_dtensor(t) else t
+
+
+def _serial_twin(backend, a):
+    """A BlockArray of the serial backend on the same tensor as a world-1
+    mesh array (its one part is the whole)."""
+    from nums_tpu_torch.core.array.blockarray import BlockArray
+
+    return BlockArray.from_torch(_local(a), a.block_shape, backend)
+
+
+def _same_results(torch, got, ref):
+    """The names of the results of two ``_masks_steps`` that are not
+    equal bit for bit (tensors, tuples of them, BlockArrays)."""
+    from nums_tpu_torch.core.ops import mesh_ops
+
+    def flat(v):
+        if isinstance(v, (tuple, list)):
+            return [x for e in v for x in flat(e)]
+        if hasattr(v, "raw"):
+            return [_local(v)]
+        return [v.to_local() if mesh_ops.is_dtensor(v) else v]
+
+    differ = []
+    for name, value in got.items():
+        if name == "fit":
+            continue  # the model: its beta and predictions are compared
+        a, b = flat(value), flat(ref[name])
+        if len(a) != len(b) or not all(
+                x.dtype == z.dtype and x.shape == z.shape and bool(
+                    torch.equal(x.detach(), z.detach()))
+                for x, z in zip(a, b)):
+            differ.append(name)
+    return differ
+
+
+def phase_masks(torch, smi, app, X, y):
+    """Phase 17 in the full run, on phase 15's world-1 mesh and its X: the
+    steps of ``_masks_steps`` on the mesh and again on the serial backend
+    with the same tensors, every result bit for bit equal; K1 once and K3
+    ``max_iter`` times in each."""
+    from nums_tpu_torch.core import application_manager
+
+    t_phase = time.perf_counter()
+    mesh_app = application_manager._instance
+    serial = application_manager.create(
+        device=None if DEVICE == "cuda" else DEVICE)
+    t, c = _mask_columns(torch, app, X)
+    got, info, launches = _masks_steps(torch, app, X, y, t, c)
+    application_manager.set_instance(serial)
+    try:
+        twins = [_serial_twin(serial.backend, a) for a in (X, y, t, c)]
+        ref, serial_info, serial_launches = _masks_steps(torch, serial,
+                                                         *twins)
+    finally:
+        application_manager.set_instance(mesh_app)
+    differ = _same_results(torch, got, ref)
+    assert not differ, ("mesh vs serial", differ)
+    want = {"gram": 1, "gram_weighted": FIT["max_iter"], "newton_stage": 1,
+            "newton_stats": FIT["max_iter"]}
+    assert launches == want and serial_launches == want, (launches,
+                                                          serial_launches)
+    out = {"phase": "masks", "world": 1, "shape": list(X.shape),
+           "nvidia_smi": smi, "launches": launches,
+           "steps": info, "serial_steps": serial_info,
+           "rows": {"even": int(got["filter_even"].shape[0]),
+                    "skewed": int(got["filter_skewed"].shape[0])},
+           "bitwise_vs_serial": sorted(got),
+           "seconds": time.perf_counter() - t_phase}
+    del got, ref, twins
+    _mesh_free(torch)
+    emit(out)
+    return out
+
+
+def _row_sums64(torch, x, chunk=MESH_CHUNK):
+    return torch.cat([x[i:i + chunk].double().sum(dim=1)
+                      for i in range(0, x.shape[0], chunk)]) if x.shape[0] \
+        else torch.zeros(0, dtype=torch.float64, device=x.device)
+
+
+def _masks_cards(torch, cfg):
+    """--masks-only on this rank: X of 10M x 1000 fp32 drawn on the
+    (cards, 1) mesh from phase 4's seed, t, c and the planted labels, then
+    ``_masks_steps``, every output held to numpy's or float64's (the
+    module docstring lists the checks); rank 0 prints the phase's line."""
+    import torch.distributed as dist
+
+    from nums_tpu_torch.core import application_manager
+    from nums_tpu_torch.core.ops import random_ops, threefry
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n, d = cfg["n"], cfg["d"]
+    app = application_manager.create(
+        device=None if DEVICE == "cuda" else DEVICE, backend="mesh",
+        cluster_shape=(world, 1))
+    application_manager.set_instance(app)
+    say = emit if rank == 0 else (lambda obj: print(json.dumps(obj)))
+    head = {"world": world, "shape": [n, d], "cluster_shape": [world, 1]}
+    X, draw_secs = _mesh_seconds(torch, lambda: _draw_mesh_x(
+        torch, app, n, d))
+    y, _ = planted_labels(torch, app, X)
+    t, c = _mask_columns(torch, app, X)
+    res, info, launches = _masks_steps(torch, app, X, y, t, c)
+    checks = {}
+    # the integer outputs against numpy's on the host columns
+    c_h = np.asarray(c.get())
+    col0, col1, col2 = (np.asarray(res[k].get())
+                        for k in ("col0", "col1", "col2"))
+    vals, inv, cnt = (np.asarray(a.get()) for a in res["unique"])
+    nv, ninv, ncnt = np.unique(c_h, return_inverse=True, return_counts=True)
+    assert np.array_equal(vals, nv) and np.array_equal(cnt, ncnt)
+    assert np.array_equal(inv, ninv.reshape(c_h.shape))
+    cats = np.arange(0, MASK_CATEGORIES, MASK_CATEGORIES // MASK_ISIN)
+    assert np.array_equal(np.asarray(res["isin"].get()), np.isin(c_h, cats))
+    edges = np.asarray(res["quantile_edges"].get())
+    bins = np.asarray(res["digitize"].get())
+    assert np.array_equal(bins, np.digitize(col1, edges))
+    assert np.array_equal(np.asarray(res["bincount"].get()),
+                          np.bincount(bins))
+    hist, hedges = (np.asarray(a.get()) for a in res["histogram"])
+    assert hedges[0] == col2.min() and hedges[-1] == col2.max()
+    assert np.array_equal(hist, np.histogram(col2, bins=hedges)[0])
+    (where,) = res["where"]
+    even_idx = np.nonzero(col0 > 0)[0]
+    assert np.array_equal(np.asarray(where.get()), even_idx)
+    checks["integer_outputs_equal_numpy"] = [
+        "unique", "inverse", "counts", "isin", "digitize", "bincount",
+        "histogram", "where"]
+    # the filtered rows: float64 row sums equal X's at their positions,
+    # and a sample of rows bit for bit a serial draw of those positions
+    sums = _row_sums64(torch, X.raw.to_local())
+    counts = [None] * world
+    dist.all_gather_object(counts, int(sums.shape[0]))
+    every = [torch.empty(k, dtype=sums.dtype, device=sums.device)
+             for k in counts]
+    dist.all_gather(every, sums)
+    sums_all = torch.cat(every)
+    key = threefry.fold_in(threefry.seed_key(RANDOM_KNOWN["seed"], False),
+                           RANDOM_KNOWN["counter"])
+    skew0 = int(MASK_KEEP * n)
+    for name, positions in (
+            ("filter_even", lambda a, b: torch.from_numpy(
+                even_idx[a:b]).to(sums.device)),
+            ("filter_skewed", lambda a, b: torch.arange(
+                skew0 + a, skew0 + b, device=sums.device))):
+        F = res[name]
+        local = F.raw.to_local()
+        (a, b), _ = app.backend.region(tuple(F.shape), F.raw.placements)
+        pos = positions(a, b)
+        assert torch.equal(_row_sums64(torch, local), sums_all[pos]), name
+        pick = np.unique(np.linspace(0, max(b - a - 1, 0),
+                                     MASK_SAMPLE_ROWS).astype(np.int64)) \
+            if b > a else []
+        for i in pick:
+            r = int(pos[int(i)])
+            row = random_ops.jr_normal(key, (n, d), torch.float32,
+                                       local.device,
+                                       flat_range=(r * d, (r + 1) * d))
+            assert torch.equal(local[int(i)], row), (name, r)
+        rows_here = [None] * world
+        dist.all_gather_object(rows_here, (a, b))
+        checks[name + "_rows_per_rank"] = rows_here
+    # the fit on the skewed rows: K1 once, K3 max_iter times a card; G
+    # and beta against float64 on each rank's rows
+    want = {"gram": 1, "gram_weighted": FIT["max_iter"], "newton_stage": 1,
+            "newton_stats": FIT["max_iter"]}
+    assert launches == want, launches
+    Xs = res["filter_skewed"].raw.to_local()
+    ys = _rows_like(app, res["labels_skewed"], res["filter_skewed"])
+    g64 = _gram64(Xs)
+    dist.all_reduce(g64)
+    _, gram_rel = rel_err(res["gram"].data.full_tensor(), g64)
+    assert gram_rel <= MESH_GRAM_REL, gram_rel
+    beta64 = _newton64(torch, Xs, ys, FIT["max_iter"])
+    _, beta_rel = rel_err(res["beta"].full_tensor(), beta64)
+    assert beta_rel <= BETA_REL, beta_rel
+    beta32 = res["beta"].full_tensor()
+    pred = _rows_like(app, res["predict"], res["filter_skewed"])
+    mine = ((Xs @ beta32[:-1] + beta32[-1]) > 0).to(pred.dtype)
+    mismatch = _sum_all(torch, float((pred != mine).sum())) / max(
+        1, int(res["filter_skewed"].shape[0]))
+    assert mismatch <= OOC_LABEL_MISMATCH, mismatch
+    # warm times (CUDA events, the slowest rank): the filters without
+    # the first all-to-all's set-up, and K1 and the fit on 750k rows a card
+    # beside phase 15's on 2.5M
+    from nums_tpu_torch.models.glms import LogisticRegression
+
+    even, skew = res["mask_even"], res["mask_skewed"]
+    Xs_ba, ys_ba = res["filter_skewed"], res["labels_skewed"]
+    warm = {"filter_even_ms": _mesh_time_ms(torch, lambda: X[even]),
+            "filter_skewed_ms": _mesh_time_ms(torch, lambda: X[skew]),
+            "gram_ms": _mesh_time_ms(torch, lambda: Xs_ba.T @ Xs_ba),
+            "fit_ms": _mesh_time_ms(torch, lambda: LogisticRegression(
+                **FIT).fit(Xs_ba, ys_ba), reps=1)}
+    peak = _mesh_peak(torch)
+    peaks = [None] * world
+    dist.all_gather_object(peaks, peak)
+    # X whole on one card would take X's bytes alone
+    assert max(peaks) < 4.0 * n * d or DEVICE != "cuda", (
+        peaks, "a card held X whole")
+    sent = [None] * world
+    dist.all_gather_object(sent, {k: v["bytes_sent"] for k, v in
+                                  info.items() if v["bytes_sent"]})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip().splitlines() if DEVICE == "cuda" else []
+    say({"phase": "masks", **head, "draw_seconds": draw_secs,
+         "steps": info, "warm": warm, "bytes_sent_per_rank": sent,
+         "launches_per_rank": launches, "gram_rel_err_vs_f64": gram_rel,
+         "gram_tolerance": MESH_GRAM_REL, "beta_rel_err_vs_f64": beta_rel,
+         "beta_tolerance": BETA_REL, "predict_mismatch_share": mismatch,
+         "rows": {"even": int(res["filter_even"].shape[0]),
+                  "skewed": int(res["filter_skewed"].shape[0])},
+         "distinct_categories": int(vals.shape[0]), **checks,
+         "peak_bytes_per_card": peaks, "nvidia_smi_per_card": smi})
+
+
+def _rows_like(app, v, F):
+    """This rank's part of the 1-D ``v`` on the rows that it holds of the
+    2-D ``F`` (the same length)."""
+    from nums_tpu_torch.core.ops import mesh_ops
+
+    want = mesh_ops.rows_only(F.raw.placements)
+    return app.backend.rebox(v.raw, want).to_local()
+
+
+def phase_masks_cards(torch, smi):
+    """--masks-only: one process per visible card, as --mesh-only spawns
+    them, each running ``_masks_cards``; fails unless every rank exits 0
+    before ``MASK_DEADLINE_S``. Returns the number of ranks."""
+    world = torch.cuda.device_count() if DEVICE == "cuda" else 4
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "mesh_logs")
+    os.makedirs(out_dir, exist_ok=True)
+    cfg = {"n": MESH_N, "d": D_FULL, "device": DEVICE,
+           "deadline": MASK_DEADLINE_S, "out_dir": out_dir, "root": root,
+           "entry": "_masks_cards"}
+    emit({"phase": "masks_start", "world": world, "nvidia_smi": smi,
+          "shape": [cfg["n"], cfg["d"]]})
+    t0 = time.perf_counter()
+    codes = _spawn_ranks(world, cfg)
+    assert codes == [0] * world, ("masks ranks' exit codes", codes)
+    emit({"phase": "masks_done", "world": world, "exit_codes": codes,
+          "seconds": time.perf_counter() - t0})
+    return world
+
+
+def _spawn_ranks(world, cfg):
+    """One ``_mesh_rank`` process per card (``spawn``, a file:// rendezvous
+    under a temporary directory) until all end, one fails or the deadline
+    passes; returns their exit codes."""
+    import multiprocessing as mp
+    import tempfile
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        init = os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_mesh_rank, args=(r, world, init, cfg))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + cfg["deadline"]
+        while any(p.is_alive() for p in procs):
+            failed = [p for p in procs
+                      if p.exitcode is not None and p.exitcode != 0]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    return [p.exitcode for p in procs]
+
+
 KERNELS = (
     ("gram", "nums_tpu_torch/csrc/gram.cu",
      "nums_tpu/core/ops/pallas_gram.py:139"),
@@ -5493,7 +5863,7 @@ KERNELS = (
 
 
 def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
-                 facade, models, mesh, mesh_ooc):
+                 facade, models, mesh, mesh_ooc, masks):
     """One entry per kernel: "launches" counts the main path (phase 4),
     "launches_per_fit" one fit (phase 6), "launches_ooc" the streamed
     steps of phase 8 (the PCA and TruncatedSVD fits among them),
@@ -5508,7 +5878,8 @@ def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
     "launches_mesh" phase 15's main path on the mesh of this card alone,
     "launches_mesh_ooc" phase 16's streamed steps on it (the mesh branch
     of ``ooc_put``), and "mesh_panel_ms" its time on this card's rows of
-    one panel there, beside that panel's bound.
+    one panel there, beside that panel's bound; "launches_masks" phase
+    17's gram, fit and predict on the filtered rows.
     gram.cu's weighted launches ("gram_weighted") on these paths are K3's
     Hessian, and K2 proper in phase 8's pass with the Newton gate off."""
     return [
@@ -5532,6 +5903,7 @@ def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
          "launches_models": models["launches"][name],
          "launches_mesh": mesh["launches"][name],
          "launches_mesh_ooc": mesh_ooc["launches"][name],
+         "launches_masks": masks["launches"][name],
          "mesh_panel_ms": mesh_ooc["pass_parts"]["panel_kernels_rank0"][
              name]["ms"],
          "mesh_panel_bound_ms": mesh_ooc["pass_parts"][
@@ -5559,6 +5931,12 @@ def main(argv):
             phase_random(torch, smi, nums_tpu_torch.init(), None)
             return 0
         phase_build()
+        if "--masks-only" in argv:
+            world = phase_masks_cards(torch, smi)
+            emit({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": world}})
+            return 0
         if "--mesh-only" in argv:
             world = phase_mesh_cards(torch, smi)
             emit({"ok": True, "device": {
@@ -5615,10 +5993,10 @@ def main(argv):
         models = phase_models(torch, smi, app, X, draw_labels(torch, app, X))
         del X
         torch.cuda.empty_cache()
-        mesh, mesh_ooc = phase_mesh(torch, smi, keep)
+        mesh, mesh_ooc, masks = phase_mesh(torch, smi, keep)
         emit({"kernels": kernels_line(counts, fit_counts, times, ooc,
                                       linalg_launches, higgs, facade,
-                                      models, mesh, mesh_ooc)})
+                                      models, mesh, mesh_ooc, masks)})
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})

@@ -37,7 +37,7 @@ from nums_tpu_torch.core.array.diskarray import DiskArray
 from nums_tpu_torch.core.array.random import NumsRandomState
 from nums_tpu_torch.core.io.filesystem import FileSystem, _fs_path
 from nums_tpu_torch.core.ops import (
-    creation, elementwise, linalg, masking, shape_ops, streaming,
+    creation, elementwise, linalg, mesh_ops, shape_ops, streaming,
 )
 
 
@@ -479,9 +479,20 @@ class ArrayApplication:
         """``where(c, x, y)``: elementwise select, with the two branches
         promoted as a binary op promotes them. ``where(c)``: one int64
         index array per axis (``numpy.where``'s order), resolved on the
-        device by ``torch.nonzero`` (one host sync, for the count)."""
+        device by ``torch.nonzero`` (one host sync, for the count); on the
+        mesh each process's rows, re-placed (``mesh_ops.where``)."""
         if x is None and y is None:
-            masking.refuse_dtensor(condition.data, "aten.nonzero")
+            if self.backend.mesh is not None and condition.ndim:
+                index_arrays = mesh_ops.where(self.backend, condition.data)
+                count = int(index_arrays[0].shape[0])
+                bs = ((condition.mesh_rows_block(
+                    count, condition.grid.num_blocks),) if count else (0,))
+                return tuple(BlockArray.from_torch(arr, bs, self.backend)
+                             for arr in index_arrays)
+            if self.backend.mesh is not None:
+                host = np.where(condition.get())
+                return tuple(self.array(a, block_shape=a.shape)
+                             for a in host)
             index_arrays = torch.nonzero(condition.data.to(torch.bool),
                                          as_tuple=True)
             result = []

@@ -18,7 +18,10 @@ placed by the grid when the BlockArray takes it (``MeshBackend.place``),
 and most ops are DTensor's own; ``x.T @ x`` runs the kernel on each
 process's rows and one all-reduce, and ``settings.collective_matmul``
 sends 2-D products through the hand-scheduled schedules of
-``ops/summa.py``. An op that DTensor has no sharding strategy for raises
+``ops/summa.py``. A boolean mask, a host index array, and an assignment
+through either or through a slice take the mesh's own branch
+(``ops/mesh_ops.py``: each process's rows, moved by one all-to-all). An
+op that DTensor has no sharding strategy for raises
 ``NotImplementedError`` naming it.
 """
 
@@ -774,8 +777,148 @@ class BlockArray:
         return data[second]
 
     def __getitem__(self, item):
+        if self.backend.mesh is not None:
+            out = self._mesh_getitem(item)
+            if out is not None:
+                return out
         key, axes = self._normalize_subscript(item)
         return self._new(self._index(self.data, key, axes))
+
+    # -- the mesh's data-dependent keys (core/ops/mesh_ops.py) -----------
+
+    def mesh_rows_block(self, count, blocks):
+        """The block rows of a data-dependent result of ``count`` rows on
+        the mesh: as many blocks as ``blocks`` (the input's), so that a
+        result of a sharded input is sharded as any array of its shape and
+        blocks, and one of a replicated input replicated."""
+        return max(1, -(-int(count) // max(int(blocks), 1)))
+
+    def _mesh_mask(self, item):
+        """A lone bool mask as a tensor, or None."""
+        if isinstance(item, tuple) or not self._is_bool_mask(item):
+            return None
+        if isinstance(item, BlockArray):
+            mask = item.data
+        else:
+            mask = torch.from_numpy(np.asarray(item)).to(self.backend.device)
+        if (mask.ndim > self.ndim
+                or tuple(mask.shape) != tuple(self.shape[:mask.ndim])):
+            raise IndexError(f"boolean index of shape {tuple(mask.shape)} "
+                             f"does not match the array's {self.shape}")
+        return mask
+
+    def _host_key(self, item, basic=False):
+        """The key with every BlockArray bool mask inside a tuple read to
+        the host (a mask of a later axis is short), or None where the key
+        holds a device index array (DTensor's gather), or no host index
+        array (DTensor slices it) unless ``basic`` (DTensor has no
+        strategy for a write into a slice)."""
+        items = item if isinstance(item, tuple) else (item,)
+        out, host = [], basic
+        for s in items:
+            if isinstance(s, BlockArray) and s.dtype == np.bool_:
+                s, host = np.asarray(s.get()), True
+            elif isinstance(s, BlockArray) or torch.is_tensor(s):
+                return None
+            elif isinstance(s, (np.ndarray, list)):
+                host = True
+            out.append(s)
+        return tuple(out) if host else None
+
+    def _row_index(self, key):
+        """The 1-D int array of a key that indexes rows alone, or None."""
+        if (len(key) >= 1 and isinstance(key[0], (np.ndarray, list))
+                and all(isinstance(s, slice) and s == slice(None)
+                        for s in key[1:]) and len(key) <= self.ndim):
+            idx = np.asarray(key[0])
+            if idx.ndim == 1 and idx.dtype.kind in "iu" and self.ndim >= 1:
+                n = self.shape[0]
+                if idx.size and (idx.max() >= n or idx.min() < -n):
+                    raise IndexError(f"index out of bounds for axis of size "
+                                     f"{n}")
+                return np.where(idx < 0, idx + n, idx).astype(np.int64)
+        return None
+
+    def _element_coords(self, key):
+        """(coordinates, result shape) of a host key: NumPy's own indexing
+        of each axis's positions, broadcast to the array's shape without
+        a copy, so the result has NumPy's shape and order (and its
+        IndexError)."""
+        coords = []
+        for a, n in enumerate(self.shape):
+            pos = np.arange(n, dtype=np.int64).reshape(
+                [-1 if i == a else 1 for i in range(self.ndim)])
+            coords.append(np.broadcast_to(pos, self.shape)[key])
+        shape = tuple(coords[0].shape) if coords else ()
+        return np.stack([c.reshape(-1) for c in coords], axis=1), shape
+
+    def _mesh_getitem(self, item):
+        from nums_tpu_torch.core.ops import mesh_ops
+
+        mask = self._mesh_mask(item)
+        if mask is not None:
+            k = mask.ndim
+            out = mesh_ops.select(self.backend, self.data, mask)
+            rows = self.mesh_rows_block(out.shape[0],
+                                        np.prod(self.grid_shape[:k]))
+            return self._new(out, (rows,) + tuple(self.block_shape[k:]))
+        key = self._host_key(item)
+        if key is None:
+            return None
+        idx = self._row_index(key)
+        if idx is not None:
+            out = mesh_ops.gather_rows(self.backend, self.data, idx)
+            return self._new(out)
+        coord, shape = self._element_coords(key)
+        grid = ArrayGrid(shape, array_utils.default_block_shape_for(
+            shape, self.block_shape), self.grid.dtype)
+        out = mesh_ops.gather_elements(
+            self.backend, self.data, coord, shape,
+            self.backend.sharding_for_grid(grid))
+        return self._new(out, grid.block_shape)
+
+    def _mesh_setitem(self, item, value):
+        """True where the mesh's own assignment took the key."""
+        from torch.distributed.tensor import Replicate
+
+        from nums_tpu_torch.core.ops import mesh_ops
+
+        mask = self._mesh_mask(item)
+        if isinstance(value, BlockArray):
+            value = value.data
+        if mask is not None:
+            if int(np.prod(np.shape(value))) != 1:
+                self._store(mesh_ops.assign(self.backend, self.data, mask,
+                                            value))
+                return True
+            if mesh_ops.is_dtensor(mask):
+                return False  # one torch.where: no count, no movement
+            # a host mask: each process keeps its own box of it
+            pl = tuple(p if (p.is_shard() and p.dim < mask.ndim)
+                       else Replicate() for p in self.data.placements)
+            m = mesh_ops.as_dtensor(self.backend, mask, pl)
+            m = m.reshape(tuple(m.shape) + (1,) * (self.ndim - m.ndim))
+            v = self._value_tensor(value).reshape(())
+            self._store(torch.where(m, v, self.data))
+            return True
+        key = self._host_key(item, basic=True)
+        if key is None:
+            return False
+        idx = self._row_index(key)
+        basic = mesh_ops.basic_positions(self.shape, key)
+        sharded = mesh_ops.is_dtensor(value) and any(
+            p.is_shard() for p in value.placements)
+        if idx is not None:
+            out = mesh_ops.scatter_rows(self.backend, self.data, idx, value)
+        elif basic is not None and not sharded:
+            out = mesh_ops.scatter_basic(self.backend, self.data, basic,
+                                         value)
+        else:
+            coord, shape = self._element_coords(key)
+            out = mesh_ops.scatter_elements(self.backend, self.data, coord,
+                                            shape, value)
+        self._store(out)
+        return True
 
     def _value_tensor(self, value):
         """An assigned value as a tensor of this array's dtype on its
@@ -796,7 +939,12 @@ class BlockArray:
         on the device, with no host sync; any other value is written
         packed, in row-major order of the True positions, at the index
         tensors of ``masking.device_where`` (one host sync). Every other
-        key goes through slice assignment or ``index_put_`` on a copy."""
+        key goes through slice assignment or ``index_put_`` on a copy. On
+        the mesh, a packed mask and host index arrays take
+        ``core/ops/mesh_ops.py``."""
+        if self.backend.mesh is not None and self._mesh_setitem(item,
+                                                                 value):
+            return
         v = self._value_tensor(value)
         if not isinstance(item, tuple) and self._is_bool_mask(item):
             if v.numel() == 1:

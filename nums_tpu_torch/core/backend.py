@@ -341,6 +341,150 @@ class MeshBackend(Backend):
             data = data.redistribute(self._mesh, want)
         return data
 
+    # -- moving rows (the data-dependent ops of core/ops/masking.py) -----
+
+    def coords(self):
+        """Every process's mesh coordinate, in rank order (the mesh is the
+        ranks in row-major order)."""
+        shape = self.device_grid.mesh_shape
+        return [tuple(int(c) for c in np.unravel_index(r, shape))
+                for r in range(self.device_grid.num_devices)]
+
+    def counts_here(self, placements) -> bool:
+        """Whether this process's box counts in a sum over the mesh: of the
+        processes that hold the same box (the mesh dimensions it is
+        replicated on), only the first."""
+        coord = self._mesh.get_coordinate()
+        return all(p.is_shard() or coord[k] == 0
+                   for k, p in enumerate(placements))
+
+    def rebox(self, data, placements):
+        """``data`` (a DTensor) laid out by ``placements``, by one
+        all-to-all: each process sends each other the part of its box that
+        lies in the other's new box. A part that several processes hold
+        (replicated) comes from the holder that agrees with the receiver
+        on the mesh dimensions it is replicated on. No process holds more
+        than its old box, its new one and the parts it sends."""
+        from nums_tpu_torch.core import multiprocess
+
+        placements = tuple(placements)
+        if tuple(data.placements) == placements:
+            return data
+        shape = tuple(data.shape)
+        coords = self.coords()
+        me = multiprocess.process_index()
+        src = [self.region(shape, data.placements, c) for c in coords]
+        dst = [self.region(shape, placements, c) for c in coords]
+        rep = [k for k, p in enumerate(data.placements) if not p.is_shard()]
+
+        def part(s, d):
+            if any(coords[s][k] != coords[d][k] for k in rep):
+                return None
+            box = tuple((max(a, c), min(b, e))
+                        for (a, b), (c, e) in zip(src[s], dst[d]))
+            return None if any(b <= a for a, b in box) else box
+
+        local = data.to_local()
+        pieces, send = [], []
+        for r in range(len(coords)):
+            box = part(me, r)
+            if box is None:
+                send.append(0)
+                continue
+            piece = local[tuple(slice(a - lo, b - lo) for (a, b), (lo, _)
+                                in zip(box, src[me]))].reshape(-1)
+            pieces.append(piece)
+            send.append(int(piece.numel()))
+        recv_boxes = [part(r, me) for r in range(len(coords))]
+        recv = [0 if box is None else int(np.prod([b - a for a, b in box]))
+                for box in recv_boxes]
+        flat = (torch.cat(pieces) if pieces
+                else local.new_empty((0,)))
+        got = multiprocess.exchange(flat, send, recv)
+        out = local.new_empty(tuple(b - a for a, b in dst[me]))
+        at = 0
+        for box, n in zip(recv_boxes, recv):
+            if box is None:
+                continue
+            out[tuple(slice(a - lo, b - lo) for (a, b), (lo, _)
+                      in zip(box, dst[me]))] = got[at:at + n].reshape(
+                          tuple(b - a for a, b in box))
+            at += n
+        return self.from_local(out, shape, placements)
+
+    def _row_groups(self, placements):
+        """(this process's row group, its position there): the processes
+        that agree with it on every mesh dimension that does not shard
+        axis 0, in rank order. They hold the array's rows between them;
+        each other group holds the same rows (replicas, or other column
+        blocks)."""
+        from nums_tpu_torch.core import multiprocess
+
+        coords = self.coords()
+        me = multiprocess.process_index()
+        other = [k for k, p in enumerate(placements)
+                 if not (p.is_shard() and p.dim == 0)]
+        group = [r for r in range(len(coords))
+                 if all(coords[r][k] == coords[me][k] for k in other)]
+        return group, group.index(me)
+
+    def move_rows(self, local, src_ranges, dst_ranges, placements):
+        """Rows of one global sequence from where they are to where they
+        go, by one all-to-all within each row group of ``placements``:
+        ``src_ranges[r]`` and ``dst_ranges[r]`` are the (start, stop) rows
+        that process ``r`` holds now (``local`` here) and will hold.
+        Returns this process's new rows, in order."""
+        from nums_tpu_torch.core import multiprocess
+
+        group, _ = self._row_groups(placements)
+        me = multiprocess.process_index()
+        world = self.device_grid.num_devices
+
+        def overlap(a, b):
+            return max(a[0], b[0]), min(a[1], b[1])
+
+        send, recv, cuts = [0] * world, [0] * world, []
+        s0 = src_ranges[me][0]
+        for r in group:
+            a, b = overlap(src_ranges[me], dst_ranges[r])
+            if b > a:
+                send[r] = b - a
+                cuts.append((a - s0, b - s0))
+            a, b = overlap(src_ranges[r], dst_ranges[me])
+            recv[r] = max(0, b - a)
+        # Each process's range is sent in order: one slice of ``local``
+        # where the parts meet, else a copy of the parts.
+        if all(c[1] == n[0] for c, n in zip(cuts, cuts[1:])):
+            local = local[cuts[0][0]:cuts[-1][1]] if cuts else local[:0]
+        else:
+            local = torch.cat([local[a:b] for a, b in cuts])
+        return multiprocess.exchange(local, send, recv)
+
+    def place_rows(self, local, tail, placements):
+        """The mesh's re-placement of a data-dependent number of rows: each
+        process holds ``local``, its kept rows; the rows of a row group
+        (``_row_groups``), read in rank order, are the result's rows in
+        order. Returns the DTensor of shape (total rows,) + ``tail`` laid
+        out by ``placements`` (axis 0: DTensor's chunks of ceil(rows / p),
+        none on a process past the end), after one all-gather of the
+        counts and one all-to-all of the rows; no process holds more than
+        its kept rows and its share."""
+        from nums_tpu_torch.core import multiprocess
+
+        counts = multiprocess.all_gather_ints([local.shape[0]])[:, 0]
+        group, _ = self._row_groups(placements)
+        starts = np.zeros(len(counts), dtype=np.int64)
+        total = 0
+        for r in group:
+            starts[r] = total
+            total += int(counts[r])
+        shape = (total,) + tuple(tail)
+        src = [(int(starts[r]), int(starts[r] + counts[r]))
+               for r in range(len(counts))]
+        dst = [self.region(shape, placements, c)[0] for c in self.coords()]
+        rows = self.move_rows(local, src, dst, placements)
+        return self.from_local(rows, shape, placements)
+
     def device_put(self, array: np.ndarray, grid: ArrayGrid = None):
         """Each process copies its own region of the host value (which
         every controller holds) to its device: no communication."""

@@ -143,6 +143,89 @@ def host_sum(array) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def all_gather_ints(values) -> np.ndarray:
+    """(processes, len(values)) int64: every process's small vector of
+    integers, on every process (collective; one all-gather)."""
+    values = np.asarray(values, dtype=np.int64).reshape(-1)
+    if not is_multiprocess():
+        return values[None].copy()
+    t = torch.from_numpy(values.copy()).to(_flag_device())
+    out = [torch.empty_like(t) for _ in range(process_count())]
+    dist.all_gather(out, t)
+    return torch.stack(out).cpu().numpy()
+
+
+def all_reduce_(tensor, op="sum"):
+    """``tensor`` replaced in place by its elementwise ``op`` (sum, min
+    or max) over every process (collective; one all-reduce)."""
+    if is_multiprocess():
+        dist.all_reduce(tensor, op={"sum": dist.ReduceOp.SUM,
+                                    "min": dist.ReduceOp.MIN,
+                                    "max": dist.ReduceOp.MAX}[op])
+    return tensor
+
+
+# What ``exchange`` moved on this process: its calls, and the bytes it
+# sent to other processes (what it keeps for itself is not counted).
+EXCHANGED = {"calls": 0, "bytes_sent": 0}
+
+
+def _as_bytes(items):
+    """(rows, bytes a row) uint8 view of a tensor's rows."""
+    rows = int(items.shape[0])
+    width = int(np.prod(items.shape[1:], dtype=np.int64)) \
+        * items.element_size()
+    return items.contiguous().reshape(-1).view(torch.uint8).reshape(
+        rows, width)
+
+
+def exchange(items, send_counts, recv_counts):
+    """One all-to-all of whole rows: ``items`` (on this process's device)
+    is cut in order into ``send_counts[r]`` rows for each process ``r``;
+    returns the rows received, ``recv_counts[r]`` from each process ``r``,
+    in process order (collective). Rows travel as bytes, so every dtype
+    goes, bool and complex included."""
+    send_counts = [int(c) for c in send_counts]
+    recv_counts = [int(c) for c in recv_counts]
+    assert sum(send_counts) == int(items.shape[0]), (send_counts,
+                                                     items.shape)
+    tail = tuple(items.shape[1:])
+    src = _as_bytes(items)
+    width = int(src.shape[1])
+    out = torch.empty((sum(recv_counts), width), dtype=torch.uint8,
+                      device=items.device)
+    me = process_index()
+    EXCHANGED["calls"] += 1
+    EXCHANGED["bytes_sent"] += width * (sum(send_counts)
+                                        - send_counts[me])
+    if not is_multiprocess():
+        out.copy_(src)
+    else:  # every process joins, one with empty rows too
+        dist.all_to_all_single(out.reshape(-1), src.reshape(-1),
+                               [c * width for c in recv_counts],
+                               [c * width for c in send_counts])
+    return out.reshape(-1).view(items.dtype).reshape(
+        (sum(recv_counts),) + tail)
+
+
+def ring_shift(tensor, rows_from_left):
+    """``tensor`` sent to the next process (rank + 1, around the ring) and
+    the previous one's received, of ``rows_from_left`` rows (collective;
+    one send and one receive a process)."""
+    tail = tuple(tensor.shape[1:])
+    src = _as_bytes(tensor)
+    width = int(src.shape[1])
+    world, me = process_count(), process_index()
+    out = torch.empty((int(rows_from_left), width), dtype=torch.uint8,
+                      device=tensor.device)
+    ops = [dist.P2POp(dist.isend, src.reshape(-1), (me + 1) % world),
+           dist.P2POp(dist.irecv, out.reshape(-1), (me - 1) % world)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out.reshape(-1).view(tensor.dtype).reshape(
+        (int(rows_from_left),) + tail)
+
+
 def broadcast_from_zero(tensor):
     """``tensor`` replaced in place by process 0's (collective): a carry
     that every process must hold bit for bit."""

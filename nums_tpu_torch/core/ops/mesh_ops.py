@@ -1,0 +1,788 @@
+"""The mesh branch of the data-dependent ops: masks, where/nonzero,
+unique, the searches and counts, and host index arrays, on DTensors.
+
+DTensor has no sharding strategy for an op whose output shape depends on
+the data (``aten.nonzero``), nor for ``searchsorted``, ``bincount`` or an
+index by a host array. Here each process works on its own box and the
+processes meet in a few collectives of ``core/multiprocess.py``:
+
+* a mask keeps each process's own rows, then ``MeshBackend.place_rows``
+  re-places them (one all-gather of the counts, one all-to-all of the
+  rows), so that the result lies as any array of its shape and blocks;
+* ``unique`` partitions the values by range (splitters from a sample,
+  one all-to-all), takes each range's distinct values where it lands, and
+  re-places them; its inverse comes back by the reverse all-to-all;
+* a search or a count sums each process's local answer (one all-reduce,
+  or a ring where the searched values are sharded);
+* a host index array is known to every process, so each works out on the
+  host which rows (or elements) it sends where: one all-to-all.
+
+A layout is DTensor's ``placements``; a box is ``MeshBackend.region``. No
+function here gathers an operand whole onto a process.
+"""
+
+import numpy as np
+import torch
+
+from nums_tpu_torch.core import multiprocess
+from nums_tpu_torch.core.ops import masking
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _shard(dim):
+    from torch.distributed.tensor import Shard
+
+    return Shard(dim)
+
+
+def _replicate():
+    from torch.distributed.tensor import Replicate
+
+    return Replicate()
+
+
+def like(t, local, shape=None):
+    """``local`` (this process's part) as a DTensor of ``shape`` (default:
+    ``t``'s) laid out as ``t``; where ``t`` is a plain tensor, ``local``
+    itself."""
+    if not is_dtensor(t):
+        return local
+    from torch.distributed.tensor import DTensor
+
+    shape = tuple(t.shape) if shape is None else tuple(shape)
+    stride = tuple(int(np.prod(shape[i + 1:], dtype=np.int64))
+                   for i in range(len(shape)))
+    return DTensor.from_local(local, t.device_mesh, t.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
+def move_axis(backend, t, src, dst):
+    """``torch.movedim(t, src, dst)`` of a DTensor built from its local
+    part (a contiguous copy) and its placements moved with the axis: no
+    communication, and a layout that every process agrees on."""
+    ndim = t.ndim
+    order = list(range(ndim))
+    order.insert(dst, order.pop(src))
+    local = torch.movedim(t.to_local(), src, dst).contiguous()
+    shape = tuple(int(t.shape[k]) for k in order)
+    placements = tuple(_shard(order.index(p.dim)) if p.is_shard() else p
+                       for p in t.placements)
+    return backend.from_local(local, shape, placements)
+
+
+def as_dtensor(backend, t, placements):
+    """``t`` laid out by ``placements``: a DTensor by ``rebox``, a plain
+    tensor (a whole value, the same on every process) cut to this
+    process's box."""
+    if is_dtensor(t):
+        return backend.rebox(t, placements)
+    return backend.scatter_full(t, tuple(placements))
+
+
+def row_layout(placements, k):
+    """The placements that hold whole slabs of the first ``k`` axes: a
+    mesh dimension that shards axis 1..k-1 shards axis 0 instead (an
+    all-to-all, not a gather), one that shards a later axis stays."""
+    return tuple(_shard(0) if (p.is_shard() and p.dim < k) else p
+                 for p in placements)
+
+
+def rows_only(placements):
+    """Shard(0) where ``placements`` shard axis 0, Replicate elsewhere."""
+    return tuple(_shard(0) if (p.is_shard() and p.dim == 0)
+                 else _replicate() for p in placements)
+
+
+def _collapsed(placements, k):
+    """``placements`` of an array whose first ``k`` axes became one."""
+    return tuple(_shard(p.dim - k + 1) if (p.is_shard() and p.dim >= k)
+                 else p for p in placements)
+
+
+def local_where(mask):
+    """``torch.nonzero`` of a local bool tensor as one int64 tensor per
+    axis, in row-major order; above ``NONZERO_MAX_ELEMENTS`` a chunk at a
+    time."""
+    if mask.numel() <= masking.NONZERO_MAX_ELEMENTS:
+        return torch.nonzero(mask, as_tuple=True)
+    flat = masking._flat_nonzero(mask.reshape(-1))
+    idx = []
+    for size in reversed(mask.shape):
+        idx.append(torch.remainder(flat, size))
+        flat = torch.div(flat, size, rounding_mode="floor")
+    return tuple(reversed(idx))
+
+
+def _aligned(backend, data, mask):
+    """``data`` and ``mask`` (over its first ``mask.ndim`` axes) laid out
+    so that each process holds whole slabs of the masked axes, and the
+    mask's rows are the data's."""
+    k = mask.ndim
+    xp = row_layout(data.placements, k)
+    x = backend.rebox(data, xp)
+    m = as_dtensor(backend, mask.to(torch.bool), rows_only(xp))
+    return x, m, xp
+
+
+def select(backend, data, mask):
+    """``data[mask]`` for a bool mask over the first ``mask.ndim`` axes of
+    ``data`` (a DTensor): each process keeps its own masked slabs, then
+    ``place_rows``. Returns a DTensor of shape (count,) + the rest."""
+    k = mask.ndim
+    x, m, xp = _aligned(backend, data, mask)
+    local = x.to_local()
+    idx = local_where(m.to_local())
+    n = int(idx[0].shape[0])
+    if k == 1 and n and int(idx[0][-1]) - int(idx[0][0]) + 1 == n:
+        # one run of kept rows (a filter by time, say): a view, no copy
+        kept = local[int(idx[0][0]):int(idx[0][0]) + n]
+    else:
+        kept = local[idx]
+    return backend.place_rows(kept, tuple(data.shape[k:]),
+                              _collapsed(xp, k))
+
+
+def where(backend, mask, stacked=False, flat=False):
+    """``np.where(mask)`` of a DTensor: each process's nonzero of its own
+    rows with its row offset added, then ``place_rows``. One int64 DTensor
+    per axis (row-major order); with ``stacked`` one (count, ndim) DTensor
+    (``argwhere``); with ``flat`` the flat positions (``flatnonzero``)."""
+    shape = tuple(mask.shape)
+    xp = rows_only(row_layout(mask.placements, len(shape)))
+    m = backend.rebox(mask.to(torch.bool), xp)
+    r0 = backend.region(shape, xp)[0][0]
+    idx = list(local_where(m.to_local()))
+    idx[0] = idx[0] + r0
+    if flat:
+        pos = torch.zeros_like(idx[0])
+        for i, size in zip(idx, shape):
+            pos = pos * int(size) + i
+        return backend.place_rows(pos, (), xp)
+    both = torch.stack(idx, dim=1) if idx else torch.zeros(
+        (0, 0), dtype=torch.int64, device=m.to_local().device)
+    out = backend.place_rows(both, (len(shape),), xp)
+    if stacked:
+        return out
+    local = out.to_local()
+    return tuple(backend.from_local(local[:, j].contiguous(),
+                                    (int(out.shape[0]),), xp)
+                 for j in range(len(shape)))
+
+
+def assign(backend, data, mask, values):
+    """``data[mask] = values`` packed (row-major order of the kept slabs):
+    each process takes the part of ``values`` at its kept positions, by
+    the prefix sum of the counts (the reverse of ``select``). ``values``
+    is a host array or a DTensor that broadcasts to (count,) + the rest
+    (``_value_rows``). Returns the new DTensor, laid out as ``data``."""
+    k = mask.ndim
+    x, m, xp = _aligned(backend, data, mask)
+    ml = m.to_local()
+    local = x.to_local().clone()
+    counts = multiprocess.all_gather_ints([int(ml.sum())])[:, 0]
+    vp = _collapsed(xp, k)
+    group, _ = backend._row_groups(vp)
+    starts, at = {}, 0
+    for r in group:
+        starts[r] = at
+        at += int(counts[r])
+    ranges = [(starts.get(r, 0), starts.get(r, 0) + int(counts[r]))
+              for r in range(len(counts))]
+    shape = (at,) + tuple(data.shape[k:])
+    if is_dtensor(values):
+        v = _value_rows(backend, values, shape, vp, ranges)
+    else:
+        lo, hi = ranges[multiprocess.process_index()]
+        box = backend.region(shape, vp)
+        v = _whole_value(values, shape, local.device)[
+            (slice(lo, hi),) + tuple(slice(a, b) for a, b in box[1:])]
+    local[local_where(ml)] = v.to(local.dtype)
+    out = backend.from_local(local, tuple(data.shape), xp)
+    return backend.rebox(out, tuple(data.placements))
+
+
+def _value_rows(backend, values, shape, placements, ranges):
+    """This process's rows ``ranges[me]`` of ``values`` (a DTensor that
+    broadcasts to ``shape``) and its box of the other axes under
+    ``placements``, broadcast. A value with every row of ``shape`` is
+    first laid out as ``placements`` on the axes it does not broadcast,
+    then its rows move by ``move_rows``; a value of one row (or none) is
+    laid out with its rows whole (one row of the data, not an operand)."""
+    d = len(shape) - values.ndim
+    if d:
+        local = values.to_local()
+        values = backend.from_local(
+            local.reshape((1,) * d + tuple(local.shape)),
+            (1,) * d + tuple(values.shape),
+            tuple(_shard(p.dim + d) if p.is_shard() else p
+                  for p in values.placements))
+    vshape = tuple(values.shape)
+    if torch.broadcast_shapes(vshape, shape) != torch.Size(shape):
+        raise ValueError(f"a value of shape {vshape} does not broadcast to "
+                         f"the {shape} positions assigned")
+    by_rows = vshape[0] == shape[0] > 1
+    want = tuple(q if q.is_shard() and (vshape[q.dim] > 1 if q.dim
+                                        else by_rows) else _replicate()
+                 for q in placements)
+    v = backend.rebox(values, want)
+    rows = v.to_local()
+    if by_rows:
+        src = [backend.region(vshape, want, c)[0] for c in backend.coords()]
+        rows = backend.move_rows(rows, src, ranges, want)
+    lo, hi = ranges[multiprocess.process_index()]
+    box = backend.region(shape, placements)
+    return torch.broadcast_to(rows, (hi - lo,) + tuple(
+        b - a for a, b in box[1:]))
+
+
+# -- unique: a range partition by value ---------------------------------
+
+
+def _pack(cols):
+    """Columns of equal length (any dtypes) as one (n, bytes) uint8
+    tensor, and how to unpack it."""
+    parts, spec = [], []
+    for c in cols:
+        c = c.reshape(c.shape[0], -1) if c.dim() > 1 else c.reshape(-1, 1)
+        b = multiprocess._as_bytes(c)
+        parts.append(b)
+        spec.append((c.dtype, int(c.shape[1]), int(b.shape[1])))
+    return torch.cat(parts, dim=1), spec
+
+
+def _unpack(packed, spec):
+    out, at = [], 0
+    for dtype, width, nbytes in spec:
+        col = packed[:, at:at + nbytes].clone().reshape(-1).view(dtype)
+        out.append(col.reshape(-1, width) if width > 1 else col)
+        at += nbytes
+    return out
+
+
+def _partition_key(v):
+    """int64 keys in the order of ``masking.sort`` (jnp's): floats by
+    ``total_order_key``, complex numbers by their real part's; equal
+    values get equal keys."""
+    if v.is_complex():
+        v = v.real
+    if v.is_floating_point():
+        return masking.total_order_key(v).to(torch.int64)
+    return v.to(torch.int64)
+
+
+def _splitters(keys, world):
+    """world - 1 keys that cut the values into ranges of about equal
+    size: each process offers world - 1 keys at even steps of its sorted
+    keys, weighted by its count (one all-gather)."""
+    n = int(keys.numel())
+    ks = torch.sort(keys)[0]
+    picks = [int(ks[min(n - 1, (i + 1) * n // world)]) if n else 0
+             for i in range(world - 1)]
+    table = multiprocess.all_gather_ints([n] + picks)
+    counts, offers = table[:, 0], table[:, 1:]
+    cand, weight = [], []
+    for c, row in zip(counts, offers):
+        if c:
+            cand.extend(row.tolist())
+            weight.extend([c / world] * (world - 1))
+    if not cand:
+        return np.zeros(world - 1, dtype=np.int64)
+    order = np.argsort(cand, kind="stable")
+    cand = np.asarray(cand, dtype=np.int64)[order]
+    cum = np.cumsum(np.asarray(weight)[order])
+    total = cum[-1]
+    return np.array([cand[min(len(cand) - 1, int(np.searchsorted(
+        cum, (j + 1) * total / world)))] for j in range(world - 1)],
+        dtype=np.int64)
+
+
+def _flat_positions(backend, data):
+    """The global flat position of each element of this process's box."""
+    shape = tuple(data.shape)
+    box = backend.region(shape, data.placements)
+    dev = data.to_local().device
+    pos = torch.zeros((), dtype=torch.int64, device=dev)
+    for (a, b), size in zip(box, shape):
+        pos = pos.unsqueeze(-1) * int(size) + torch.arange(
+            a, b, dtype=torch.int64, device=dev)
+    return pos.reshape(-1)
+
+
+def _replicas_from_first(backend, tensor, placements):
+    """``tensor`` on every process of this box from the first that holds
+    it (one broadcast along each mesh dimension it is replicated on)."""
+    import torch.distributed as dist
+
+    for k, p in enumerate(placements):
+        if not p.is_shard() and backend.device_grid.mesh_shape[k] > 1:
+            group = backend.mesh.get_group(k)
+            src = dist.get_global_rank(group, 0)
+            dist.broadcast(tensor, src=src, group=group)
+    return tensor
+
+
+def unique(backend, datas, want_index=False, want_inverse=False,
+           want_counts=False, equal_nan=True):
+    """``np.unique`` of the elements of one or more DTensors (of one
+    dtype), in ``masking.device_unique``'s order and conventions.
+
+    Each process sends each of its elements (with its flat position) to
+    the process that owns the element's range of values (``_splitters``);
+    there equal values meet and the distinct ones, their first positions
+    and counts are local; ``place_rows`` then lays them out in order. The
+    inverse (of one operand) is each owner's run index plus the distinct
+    values before it, sent back by the reverse all-to-all. Returns
+    [values, index?, inverse?, counts?] as DTensors (the inverse laid out
+    as the input)."""
+    world = backend.device_grid.num_devices
+    vals, pos, sizes = [], [], []
+    for data in datas:
+        here = backend.counts_here(data.placements)
+        v = data.to_local().reshape(-1) if here else \
+            data.to_local().reshape(-1)[:0]
+        vals.append(v)
+        pos.append(_flat_positions(backend, data)[:v.numel()])
+        sizes.append(int(v.numel()))
+    v = torch.cat(vals) if len(vals) > 1 else vals[0]
+    p = torch.cat(pos) if len(pos) > 1 else pos[0]
+    if v.is_complex():
+        # jnp.unique takes every complex NaN as nan+0j
+        v = torch.where(torch.isnan(v), v.new_tensor(complex(
+            float("nan"), 0.0)), v)
+    key = _partition_key(v)
+    spl = torch.from_numpy(_splitters(key, world)).to(key.device)
+    dest = torch.searchsorted(spl, key, right=True)
+    order = torch.argsort(dest, stable=True)
+    send = torch.bincount(dest, minlength=world).cpu().numpy()
+    recv = multiprocess.all_gather_ints(send)[:, multiprocess.process_index()]
+    packed, spec = _pack([v[order], p[order]])
+    got_v, got_p = _unpack(multiprocess.exchange(packed, send, recv), spec)
+    # Equal values in order of position, so that a run's first element is
+    # its first occurrence (and the value NumPy reports for -0.0 and 0.0).
+    by_pos = torch.argsort(got_p, stable=True)
+    s, perm = masking.sort(got_v[by_pos])
+    perm = by_pos[perm]
+    starts = masking._distinct_starts(s, equal_nan)
+    first = masking._flat_nonzero(starts)
+    n_here = int(first.shape[0])
+    cols = [s[first]]
+    if want_index:
+        cols.append(got_p[perm][first])
+    if want_counts:
+        ends = torch.cat([first[1:], first.new_tensor([s.numel()])])
+        cols.append(ends - first)
+    packed, spec = _pack(cols)
+    placed = backend.place_rows(packed, (packed.shape[1],),
+                                (_shard(0),) * len(backend.mesh.shape))
+    local = _unpack(placed.to_local(), spec)
+    total = int(placed.shape[0])
+    outs = [backend.from_local(c.contiguous(), (total,), placed.placements)
+            for c in local]
+    if want_inverse:
+        before = multiprocess.all_gather_ints([n_here])[:, 0]
+        offset = int(before[:multiprocess.process_index()].sum())
+        run = torch.cumsum(starts.to(torch.int64), 0) - 1 + offset
+        inv = torch.empty_like(run)
+        inv[perm] = run
+        back = multiprocess.exchange(inv, recv, send)
+        mine = torch.empty_like(back)
+        mine[order] = back
+        data = datas[0]
+        local = data.to_local()
+        out = torch.empty(tuple(local.shape), dtype=torch.int64,
+                          device=local.device)
+        if backend.counts_here(data.placements):
+            out.copy_(mine[:sizes[0]].reshape(tuple(local.shape)))
+        _replicas_from_first(backend, out, data.placements)
+        outs.insert(2 if want_index else 1, backend.from_local(
+            out, tuple(data.shape), tuple(data.placements)))
+    return total, outs
+
+
+# -- searches and counts --------------------------------------------------
+
+
+def _local_count(seq_local, here, values, right):
+    """How many of this process's elements of a sorted sequence lie below
+    each value (``searchsorted``'s count); 0 where another process holds
+    the same box."""
+    if not here or seq_local.numel() == 0:
+        return torch.zeros(tuple(values.shape), dtype=torch.int64,
+                           device=values.device)
+    return masking.searchsorted(seq_local, values.reshape(-1),
+                                right=right).reshape(tuple(values.shape))
+
+
+def summed_counts(backend, seq, values, count):
+    """``count(seq_local, here, v)`` (int64, the shape of v) summed over
+    every process's box of ``seq`` (a 1-D DTensor) for each value. For
+    ``values`` whole on every process (a plain tensor, or a replicated
+    DTensor): one all-reduce. For sharded ``values``: each process's
+    values travel around the ring of processes with their running sum,
+    P - 1 steps, and the sums go home in one more. Returns a tensor (or
+    DTensor) laid out as ``values``."""
+    here = backend.counts_here(seq.placements)
+    seq_local = seq.to_local()
+    if not is_dtensor(values) or all(not p.is_shard()
+                                     for p in values.placements):
+        local = values.to_local() if is_dtensor(values) else values
+        acc = multiprocess.all_reduce_(count(seq_local, here, local))
+        if is_dtensor(values):
+            return backend.from_local(acc, tuple(values.shape),
+                                      tuple(values.placements))
+        return acc
+    world = backend.device_grid.num_devices
+    me = multiprocess.process_index()
+    mine = values.to_local()
+    sizes = multiprocess.all_gather_ints([mine.numel()])[:, 0]
+    chunk = mine.reshape(-1)
+    acc = count(seq_local, here, chunk)
+    for step in range(1, world):
+        packed, spec = _pack([chunk, acc])
+        packed = multiprocess.ring_shift(packed,
+                                         int(sizes[(me - step) % world]))
+        chunk, acc = _unpack(packed, spec)
+        acc = acc + count(seq_local, here, chunk)
+    if world > 1:
+        acc = multiprocess.ring_shift(acc, int(sizes[me]))
+    return backend.from_local(acc.reshape(tuple(mine.shape)),
+                              tuple(values.shape), tuple(values.placements))
+
+
+def searchsorted(backend, seq, values, right=False):
+    """``masking.searchsorted`` of a sharded sorted 1-D ``seq``: the
+    sum over processes of each one's count below the value."""
+    def count(local, here, v):
+        return _local_count(local, here, v, right)
+
+    return summed_counts(backend, seq, values, count)
+
+
+def isin(backend, test, values):
+    """For each value, whether it equals an element of ``test`` (a
+    DTensor): each process's elements, sorted locally, counted at the
+    value from both sides, summed (``summed_counts``); NaN is in
+    nothing."""
+    def count(local, here, v):
+        return (_local_count(local, here, v, True)
+                - _local_count(local, here, v, False))
+
+    local = test.to_local().reshape(-1)
+    if backend.counts_here(test.placements) and local.numel():
+        local = masking.sort(local)[0]
+    hits = summed_counts(backend, _Part(test.placements, local), values,
+                         count)
+    local = hits.to_local() if is_dtensor(hits) else hits
+    vl = values.to_local() if is_dtensor(values) else values
+    res = (local > 0) & ~torch.isnan(vl) if (vl.is_floating_point()
+                                             or vl.is_complex()) \
+        else local > 0
+    if is_dtensor(hits):
+        return backend.from_local(res, tuple(hits.shape),
+                                  tuple(hits.placements))
+    return res
+
+
+class _Part:
+    """A process's part of a sharded sequence, as ``summed_counts`` reads
+    it: its placements (whether it counts) and its local elements."""
+
+    def __init__(self, placements, local):
+        self.placements = tuple(placements)
+        self._local = local
+
+    def to_local(self):
+        return self._local
+
+
+def global_min_max(data):
+    """(min, max) of a DTensor's values over every process (an all-reduce
+    MIN and one MAX); a process with an empty box offers the identities.
+    Integers and bools are compared as int64, exactly."""
+    local = data.to_local().reshape(-1)
+    wide = local.dtype if local.is_floating_point() else torch.int64
+    local = local.to(wide)
+    if local.numel():
+        lo, hi = local.min().reshape(1), local.max().reshape(1)
+    else:
+        info = (torch.finfo if wide.is_floating_point else torch.iinfo)(wide)
+        lo = torch.full((1,), info.max, dtype=wide, device=local.device)
+        hi = torch.full((1,), info.min, dtype=wide, device=local.device)
+    multiprocess.all_reduce_(lo, "min")
+    multiprocess.all_reduce_(hi, "max")
+    return lo[0].to(data.dtype), hi[0].to(data.dtype)
+
+
+def local_counted(data):
+    """This process's elements of a DTensor, flattened, where its box
+    counts in a sum over the mesh; none where another process holds the
+    same box (it is replicated on a mesh dimension where this process's
+    coordinate is not 0)."""
+    local = data.to_local().reshape(-1).contiguous()
+    coord = data.device_mesh.get_coordinate()
+    here = all(p.is_shard() or c == 0
+               for p, c in zip(data.placements, coord))
+    return local if here else local[:0]
+
+
+# -- moving items by position --------------------------------------------
+
+
+def _inside(box, pos):
+    """Whether each position ((n, k) int64 tensor) lies in the first k
+    ranges of ``box``."""
+    hit = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
+    for j, (a, b) in enumerate(box[:pos.shape[1]]):
+        hit &= (pos[:, j] >= a) & (pos[:, j] < b)
+    return hit
+
+
+def _senders(backend, data, k, pos, receiver):
+    """For each position ((n, k) int64 tensor over the first ``k`` axes of
+    the DTensor ``data``), the process that sends it to ``receiver``: the
+    one that holds it and agrees with the receiver on every mesh dimension
+    that shards none of those axes (a replica serves its own replicas, a
+    column block its own column block)."""
+    coords = backend.coords()
+    pl = tuple(data.placements)
+    routed = {m for m, p in enumerate(pl) if p.is_shard() and p.dim < k}
+    out = torch.full((pos.shape[0],), -1, dtype=torch.int64,
+                     device=pos.device)
+    for s, c in enumerate(coords):
+        if all(c[m] == coords[receiver][m] for m in range(len(c))
+               if m not in routed):
+            out[_inside(backend.region(tuple(data.shape), pl, c), pos)] = s
+    return out
+
+
+def pull(backend, data, k, wants, every=None):
+    """The mesh's one move of items by position: ``data`` (a DTensor) at
+    ``wants``, an (n, k) int64 tensor of this process's positions over its
+    first ``k`` axes; returns the (n,) + local trailing shape items in
+    that order, each from its sender (``_senders``). Where every process
+    knows what every other wants (a host index array), ``every(r)`` gives
+    process r's positions, each process works out what it sends, and one
+    all-to-all moves the items; else the positions travel to the senders
+    first (two all-to-alls). A write is a pull by the writers."""
+    me = multiprocess.process_index()
+    world = backend.device_grid.num_devices
+    src = _senders(backend, data, k, wants, me)
+    order = torch.argsort(src, stable=True)
+    recv = torch.bincount(src, minlength=world).cpu().numpy()
+    if every is None:
+        send = multiprocess.all_gather_ints(recv)[:, me]
+        asked = multiprocess.exchange(wants[order], recv, send)
+    else:
+        asked = []
+        for r in range(world):
+            w = wants if r == me else every(r)
+            asked.append(w[_senders(backend, data, k, w, r) == me])
+        send = [int(a.shape[0]) for a in asked]
+        asked = torch.cat(asked)
+    local = data.to_local()
+    box = backend.region(tuple(data.shape), data.placements)
+    asked = asked.to(local.device)
+    items = local[tuple(asked[:, j] - box[j][0] for j in range(k))]
+    got = multiprocess.exchange(items, send, recv)
+    out = torch.empty_like(got)
+    out[order.to(got.device)] = got
+    return out
+
+
+def _positions(flat, shape):
+    """Flat positions (int64 tensor) as (n, len(shape)) coordinates."""
+    return torch.stack(torch.unravel_index(flat, tuple(shape)), dim=1)
+
+
+def gather_rows(backend, data, idx):
+    """``data[idx]`` for a host int array ``idx`` of rows (negative: a
+    hole, left unset), laid out as ``data``: each process pulls the rows
+    of its box of the result (``pull``, one all-to-all)."""
+    idx = np.asarray(idx, dtype=np.int64).reshape(-1)
+    shape = (int(idx.shape[0]),) + tuple(data.shape[1:])
+    pl = tuple(data.placements)
+    coords = backend.coords()
+
+    def wants(r):
+        a, b = backend.region(shape, pl, coords[r])[0]
+        w = torch.from_numpy(idx[a:b])
+        return w[w >= 0].reshape(-1, 1)
+
+    a, b = backend.region(shape, pl)[0]
+    got = pull(backend, data, 1, wants(multiprocess.process_index()),
+               wants)
+    out = got.new_empty((b - a,) + tuple(got.shape[1:]))
+    out[torch.from_numpy(np.nonzero(idx[a:b] >= 0)[0]).to(
+        out.device)] = got
+    return backend.from_local(out, shape, pl)
+
+
+def gather_elements(backend, data, coord, shape, placements):
+    """``data`` at the element coordinates ``coord`` ((n, ndim) host
+    ints, in the row-major order of a result of ``shape``), laid out by
+    ``placements``: each process pulls the elements of its box of the
+    result (one all-to-all)."""
+    coord = torch.from_numpy(np.ascontiguousarray(coord))
+    coords = backend.coords()
+
+    def wants(r):
+        box = backend.region(shape, placements, coords[r])
+        at = torch.arange(coord.shape[0]).reshape(shape)[
+            tuple(slice(a, b) for a, b in box)].reshape(-1)
+        return coord[at]
+
+    box = backend.region(shape, placements)
+    got = pull(backend, data, data.ndim, wants(multiprocess.process_index()),
+               wants)
+    return backend.from_local(got.reshape(tuple(b - a for a, b in box)),
+                              shape, tuple(placements))
+
+
+def _whole_value(values, shape, device):
+    """A host, plain-tensor or replicated value (never a sharded DTensor)
+    broadcast to ``shape``, on this process's device."""
+    if is_dtensor(values):
+        values = values.to_local()
+    if torch.is_tensor(values):
+        return torch.broadcast_to(values.to(device), tuple(shape))
+    return torch.as_tensor(np.broadcast_to(np.asarray(values), tuple(
+        shape)).copy(), device=device)
+
+
+def _is_sharded(values):
+    return is_dtensor(values) and any(p.is_shard() for p in values.placements)
+
+
+def _held(backend, data, pos):
+    """For each process, the indices of the positions ((n, k) tensor) that
+    its box of ``data`` holds."""
+    coords = backend.coords()
+    shape, pl = tuple(data.shape), tuple(data.placements)
+    return lambda r: torch.nonzero(_inside(backend.region(
+        shape, pl, coords[r]), pos))[:, 0]
+
+
+def scatter_rows(backend, data, idx, values):
+    """``data[idx] = values`` for a host int array of rows: each process
+    writes the rows it holds (every holder of a replicated row). A host or
+    whole ``values`` needs no communication; the holders pull a sharded
+    DTensor of the indexed shape, laid out as ``data``, by one
+    all-to-all. Returns the new DTensor, laid out as ``data``."""
+    idx = np.asarray(idx, dtype=np.int64).reshape(-1)
+    shape = (int(idx.shape[0]),) + tuple(data.shape[1:])
+    pl = tuple(data.placements)
+    box = backend.region(tuple(data.shape), pl)
+    local = data.to_local().clone()
+    held = _held(backend, data, torch.from_numpy(idx).reshape(-1, 1))
+    mine = held(multiprocess.process_index())
+    if _is_sharded(values):
+        if tuple(values.shape) != shape:
+            raise NotImplementedError(
+                "index assignment on the mesh: a sharded value must have "
+                f"the indexed shape {shape}, not {tuple(values.shape)}")
+        v = pull(backend, backend.rebox(values, pl), 1, mine.reshape(-1, 1),
+                 lambda r: held(r).reshape(-1, 1))
+    else:
+        sub = tuple(slice(a, b) for a, b in box[1:])
+        v = _whole_value(values, shape, local.device)[
+            (mine.to(local.device),) + sub]
+    rows = torch.from_numpy(idx).to(local.device)[mine.to(local.device)]
+    local[rows - box[0][0]] = v.to(local.dtype)
+    return backend.from_local(local, tuple(data.shape), pl)
+
+
+def basic_positions(shape, key):
+    """Per axis, the positions that a key of ints and slices (no
+    ``None``) selects, and whether the axis stays in the result; None for
+    any other key."""
+    key = key if isinstance(key, tuple) else (key,)
+    if any(k is None or isinstance(k, (np.ndarray, list)) for k in key):
+        return None
+    if sum(k is Ellipsis for k in key) > 1:
+        return None
+    if Ellipsis in key:
+        at = key.index(Ellipsis)
+        key = key[:at] + (slice(None),) * (len(shape) - len(key) + 1) \
+            + key[at + 1:]
+    key = key + (slice(None),) * (len(shape) - len(key))
+    if len(key) != len(shape):
+        raise IndexError(f"too many indices for an array of {len(shape)} "
+                         "dimensions")
+    out = []
+    for k, n in zip(key, shape):
+        if isinstance(k, slice):
+            out.append((np.arange(n, dtype=np.int64)[k], True))
+        elif isinstance(k, (int, np.integer)):
+            if not -n <= int(k) < n:
+                raise IndexError(f"index {int(k)} is out of bounds for an "
+                                 f"axis of size {n}")
+            out.append((np.array([int(k) % n], dtype=np.int64), False))
+        else:
+            return None
+    return out
+
+
+def scatter_basic(backend, data, positions, values):
+    """``data[key] = values`` for a key of ints and slices
+    (``basic_positions``) and a host or whole value: each process writes
+    the part of the selection inside its box, with no communication and
+    no coordinate array of the selection's size."""
+    pl = tuple(data.placements)
+    box = backend.region(tuple(data.shape), pl)
+    local = data.to_local().clone(memory_format=torch.contiguous_format)
+    shape = tuple(len(p) for p, kept in positions if kept)
+    full = _whole_value(values, shape, local.device)
+    mine, where, at = [], [], []
+    for (pos, kept), (lo, hi) in zip(positions, box):
+        t = np.nonzero((pos >= lo) & (pos < hi))[0]
+        where.append(torch.from_numpy(pos[t] - lo).to(local.device))
+        if kept:
+            at.append(torch.from_numpy(t).to(local.device))
+        mine.append(len(t))
+    if all(mine):
+        v = full[torch.meshgrid(*at, indexing="ij")] if at else full
+        local[torch.meshgrid(*where, indexing="ij")] = v.reshape(
+            mine).to(local.dtype)
+    return backend.from_local(local, tuple(data.shape), pl)
+
+
+def scatter_elements(backend, data, coord, shape, values):
+    """``data`` with the elements at ``coord`` (in the row-major order of
+    an index result of ``shape``) set from ``values``, broadcast to
+    ``shape``: a host or whole value is written by every holder without
+    communication; the holders pull a sharded DTensor value of ``shape``
+    (one all-to-all). Returns the new DTensor."""
+    dshape, dp = tuple(data.shape), tuple(data.placements)
+    box = backend.region(dshape, dp)
+    local = data.to_local().clone(memory_format=torch.contiguous_format)
+    pos = torch.from_numpy(np.ascontiguousarray(coord))
+    held = _held(backend, data, pos)
+    t = held(multiprocess.process_index())
+    if _is_sharded(values):
+        if tuple(values.shape) != tuple(shape):
+            raise NotImplementedError(
+                "index assignment on the mesh: a sharded value must have "
+                f"the indexed shape {tuple(shape)}")
+        v = pull(backend, values, values.ndim, _positions(t, shape),
+                 lambda r: _positions(held(r), shape))
+    else:
+        v = _whole_value(values, shape, local.device).reshape(-1)[
+            t.to(local.device)]
+    at = (pos[t] - torch.tensor([a for a, _ in box])).to(local.device)
+    local[tuple(at.T)] = v.to(local.dtype)
+    return backend.from_local(local, dshape, dp)
+
+
+def take(backend, seq, idx):
+    """``seq[idx]`` for a 1-D DTensor ``seq`` and this process's int64
+    tensor ``idx`` (any shape; positions in [0, len(seq))): ``pull``, with
+    the positions sent to their holders first, since every process may
+    ask for different ones."""
+    flat = idx.reshape(-1, 1).to(torch.int64)
+    return pull(backend, seq, 1, flat).reshape(tuple(idx.shape))

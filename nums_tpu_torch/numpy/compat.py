@@ -14,6 +14,7 @@ import torch
 from nums_tpu_torch.core.application_manager import instance as _instance
 from nums_tpu_torch.core.array.blockarray import BlockArray
 from nums_tpu_torch.core.array import utils as array_utils
+from nums_tpu_torch.core.ops import mesh_ops
 from nums_tpu_torch.numpy.extra import _default_int, _inexact, _to_ba, _wrap
 from nums_tpu_torch.numpy.extra4 import resize_tensor
 
@@ -144,7 +145,16 @@ def histogramdd(sample, bins=10):
                          f"{tuple(x.shape)}")
     d = x.shape[1]
     b = [bins] * d if np.ndim(bins) == 0 else list(bins)
-    counts, edges = histogramdd_counts([x[:, i] for i in range(d)], b)
+    if mesh_ops.is_dtensor(x):
+        # whole rows on each process: its columns are local
+        backend = sample.backend
+        x = backend.rebox(x, mesh_ops.row_layout(x.placements, 2))
+        pl = mesh_ops.rows_only(x.placements)
+        cols = [backend.from_local(x.to_local()[:, i].contiguous(),
+                                   (x.shape[0],), pl) for i in range(d)]
+        counts, edges = histogramdd_counts(cols, b)
+    else:
+        counts, edges = histogramdd_counts([x[:, i] for i in range(d)], b)
     return (_wrap(sample, counts.to(_default_int(sample))),
             [_wrap(sample, e) for e in edges])
 

@@ -23,11 +23,12 @@ import builtins
 import numpy as np
 import torch
 
+from nums_tpu_torch.core import multiprocess
 from nums_tpu_torch.core.application_manager import instance as _instance
 from nums_tpu_torch.core.array.blockarray import BlockArray
 from nums_tpu_torch.core.array import utils as array_utils
 from nums_tpu_torch.core.grid import ArrayGrid
-from nums_tpu_torch.core.ops import elementwise, linear, masking
+from nums_tpu_torch.core.ops import elementwise, linear, masking, mesh_ops
 
 
 __all__ = [
@@ -78,6 +79,17 @@ def _wrap(a, data, block_shape=None):
 
 def _default_int(a):
     return elementwise.default_int(a._default_float())
+
+
+def _sharded(t) -> bool:
+    """Whether ``t`` is a DTensor that some mesh dimension shards."""
+    return mesh_ops.is_dtensor(t) and builtins.any(
+        p.is_shard() for p in t.placements)
+
+
+def _local(t):
+    """This process's part of a DTensor (a plain tensor is whole)."""
+    return t.to_local() if mesh_ops.is_dtensor(t) else t
 
 
 def _inexact(t):
@@ -449,8 +461,16 @@ def searchsorted(a, v, side="left"):
     if a.ndim != 1:
         raise ValueError("a should be 1-dimensional")
     seq, vals = _promote_all([a.data, v.data])
-    out = masking.searchsorted(seq, vals, right=side == "right")
+    right = side == "right"
     dt = torch.int64 if a.shape[0] >= 2**31 - 1 else torch.int32
+    if mesh_ops.is_dtensor(seq):
+        # a sharded sequence: each process's count below each value,
+        # summed; a whole one: a local search of each process's values
+        out = (mesh_ops.searchsorted(a.backend, seq, vals, right)
+               if _sharded(seq) else mesh_ops.like(vals, masking.searchsorted(
+                   _local(seq), _local(vals), right=right)))
+        return _wrap(v, out.to(dt), v.block_shape)
+    out = masking.searchsorted(seq, vals, right=right)
     return _wrap(a, out.to(dt))
 
 
@@ -735,6 +755,10 @@ def unique(a, return_index=False, return_inverse=False,
         if not isinstance(outs, tuple):
             return app.array(outs, block_shape=outs.shape)
         return tuple(app.array(o, block_shape=o.shape) for o in outs)
+    if a.backend.mesh is not None:
+        wrapped = mesh_unique([a], return_index, return_inverse,
+                              return_counts, equal_nan)
+        return wrapped if len(wrapped) > 1 else wrapped[0]
     _, outs = masking.device_unique(
         a, want_index=return_index, want_inverse=return_inverse,
         want_counts=return_counts, equal_nan=equal_nan,
@@ -747,6 +771,34 @@ def unique(a, return_index=False, return_inverse=False,
         for o in outs
     )
     return wrapped if len(wrapped) > 1 else wrapped[0]
+
+
+def mesh_unique(arrays, want_index=False, want_inverse=False,
+                want_counts=False, equal_nan=True):
+    """``mesh_ops.unique`` of the elements of ``arrays`` (non-empty
+    BlockArrays of one dtype) as BlockArrays: the distinct values, their
+    first index and counts in as many blocks as the inputs had (a
+    sharded input gives a sharded result), the inverse blocked as the
+    first input; indices in the default int."""
+    a = arrays[0]
+    total, outs = mesh_ops.unique(
+        a.backend, [x.data for x in arrays], want_index=want_index,
+        want_inverse=want_inverse, want_counts=want_counts,
+        equal_nan=equal_nan)
+    dint = _default_int(a)
+    rows = a.mesh_rows_block(total, builtins.sum(x.grid.num_blocks
+                                             for x in arrays))
+    inv_at = (2 if want_index else 1) if want_inverse else -1
+    res = []
+    for i, o in enumerate(outs):
+        if i == inv_at:
+            res.append(BlockArray(o.to(dint), ArrayGrid(
+                a.shape, a.block_shape, array_utils.to_dtype_name(dint)),
+                a.backend))
+            continue
+        res.append(BlockArray.from_torch(o.to(dint) if i else o, (rows,),
+                                         a.backend))
+    return tuple(res)
 
 
 # -- statistics ----------------------------------------------------------
@@ -778,12 +830,18 @@ def _linspace(start, stop, num, dtype, device):
 def hist_edges(x, bins, range):  # noqa: A002
     """``jnp.histogram_bin_edges`` of a 1-D inexact tensor: ``bins`` as
     given, or ``bins + 1`` points over ``range`` (the data's min and max,
-    widened by 0.5 each way where they are equal)."""
+    widened by 0.5 each way where they are equal). Of a DTensor the edges
+    are whole on every process: its min and max by one all-reduce."""
     if not isinstance(bins, (int, np.integer)):
-        return torch.as_tensor(np.asarray(bins), device=x.device).to(x.dtype)
-    if range is None:
+        return torch.as_tensor(np.asarray(bins), device=_local(x).device).to(
+            x.dtype)
+    if range is None and mesh_ops.is_dtensor(x):
+        lo, hi = mesh_ops.global_min_max(x)
+        x = x.to_local()
+    elif range is None:
         lo, hi = x.min(), x.max()
     else:
+        x = _local(x)
         lo = torch.tensor(range[0], dtype=x.dtype, device=x.device)
         hi = torch.tensor(range[1], dtype=x.dtype, device=x.device)
     same = hi == lo
@@ -797,12 +855,20 @@ def histogram(a, bins=10, range=None):  # noqa: A002
     x, side='right')`` with the last bin closed; counted on the device
     with ``bincount`` (``torch.histogram`` has no CUDA kernel)."""
     a = _to_ba(a)
-    x = _inexact(a.data).reshape(-1)
-    edges = hist_edges(x, bins, range)
+    x = _inexact(a.data)
+    if mesh_ops.is_dtensor(x):
+        # the edges by one all-reduce, each process's counts, summed
+        edges = hist_edges(x, bins, range)
+        x = mesh_ops.local_counted(x)
+    else:
+        x = x.reshape(-1)
+        edges = hist_edges(x, bins, range)
     nb = edges.shape[0]
     idx = torch.searchsorted(edges, x, right=True)
     idx = torch.where(x == edges[-1], torch.full_like(idx, nb - 1), idx)
     counts = torch.bincount(idx, minlength=nb + 1)[1:nb]
+    if a.backend.mesh is not None:
+        multiprocess.all_reduce_(counts)
     return _wrap(a, counts.to(x.dtype)), _wrap(a, edges)
 
 
@@ -842,20 +908,53 @@ def interp(x, xp, fp):
     xd, xpd = elementwise.promote(x.data, xp.data, x._default_float())
     xd, xpd = _inexact(xd), _inexact(xpd)
     fpd = _inexact(fp.data)
-    i = torch.clamp(torch.searchsorted(xpd, xd.contiguous(), right=True), 1,
-                    xpd.shape[0] - 1)
-    df = fpd[i] - fpd[i - 1]
-    dx = xpd[i] - xpd[i - 1]
-    delta = xd - xpd[i - 1]
+    if x.backend.mesh is not None:
+        f = _mesh_interp(x.backend, xd, xpd, fpd)
+        return _wrap(x, mesh_ops.like(xd, f), x.block_shape)
+    f = _interp(xd, xpd, fpd, torch.searchsorted(xpd, xd.contiguous(),
+                                                 right=True),
+                lambda t, i: t[i])
+    return _wrap(x, f)
+
+
+def _mesh_interp(backend, xd, xpd, fpd):
+    """``interp`` on the mesh, on this process's part of ``x``: the
+    position in a sharded ``xp`` as a summed count, and the neighbours'
+    values asked of their holders (``mesh_ops.take``)."""
+    if not (_sharded(xpd) or _sharded(fpd)):
+        xp, fp = _local(xpd), _local(fpd)
+        return _interp(_local(xd), xp, fp, torch.searchsorted(
+            xp, _local(xd).contiguous(), right=True), lambda t, i: t[i])
+    pos = _local(mesh_ops.searchsorted(backend, xpd, xd, True))
+
+    def at(t, i):
+        return (mesh_ops.take(backend, t, i) if _sharded(t)
+                else _local(t)[i])
+
+    return _interp(_local(xd), xpd, fpd, pos, at)
+
+
+def _interp(xd, xpd, fpd, pos, at):
+    """``jnp.interp``'s formula; ``at(t, i)`` reads ``t`` at positions
+    ``i``."""
+    n = int(xpd.shape[0])
+    i = torch.clamp(pos, 1, n - 1)
+    ends = torch.tensor([0, n - 1], dtype=torch.int64, device=xd.device)
+    x0, xn = at(xpd, ends)
+    f0, fn = at(fpd, ends)
+    xi, xi1 = at(xpd, i), at(xpd, i - 1)
+    fi, fi1 = at(fpd, i), at(fpd, i - 1)
+    df = fi - fi1
+    dx = xi - xi1
+    delta = xd - xi1
     eps = np.spacing(np.finfo(
         str(xpd.dtype).replace("torch.", "")).eps)
     dx0 = torch.abs(dx) <= eps
-    f = torch.where(dx0, fpd[i - 1],
-                    fpd[i - 1] + (delta / torch.where(
+    f = torch.where(dx0, fi1,
+                    fi1 + (delta / torch.where(
                         dx0, torch.ones_like(dx), dx)) * df)
-    f = torch.where(xd < xpd[0], fpd[0], f)
-    f = torch.where(xd > xpd[-1], fpd[-1], f)
-    return _wrap(x, f)
+    f = torch.where(xd < x0, f0, f)
+    return torch.where(xd > xn, fn, f)
 
 
 def _pad_index(n, before, after, mode, device):
@@ -919,14 +1018,33 @@ def pad(array, pad_width, mode="constant", constant_values=0):
 
 def bincount(x, minlength=0):
     """Output length is max(x)+1, data-dependent: one host sync sizes it,
-    as in the reference; the counting runs on the device."""
+    as in the reference; the counting runs on the device. A negative value
+    raises ``ValueError``, as NumPy's (jnp counts it in bin 0; ROADMAP
+    Queue C)."""
     x = _to_ba(x)
+    if x.backend.mesh is not None and x.size:
+        # the bounds by all-reduces (every process raises alike), each
+        # process's counts, summed
+        low, top = mesh_ops.global_min_max(x.data)
+        _check_counted(int(low))
+        length = builtins.max(int(minlength), int(top) + 1)
+        out = torch.bincount(mesh_ops.local_counted(x.data).to(torch.int64),
+                             minlength=length)
+        multiprocess.all_reduce_(out)
+        return _wrap(x, out.to(_default_int(x)), (length,))
+    if x.size:
+        _check_counted(int(x.min()))
     length = builtins.max(
         int(minlength), int(x.max()) + 1 if x.size else 0
     )
     out = torch.bincount(x.data.reshape(-1).to(torch.int64),
                          minlength=length)
     return _wrap(x, out.to(_default_int(x)))
+
+
+def _check_counted(low):
+    if low < 0:
+        raise ValueError("bincount: the values must not be negative")
 
 
 # -- remaining manipulation / misc ---------------------------------------
@@ -1019,12 +1137,28 @@ def digitize(x, bins, right=False):
     b, xd = _promote_all([bins.data, x.data])
     if b.shape[0] == 0:
         return _wrap(x, torch.zeros_like(xd, dtype=torch.int32))
-    xd = xd.contiguous()
-    up = torch.searchsorted(b, xd, right=not right)
-    down = b.shape[0] - torch.searchsorted(torch.flip(b, (0,)), xd,
-                                           right=not right)
     dt = torch.int64 if b.shape[0] >= 2**31 - 1 else torch.int32
-    return _wrap(x, torch.where(b[-1] >= b[0], up, down).to(dt))
+    if _sharded(b):
+        # each process's count below each value, summed: the count of a
+        # decreasing shard is its flip's
+        n = int(b.shape[0])
+        ends = mesh_ops.take(x.backend, b, torch.tensor(
+            [0, n - 1], device=_local(b).device))
+        rising = bool(ends[1] >= ends[0])
+
+        def count(local, here, v):
+            local = local if rising else torch.flip(local, (0,))
+            return mesh_ops._local_count(local, here, v, not right)
+
+        got = mesh_ops.summed_counts(x.backend, b, xd, count)
+        return _wrap(x, (got if rising else n - got).to(dt), x.block_shape)
+    b, xl = _local(b), _local(xd).contiguous()
+    up = torch.searchsorted(b, xl, right=not right)
+    down = b.shape[0] - torch.searchsorted(torch.flip(b, (0,)), xl,
+                                           right=not right)
+    out = torch.where(b[-1] >= b[0], up, down).to(dt)
+    return _wrap(x, mesh_ops.like(xd, out),
+                 x.block_shape if mesh_ops.is_dtensor(xd) else None)
 
 
 def angle(z, deg=False):
@@ -1074,9 +1208,57 @@ def _mask_indices_1d(condition, device):
         np.where(np.ravel(np.asarray(condition)))[0]).to(device)
 
 
+def _mesh_compress(condition, a, axis):
+    """``compress`` on the mesh: the axis moved first (a view) and masked
+    by ``mesh_ops.select``, then moved back. A condition of another
+    length than the axis (shorter: the rest is False) is cut or padded
+    (``_fitted_condition``)."""
+    cond = _to_ba(condition if isinstance(condition, BlockArray)
+                  else np.asarray(condition))
+    if axis is None:
+        a, axis = ravel(a), 0
+    axis = int(axis) % a.ndim
+    n = a.shape[axis]
+    mask = (cond != 0).data
+    if tuple(mask.shape) != (n,):
+        mask = _fitted_condition(a.backend, mask, n)
+    out = mesh_ops.select(a.backend, mesh_ops.move_axis(
+        a.backend, a.data, axis, 0), mask)
+    block = list(a.block_shape)
+    block.insert(0, block.pop(axis))
+    block[0] = a.mesh_rows_block(out.shape[0], a.grid_shape[axis])
+    block.insert(axis, block.pop(0))
+    return _wrap(a, mesh_ops.move_axis(a.backend, out, 0, axis), block)
+
+
+def _fitted_condition(backend, mask, n):
+    """A 1-D bool condition of another length than the axis's ``n`` as
+    ``n`` entries, the rest False; a True past the axis raises
+    ``IndexError`` (on every process). A DTensor's first entries are
+    pulled by position (``mesh_ops.gather_rows``), laid out as it is."""
+    if not mesh_ops.is_dtensor(mask):
+        mask = mask.reshape(-1)
+        if mask[n:].any():
+            raise IndexError("compress: a condition past the axis")
+        return torch.cat([mask[:n], mask.new_zeros(
+            builtins.max(0, n - mask.shape[0]))])
+    m = int(mask.shape[0])
+    a, _ = backend.region((m,), mask.placements)[0]
+    past = mask.to_local()[builtins.max(0, n - a):].sum().reshape(1)
+    if int(multiprocess.all_reduce_(past.to(torch.int64))[0]):
+        raise IndexError("compress: a condition past the axis")
+    pos = np.arange(n)
+    out = mesh_ops.gather_rows(backend, mask, np.where(pos < m, pos, -1))
+    lo, _ = backend.region((n,), out.placements)[0]
+    out.to_local()[builtins.max(0, m - lo):] = False
+    return out
+
+
 def compress(condition, a, axis=None):
     """np.compress with device-resolved mask indices (one scalar sync)."""
     a = _to_ba(a)
+    if a.backend.mesh is not None:
+        return _mesh_compress(condition, a, axis)
     idx = _mask_indices_1d(condition, a.data.device)
     if axis is None:
         return ravel(a)[idx]
@@ -1089,6 +1271,11 @@ def compress(condition, a, axis=None):
 def extract(condition, arr):
     """np.extract with device-resolved mask indices (one scalar sync)."""
     arr = _to_ba(arr)
+    if arr.backend.mesh is not None:
+        cond = _to_ba(condition)
+        if cond.shape == arr.shape and arr.ndim:
+            return arr[cond != 0]  # packed in row-major order
+        return _mesh_compress(ravel(cond), arr, None)
     return ravel(arr)[_mask_indices_1d(condition, arr.data.device)]
 
 
@@ -1326,6 +1513,10 @@ def argwhere(a):
     if a.ndim == 0:
         out = np.argwhere(a.get())
         return _instance().array(out, block_shape=out.shape)
+    if a.backend.mesh is not None:
+        data = mesh_ops.where(a.backend, (a != 0).data, stacked=True)
+        rows = a.mesh_rows_block(data.shape[0], a.grid.num_blocks)
+        return BlockArray.from_torch(data, (rows, a.ndim), a.backend)
     _, idx = masking.device_where(a != 0)
     data = torch.stack(idx, dim=-1).to(torch.int64)
     return BlockArray.from_torch(data, block_shape=tuple(data.shape),
@@ -1337,6 +1528,10 @@ def flatnonzero(a):
     if a.ndim == 0:
         out = np.flatnonzero(a.get())
         return _instance().array(out, block_shape=out.shape)
+    if a.backend.mesh is not None:
+        data = mesh_ops.where(a.backend, (a != 0).data, flat=True)
+        rows = a.mesh_rows_block(data.shape[0], a.grid.num_blocks)
+        return BlockArray.from_torch(data, (rows,), a.backend)
     _, idx = masking.device_where(ravel(a) != 0)
     return BlockArray.from_torch(idx[0].to(torch.int64), backend=a.backend)
 

@@ -21,10 +21,11 @@ import torch
 from nums_tpu_torch.core.application_manager import instance as _instance
 from nums_tpu_torch.core.array.blockarray import BlockArray
 from nums_tpu_torch.core.array import utils as array_utils
-from nums_tpu_torch.core.ops import elementwise, masking
+from nums_tpu_torch.core import multiprocess
+from nums_tpu_torch.core.ops import elementwise, masking, mesh_ops
 from nums_tpu_torch.numpy.extra import (
-    _default_int, _inexact, _promote_all, _quantile, _to_ba, _wrap,
-    cumprod, cumsum, hist_edges, prod,
+    _default_int, _inexact, _local, _promote_all, _quantile,
+    _sharded, _to_ba, _wrap, cumprod, cumsum, hist_edges, prod,
 )
 
 __all__ = [
@@ -69,15 +70,25 @@ def isin(element, test_elements):
     nothing."""
     element, test = _to_ba(element), _to_ba(test_elements)
     e, t = _promote_all([element.data, test.data])
+    if element.backend.mesh is not None and test.size:
+        if _sharded(t):
+            # each process's test values, counted at each element
+            hit = mesh_ops.isin(element.backend, t, e)
+        else:
+            hit = mesh_ops.like(e, _isin_local(_local(e), _local(t)))
+        return _wrap(element, hit, element.block_shape)
+    if t.numel():
+        return _wrap(element, _isin_local(e, t), element.block_shape)
+    return _wrap(element, torch.zeros(tuple(e.shape), dtype=torch.bool,
+                                      device=e.device), element.block_shape)
+
+
+def _isin_local(e, t):
+    """``isin`` of a tensor in a non-empty whole test tensor."""
     t = masking.sort(t.reshape(-1))[0]
     flat = e.reshape(-1)
-    if t.numel() == 0:
-        return _wrap(element, torch.zeros(tuple(e.shape), dtype=torch.bool,
-                                          device=e.device),
-                     element.block_shape)
     pos = masking.searchsorted(t, flat).clamp(max=t.numel() - 1)
-    return _wrap(element, (t[pos] == flat).reshape(tuple(e.shape)),
-                 element.block_shape)
+    return (t[pos] == flat).reshape(tuple(e.shape))
 
 
 def isreal(x):
@@ -485,18 +496,25 @@ def kaiser(M, beta):
 
 def histogram_bin_edges(a, bins=10, range=None):  # noqa: A002
     a = _to_ba(a)
-    x = _inexact(a.data).reshape(-1)
-    return _wrap(a, hist_edges(x, bins, range))
+    x = _inexact(a.data)
+    if mesh_ops.is_dtensor(x):
+        return _wrap(a, hist_edges(x, bins, range))
+    return _wrap(a, hist_edges(x.reshape(-1), bins, range))
 
 
 def histogramdd_counts(columns, bins):
     """``jnp.histogramdd``'s counts and edges of D 1-D tensors (the
     columns of the sample): each column's ``histogram`` edges, its bin by
     ``searchsorted(side='right')`` with the last edge in the last bin, the
-    bins raveled and counted by ``bincount``."""
+    bins raveled and counted by ``bincount``. Columns that are DTensors
+    laid out alike: the edges from all-reduces, each process's counts,
+    summed."""
     edges, idx, nbins = [], [], []
+    mesh = mesh_ops.is_dtensor(columns[0])
     for x, b in zip(columns, bins):
         e = hist_edges(x, b, None)
+        if mesh:
+            x = mesh_ops.local_counted(x)
         i = torch.searchsorted(e, x.contiguous(), right=True)
         i = torch.where(x == e[-1], i - 1, i)
         edges.append(e)
@@ -506,6 +524,8 @@ def histogramdd_counts(columns, bins):
     for i, nb in zip(idx, nbins):
         flat = flat * nb + i.clamp(0, nb - 1)
     counts = torch.bincount(flat, minlength=math.prod(nbins))
+    if mesh:
+        multiprocess.all_reduce_(counts)
     counts = counts.reshape(nbins)[(slice(1, -1),) * len(nbins)]
     return counts, edges
 
@@ -516,6 +536,8 @@ def histogram2d(x, y, bins=10):
     x, y = _to_ba(x), _to_ba(y)
     xd, yd = _promote_all([x.data.reshape(-1), y.data.reshape(-1)])
     xd, yd = _inexact(xd), _inexact(yd)
+    if mesh_ops.is_dtensor(xd):
+        yd = x.backend.rebox(yd, xd.placements)
     b = [bins, bins] if np.ndim(bins) == 0 else list(bins)
     counts, (ex, ey) = histogramdd_counts([xd, yd], b)
     return (_wrap(x, counts.to(_default_int(x))), _wrap(x, ex),

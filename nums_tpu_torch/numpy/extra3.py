@@ -22,10 +22,11 @@ import torch
 
 from nums_tpu_torch.core.application_manager import instance as _instance
 from nums_tpu_torch.core.array.blockarray import BlockArray
-from nums_tpu_torch.core.ops import elementwise, masking
+from nums_tpu_torch.core import multiprocess
+from nums_tpu_torch.core.ops import elementwise, masking, mesh_ops
 from nums_tpu_torch.numpy.extra import (
-    _conv, _default_int, _inexact, _mask_indices_1d, _promote_all, _to_ba,
-    _wrap, append, ravel, real, sort,
+    _conv, _default_int, _inexact, _local, _mask_indices_1d,
+    _promote_all, _to_ba, _wrap, append, mesh_unique, ravel, real, sort,
 )
 from nums_tpu_torch.numpy.extra2 import _inexact_pair, isin
 
@@ -58,7 +59,13 @@ def _axis_last(a, kth, axis, name):
     kth = int(kth)
     if not -n <= kth < n:
         raise ValueError(f"kth={kth} is out of bounds for axis of size {n}")
-    return torch.movedim(x, axis, -1), kth % n, axis
+    x = torch.movedim(x, axis, -1)
+    if mesh_ops.is_dtensor(x) and any(p.is_shard() and p.dim == x.ndim - 1
+                                      for p in x.placements):
+        raise NotImplementedError(
+            f"{name}: a selection along an axis that the mesh shards (the "
+            "mesh's distributed selection is not ported)")
+    return x, kth % n, axis
 
 
 def _by_rows(fn, x, out_dtype):
@@ -106,7 +113,8 @@ def partition(a, kth, axis=-1):
         return torch.cat([torch.gather(rows, 1, bottom),
                           torch.gather(rows, 1, top)], dim=1)
 
-    return _wrap(a, torch.movedim(_by_rows(part, x, x.dtype), -1, axis))
+    out = mesh_ops.like(x, _by_rows(part, _local(x), x.dtype))
+    return _wrap(a, torch.movedim(out, -1, axis))
 
 
 def argpartition(a, kth, axis=-1):
@@ -125,7 +133,7 @@ def argpartition(a, kth, axis=-1):
                             descending=True)[:, :n - kth - 1]
         return torch.cat([bottom, top], dim=1).to(torch.int32)
 
-    out = _by_rows(part, x, torch.int32)
+    out = mesh_ops.like(x, _by_rows(part, _local(x), torch.int32))
     return _wrap(a, torch.movedim(out, -1, axis))
 
 
@@ -267,13 +275,18 @@ def insert(arr, obj, values, axis=None):
                         values.get() if hasattr(values, "get") else values,
                         axis=axis)
         return _instance().array(out, block_shape=None)
-    x = arr.data
-    if axis is None:
-        x, axis = x.reshape(-1), 0
-    axis = int(axis) % x.ndim
+    x = arr.data if axis is not None else ravel(arr).data
+    axis = 0 if axis is None else int(axis) % x.ndim
     n = x.shape[axis]
     v = _to_ba(values).data.to(x.dtype)
-    v = v.reshape((1,) * (x.ndim - v.ndim) + tuple(v.shape))
+    slabs = _sharded_slabs(arr.backend, v, x, axis, obj)
+    if slabs is not None:
+        v = slabs
+    elif mesh_ops.is_dtensor(v):
+        # a value that broadcasts: smaller than the slots it fills
+        v = arr.backend.rebox(v, arr.backend.replicated()).to_local()
+    if slabs is None:
+        v = v.reshape((1,) * (x.ndim - v.ndim) + tuple(v.shape))
     if isinstance(obj, slice):
         pos = np.asarray(list(range(*obj.indices(n))), dtype=np.int64)
     else:
@@ -282,8 +295,10 @@ def insert(arr, obj, values, axis=None):
             raise IndexError(f"index {pos} is out of bounds for axis {axis} "
                              f"with size {n}")
         pos = pos % n if pos < 0 else pos
-        v = torch.movedim(v, 0, axis)
-        pos = np.full(v.shape[axis], pos, dtype=np.int64)
+        if slabs is None:
+            v = torch.movedim(v, 0, axis)
+        pos = np.full(v.shape[0 if slabs is not None else axis], pos,
+                      dtype=np.int64)
     k = len(pos)
     pos = np.where(pos < 0, pos + n, pos)
     order = np.argsort(pos, kind="stable")
@@ -291,9 +306,13 @@ def insert(arr, obj, values, axis=None):
     new_pos[order] += np.arange(k)
     slot_shape = list(x.shape)
     slot_shape[axis] = k
-    v = torch.broadcast_to(v, slot_shape)
+    if slabs is None:
+        v = torch.broadcast_to(v, slot_shape)
     out_shape = list(x.shape)
     out_shape[axis] = n + k
+    if mesh_ops.is_dtensor(x):
+        return _wrap(arr, _mesh_insert(arr.backend, x, axis, new_pos, v,
+                                       tuple(out_shape)))
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     old = np.ones(n + k, dtype=bool)
     old[new_pos] = False
@@ -301,6 +320,70 @@ def insert(arr, obj, values, axis=None):
     out.index_copy_(axis, torch.from_numpy(np.nonzero(old)[0]).to(x.device),
                     x)
     return _wrap(arr, out)
+
+
+def _sharded_slabs(backend, v, x, axis, obj):
+    """A sharded value of ``insert`` on the mesh that fills the slots
+    without broadcasting, as a DTensor with the slots first; else None."""
+    if not (mesh_ops.is_dtensor(x) and mesh_ops.is_dtensor(v)
+            and any(p.is_shard() for p in v.placements)
+            and v.ndim == x.ndim):
+        return None
+    if isinstance(obj, slice):
+        k = len(range(*obj.indices(x.shape[axis])))
+        v = mesh_ops.move_axis(backend, v, axis, 0)
+    else:
+        k = int(v.shape[0])
+    rest = tuple(x.shape[:axis]) + tuple(x.shape[axis + 1:])
+    return v if tuple(v.shape) == (k,) + rest else None
+
+
+def _mesh_insert(backend, x, axis, new_pos, v, out_shape):
+    """``insert`` on the mesh: ``v`` (the slots' shape: whole, or a
+    sharded DTensor with the slots first) at the new positions ``new_pos``
+    of ``axis``. Along an axis that no mesh dimension shards each process
+    inserts into its own box; along a sharded one the old slabs move to
+    their new places by one all-to-all (``mesh_ops.gather_rows``). Each
+    process fills the new slots it holds, pulling them from a sharded
+    ``v`` (``mesh_ops.pull``)."""
+    k = len(new_pos)
+    n = out_shape[axis] - k
+    src = np.full(n + k, -1, dtype=np.int64)
+    old = np.ones(n + k, dtype=bool)
+    old[new_pos] = False
+    src[old] = np.arange(n)
+    slot = np.full(n + k, -1, dtype=np.int64)
+    slot[new_pos] = np.arange(k)
+    xt = mesh_ops.move_axis(backend, x, axis, 0)
+    if any(p.is_shard() and p.dim == 0 for p in xt.placements):
+        out = mesh_ops.gather_rows(backend, xt, src)
+        box = backend.region(tuple(out.shape), out.placements)
+    else:
+        local = xt.to_local()
+        box = backend.region((n + k,) + tuple(xt.shape[1:]), xt.placements)
+        rows = torch.empty((n + k,) + tuple(local.shape[1:]),
+                           dtype=local.dtype, device=local.device)
+        rows[torch.from_numpy(np.nonzero(old)[0]).to(local.device)] = local
+        out = mesh_ops.like(xt, rows, (n + k,) + tuple(xt.shape[1:]))
+    local = out.to_local()
+    coords = backend.coords()
+
+    def fills(r):  # the new slots that process r holds, by slot
+        a, b = backend.region(tuple(out.shape), out.placements, coords[r])[0]
+        return torch.from_numpy(slot[a:b][src[a:b] < 0]).reshape(-1, 1)
+
+    a, b = box[0]
+    fill = np.nonzero(src[a:b] < 0)[0]
+    if mesh_ops.is_dtensor(v):
+        vals = mesh_ops.pull(backend, backend.rebox(v, tuple(
+            out.placements)), 1, fills(multiprocess.process_index()), fills)
+    else:
+        vt = torch.movedim(v, axis, 0)
+        vals = vt[fills(multiprocess.process_index())[:, 0].to(vt.device)][
+            (slice(None),) + tuple(slice(lo, hi) for lo, hi in box[1:])]
+    if len(fill):
+        local[torch.from_numpy(fill).to(local.device)] = vals.to(local.dtype)
+    return mesh_ops.move_axis(backend, out, 0, axis)
 
 
 def array_equiv(a1, a2):
@@ -326,11 +409,15 @@ def _device_unique_1d(ba, equal_nan=True):
     if ba.size == 0:
         out = np.unique(ba.get())
         return _instance().array(out, block_shape=out.shape)
+    if ba.backend.mesh is not None:
+        return mesh_unique([ba], equal_nan=equal_nan)[0]
     _, (vals,) = masking.device_unique(ba, equal_nan=equal_nan)
     return BlockArray.from_torch(vals, backend=ba.backend)
 
 
 def _compress_by(ba, mask_ba):
+    if ba.backend.mesh is not None:
+        return ba[mask_ba]
     return ba[_mask_indices_1d(mask_ba, ba.data.device)]
 
 
@@ -355,6 +442,9 @@ def setxor1d(ar1, ar2):
         return db
     if db.size == 0:
         return da
+    if da.backend.mesh is not None:
+        # disjoint sorted distinct values: their union is the sort
+        return mesh_unique(_same_dtype(da, db))[0]
     return sort(append(da, db))
 
 
@@ -364,7 +454,16 @@ def union1d(ar1, ar2):
         return _device_unique_1d(b)
     if b.size == 0:
         return _device_unique_1d(a)
+    if a.backend.mesh is not None:
+        return mesh_unique(_same_dtype(a, b))[0]
     return _device_unique_1d(append(ravel(a), ravel(b)))
+
+
+def _same_dtype(a, b):
+    """[a, b] promoted to one dtype."""
+    dt = np.promote_types(a.dtype, b.dtype)
+    return [a if a.dtype == dt else a.astype(dt),
+            b if b.dtype == dt else b.astype(dt)]
 
 
 def _unique_result(x, want_index=False, want_inverse=False,
@@ -380,6 +479,9 @@ def _unique_result(x, want_index=False, want_inverse=False,
             app.array(np.asarray(o), block_shape=np.asarray(o).shape)
             for o in outs
         ])
+    if x.backend.mesh is not None:
+        return result_t(*mesh_unique([x], want_index, want_inverse,
+                                     want_counts, equal_nan=False))
     _, outs = masking.device_unique(
         x, want_index=want_index, want_inverse=want_inverse,
         want_counts=want_counts, equal_nan=False,
@@ -415,13 +517,23 @@ def trim_zeros(filt, trim="fb"):
         out = np.trim_zeros(np.asarray(filt.get()), trim)
         return _instance().array(out, block_shape=out.shape)
     v = filt.data
+    n = v.shape[0]
+    lo, hi = 0, n
+    if mesh_ops.is_dtensor(v):
+        # each process's first and last nonzero rows, one all-reduce
+        lo, hi = filt.backend.region(tuple(v.shape), v.placements)[0]
+        v = v.to_local()
     nz = v != 0
     if nz.ndim > 1:
         nz = nz.reshape(nz.shape[0], -1).any(dim=1)
-    n = v.shape[0]
-    idx = torch.arange(n, device=v.device)
-    first = int(torch.where(nz, idx, n).min())
-    last = int(torch.where(nz, idx + 1, 0).max())
+    idx = torch.arange(lo, hi, device=v.device)
+    ends = torch.stack([torch.where(nz, idx, n).min() if hi > lo
+                        else idx.new_tensor(n),
+                        -(torch.where(nz, idx + 1, 0).max() if hi > lo
+                          else idx.new_tensor(0))])
+    if filt.backend.mesh is not None:
+        multiprocess.all_reduce_(ends, "min")
+    first, last = int(ends[0]), -int(ends[1])
     trim = trim.lower()
     start = first if "f" in trim else 0
     stop = last if "b" in trim else n

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 
 from torch_parity import (  # noqa: F401
-    mesh_app, mesh_pool, rel_err, torch_app,
+    jax_mesh, mesh_app, mesh_pool, rel_err, torch_app,
 )
 
 REL = 1e-12
@@ -258,16 +258,19 @@ def test_seed_invariance(mesh_pool, torch_app, cluster):
 
 
 def _unstrategied(cluster):
-    """What each op outside the slice raises on the mesh."""
+    """The mask, where and searchsorted cases that once raised on the mesh
+    (their values now), and what still raises: a selection along a
+    sharded axis."""
     import nums_tpu_torch.numpy as nps
 
     app = mesh_app(cluster)
     bx = app.array(np.arange(12.0).reshape(4, 3), block_shape=(1, 3))
-    out = {}
-    for name, fn in [("mask", lambda: bx[bx > 5.0]),
-                     ("where", lambda: app.where(bx > 5.0)),
-                     ("searchsorted", lambda: nps.searchsorted(
-                         bx[:, 0], bx[:, 1]))]:
+    out = {"mask": bx[bx > 5.0].get(),
+           "where": [a.get() for a in app.where(bx > 5.0)],
+           "searchsorted": nps.searchsorted(bx[:, 0], bx[:, 1]).get()}
+    for name, fn in [("partition", lambda: nps.partition(bx, 1, axis=0)),
+                     ("argpartition", lambda: nps.argpartition(
+                         bx, 1, axis=0))]:
         try:
             fn()
             out[name] = None
@@ -276,14 +279,27 @@ def _unstrategied(cluster):
     return out
 
 
-def test_ops_without_a_strategy_raise(mesh_pool):
+def test_ops_without_a_strategy_raise(mesh_pool, torch_app, jax_mesh):
     """DTensor has no sharding strategy for an op whose output shape
-    depends on the data (nonzero) or for searchsorted: the op raises
-    ``NotImplementedError`` naming it, and nothing gathers quietly."""
+    depends on the data (nonzero) or for searchsorted: the mesh's own
+    branch (core/ops/mesh_ops.py) gives the values of nums_tpu's mesh and
+    of the serial port; a selection along a sharded axis (partition,
+    argpartition) raises ``NotImplementedError`` naming the op, and
+    nothing gathers quietly."""
+    import nums_tpu.numpy as jnps
+    import nums_tpu_torch.numpy as nps
+
     got = mesh_pool.run(_unstrategied, (4, 1))
-    assert "aten.nonzero" in got["mask"]
-    assert "aten.nonzero" in got["where"]
-    assert "searchsorted" in got["searchsorted"]
+    x = np.arange(12.0).reshape(4, 3)
+    for app, numpy in ((jax_mesh, jnps), (torch_app, nps)):
+        bx = app.array(x, block_shape=(1, 3))
+        assert np.array_equal(got["mask"], bx[bx > 5.0].get())
+        for g, r in zip(got["where"], app.where(bx > 5.0)):
+            assert np.array_equal(g, r.get())
+        assert np.array_equal(got["searchsorted"], numpy.searchsorted(
+            bx[:, 0], bx[:, 1]).get())
+    for name in ("partition", "argpartition"):
+        assert got[name] is not None and name in got[name], name
 
 
 def _spd(n):

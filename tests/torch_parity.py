@@ -245,8 +245,16 @@ def facade_parity(apps, fn, tol="elementwise"):
 
 MESH_WORLD = 4
 # Every wait on the workers has a deadline: on expiry they are killed and
-# the case fails, so no collective left waiting can hang the suite.
+# the case fails, so no collective left waiting can hang the suite. The
+# deadline counts the time in which the workers make no progress (use
+# less than MESH_IDLE_CPU_SECONDS of CPU time between them in a
+# MESH_POLL_SECONDS poll): a collective left waiting uses none, while a
+# case slowed by a loaded host (the workers' start and imports, a mesh's
+# process groups) goes on, up to MESH_CASE_CAP_SECONDS in all.
 MESH_CASE_SECONDS = 60.0
+MESH_CASE_CAP_SECONDS = 600.0
+MESH_POLL_SECONDS = 5.0
+MESH_IDLE_CPU_SECONDS = 0.5
 _BLOCKED = ("jax", "jaxlib", "nums_tpu", "optax")
 
 
@@ -329,7 +337,23 @@ class MeshPool:
             p.join(5)
         self._procs = []
 
+    def _cpu_seconds(self):
+        """The CPU time that the workers have used (Linux's /proc)."""
+        import os
+
+        total = 0
+        for p in self._procs:
+            try:
+                with open(f"/proc/{p.pid}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+            except OSError:
+                continue
+            total += int(fields[11]) + int(fields[12])
+        return total / os.sysconf("SC_CLK_TCK")
+
     def run(self, fn, *args, timeout=MESH_CASE_SECONDS, **kwargs):
+        """``timeout``: the seconds the workers may go without progress
+        (see MESH_CASE_SECONDS)."""
         import queue
         import time
 
@@ -338,20 +362,29 @@ class MeshPool:
             self._start()
         for box in self._inboxes:
             box.put((fn, args, kwargs))
-        deadline = time.monotonic() + timeout
+        start = last = time.monotonic()
+        cpu = self._cpu_seconds()
         results = {}
         while len(results) < self.world:
             try:
                 rank, ok, value = self._outbox.get(
-                    timeout=max(0.05, deadline - time.monotonic()))
+                    timeout=min(MESH_POLL_SECONDS, timeout))
             except queue.Empty:
+                now, used = time.monotonic(), self._cpu_seconds()
+                if used - cpu >= MESH_IDLE_CPU_SECONDS:
+                    last = now
+                cpu = used
+                if (now - last < timeout and now - start
+                        < max(timeout, MESH_CASE_CAP_SECONDS)):
+                    continue
                 self.kill()
                 said = "\n".join(f"rank {r}: {v}" for r, (ok, v)
                                  in sorted(results.items()) if not ok)
                 raise AssertionError(
                     f"{fn.__name__}: {self.world - len(results)} rank(s) "
-                    f"did not answer within {timeout} s; workers killed\n"
-                    + said)
+                    f"did not answer: no progress for {now - last:.0f} s "
+                    f"(deadline {timeout} s), {now - start:.0f} s in all; "
+                    "workers killed\n" + said)
             results[rank] = (ok, value)
         failed = {r: v for r, (ok, v) in results.items() if not ok}
         if failed:
@@ -408,3 +441,86 @@ def jax_mesh():
     application_manager.set_instance(app)
     yield app
     application_manager.set_instance(old)
+
+
+# ---------------------------------------------------------------------
+# Tables of ops run through every package (tests/test_torch_mesh_index.py,
+# tests/test_torch_mesh_setops.py)
+# ---------------------------------------------------------------------
+
+
+def _placed_like_array(app, result):
+    """Whether each process holds of a BlockArray result what
+    ``app.array`` of its value, shape and blocks puts there (collective)."""
+    if result.backend.mesh is None or result.is_transposed:
+        return True
+    ref = app.array(np.asarray(result.get()), block_shape=result.block_shape)
+    if tuple(ref.raw.placements) != tuple(result.raw.placements):
+        return False
+    a, b = result.raw.to_local().numpy(), ref.raw.to_local().numpy()
+    return a.shape == b.shape and np.array_equal(
+        a, b, equal_nan=a.dtype.kind in "fc")
+
+
+def _results(x):
+    if isinstance(x, (tuple, list)):
+        return [r for v in x for r in _results(v)]
+    return [x] if hasattr(x, "get") and hasattr(x, "grid") else []
+
+
+def run_table(app, nps, table, placed=False):
+    """name -> (value on the host, exception type name) for each
+    ``(name, fn)`` of ``table``, ``fn(app, nps)`` run in order; with
+    ``placed`` (on the mesh, collective), also name -> whether every
+    BlockArray result lies as ``app.array`` would place it, on every
+    process."""
+    values, where = {}, {}
+    for name, fn in table:
+        try:
+            with np.errstate(all="ignore"):
+                out = fn(app, nps)
+            values[name] = (host(out), None)
+            if placed:
+                # every check runs on every rank: each is collective
+                where[name] = all([_placed_like_array(app, r)
+                                   for r in _results(out)])
+        except Exception as e:  # noqa: BLE001 - the type is what is compared
+            values[name] = (None, type(e).__name__)
+            where[name] = True
+    if placed:
+        import torch.distributed as dist
+
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, where)
+        where = {k: all(w[k] for w in every) for k in where}
+    return values, where
+
+
+def jax_mesh_values(cluster, table):
+    """``run_table`` through nums_tpu's mesh of ``cluster`` over the 8
+    virtual CPU devices; the application before it is restored after."""
+    import nums_tpu.numpy as jnps
+    from nums_tpu.core import application_manager
+    from nums_tpu.core.array.application import ArrayApplication
+    from nums_tpu.core.backend import MeshBackend
+    from nums_tpu.core.io.filesystem import FileSystem
+
+    backend = MeshBackend(cluster_shape=tuple(cluster)).init()
+    app = ArrayApplication(backend, FileSystem(backend))
+    old = application_manager._instance
+    application_manager.set_instance(app)
+    try:
+        return run_table(app, jnps, table)[0]
+    finally:
+        application_manager.set_instance(old)
+
+
+def assert_table_entry(got, ref, tol="elementwise"):
+    """One entry of two ``run_table``s: the same exception type, or equal
+    values (``assert_values``)."""
+    (g, g_exc), (r, r_exc) = got, ref
+    if r_exc is not None:
+        assert g_exc == r_exc, (g_exc, r_exc)
+        return
+    assert g_exc is None, g_exc
+    assert_values(g, r, tol)
