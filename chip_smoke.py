@@ -1,12 +1,13 @@
 """Smoke run of nums_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py                 # phases 1-17
+    python3 chip_smoke.py                 # phases 1-18
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check
     python3 chip_smoke.py --random-only   # phases 1 and 11
     python3 chip_smoke.py --facade-only   # phases 1, 2, 12 and 13
     python3 chip_smoke.py --models-only   # phases 1, 2 and 14
     python3 chip_smoke.py --mesh-only     # phases 1, 2, 15 and 16 on every card
     python3 chip_smoke.py --masks-only    # phases 1, 2 and 17 on every card
+    python3 chip_smoke.py --mesh-core-only  # phases 1, 2 and 18 on every card
 
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi);
@@ -262,6 +263,29 @@ Phases, each printing one JSON line:
      within 1e-4 of the rows' own labels; K1 once and K3 ten times a card;
      each card's peak below X's bytes (no card holds X whole);
      every rank exits 0 within 600 s.
+ 18. mesh_core: the in-core mesh path (``core/ops/mesh_linalg.py`` and
+     the mesh branches of the models and the facade). The models: KMeans(16)
+     (labels and inertia against float64 argmins of its centers), PCA(16)
+     (singular values against the float64 centered gram's), lbfgs,
+     logistic ADMM (l1) and Lasso on X's first 100 columns, each against
+     the serial fit of the same rows on one card, the GBT on
+     benchmark_models.py's data split over the ranks (accuracy, numpy
+     tables); the facade: quantiles of 8 columns (numpy), ``cumsum`` of a
+     long vector (float64), ``correlate``/``convolve`` by 1001 taps in three
+     modes (float64 on each rank's interior, the sum identity), ``repeat``
+     and ``pad`` of X (bitwise); device index arrays drawn by the sharded
+     ``integers`` (X[idx] and X[idx] = 2·X[idx] by float64 row sums, a mask
+     beside a device index); ``ridge_regression`` of X in column blocks
+     (RᵀR sharded, K1 in it; θ against float64), ``cholesky``,
+     ``posdef_solve`` and ``inv`` of a sharded SPD matrix by residuals on
+     the mesh and at n = 1000 against float64 on the host; ``integers``
+     and ``gamma`` at draw size (each shard's first rows a serial draw's).
+     Each step's seconds, bytes sent and launches; warm times by CUDA
+     events. In the full run on phase 15's world-1 mesh at 2.5M x 1000
+     and n = 4096 (KMeans and the GBT also bit for bit the serial fits);
+     with ``--mesh-core-only`` one process per card at 10M x 1000 and n =
+     16384, each card's peak below X's bytes, every rank exits 0 within
+     900 s.
 Then the kernels as one JSON line (each with its bound, the least time
 the card could take for its work at this run's shapes), and last
 {"ok": true, "device": {...}}. A failed phase prints its traceback and
@@ -4285,6 +4309,10 @@ def phase_mesh(torch, smi, keep):
             emit(out)
             # Phase 17 on the same world-1 mesh and X.
             masks = phase_masks(torch, smi, app, X, y)
+            torch.cuda.empty_cache()
+            # Phase 18 on the same world-1 mesh and X (its last step
+            # writes into X).
+            core = phase_mesh_core(torch, smi, app, X, y)
             del X, y
             torch.cuda.empty_cache()
             # Phase 16 on the same world-1 mesh.
@@ -4293,7 +4321,7 @@ def phase_mesh(torch, smi, keep):
         finally:
             application_manager.set_instance(saved)
             dist.destroy_process_group()
-    return out, ooc, masks
+    return out, ooc, masks, core
 
 
 class _Tee:
@@ -5852,6 +5880,890 @@ def _spawn_ranks(world, cfg):
     return [p.exitcode for p in procs]
 
 
+# -- Phase 18: the in-core mesh path (mesh_core) --------------------------
+# The models, the facade, device index arrays, the distributed
+# factorizations and the sharded draws on the mesh. With --mesh-core-only
+# on every card at phase 15's 10M x 1000 (MC_FULL); in the full run on
+# phase 15's world-1 mesh at 2.5M x 1000 (MC_WORLD1).
+MC_FULL = {"n": MESH_N, "fact_n": 16384, "vec": 100_000_000,
+           "idx": 1_000_000, "gbt_n": GBDT_N, "draw_rows": MESH_N}
+MC_WORLD1 = {"n": N_FULL, "fact_n": 4096, "vec": 25_000_000,
+             "idx": 250_000, "gbt_n": GBDT_N // 4, "draw_rows": N_FULL // 4}
+MC_FACT_SMALL = 1000         # also held to a float64 host factorization
+MC_FACT_PANEL = 512          # the SPD matrix's row block: the panel width
+MC_TAPS = 1001               # correlate/convolve's kernel
+MC_COLS = 8                  # the quantiles' columns
+MC_REPEAT_COLS = 64          # repeat(X[:, :64], 2, axis=0)
+MC_KMEANS = dict(n_clusters=16, max_iter=5, tol=0.0, seed=0)
+MC_PCA = 16
+MC_ADMM = dict(solver="admm", penalty="l1", tol=1e-7, max_iter=40)
+MC_ADMM_ROWS_C = 4000.0      # C = 4000 / n: the same l1 weight a row at
+                             # any n, light enough to keep most of the
+                             # planted coefficients (40 / n zeroes them all)
+MC_ADMM_RHO_ROWS = 0.25      # admm_rho = n / 4, the logistic loss's
+                             # curvature at β = 0 for unit columns
+MC_ADMM_CHECK = dict(rows=250_000, max_iter=240)  # where the l1 ADMM fit of
+                             # all 1000 columns reaches its optimum: on X it
+                             # stalls (residual balancing leaves ρ ~1000x
+                             # below the curvature; PERF.md), and its KKT
+                             # there is recorded, not held
+MC_KKT_REL = 1e-2            # l1 optimality, float64, of the fp32 ADMM fit
+MC_NEWTON64_STEPS = 30       # the float64 references' iterations (at most)
+MC_LABEL_MISMATCH = 1e-4     # float32 fits' labels vs float64 argmins
+MC_QUANT_REL = 1e-6          # float32 order statistics, float64 weights
+MC_SCAN_REL = FULL_REL       # float32 cumsum of 25M a card vs float64
+MC_CONV_REL = 1e-5           # float32 conv1d vs float64, of max|ref|
+MC_SUM_REL = 1e-4            # Σ out = Σ x · Σ k (mode "full") in float32
+MC_CONV_CHECK = 1 << 21      # interior outputs a rank held to float64
+MC_RESID_REL = 1e-3          # ‖LLᵀ − A‖, ‖A inv(A) − I‖, ‖Ax − b‖ (fp32)
+MC_F64_REL = 1e-4            # n = 1000 vs a float64 host factorization
+MC_DRAW_CHECK_ROWS = 64      # each shard's first rows vs a serial draw
+MC_DEADLINE_S = 900.0        # every rank exits 0 within, or the run fails
+
+
+def _col_sums64(torch, x, w=None, chunk=MESH_CHUNK):
+    """Σ_i w_i·x_i (w = 1 without it) in float64, a chunk of rows at a
+    time (X in float64 whole would take twice its bytes)."""
+    out = torch.zeros(x.shape[1], dtype=torch.float64, device=x.device)
+    for i in range(0, x.shape[0], chunk):
+        c = x[i:i + chunk].double()
+        out += c.sum(0) if w is None else c.T @ w[i:i + chunk].double()
+    return out
+
+
+def _mc_local(a):
+    from nums_tpu_torch.core.ops import mesh_ops
+
+    t = a.raw if hasattr(a, "raw") else a
+    return t.to_local() if mesh_ops.is_dtensor(t) else t
+
+
+def _mc_sum(torch, value, op="sum"):
+    """A float summed (or maxed) over every rank, in float64."""
+    import torch.distributed as dist
+
+    t = torch.tensor([float(value)], dtype=torch.float64,
+                     device=_mesh_device(torch))
+    dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
+                           "max": dist.ReduceOp.MAX}[op])
+    return float(t.item())
+
+
+def _mc_rows(app, a):
+    """(r0, r1) of the rows this rank holds of ``a``."""
+    return app.backend.region(tuple(a.shape), a.raw.placements)[0]
+
+
+def _mc_whole(t):
+    """A small model array's tensor whole on this rank."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _aug64(torch, x, i, chunk=MESH_CHUNK):
+    """Rows [i, i + chunk) of ``x`` in float64 with a column of ones (the
+    intercept's) after the last."""
+    c = x[i:i + chunk].double()
+    return torch.cat([c, c.new_ones((c.shape[0], 1))], dim=1)
+
+
+def _newton64(torch, x, yl, lam):
+    """The l2-penalized logistic optimum (Σ NLL + ½ Σ λ_j β_j², the
+    intercept last) in float64 by Newton's method from β = 0: each step's
+    g and H summed over this rank's rows ``x`` (labels ``yl``) a chunk at
+    a time and all-reduced."""
+    import torch.distributed as dist
+
+    b = torch.zeros(x.shape[1] + 1, dtype=torch.float64, device=x.device)
+    for _ in range(MC_NEWTON64_STEPS):
+        g = torch.zeros_like(b)
+        H = torch.zeros((b.shape[0], b.shape[0]), dtype=b.dtype,
+                        device=b.device)
+        for i in range(0, x.shape[0], MESH_CHUNK):
+            c = _aug64(torch, x, i)
+            mu = torch.sigmoid(c @ b)
+            g += c.T @ (mu - yl[i:i + MESH_CHUNK])
+            H += c.T @ (c * (mu * (1.0 - mu))[:, None])
+            del c
+        dist.all_reduce(g)
+        dist.all_reduce(H)
+        step = torch.linalg.solve(H + torch.diag(lam), g + lam * b)
+        b -= step
+        if float(step.abs().max()) <= 1e-10 * float(b.abs().max()):
+            break
+    return b
+
+
+def _gram_aug64(g64, s1, n):
+    """[X 1]ᵀ[X 1] from the all-reduced XᵀX ``g64``, column sums ``s1``
+    and row count ``n``."""
+    d = g64.shape[0]
+    G = g64.new_zeros((d + 1, d + 1))
+    G[:d, :d] = g64
+    G[:d, d] = s1
+    G[d, :d] = s1
+    G[d, d] = n
+    return G
+
+
+def _lasso64(torch, G, xty, ysum, lam, steps=1000):
+    """The Lasso optimum (½‖y − [X 1]β‖² + Σ λ_j |β_j|) in float64 by
+    FISTA on the all-reduced moments: [X 1]ᵀ[X 1] ``G`` (``_gram_aug64``),
+    Xᵀy ``xty`` and Σy ``ysum``."""
+    q = torch.cat([xty, xty.new_tensor([ysum])])
+    step = 1.0 / float(torch.linalg.eigvalsh(G)[-1])
+    b = torch.zeros_like(q)
+    v, t = b, 1.0
+    for _ in range(steps):
+        u = v - step * (G @ v - q)
+        new = torch.sign(u) * (u.abs() - step * lam).clamp_min(0)
+        t_new = (1.0 + (1.0 + 4.0 * t * t) ** 0.5) / 2.0
+        v = new + ((t - 1.0) / t_new) * (new - b)
+        b, t = new, t_new
+    return b
+
+
+def _l1_kkt64(torch, x, yl, z, lam):
+    """The l1-penalized logistic fit ``z``'s optimality in float64: the
+    loss's gradient g summed over every rank's rows, then the largest of
+    |g_j + λ_j sign(z_j)| (z_j ≠ 0) and max(|g_j| − λ_j, 0) (z_j = 0),
+    over the largest λ, and the z of the coordinate that holds it."""
+    import torch.distributed as dist
+
+    g = torch.zeros_like(z)
+    for i in range(0, x.shape[0], MESH_CHUNK):
+        c = _aug64(torch, x, i)
+        g += c.T @ (torch.sigmoid(c @ z) - yl[i:i + MESH_CHUNK])
+        del c
+    dist.all_reduce(g)
+    v = torch.where(z != 0, (g + lam * torch.sign(z)).abs(),
+                    (g.abs() - lam).clamp_min(0))
+    return {"kkt_rel_to_lambda": float(v.max() / lam.max()),
+            "kkt_worst_z": float(z[v.argmax()])}
+
+
+def _mc_admm_check(torch, app, step, m, d):
+    """The l1 logistic ADMM fit held to its optimality conditions where
+    it converges: X's first ``m`` rows, every column (drawn again on the
+    mesh, laid out over every rank, with their planted labels), the same
+    λ and ρ a row, ``MC_ADMM_CHECK``'s steps."""
+    from nums_tpu_torch.models.glms import LogisticRegression
+
+    Xm = _draw_mesh_x(torch, app, m, d)
+    ym, _ = planted_labels(torch, app, Xm)
+    fit = step("admm_converged", lambda: LogisticRegression(
+        C=MC_ADMM_ROWS_C / m, admm_rho=MC_ADMM_RHO_ROWS * m, solver="admm",
+        penalty="l1", tol=MC_ADMM["tol"],
+        max_iter=MC_ADMM_CHECK["max_iter"]).fit(Xm, ym))
+    z = torch.cat([_mc_whole(fit.coef_.data), _mc_whole(
+        fit.intercept_.data).reshape(1)]).double()
+    res = _l1_kkt64(torch, _mc_local(Xm), _rows_like(app, ym, Xm).double(),
+                    z, _mc_whole(fit._lambda_vec.data).double())
+    assert res["kkt_rel_to_lambda"] <= MC_KKT_REL, ("admm", m, res)
+    assert int((z[:-1] != 0).sum()), "admm: every coefficient is 0"
+    return {**res, "rows": m, "steps": MC_ADMM_CHECK["max_iter"],
+            "nonzeros": int((z[:-1] != 0).sum())}
+
+
+def _mc_models(torch, app, X, y, cfg, step, out, serial):
+    """KMeans, PCA, the lbfgs, admm and Lasso fits and the GBT classifier
+    on the mesh, X whole: KMeans, PCA and the three GLM solvers held to
+    float64 references on the mesh, the GBT to numpy tables (and, on a
+    world-1 mesh, KMeans and the GBT to the serial backend's fits on the
+    same tensors, bit for bit)."""
+    import torch.distributed as dist
+
+    from nums_tpu_torch.models.cluster import KMeans
+    from nums_tpu_torch.models.decomposition import PCA
+    from nums_tpu_torch.models.glms import Lasso, LogisticRegression
+    from nums_tpu_torch.models.trees import GBTClassifier
+
+    x = _mc_local(X)
+    n = X.shape[0]
+    # KMeans: labels and inertia against float64 argmins of its centers
+    km = step("kmeans", lambda: KMeans(**MC_KMEANS).fit(X))
+    c64 = km.cluster_centers_.data.full_tensor().double()
+    lab = _mc_local(km.labels_)
+    miss, inertia64 = 0, 0.0
+    for i in range(0, x.shape[0], MESH_CHUNK):
+        xc = x[i:i + MESH_CHUNK].double()
+        d2 = (xc * xc).sum(1, keepdim=True) - 2 * xc @ c64.T + (
+            c64 * c64).sum(1)[None]
+        a = d2.argmin(1)
+        miss += int((a != lab[i:i + MESH_CHUNK]).sum())
+        inertia64 += float(d2.gather(1, a[:, None]).clamp_min(0).sum())
+    share = _mc_sum(torch, miss) / n
+    inertia64 = _mc_sum(torch, inertia64)
+    krel = abs(km.inertia_ - inertia64) / inertia64
+    assert share <= MC_LABEL_MISMATCH, ("kmeans labels", share)
+    assert krel <= KM_REL * 10, ("kmeans inertia", krel)
+    out["kmeans"] = {"label_mismatch_share": share,
+                     "inertia_rel_err_vs_f64": krel,
+                     "n_iter": km.n_iter_}
+    if serial is not None:
+        with _mc_current(serial):
+            ks = KMeans(**MC_KMEANS).fit(_serial_twin(serial.backend, X))
+        assert torch.equal(ks.cluster_centers_.data,
+                           km.cluster_centers_.data.full_tensor())
+        out["kmeans"]["bitwise_vs_serial"] = True
+    del km, lab
+    # PCA of X, every column: singular values against the float64
+    # centered gram's
+    pca = step("pca", lambda: PCA(MC_PCA).fit(X))
+    g64 = _gram64(x)
+    s1 = _col_sums64(torch, x)
+    dist.all_reduce(g64)
+    dist.all_reduce(s1)
+    mu = s1 / n
+    cov = g64 - n * torch.outer(mu, mu)
+    ev = torch.linalg.eigvalsh(cov).flip(0)[:MC_PCA].clamp_min(0).sqrt()
+    _, srel = rel_err(pca.singular_values_.data.full_tensor(), ev)
+    comps = pca.components_.data.full_tensor().double()
+    ortho = float((comps @ comps.T - torch.eye(
+        MC_PCA, dtype=torch.float64, device=comps.device)).abs().max())
+    assert srel <= LA_R_REL, ("pca singular values", srel)
+    assert ortho <= ORTHONORMAL_ABS * 10, ("pca components", ortho)
+    out["pca"] = {"singular_values_rel_err_vs_f64": srel,
+                  "orthonormal_max_abs_err": ortho,
+                  "columns": int(X.shape[1])}
+    del pca, cov, comps, mu
+    # lbfgs, logistic ADMM and Lasso on X, every column, each held to a
+    # float64 reference of its own problem built from all-reduced float64
+    # sums of each rank's rows: lbfgs to Newton's optimum, Lasso to
+    # FISTA's on the gram, the ADMM fit to the l1 optimality conditions
+    d = X.shape[1]
+    G = _gram_aug64(g64, s1, n)
+    w = np.zeros(d, dtype=np.float32)
+    w[:20] = 1.0
+    ylin = X @ app.array(w, block_shape=(d,)) + app.scalar(0.5)
+    fits = {
+        "lbfgs": (lambda: LogisticRegression(solver="lbfgs", **LBFGS), y),
+        "admm": (lambda: LogisticRegression(
+            C=MC_ADMM_ROWS_C / n, admm_rho=MC_ADMM_RHO_ROWS * n,
+            **MC_ADMM), y),
+        "lasso": (lambda: Lasso(**LASSO), ylin)}
+    for name, (make, yy) in fits.items():
+        m = step(name, lambda make=make, yy=yy: make().fit(X, yy))
+        z = torch.cat([_mc_whole(m.coef_.data), _mc_whole(
+            m.intercept_.data).reshape(1)]).double()
+        lam = _mc_whole(m._lambda_vec.data).double()
+        yl = _rows_like(app, yy, X).double()
+        nonzeros = int((z[:-1] != 0).sum())
+        assert nonzeros, (name, "every coefficient is 0: nothing compared")
+        if name == "lbfgs":
+            ref = _newton64(torch, x, yl, lam)
+            res = {"beta_rel_err_vs_f64_newton": rel_err(z, ref)[1]}
+        elif name == "lasso":
+            xty = _col_sums64(torch, x, yl)
+            dist.all_reduce(xty)
+            ref = _lasso64(torch, G, xty, _mc_sum(torch, float(yl.sum())),
+                           lam)
+            res = {"beta_rel_err_vs_f64_fista": rel_err(z, ref)[1]}
+        else:  # recorded, not held: at this size the fit stalls
+            res = _l1_kkt64(torch, x, yl, z, lam)
+        if name != "admm":
+            (e,) = res.values()
+            assert e <= SOLVER_REL, (name, res)
+        out[name] = {**res, "nonzeros": nonzeros, "columns": d}
+        del m
+    del ylin, g64, s1, G
+    out["admm"]["held"] = _mc_admm_check(torch, app, step, min(
+        MC_ADMM_CHECK["rows"], n), d)
+    # GBT classifier at benchmark_models.py's data, split over the ranks
+    gn = cfg["gbt_n"]
+    rows = -(-gn // app.backend.num_devices)
+    gx, _, gy = _gbdt_data(torch, gn, GBDT_D)
+    Xg = _mc_from_whole(app, gx, (rows, GBDT_D))
+    yg = _mc_from_whole(app, gy, (rows,))
+    del gx, gy
+    gb = step("gbt", lambda: GBTClassifier(**GBDT).fit(Xg, yg))
+    pred = gb.predict(Xg)
+    acc = _mc_sum(torch, float((_mc_local(pred) == _rows_like(
+        app, yg, Xg)).sum())) / gn
+    raw = gb._raw_predict(Xg)
+    ref = torch.from_numpy(_tables_numpy(_mc_local(Xg).cpu().numpy(), gb))
+    assert acc >= GBDT_ACC, ("gbt accuracy", acc)
+    assert torch.equal(raw.cpu(), ref), "gbt raw scores vs numpy tables"
+    out["gbt"] = {"accuracy": acc, "rows": gn,
+                  "raw_scores_equal_numpy_tables": True}
+    if serial is not None:
+        with _mc_current(serial):
+            twin = GBTClassifier(**GBDT).fit(
+                _serial_twin(serial.backend, Xg),
+                _serial_twin(serial.backend, yg))
+        assert _same_trees(torch, twin, gb), "gbt vs serial"
+        out["gbt"]["bitwise_vs_serial"] = True
+
+
+@contextlib.contextmanager
+def _mc_current(app):
+    """``app`` the current application for the enclosed calls."""
+    from nums_tpu_torch.core import application_manager
+
+    saved = application_manager._instance
+    application_manager.set_instance(app)
+    try:
+        yield app
+    finally:
+        application_manager.set_instance(saved)
+
+
+def _mc_from_whole(app, t, block_shape):
+    """A tensor that every rank computed whole, as a BlockArray: each rank
+    keeps its own box (no communication)."""
+    from nums_tpu_torch.core.array.blockarray import BlockArray
+    from nums_tpu_torch.core.grid import ArrayGrid
+    from nums_tpu_torch.core.array import utils as array_utils
+
+    grid = ArrayGrid(tuple(t.shape), block_shape,
+                     array_utils.to_dtype_name(t.dtype))
+    return BlockArray(t, grid, app.backend)
+
+
+def _mc_edges(torch, lv, a, b, w):
+    """Every rank's (a, b, its first ``w`` values, its last ``w``) of a
+    vector of which this rank holds ``lv`` = positions [a, b), in float64
+    (one all-gather of 2 + 2w values a rank)."""
+    import torch.distributed as dist
+
+    buf = lv.new_zeros((2 + 2 * w,))
+    buf[0], buf[1] = a, b
+    head = lv[:w]
+    tail = lv[max(0, lv.shape[0] - w):]
+    buf[2:2 + head.shape[0]] = head
+    buf[2 + w:2 + w + tail.shape[0]] = tail
+    got = [torch.empty_like(buf) for _ in range(dist.get_world_size())]
+    dist.all_gather(got, buf)
+    out = []
+    for g in got:
+        ea, eb = int(g[0]), int(g[1])
+        hn, tn = min(w, eb - ea), min(w, eb - ea)
+        out.append(((ea, g[2:2 + hn]), (eb - tn, g[2 + w:2 + w + tn])))
+    return out
+
+
+def _mc_window(torch, lv, a, b, edges, lo, hi, n):
+    """Positions [lo, hi) of the whole vector in float64, zeros outside
+    [0, n): from this rank's part ``lv`` (positions [a, b)) and every
+    rank's edges (``_mc_edges``); fails unless every position is known."""
+    out = lv.new_zeros((hi - lo,))
+    known = torch.zeros(hi - lo, dtype=torch.bool, device=lv.device)
+    known[:max(0, min(hi, 0) - lo)] = True
+    known[max(0, n - lo):] = True
+    parts = [(a, lv)] + [p for pair in edges for p in pair]
+    for start, vals in parts:
+        s0, s1 = max(lo, start), min(hi, start + vals.shape[0])
+        if s1 > s0:
+            out[s0 - lo:s1 - lo] = vals[s0 - start:s1 - start]
+            known[s0 - lo:s1 - lo] = True
+    assert bool(known.all()), ("halo not covered", lo, hi)
+    return out
+
+
+def _mc_facade(torch, app, X, cfg, step, out):
+    """Quantiles of 8 columns, the cumsum of a long vector, repeat and pad
+    of X, correlate/convolve in the three modes; each held to numpy or to
+    float64 on each rank's part."""
+    import nums_tpu_torch.numpy as nps
+
+    n, d = X.shape
+    rows = X.block_shape[0]
+    cols = X[:, :MC_COLS]
+    host = np.asarray(cols.get())
+    q = [0.01, 0.5, 0.99]
+    med_all = step("median_none", lambda: nps.median(cols))
+    q_rows = step("quantile_rows", lambda: nps.quantile(cols, q, axis=0))
+    q_all = step("quantile_none", lambda: nps.quantile(cols, q))
+    h64 = host.astype(np.float64)
+    errs = {}
+    for name, got, want in (
+            ("median_none", med_all, np.median(h64)),
+            ("quantile_rows", q_rows, np.quantile(h64, q, axis=0)),
+            ("quantile_none", q_all, np.quantile(h64, q))):
+        _, errs[name] = rel_err(torch.from_numpy(np.asarray(
+            got.get(), dtype=np.float64)), torch.from_numpy(
+                np.asarray(want)))
+        assert errs[name] <= MC_QUANT_REL, (name, errs[name])
+    del host, h64
+    out["quantiles"] = {"rel_err_vs_numpy_f64": errs}
+    # the long vector: cumsum (axis=None), correlate/convolve
+    m = cfg["vec"]
+    vb = -(-m // app.backend.num_devices)
+    v = app.random_state(MASK_C_SEED + 1).normal(
+        shape=(m,), block_shape=(vb,), dtype=np.float32)
+    cs = step("cumsum_none", lambda: nps.cumsum(v))
+    lv = _mc_local(v).double()
+    (a, b) = _mc_rows(app, v)
+    tot = torch.zeros(app.backend.num_devices, dtype=torch.float64,
+                      device=lv.device)
+    me = app.backend.coords().index(
+        tuple(int(c) for c in app.backend.mesh.get_coordinate()))
+    tot[me] = lv.sum()
+    import torch.distributed as dist
+
+    dist.all_reduce(tot)
+    ref = torch.cumsum(lv, 0) + tot[:me].sum()
+    _, srel = rel_err(_mc_local(cs), ref)
+    srel = _mc_sum(torch, srel, "max")
+    assert srel <= MC_SCAN_REL, ("cumsum", srel)
+    out["cumsum"] = {"rel_err_vs_f64": srel, "length": m}
+    del cs, ref
+    k = app.random_state(MASK_C_SEED + 2).normal(
+        shape=(MC_TAPS,), block_shape=(MC_TAPS,), dtype=np.float32)
+    kk = _mc_local(k).double()
+    edges = _mc_edges(torch, lv, a, b, 4 * MC_TAPS)
+    conv = {}
+    for op in ("correlate", "convolve"):
+        for mode in ("valid", "same", "full"):
+            res = step(f"{op}_{mode}", lambda op=op, mode=mode: getattr(
+                nps, op)(v, k, mode=mode))
+            local = _mc_local(res)
+            o0, o1 = _mc_rows(app, res)
+            ker = kk.conj() if op == "correlate" else kk.flip(0)
+            pad = {"valid": 0, "same": MC_TAPS // 2,
+                   "full": MC_TAPS - 1}[mode]
+            # this rank's first and last 2(m - 1) outputs, whose inputs
+            # cross into the neighbours' parts (the halo), and the first
+            # MC_CONV_CHECK whose inputs all lie in its own part
+            lo = max(o0, a + pad)
+            edge = 2 * (MC_TAPS - 1)
+            pieces = [(o0, min(o1, o0 + edge)), (max(o0, o1 - edge), o1),
+                      (lo, min(o1, b + pad - MC_TAPS + 1,
+                               lo + MC_CONV_CHECK))]
+            err, scale = 0.0, 0.0
+            for s0, s1 in pieces:
+                if s1 <= s0:
+                    continue
+                xw = _mc_window(torch, lv, a, b, edges, s0 - pad,
+                                s1 - pad + MC_TAPS - 1, m)
+                want = torch.nn.functional.conv1d(
+                    xw[None, None], ker[None, None])[0, 0]
+                err = max(err, float((local[s0 - o0:s1 - o0].double()
+                                      - want).abs().max()))
+                scale = max(scale, float(want.abs().max()))
+            err = _mc_sum(torch, err, "max") / _mc_sum(torch, scale, "max")
+            assert err <= MC_CONV_REL, (op, mode, err)
+            conv[f"{op}_{mode}"] = {"halo_and_interior_rel_err_vs_f64": err,
+                                    "length": int(res.shape[0])}
+            if mode == "full":
+                total = _mc_sum(torch, float(local.double().sum()))
+                want = _mc_sum(torch, float(lv.sum())) * float(kk.sum())
+                rel = abs(total - want) / max(abs(want), 1e-30)
+                assert rel <= MC_SUM_REL, (op, "sum", rel)
+                conv[f"{op}_{mode}"]["sum_rel_err"] = rel
+            del res, local
+    out["correlate_convolve"] = conv
+    del v, lv
+    # repeat and pad of X
+    xl = _mc_local(X)
+    r0, r1 = _mc_rows(app, X)
+    part = X[:, :MC_REPEAT_COLS]
+    rep = step("repeat_rows", lambda: nps.repeat(part, 2, axis=0))
+    rl = _mc_local(rep)
+    p0, p1 = _mc_rows(app, rep)
+    src = torch.arange(p0, p1, device=rl.device) // 2
+    own = (src >= r0) & (src < r1)
+    assert torch.equal(rl[own], xl[src[own] - r0, :MC_REPEAT_COLS]), \
+        "repeat"
+    del rep, rl, part
+    padded = step("pad_rows", lambda: nps.pad(X, ((1, 2), (0, 0))))
+    pl = _mc_local(padded)
+    p0, p1 = _mc_rows(app, padded)
+    src = torch.arange(p0, p1, device=pl.device) - 1
+    own = (src >= r0) & (src < r1)
+    assert torch.equal(pl[own], xl[src[own] - r0]), "pad"
+    edge = (src < 0) | (src >= n)
+    assert not bool(pl[edge].any()), "pad: the new rows are zero"
+    out["repeat_pad"] = {"bitwise_own_rows": True,
+                         "padded_shape": list(padded.shape)}
+    del padded, pl
+
+
+def _mc_index(torch, app, X, cfg, step, out):
+    """Device index arrays on X: idx of ``cfg["idx"]`` rows drawn by the
+    sharded ``integers`` (each shard the serial draw's box), X[idx] read
+    (row sums equal X's at idx), a mask beside a device column index read
+    (equal to the same elements by two device arrays), and X[idx] = 2·X[idx]
+    written (X's row sums doubled at idx, the others unchanged)."""
+    import torch.distributed as dist
+
+    from nums_tpu_torch.core.ops import random_ops, threefry
+
+    n, d = X.shape
+    m = cfg["idx"]
+    rs = app.random_state(MASK_C_SEED + 3)
+    key = threefry.fold_in(rs._key, rs._counter + 1)
+    idx = step("integers", lambda: rs.integers(
+        0, n, shape=(m,), block_shape=(-(-m // app.backend.num_devices),)))
+    a, b = _mc_rows(app, idx)
+    whole = random_ops.integers(key, (m,), torch.int64, "cpu", False, 0, n,
+                                False)
+    assert torch.equal(_mc_local(idx).cpu(), whole[a:b]), "integers"
+    sums = _row_sums64(torch, _mc_local(X))
+    counts = [None] * dist.get_world_size()
+    dist.all_gather_object(counts, int(sums.shape[0]))
+    every = [torch.empty(c, dtype=sums.dtype, device=sums.device)
+             for c in counts]
+    dist.all_gather(every, sums)
+    sums_all = torch.cat(every)
+    rows = step("read_rows", lambda: X[idx])
+    ridx = app.backend.rebox(idx.raw, _mc_rows_only(rows)).to_local()
+    assert torch.equal(_row_sums64(torch, _mc_local(rows)),
+                       sums_all[ridx.to(sums_all.device)]), "X[idx] rows"
+    # a device mask beside a device column index
+    # a column as a one-column block reshaped in place: laid out as X's
+    # rows (X[:, 0] is one block, whole on every rank)
+    mask = X[:, 0:1].reshape(n, block_shape=(X.block_shape[0],)) > 0
+    cnt = int(mask.sum())
+    cols = app.random_state(MASK_C_SEED + 4).integers(
+        0, d, shape=(cnt,), block_shape=(-(-cnt // app.backend.num_devices),))
+    got = step("read_mask_index", lambda: X[mask, cols])
+    # the reference: each rank's own rows of the mask and their columns
+    # read locally, then all-gathered in row order
+    xl = _mc_local(X)
+    r0, _ = _mc_rows(app, X)
+    mine = torch.nonzero(xl[:, 0] > 0).reshape(-1)
+    c0, _ = _mc_rows(app, cols)
+    every = _mc_gather_parts(torch, torch.tensor(
+        [r0, mine.shape[0]], device=mine.device))
+    before = sum(int(c) for s0, c in every if s0 < r0)
+    whole_cols = _mc_gather_vec(torch, _mc_local(cols), c0)
+    ref = _mc_gather_vec(torch, xl[mine, whole_cols[
+        before:before + mine.shape[0]].to(mine.device)], before)
+    g0, g1 = _mc_rows(app, got)
+    assert torch.equal(_mc_local(got), ref[g0:g1]), "mask with index"
+    del got, ref, cols, mask, whole_cols
+    out["index"] = {"rows": m, "mask_rows": cnt,
+                    "read_rows_sums_equal": True,
+                    "integers_equal_serial_box": True}
+    return idx, sums_all, rows
+
+
+def _mc_gather_parts(torch, t):
+    """Every rank's small 1-D tensor ``t`` (one all-gather), as lists."""
+    import torch.distributed as dist
+
+    got = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(got, t.contiguous())
+    return [g.tolist() for g in got]
+
+
+def _mc_gather_vec(torch, part, start):
+    """The whole vector of which this rank holds ``part`` from position
+    ``start``: every rank's part all-gathered (padded to the longest) and
+    laid end to end in position order."""
+    import torch.distributed as dist
+
+    meta = _mc_gather_parts(torch, torch.tensor(
+        [start, part.shape[0]], device=part.device))
+    top = max(1, max(c for _, c in meta))
+    buf = part.new_zeros((top,))
+    buf[:part.shape[0]] = part
+    got = [torch.empty_like(buf) for _ in meta]
+    dist.all_gather(got, buf)
+    order = sorted(range(len(meta)), key=lambda r: meta[r][0])
+    return torch.cat([got[r][:meta[r][1]] for r in order])
+
+
+def _mc_rows_only(a):
+    from nums_tpu_torch.core.ops import mesh_ops
+
+    return mesh_ops.rows_only(a.raw.placements)
+
+
+def _mc_write(torch, app, X, idx, sums_all, rows, step, out):
+    """X[idx] = 2·X[idx] (last: it changes X)."""
+    v = rows * app.scalar(2.0)
+    step("write_rows", lambda: X.__setitem__(idx, v))
+    after = _row_sums64(torch, _mc_local(X))
+    r0, r1 = _mc_rows(app, X)
+    hit = torch.zeros(r1 - r0, dtype=torch.bool, device=after.device)
+    il = _mc_local(idx).to(after.device)
+    import torch.distributed as dist
+
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, il.cpu())
+    for part in every:
+        p = part.to(after.device)
+        p = p[(p >= r0) & (p < r1)] - r0
+        hit[p] = True
+    want = torch.where(hit, 2.0 * sums_all[r0:r1], sums_all[r0:r1])
+    assert torch.equal(after, want), "X[idx] = v"
+    out["index"]["write_rows_sums_equal"] = True
+
+
+def _mc_spd(torch, app, nf):
+    """A = BᵀB/m + I at n = ``nf`` (fp32), B of nf x nf drawn on the mesh,
+    laid out by MC_FACT_PANEL-row blocks (sharded by rows): the gram under
+    ``auto`` (its partial grams reduce-scattered), never whole."""
+    from nums_tpu_torch.core import settings
+    from nums_tpu_torch.core.array.blockarray import BlockArray
+    from nums_tpu_torch.core.grid import ArrayGrid
+
+    rows = -(-nf // app.backend.num_devices)
+    B = app.random_state(LA_SEED).normal(shape=(nf, nf), block_shape=(
+        rows, nf), dtype=np.float32)
+    settings.collective_matmul = "auto"
+    try:
+        G = B.T @ B
+    finally:
+        settings.collective_matmul = "0"
+    del B
+    grid = ArrayGrid((nf, nf), (min(MC_FACT_PANEL, nf), nf), "float32")
+    data = app.backend.rebox(G.raw, app.backend.sharding_for_grid(grid))
+    A = BlockArray(data, grid, app.backend) * app.scalar(1.0 / nf)
+    return A + app.eye((nf, nf), grid.block_shape, dtype=np.float32)
+
+
+def _mc_factor(torch, app, X, y, cfg, step, out):
+    """ridge_regression of X in column blocks (RᵀR sharded; K1 in it),
+    then cholesky, posdef_solve and inv of a sharded SPD matrix at
+    ``cfg["fact_n"]`` held by residuals on the mesh, and at n = 1000 to a
+    float64 host factorization."""
+    import torch.distributed as dist
+
+    n, d = X.shape
+    Xc = X.reshape(X.shape, block_shape=(X.block_shape[0], d // 4))
+    yr = (X @ app.array(np.linspace(-1.0, 1.0, d).astype(np.float32),
+                        block_shape=(d,)))
+    lam = float(n) * 1e-3
+    _reset_counts()
+    theta = step("ridge", lambda: app.ridge_regression(Xc, yr, lam))
+    ridge_launches = _counts()
+    assert ridge_launches["gram"] >= 1, ("K1 in ridge", ridge_launches)
+    x = _mc_local(X)
+    g64 = _gram64(x)
+    q64 = _col_sums64(torch, x, _rows_like(app, yr, X))
+    dist.all_reduce(g64)
+    dist.all_reduce(q64)
+    want = torch.linalg.solve(g64 + lam * torch.eye(
+        d, dtype=torch.float64, device=g64.device), q64)
+    _, rrel = rel_err(theta.data.full_tensor(), want)
+    assert rrel <= LA_RIDGE_BF16_REL, ("ridge", rrel)
+    out["ridge"] = {"theta_rel_err_vs_f64": rrel,
+                    "launches": ridge_launches, "lambda": lam,
+                    "gram_placements": "sharded"}
+    del g64, Xc
+    res = {}
+    for nf in (cfg["fact_n"], MC_FACT_SMALL):
+        A = _mc_spd(torch, app, nf)
+        rhs = app.array(np.linspace(1.0, 2.0, nf).astype(np.float32),
+                        block_shape=(min(MC_FACT_PANEL, nf),))
+        tag = "" if nf == cfg["fact_n"] else "_small"
+        L = step("cholesky" + tag, lambda: app.cholesky(A))
+        xs = step("posdef_solve" + tag, lambda: app.posdef_solve(A, rhs))
+        Ai = step("inv" + tag, lambda: app.inv(A))
+        amax = float(_mc_sum(torch, float(_mc_local(A).abs().max()),
+                             "max"))
+        llt = L @ L.T
+        e_chol = _mc_sum(torch, float((_mc_local(llt) - _mc_local(
+            A)).abs().max()), "max") / amax
+        ax = A @ xs
+        e_solve = _mc_sum(torch, float((_mc_local(ax) - _mc_local(
+            rhs)).abs().max()), "max") / float(np.abs(np.linspace(
+                1.0, 2.0, nf)).max())
+        ai = A @ Ai
+        eye = app.eye((nf, nf), A.block_shape, dtype=np.float32)
+        e_inv = _mc_sum(torch, float((_mc_local(ai) - _mc_local(
+            eye)).abs().max()), "max")
+        del llt, ax, ai, eye
+        for name, e in (("cholesky", e_chol), ("posdef_solve", e_solve),
+                        ("inv", e_inv)):
+            assert e <= MC_RESID_REL, (name, nf, e)
+        res[str(nf)] = {"cholesky_residual": e_chol,
+                        "posdef_solve_residual": e_solve,
+                        "inv_residual": e_inv}
+        if nf == MC_FACT_SMALL:
+            a64 = np.asarray(A.get(), dtype=np.float64)
+            b64 = np.linspace(1.0, 2.0, nf)
+            errs = {
+                "cholesky": rel_err(torch.from_numpy(np.asarray(L.get())),
+                                    torch.from_numpy(
+                                        np.linalg.cholesky(a64)))[1],
+                "posdef_solve": rel_err(torch.from_numpy(np.asarray(
+                    xs.get())), torch.from_numpy(np.linalg.solve(
+                        a64, b64)))[1],
+                "inv": rel_err(torch.from_numpy(np.asarray(Ai.get())),
+                               torch.from_numpy(np.linalg.inv(a64)))[1]}
+            for name, e in errs.items():
+                assert e <= MC_F64_REL, (name, "vs float64", e)
+            res[str(nf)]["rel_err_vs_f64_host"] = errs
+        del A, L, xs, Ai
+        _mesh_free(torch)
+    out["factorizations"] = res
+
+
+def _mc_draws(torch, app, cfg, step, out):
+    """integers (int32) and gamma at ``cfg["draw_rows"]`` x 1000, sharded:
+    each shard's first rows bit for bit a serial draw of that box."""
+    from nums_tpu_torch.core.ops import random_ops, threefry
+
+    nr, d = cfg["draw_rows"], D_FULL
+    rows = -(-nr // app.backend.num_devices)
+    checks = {}
+    for name, draw, serial in (
+            ("integers", lambda rs: rs.integers(
+                -5, 1000, shape=(nr, d), block_shape=(rows, d),
+                dtype=np.int32),
+             lambda key, box: random_ops.integers(
+                 key, (nr, d), torch.int32, _mesh_device(torch), False,
+                 -5, 1000, False, region=box)),
+            ("gamma", lambda rs: rs.gamma(
+                2.0, 1.5, shape=(nr, d), block_shape=(rows, d),
+                dtype=np.float32),
+             lambda key, box: random_ops.sample_region(
+                 "gamma", key, (nr, d), box, torch.float32,
+                 _mesh_device(torch), False, 2.0, 1.5))):
+        rs = app.random_state(LA_SEED + 1)
+        key = threefry.fold_in(rs._key, rs._counter + 1)
+        arr = step("draw_" + name, lambda: draw(rs))
+        local = _mc_local(arr)
+        r0, r1 = _mc_rows(app, arr)
+        k = min(MC_DRAW_CHECK_ROWS, r1 - r0)
+        ref = serial(key, ((r0, r0 + k), (0, d)))
+        assert torch.equal(local[:k], ref), name
+        checks[name] = {"rows_checked_per_rank": k,
+                        "mean": _mc_sum(torch, float(local.double().sum()))
+                        / (nr * d)}
+        del arr, local
+        _mesh_free(torch)
+    out["draws"] = checks
+
+
+def _mesh_core_steps(torch, app, X, y, cfg, say, head, serial=None):
+    """Every step of phase 18 on this rank (the mesh of X's app): each
+    step's seconds (host clock after a barrier, the slowest rank's), the
+    bytes this rank sent through collectives (and by all-to-all alone),
+    its peak and the kernel launches in it;
+    every check on every rank. Returns the phase's record."""
+    from nums_tpu_torch.core import multiprocess
+
+    info, out = {}, {}
+
+    def step(name, fn):
+        sent = multiprocess.SENT["bytes"]
+        moved = multiprocess.EXCHANGED["bytes_sent"]
+        _reset_counts()
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        res, secs = _mesh_seconds(torch, fn)
+        info[name] = {"seconds": secs,
+                      "bytes_sent": multiprocess.SENT["bytes"] - sent,
+                      "all_to_all_bytes_sent":
+                      multiprocess.EXCHANGED["bytes_sent"] - moved,
+                      "launches": {k: v for k, v in _counts().items() if v},
+                      "peak_bytes": _mesh_peak(torch)}
+        return res
+
+    t0 = time.perf_counter()
+    _mc_models(torch, app, X, y, cfg, step, out, serial)
+    _mesh_free(torch)
+    _mc_facade(torch, app, X, cfg, step, out)
+    _mesh_free(torch)
+    idx, sums_all, rows = _mc_index(torch, app, X, cfg, step, out)
+    _mc_factor(torch, app, X, y, cfg, step, out)
+    _mc_draws(torch, app, cfg, step, out)
+    _mc_write(torch, app, X, idx, sums_all, rows, step, out)
+    del idx, sums_all, rows
+    _mesh_free(torch)
+    # warm times of a few steps (CUDA events, the slowest rank)
+    import nums_tpu_torch.numpy as nps
+
+    cols = X[:, :MC_COLS]
+    A = _mc_spd(torch, app, cfg["fact_n"])
+    warm = {"quantile_rows_ms": _mesh_time_ms(torch, lambda: nps.quantile(
+        cols, [0.01, 0.5, 0.99], axis=0), reps=1),
+            "cholesky_ms": _mesh_time_ms(torch, lambda: app.cholesky(A),
+                                         reps=1),
+            "inv_ms": _mesh_time_ms(torch, lambda: app.inv(A), reps=1)}
+    del A, cols
+    out["warm"] = warm
+    out["steps"] = info
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_mesh_core(torch, smi, app, X, y):
+    """Phase 18 in the full run, on phase 15's world-1 mesh and its X
+    (``MC_WORLD1``); KMeans and the GBT also bit for bit the serial
+    backend's fits on the same tensors."""
+    from nums_tpu_torch.core import application_manager
+
+    mesh_app = application_manager._instance
+    serial = application_manager.create(
+        device=None if DEVICE == "cuda" else DEVICE)
+    application_manager.set_instance(mesh_app)
+    out = _mesh_core_steps(torch, app, X, y, MC_WORLD1, emit, {},
+                           serial=serial)
+    out.update({"phase": "mesh_core", "world": 1, "shape": list(X.shape),
+                "nvidia_smi": smi, "peak_bytes": max(
+                    st["peak_bytes"] for st in out["steps"].values())})
+    emit(out)
+    return out
+
+
+def _mesh_core_cards(torch, cfg):
+    """--mesh-core-only on this rank: X of 10M x 1000 fp32 drawn on the
+    (cards, 1) mesh from phase 4's seed and its planted labels, then
+    ``_mesh_core_steps``; each card's peak below X's bytes; rank 0 prints
+    the phase's line."""
+    import torch.distributed as dist
+
+    from nums_tpu_torch.core import application_manager
+
+    world = dist.get_world_size()
+    n, d = cfg["n"], cfg["d"]
+    app = application_manager.create(
+        device=None if DEVICE == "cuda" else DEVICE, backend="mesh",
+        cluster_shape=(world, 1))
+    application_manager.set_instance(app)
+    say = emit if dist.get_rank() == 0 else (
+        lambda obj: print(json.dumps(obj)))
+    head = {"world": world, "shape": [n, d], "cluster_shape": [world, 1]}
+    X, draw_secs = _mesh_seconds(torch, lambda: _draw_mesh_x(
+        torch, app, n, d))
+    y, _ = planted_labels(torch, app, X)
+    out = _mesh_core_steps(torch, app, X, y, {**MC_FULL, "n": n}, say, head)
+    peaks = [None] * world
+    dist.all_gather_object(peaks, max(
+        [_mesh_peak(torch)] + [st["peak_bytes"] for st in
+                               out["steps"].values()]))
+    launches = [None] * world
+    dist.all_gather_object(launches, {
+        k: sum(s["launches"].get(k, 0) for s in out["steps"].values())
+        for k in ("gram", "gram_weighted", "newton_stage",
+                  "newton_stats")})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip().splitlines() if DEVICE == "cuda" else []
+    say({"phase": "mesh_core", **head, "draw_seconds": draw_secs, **out,
+         "peak_bytes_per_card": peaks, "launches_per_card": launches,
+         "nvidia_smi_per_card": smi})
+    assert max(peaks) < 4.0 * n * d or DEVICE != "cuda", (
+        peaks, "a card held X's bytes")
+
+
+def phase_mesh_core_cards(torch, smi):
+    """--mesh-core-only: one process per visible card, as --masks-only
+    spawns them, each running ``_mesh_core_cards``; fails unless every
+    rank exits 0 before ``MC_DEADLINE_S``. Returns the number of ranks."""
+    world = torch.cuda.device_count() if DEVICE == "cuda" else 4
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "mesh_logs")
+    os.makedirs(out_dir, exist_ok=True)
+    cfg = {"n": MESH_N, "d": D_FULL, "device": DEVICE,
+           "deadline": MC_DEADLINE_S, "out_dir": out_dir, "root": root,
+           "entry": "_mesh_core_cards"}
+    emit({"phase": "mesh_core_start", "world": world, "nvidia_smi": smi,
+          "shape": [cfg["n"], cfg["d"]]})
+    t0 = time.perf_counter()
+    codes = _spawn_ranks(world, cfg)
+    assert codes == [0] * world, ("mesh_core ranks' exit codes", codes)
+    emit({"phase": "mesh_core_done", "world": world, "exit_codes": codes,
+          "seconds": time.perf_counter() - t0})
+    return world
+
+
 KERNELS = (
     ("gram", "nums_tpu_torch/csrc/gram.cu",
      "nums_tpu/core/ops/pallas_gram.py:139"),
@@ -5863,7 +6775,7 @@ KERNELS = (
 
 
 def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
-                 facade, models, mesh, mesh_ooc, masks):
+                 facade, models, mesh, mesh_ooc, masks, core):
     """One entry per kernel: "launches" counts the main path (phase 4),
     "launches_per_fit" one fit (phase 6), "launches_ooc" the streamed
     steps of phase 8 (the PCA and TruncatedSVD fits among them),
@@ -5879,7 +6791,9 @@ def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
     "launches_mesh_ooc" phase 16's streamed steps on it (the mesh branch
     of ``ooc_put``), and "mesh_panel_ms" its time on this card's rows of
     one panel there, beside that panel's bound; "launches_masks" phase
-    17's gram, fit and predict on the filtered rows.
+    17's gram, fit and predict on the filtered rows, "launches_mesh_core"
+    phase 18's steps (K1 in ``ridge_regression``'s RᵀR and the SPD
+    matrix's gram, K3 in the fits that reach it).
     gram.cu's weighted launches ("gram_weighted") on these paths are K3's
     Hessian, and K2 proper in phase 8's pass with the Newton gate off."""
     return [
@@ -5904,6 +6818,8 @@ def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
          "launches_mesh": mesh["launches"][name],
          "launches_mesh_ooc": mesh_ooc["launches"][name],
          "launches_masks": masks["launches"][name],
+         "launches_mesh_core": sum(st["launches"].get(name, 0)
+                                   for st in core["steps"].values()),
          "mesh_panel_ms": mesh_ooc["pass_parts"]["panel_kernels_rank0"][
              name]["ms"],
          "mesh_panel_bound_ms": mesh_ooc["pass_parts"][
@@ -5931,6 +6847,12 @@ def main(argv):
             phase_random(torch, smi, nums_tpu_torch.init(), None)
             return 0
         phase_build()
+        if "--mesh-core-only" in argv:
+            world = phase_mesh_core_cards(torch, smi)
+            emit({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": world}})
+            return 0
         if "--masks-only" in argv:
             world = phase_masks_cards(torch, smi)
             emit({"ok": True, "device": {
@@ -5993,10 +6915,11 @@ def main(argv):
         models = phase_models(torch, smi, app, X, draw_labels(torch, app, X))
         del X
         torch.cuda.empty_cache()
-        mesh, mesh_ooc, masks = phase_mesh(torch, smi, keep)
+        mesh, mesh_ooc, masks, core = phase_mesh(torch, smi, keep)
         emit({"kernels": kernels_line(counts, fit_counts, times, ooc,
                                       linalg_launches, higgs, facade,
-                                      models, mesh, mesh_ooc, masks)})
+                                      models, mesh, mesh_ooc, masks,
+                                      core)})
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})

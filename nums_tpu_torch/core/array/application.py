@@ -25,10 +25,12 @@ and ends the pass with one all-reduce over the mesh
 (``streaming.reduce_rows``), its carry replicated.
 """
 
+import functools
+
 import numpy as np
 import torch
 
-from nums_tpu_torch.core import settings
+from nums_tpu_torch.core import multiprocess, settings
 from nums_tpu_torch.core.backend import Backend
 from nums_tpu_torch.core.grid import ArrayGrid
 from nums_tpu_torch.core.array import utils as array_utils
@@ -540,6 +542,34 @@ class ArrayApplication:
     def _tsqr_chunk(self, X):
         return linalg.choose_chunk(X.shape[0], X.shape[1])
 
+    def _cholqr_rows(self, X, fn, *others):
+        """``fn(x, *others, reduce)`` of a CholeskyQR route. On the mesh
+        (X a DTensor) ``x`` is this process's rows of X, every column
+        (``others`` likewise, by X's rows), and ``reduce`` sums a gram over
+        the processes that hold other rows: one all-reduce of n×n, never
+        X whole (DTensor has no strategy for the factor). Returns
+        (``fn``'s result, the rows' placements, or None off the mesh)."""
+        from nums_tpu_torch.core.ops import mesh_ops, summa
+
+        data = X.data
+        if not mesh_ops.is_dtensor(data):
+            return fn(data, *[o.data for o in others]), None
+        rows = summa.row_layout(data)
+        lead = mesh_ops.rows_only(rows)
+        parts = [summa.local_part(o.data, lead) for o in others]
+        return fn(summa.local_part(data, rows), *parts,
+                  reduce=lambda t: summa.all_reduce_rows(
+                      data.device_mesh, rows, t)), lead
+
+    def _rows_of(self, X, local, lead):
+        """A result of this process's rows of X as a DTensor of X's rows
+        (``local`` itself off the mesh)."""
+        if lead is None:
+            return local
+        return self.backend.from_local(
+            local.contiguous(), (X.shape[0],) + tuple(local.shape[1:]),
+            lead)
+
     def _use_cholqr(self, X=None) -> bool:
         """CholeskyQR2 or the Householder tree. CholeskyQR needs full
         column rank, so a wide matrix takes Householder everywhere; under
@@ -564,7 +594,7 @@ class ArrayApplication:
         assert X.ndim == 2
         del reshape_output
         if self._use_cholqr(X):
-            r = linalg.cholqr_r(X.data)
+            r, _ = self._cholqr_rows(X, linalg.cholqr_r)
         else:
             r = linalg._tsqr_r_impl(X.data, self._tsqr_chunk(X))
         return self._wrap(
@@ -591,7 +621,8 @@ class ArrayApplication:
         if overwrite_x:
             q, r = linalg.cholqr2_stream(2**20, X.data)
         elif self._use_cholqr(X):
-            q, r = linalg.cholqr2(X.data)
+            (q, r), lead = self._cholqr_rows(X, linalg.cholqr2)
+            q = self._rows_of(X, q, lead)
         else:
             q, r = linalg.direct_tsqr(self._tsqr_chunk(X), X.data)
         Q = self._wrap(q, (X.block_shape[0],
@@ -600,13 +631,19 @@ class ArrayApplication:
                            X.block_shape[1]))
         return Q, R
 
-    def svd(self, X: BlockArray):
-        """Tall-skinny SVD (U, S, Vᵀ) through TSQR."""
+    def svd(self, X: BlockArray, k=None, overwrite_x=False):
+        """Tall-skinny SVD (U, S, Vᵀ) through TSQR, U with only its first
+        ``k`` columns (all: None). With ``overwrite_x`` the CholeskyQR2
+        route writes Q into X's own tensor (X is destroyed; device memory
+        then holds X, one chunk of the solve and U)."""
         assert X.ndim == 2
         if self._use_cholqr(X):
-            u, s, vt = linalg.svd_cholqr(X.data)
+            (u, s, vt), lead = self._cholqr_rows(X, functools.partial(
+                linalg.svd_cholqr, k=k, overwrite=overwrite_x))
+            u = self._rows_of(X, u, lead)
         else:
             u, s, vt = linalg.svd(self._tsqr_chunk(X), X.data)
+            u = u if k is None else u[:, :k].contiguous()
         nb = min(X.block_shape[1], X.shape[1])
         return (
             self._wrap(u, (X.block_shape[0],
@@ -655,7 +692,7 @@ class ArrayApplication:
         """Least squares through direct TSQR and a triangular solve."""
         assert X.ndim == 2 and y.ndim == 1
         if self._use_cholqr(X):
-            theta = linalg.lstsq_cholqr(X.data, y.data)
+            theta, _ = self._cholqr_rows(X, linalg.lstsq_cholqr, y)
         else:
             theta = linalg.lstsq(self._tsqr_chunk(X), X.data, y.data)
         return self._wrap(theta, (min(X.block_shape[1], theta.shape[0]),))
@@ -674,40 +711,64 @@ class ArrayApplication:
         ) * lamb
         return self.inv(lamb_eye + R.T @ R) @ (X.T @ y)
 
-    def _whole(self, X: BlockArray, op: str):
-        """X's tensor whole on this process. On the mesh the small
-        factorizations run on each process's copy of a replicated value,
-        as XLA keeps it replicated (DTensor has no strategy for them); the
-        result, the same everywhere, is placed by its grid. A sharded
-        operand raises ``NotImplementedError`` naming ``op``: it is never
-        gathered to every process."""
+    def _whole(self, X: BlockArray):
+        """X's tensor whole on this process, or None for a sharded operand
+        on the mesh (``core/ops/mesh_linalg.py`` takes it; it is never
+        gathered to every process). On the mesh the small factorizations
+        of a replicated value run on each process's copy, as XLA keeps it
+        replicated; the result, the same everywhere, is placed by its
+        grid."""
         if self.backend.mesh is None:
             return X.data
-        from torch.distributed.tensor import Replicate
+        from nums_tpu_torch.core.ops import mesh_ops
 
         data = X.data
-        if all(isinstance(p, Replicate) for p in data.placements):
-            return data.to_local()
-        raise NotImplementedError(
-            f"{op}: DTensor has no sharding strategy for it, and a sharded "
-            f"operand (placements {tuple(data.placements)}) is not gathered "
-            "(the mesh backend's distributed factorizations are not ported)")
+        return None if mesh_ops._is_sharded(data) else data.to_local()
+
+    def _placed(self, X: BlockArray, result):
+        """A row-laid result of ``mesh_linalg`` as a BlockArray of X's
+        grid (one all-to-all to the grid's layout; never a gather)."""
+        return BlockArray(self.backend.rebox(
+            result, self.backend.sharding_for_grid(X.grid)),
+            X.grid.copy(), self.backend)
 
     def inv(self, X: BlockArray) -> BlockArray:
         assert X.ndim == 2 and X.shape[0] == X.shape[1]
-        return BlockArray(linalg.inv(self._whole(X, "inv")), X.grid.copy(),
-                          self.backend)
+        whole = self._whole(X)
+        if whole is None:
+            from nums_tpu_torch.core.ops import mesh_linalg
+
+            return self._placed(X, mesh_linalg.inv(
+                self.backend, X.data, X.block_shape[0]))
+        return BlockArray(linalg.inv(whole), X.grid.copy(), self.backend)
 
     def cholesky(self, X: BlockArray) -> BlockArray:
         assert X.ndim == 2 and X.shape[0] == X.shape[1]
-        return BlockArray(linalg.cholesky(self._whole(X, "cholesky")),
-                          X.grid.copy(), self.backend)
+        whole = self._whole(X)
+        if whole is None:
+            from nums_tpu_torch.core.ops import mesh_linalg
+
+            return self._placed(X, mesh_linalg.cholesky(
+                self.backend, X.data, X.block_shape[0]))
+        return BlockArray(linalg.cholesky(whole), X.grid.copy(),
+                          self.backend)
 
     def posdef_solve(self, A: BlockArray, b: BlockArray) -> BlockArray:
         """Cholesky solve of A·x = b, the eager Newton-type solvers' step;
-        NaN when A is not positive definite, with no host sync."""
-        data = linalg.posdef_solve(self._whole(A, "posdef_solve"),
-                                   self._whole(b, "posdef_solve"))
+        NaN when A is not positive definite, with no host sync. A sharded
+        A on the mesh takes ``mesh_linalg.posdef_solve`` (whose Cholesky
+        raises where A is not positive definite)."""
+        wa, wb = self._whole(A), self._whole(b)
+        if wa is None:
+            from nums_tpu_torch.core.ops import mesh_linalg
+
+            data = mesh_linalg.posdef_solve(
+                self.backend, A.data, b.data if wb is None else wb,
+                A.block_shape[0])
+        else:
+            if wb is None:
+                wb = multiprocess.sent_gather(b.data).full_tensor()
+            data = linalg.posdef_solve(wa, wb)
         lshape = tuple(data.shape)
         return BlockArray(
             data,

@@ -28,7 +28,7 @@ op that DTensor has no sharding strategy for raises
 import numpy as np
 import torch
 
-from nums_tpu_torch.core import trace
+from nums_tpu_torch.core import multiprocess, trace
 from nums_tpu_torch.core.grid import ArrayGrid
 from nums_tpu_torch.core.array import utils as array_utils
 from nums_tpu_torch.core.ops import (
@@ -285,8 +285,8 @@ class BlockArray:
             local = shape_ops.reshape(
                 data.to_local(), (-1,) + tuple(new_shape[1:]))
             return self.backend.from_local(local, new_shape, data.placements)
-        whole = data.redistribute(self.backend.mesh,
-                                  self.backend.replicated())
+        whole = multiprocess.sent_moved(data, data.redistribute(
+            self.backend.mesh, self.backend.replicated()))
         return self.backend.from_local(
             shape_ops.reshape(whole.to_local(), new_shape), new_shape,
             self.backend.replicated())
@@ -852,6 +852,65 @@ class BlockArray:
         shape = tuple(coords[0].shape) if coords else ()
         return np.stack([c.reshape(-1) for c in coords], axis=1), shape
 
+    @staticmethod
+    def _is_device_ints(s):
+        if isinstance(s, BlockArray):
+            return s.dtype != np.bool_
+        return torch.is_tensor(s) and s.dtype != torch.bool
+
+    def _device_key(self, item):
+        """A key of index arrays on the leading axes (device int arrays,
+        at least one; device or host masks, as their positions; host int
+        arrays; ints), each of one dimension and broadcast to one length,
+        then ``:`` only, on the mesh: the list of index arrays
+        (``mesh_ops.gather_device``), else None."""
+        from nums_tpu_torch.core.ops import mesh_ops
+
+        items = item if isinstance(item, tuple) else (item,)
+        if (not any(self._is_device_ints(s) for s in items)
+                or not mesh_ops.is_dtensor(self.data)):
+            return None
+        arrays, rest = [], False
+        for s in items:
+            if rest or (isinstance(s, slice) and s == slice(None)):
+                if not (isinstance(s, slice) and s == slice(None)):
+                    return None
+                rest = True
+            elif self._is_bool_mask(s) or (torch.is_tensor(s)
+                                           and s.dtype == torch.bool):
+                if isinstance(s, BlockArray) or torch.is_tensor(s):
+                    m = s.data if isinstance(s, BlockArray) else s
+                    if not mesh_ops.is_dtensor(m):
+                        m = self.backend.scatter_full(
+                            m.to(self.backend.device),
+                            self.backend.sharding_for_shape(tuple(m.shape)))
+                    arrays.extend(mesh_ops.where(self.backend, m))
+                else:
+                    arrays.extend(torch.from_numpy(i) for i in np.where(s))
+            elif isinstance(s, BlockArray) or torch.is_tensor(s):
+                t = s.data if isinstance(s, BlockArray) else s
+                if t.ndim > 1:
+                    return None
+                arrays.append(t)
+            elif isinstance(s, (np.ndarray, list)):
+                a = np.asarray(s)
+                if a.ndim > 1 or a.dtype.kind not in "iu":
+                    return None
+                arrays.append(torch.from_numpy(a.astype(np.int64)))
+            elif isinstance(s, (int, np.integer)) and not isinstance(
+                    s, bool):
+                n = self.shape[len(arrays)] if len(arrays) < self.ndim else 0
+                if not -n <= int(s) < n:
+                    raise IndexError(f"index {int(s)} is out of bounds for "
+                                     f"axis {len(arrays)} with size {n}")
+                arrays.append(int(s))
+            else:
+                return None
+        if len(arrays) > self.ndim:
+            raise IndexError(f"too many indices for an array of "
+                             f"{self.ndim} dimensions")
+        return arrays
+
     def _mesh_getitem(self, item):
         from nums_tpu_torch.core.ops import mesh_ops
 
@@ -862,6 +921,16 @@ class BlockArray:
             rows = self.mesh_rows_block(out.shape[0],
                                         np.prod(self.grid_shape[:k]))
             return self._new(out, (rows,) + tuple(self.block_shape[k:]))
+        arrays = self._device_key(item)
+        if arrays is not None:
+            k = len(arrays)
+            shape = (mesh_ops._key_length(arrays),) + tuple(self.shape[k:])
+            bs = (self.mesh_rows_block(shape[0], np.prod(
+                self.grid_shape[:k])),) + tuple(self.block_shape[k:])
+            grid = ArrayGrid(shape, bs, self.grid.dtype)
+            out = mesh_ops.gather_device(self.backend, self.data, arrays,
+                                         self.backend.sharding_for_grid(grid))
+            return self._new(out, grid.block_shape)
         key = self._host_key(item)
         if key is None:
             return None
@@ -900,6 +969,11 @@ class BlockArray:
             m = m.reshape(tuple(m.shape) + (1,) * (self.ndim - m.ndim))
             v = self._value_tensor(value).reshape(())
             self._store(torch.where(m, v, self.data))
+            return True
+        arrays = self._device_key(item)
+        if arrays is not None:
+            self._store(mesh_ops.scatter_device(self.backend, self.data,
+                                                arrays, value))
             return True
         key = self._host_key(item, basic=True)
         if key is None:

@@ -160,10 +160,16 @@ class NumsRandomState:
         if dtype is None:
             dtype = np.int64
         grid = self._grid(shape, block_shape, array_utils.to_dtype_name(dtype))
+        box = self._backend.local_region(grid)
         data = random_ops.integers(
             self._next_key(), grid.shape, array_utils.to_torch_dtype(dtype),
             self._device, self._x64, int(low), int(high), bool(endpoint),
+            region=box,
         )
+        if box is not None:
+            # a mesh process draws its own positions only
+            data = self._backend.from_local(
+                data, grid.shape, self._backend.sharding_for_grid(grid))
         return BlockArray(data, grid, self._backend)
 
     def uniform(self, low=0.0, high=1.0, shape=None, block_shape=None,
@@ -352,12 +358,18 @@ class NumsRandomState:
         dtype = self._float_dtype(dtype)
         alpha = self._tensor(alpha, np.float64)
         shape = tuple(shape) if shape is not None else ()
+        full = shape + tuple(alpha.shape[-1:])
+        grid = self._grid(full, block_shape, array_utils.to_dtype_name(dtype))
+        box = self._backend.local_region(grid)
         # Drawn at the wide float (the reference passes no dtype), cast
-        # to the request afterwards.
+        # to the request afterwards; a mesh process draws its own rows.
         data = random_ops.jr_dirichlet(
-            self._next_key(), shape, alpha.dtype, self._device, alpha)
-        return self._wrap(data.to(array_utils.to_torch_dtype(dtype)),
-                          block_shape)
+            self._next_key(), shape, alpha.dtype, self._device, alpha,
+            region=box).to(array_utils.to_torch_dtype(dtype))
+        if box is not None:
+            data = self._backend.from_local(
+                data, grid.shape, self._backend.sharding_for_grid(grid))
+        return BlockArray(data, grid, self._backend)
 
     def multinomial(self, n, pvals, shape=None, block_shape=None, dtype=None):
         """One binomial per category on the trials that remain, under the

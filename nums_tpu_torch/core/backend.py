@@ -306,7 +306,10 @@ class MeshBackend(Backend):
         for coord in itertools.product(*(range(m) for m in mesh_shape)):
             box = self.region(tuple(data.shape), data.placements, coord)
             if any(b <= a for a, b in box):
-                return data.redistribute(self._mesh, self.replicated())
+                from nums_tpu_torch.core import multiprocess
+
+                return multiprocess.sent_moved(data, data.redistribute(
+                    self._mesh, self.replicated()))
         return data
 
     def from_local(self, local, shape, placements):
@@ -338,7 +341,10 @@ class MeshBackend(Backend):
         if not isinstance(data, DTensor):
             return self.scatter_full(data, want)
         if tuple(data.placements) != want:
-            data = data.redistribute(self._mesh, want)
+            from nums_tpu_torch.core import multiprocess
+
+            data = multiprocess.sent_moved(
+                data, data.redistribute(self._mesh, want))
         return data
 
     # -- moving rows (the data-dependent ops of core/ops/masking.py) -----
@@ -508,7 +514,9 @@ class MeshBackend(Backend):
         from torch.distributed.tensor import DTensor
 
         if isinstance(tensor, DTensor):
-            tensor = tensor.full_tensor()
+            from nums_tpu_torch.core import multiprocess
+
+            tensor = multiprocess.sent_gather(tensor).full_tensor()
         return super().get(tensor)
 
 

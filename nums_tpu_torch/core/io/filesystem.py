@@ -440,7 +440,8 @@ class FileSystem:
                             for n, m in zip(logical, parts))
         grid = ArrayGrid(logical, block_shape, ba.grid.dtype)
         if not logical:
-            return grid, [((), _host_block(data.full_tensor(), grid, ()))
+            return grid, [((), _host_block(_mp.sent_gather(data).full_tensor(),
+                                           grid, ()))
                           ] if _mp.process_index() == 0 else []
 
         def is_block(box):
@@ -458,7 +459,7 @@ class FileSystem:
                               for s, bs in zip(index, block_shape))
                 blocks.append((entry, np.ascontiguousarray(arr)))
             return grid, blocks
-        full = data.full_tensor()
+        full = _mp.sent_gather(data).full_tensor()
         rank, world = _mp.process_index(), _mp.process_count()
         return grid, [(e, _host_block(full, grid, e)) for i, e in
                       enumerate(grid.get_entry_iterator())

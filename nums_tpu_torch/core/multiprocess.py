@@ -127,7 +127,7 @@ def allgather_to_host(tensor) -> np.ndarray:
     from torch.distributed.tensor import DTensor
 
     if isinstance(tensor, DTensor):
-        tensor = tensor.full_tensor()
+        tensor = sent_gather(tensor).full_tensor()
     return tensor.detach().cpu().numpy()
 
 
@@ -139,7 +139,7 @@ def host_sum(array) -> np.ndarray:
     if not is_multiprocess():
         return array.copy()
     t = torch.from_numpy(np.ascontiguousarray(array)).to(_flag_device())
-    dist.all_reduce(t)
+    dist.all_reduce(sent("all_reduce", t))
     return t.cpu().numpy()
 
 
@@ -151,7 +151,7 @@ def all_gather_ints(values) -> np.ndarray:
         return values[None].copy()
     t = torch.from_numpy(values.copy()).to(_flag_device())
     out = [torch.empty_like(t) for _ in range(process_count())]
-    dist.all_gather(out, t)
+    dist.all_gather(out, sent("all_gather", t))
     return torch.stack(out).cpu().numpy()
 
 
@@ -159,15 +159,68 @@ def all_reduce_(tensor, op="sum"):
     """``tensor`` replaced in place by its elementwise ``op`` (sum, min
     or max) over every process (collective; one all-reduce)."""
     if is_multiprocess():
-        dist.all_reduce(tensor, op={"sum": dist.ReduceOp.SUM,
-                                    "min": dist.ReduceOp.MIN,
-                                    "max": dist.ReduceOp.MAX}[op])
+        dist.all_reduce(sent("all_reduce", tensor),
+                        op={"sum": dist.ReduceOp.SUM,
+                            "min": dist.ReduceOp.MIN,
+                            "max": dist.ReduceOp.MAX}[op])
     return tensor
 
 
 # What ``exchange`` moved on this process: its calls, and the bytes it
 # sent to other processes (what it keeps for itself is not counted).
 EXCHANGED = {"calls": 0, "bytes_sent": 0}
+
+# The bytes this process sent through every collective that the port
+# issues (``sent``; ``exchange``'s all-to-alls too), by the ring
+# algorithms' count. A reduction that DTensor issues inside an operator
+# (the sum of a row-sharded mean or of Xᵀy, a few numbers a row) is not
+# counted.
+SENT = {"bytes": 0}
+
+# A process's bytes on the wire in a ring, for a buffer of B bytes (for an
+# all-gather, its own part) over P processes.
+_RING = {"all_reduce": lambda b, p: 2 * (p - 1) * b // p,
+         "all_gather": lambda b, p: (p - 1) * b,
+         "reduce_scatter": lambda b, p: (p - 1) * b // p,
+         "broadcast": lambda b, p: (p - 1) * b // p}
+
+
+def one_process(t):
+    """The sum over the processes of a value that one process holds
+    whole: the value itself (the ``reduce`` of a computation off the
+    mesh)."""
+    return t
+
+
+def sent(kind, tensor, group=None):
+    """Count in ``SENT`` the bytes this process sends in one collective of
+    ``kind`` (``_RING``'s keys) on ``tensor`` over ``group`` (None: every
+    process); returns ``tensor``."""
+    p = dist.get_world_size(group) if _up() else 1
+    SENT["bytes"] += int(_RING[kind](tensor.numel() * tensor.element_size(),
+                                     p))
+    return tensor
+
+
+def sent_gather(data):
+    """Count in ``SENT`` what an all-gather of the DTensor ``data`` to
+    every process sends from this one: its whole bytes less its own
+    part's."""
+    whole = int(np.prod(data.shape, dtype=np.int64))
+    SENT["bytes"] += (whole - data.to_local().numel()) * data.element_size()
+    return data
+
+
+def sent_moved(before, after):
+    """Count in ``SENT`` what DTensor's ``redistribute`` of ``before``
+    into ``after`` sent from this process: what its part grew by (an
+    all-gather), or its whole part where the size is kept (an
+    all-to-all); nothing where the part shrank (a slice of its own).
+    Returns ``after``."""
+    b0 = before.to_local().numel() * before.element_size()
+    b1 = after.to_local().numel() * after.element_size()
+    SENT["bytes"] += b1 - b0 if b1 > b0 else b0 if b1 == b0 else 0
+    return after
 
 
 def _as_bytes(items):
@@ -198,6 +251,7 @@ def exchange(items, send_counts, recv_counts):
     EXCHANGED["calls"] += 1
     EXCHANGED["bytes_sent"] += width * (sum(send_counts)
                                         - send_counts[me])
+    SENT["bytes"] += width * (sum(send_counts) - send_counts[me])
     if not is_multiprocess():
         out.copy_(src)
     else:  # every process joins, one with empty rows too
@@ -218,6 +272,7 @@ def ring_shift(tensor, rows_from_left):
     world, me = process_count(), process_index()
     out = torch.empty((int(rows_from_left), width), dtype=torch.uint8,
                       device=tensor.device)
+    SENT["bytes"] += src.numel()
     ops = [dist.P2POp(dist.isend, src.reshape(-1), (me + 1) % world),
            dist.P2POp(dist.irecv, out.reshape(-1), (me - 1) % world)]
     for req in dist.batch_isend_irecv(ops):
@@ -230,7 +285,7 @@ def broadcast_from_zero(tensor):
     """``tensor`` replaced in place by process 0's (collective): a carry
     that every process must hold bit for bit."""
     if is_multiprocess():
-        dist.broadcast(tensor, src=0)
+        dist.broadcast(sent("broadcast", tensor), src=0)
     return tensor
 
 

@@ -36,6 +36,8 @@ import functools
 
 import torch
 
+from nums_tpu_torch.core import multiprocess
+
 # Rows per leaf panel of the TSQR tree (the reference's DEFAULT_CHUNK).
 DEFAULT_CHUNK = 8192
 
@@ -195,28 +197,46 @@ def _chol_upper(g):
     return cholesky(g).T.contiguous()
 
 
-def _cholqr_once(x):
-    """One CholeskyQR pass: G = XᵀX, R = chol(G)ᵀ, Q = X R⁻¹."""
-    r = _chol_upper(_gram(x))
-    q = torch.linalg.solve_triangular(r, x, upper=True, left=False)
-    return q, r
+# Rows of a right triangular solve at a time in ``_solve_rows_``.
+_SOLVE_ROWS = 1 << 18
 
 
-def cholqr2(x):
+def _solve_rows_(r, x):
+    """x <- x r⁻¹ for an upper-triangular r, written into x's own storage
+    ``_SOLVE_ROWS`` rows at a time: beside x, device memory holds one
+    chunk's solve."""
+    for i in range(0, x.shape[0], _SOLVE_ROWS):
+        x[i:i + _SOLVE_ROWS] = torch.linalg.solve_triangular(
+            r, x[i:i + _SOLVE_ROWS], upper=True, left=False)
+    return x
+
+
+def _cholqr_once(x, reduce=multiprocess.one_process, overwrite=False):
+    """One CholeskyQR pass: G = XᵀX, R = chol(G)ᵀ, Q = X R⁻¹, Q in a copy
+    of X (in X itself with ``overwrite``). With ``reduce`` (on the mesh:
+    ``x`` is one process's rows) G is summed over the processes first."""
+    r = _chol_upper(reduce(_gram(x)))
+    q = x if overwrite else x.clone(memory_format=torch.contiguous_format)
+    return _solve_rows_(r, q), r
+
+
+def cholqr2(x, reduce=multiprocess.one_process, overwrite=False):
     """CholeskyQR2, (Q, R): the second pass restores orthogonality to about
-    eps for cond(X) up to about 1/sqrt(eps). Device memory: X, the first
-    pass's Q and the second's."""
-    q1, r1 = _cholqr_once(x)
-    q, r2 = _cholqr_once(q1)
+    eps for cond(X) up to about 1/sqrt(eps). The second pass overwrites the
+    first's Q, so device memory holds X and Q; with ``overwrite`` Q is
+    written into X (X is destroyed). ``reduce`` as ``_cholqr_once``'s: Q
+    is then this process's rows of Q, R whole."""
+    q1, r1 = _cholqr_once(x, reduce, overwrite)
+    q, r2 = _cholqr_once(q1, reduce, overwrite=True)
     return q, r2 @ r1
 
 
-def cholqr_r(x):
+def cholqr_r(x, reduce=multiprocess.one_process):
     """R alone by CholeskyQR with a second pass that never forms Q:
     B = R1⁻ᵀ G R1⁻¹ (which is Q1ᵀQ1), R = chol(B)ᵀ R1. Peak memory X and
     O(n²); accuracy limited by the gram, about eps·cond², as for any method
     on the normal equations."""
-    g = _gram(x)
+    g = reduce(_gram(x))
     r1 = _chol_upper(g)
     b = torch.linalg.solve_triangular(r1.T, g, upper=False, left=True)
     b = torch.linalg.solve_triangular(r1, b, upper=True, left=False)
@@ -235,7 +255,7 @@ def _inplace_right_mul(buf, rinv, chunk_rows):
 
 def cholqr2_stream(chunk_rows, x):
     """CholeskyQR2 that overwrites ``x`` with Q: (x, R), peak device memory
-    about 1× X where ``cholqr2`` holds 3×. ``x`` is destroyed (it holds Q
+    about 1× X where ``cholqr2`` holds 2×. ``x`` is destroyed (it holds Q
     afterwards); the reference donates its buffer to the same effect, at
     ``chunk_rows`` = 2^20."""
     chunk_rows = max(1, min(chunk_rows, x.shape[0]))
@@ -246,11 +266,14 @@ def cholqr2_stream(chunk_rows, x):
     return q, r2 @ r1
 
 
-def svd_cholqr(x):
-    """Tall-skinny SVD through CholeskyQR2: (U, S, Vᵀ), reduced."""
-    q, r = cholqr2(x)
+def svd_cholqr(x, reduce=multiprocess.one_process, k=None,
+               overwrite=False):
+    """Tall-skinny SVD through CholeskyQR2: (U, S, Vᵀ), reduced (with
+    ``reduce``, U is this process's rows of U). With ``k`` U holds only
+    its first k columns; with ``overwrite`` Q is written into ``x``."""
+    q, r = cholqr2(x, reduce, overwrite)
     u_r, s, vt = _small_svd(r)
-    return q @ u_r, s, vt
+    return q @ (u_r if k is None else u_r[:, :k]), s, vt
 
 
 def inv(x):
@@ -271,10 +294,10 @@ def lstsq(chunk, x, y):
     return _solve_upper(r, q.T @ y)
 
 
-def lstsq_cholqr(x, y):
+def lstsq_cholqr(x, y, reduce=multiprocess.one_process):
     """argmin |xθ − y| through CholeskyQR2."""
-    q, r = cholqr2(x)
-    return _solve_upper(r, q.T @ y)
+    q, r = cholqr2(x, reduce)
+    return _solve_upper(r, reduce(q.T @ y))
 
 
 def posdef_solve(a, b):

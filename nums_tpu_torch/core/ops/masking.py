@@ -18,16 +18,18 @@ NONZERO_MAX_ELEMENTS = 2**31 - 1
 
 def refuse_dtensor(tensor, op: str):
     """A data-dependent shape has no DTensor sharding strategy: where a
-    DTensor reaches this module's device ops (a mask beside a device index
-    array in one key; every other mask takes ``core/ops/mesh_ops.py``),
-    ``op`` raises ``NotImplementedError`` naming it, and never gathers the
-    array to one process."""
+    DTensor reaches this module's device ops (a device mask in a key that
+    ``BlockArray._device_key`` does not take: after a slice, say; every
+    other mask takes ``core/ops/mesh_ops.py``), ``op`` raises
+    ``NotImplementedError`` naming it, and never gathers the array to one
+    process."""
     from torch.distributed.tensor import DTensor
 
     if isinstance(tensor, DTensor):
         raise NotImplementedError(
-            f"{op}: DTensor has no sharding strategy for it (a mask beside "
-            "a device index array in one key, on the mesh)")
+            f"{op}: DTensor has no sharding strategy for it (a device mask "
+            "in a key of another form than index arrays on the leading "
+            "axes, on the mesh)")
 
 
 def _flat_nonzero(flat):

@@ -249,7 +249,8 @@ def _pack(cols):
     tensor, and how to unpack it."""
     parts, spec = [], []
     for c in cols:
-        c = c.reshape(c.shape[0], -1) if c.dim() > 1 else c.reshape(-1, 1)
+        c = (c.reshape(c.shape[0], int(np.prod(c.shape[1:])))
+             if c.dim() > 1 else c.reshape(-1, 1))
         b = multiprocess._as_bytes(c)
         parts.append(b)
         spec.append((c.dtype, int(c.shape[1]), int(b.shape[1])))
@@ -323,7 +324,8 @@ def _replicas_from_first(backend, tensor, placements):
         if not p.is_shard() and backend.device_grid.mesh_shape[k] > 1:
             group = backend.mesh.get_group(k)
             src = dist.get_global_rank(group, 0)
-            dist.broadcast(tensor, src=src, group=group)
+            dist.broadcast(multiprocess.sent("broadcast", tensor, group),
+                           src=src, group=group)
     return tensor
 
 
@@ -786,3 +788,398 @@ def take(backend, seq, idx):
     ask for different ones."""
     flat = idx.reshape(-1, 1).to(torch.int64)
     return pull(backend, seq, 1, flat).reshape(tuple(idx.shape))
+
+
+# -- reductions along a sharded axis: order statistics and scans ---------
+
+
+def shard_dims(placements, axes):
+    """The mesh dimensions whose placement shards one of ``axes``."""
+    return [k for k, p in enumerate(placements)
+            if p.is_shard() and p.dim in tuple(axes)]
+
+
+def group_reduce(backend, tensor, dims, op="sum"):
+    """``tensor`` replaced in place by its ``op`` (sum, min, max) over the
+    processes that differ from this one only on the mesh dimensions
+    ``dims``: one all-reduce over each of them, in order."""
+    import torch.distributed as dist
+
+    if not multiprocess.is_multiprocess():
+        return tensor
+    red = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
+           "max": dist.ReduceOp.MAX}[op]
+    for k in dims:
+        if backend.device_grid.mesh_shape[k] > 1:
+            group = backend.mesh.get_group(k)
+            dist.all_reduce(multiprocess.sent("all_reduce", tensor, group),
+                            op=red, group=group)
+    return tensor
+
+
+def _key_bounds(backend, keys):
+    """(min, max) of int64 keys over every process, as Python ints (an
+    empty box offers the identities)."""
+    info = torch.iinfo(torch.int64)
+    flat = keys.reshape(-1)
+    lo = flat.min().reshape(1) if flat.numel() else torch.full(
+        (1,), info.max, dtype=torch.int64, device=keys.device)
+    hi = flat.max().reshape(1) if flat.numel() else torch.full(
+        (1,), info.min, dtype=torch.int64, device=keys.device)
+    multiprocess.all_reduce_(lo, "min")
+    multiprocess.all_reduce_(hi, "max")
+    return int(lo[0]), int(hi[0])
+
+
+def order_statistics(backend, keys, ranks, dims):
+    """The keys of the given ranks (0-based, in increasing order) along
+    the last axis of ``keys``, over the processes of the mesh dimensions
+    ``dims``: ``keys`` is this process's (..., m) int64 part, ``ranks`` a
+    (q, ...) int64 tensor; returns (q, ...) keys. A bisection on the key
+    range, one all-reduce of the counts at or below the midpoint a step,
+    as many steps as the range has bits: no value leaves its process."""
+    lo0, hi0 = _key_bounds(backend, keys)
+    if hi0 < lo0:  # nothing anywhere
+        return torch.zeros(tuple(ranks.shape), dtype=torch.int64,
+                           device=keys.device)
+    lo = torch.full(tuple(ranks.shape), lo0, dtype=torch.int64,
+                    device=keys.device)
+    hi = torch.full_like(lo, hi0)
+    want = ranks.to(device=keys.device, dtype=torch.int64) + 1
+    for _ in range(max(1, (hi0 - lo0).bit_length() + 1)):
+        mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1)
+        count = torch.stack([(keys <= m[..., None]).sum(dim=-1)
+                             for m in mid])
+        group_reduce(backend, count, dims)
+        ok = count >= want
+        hi = torch.where(ok, mid, hi)
+        lo = torch.where(ok, lo, mid + 1)
+    return lo
+
+
+def key_values(keys, dtype):
+    """The floats of ``masking.total_order_key``'s keys (int64 tensor):
+    the key is its own inverse on the bits."""
+    dt = masking.INT_OF_WIDTH[torch.empty((), dtype=dtype).element_size()]
+    bits = keys.to(dt)
+    width = 8 * bits.element_size()
+    return (bits ^ ((bits >> (width - 1)) & torch.iinfo(dt).max)).view(dtype)
+
+
+def select_ranks(backend, local, ranks, dims):
+    """The values of the given ranks along the last axis of this process's
+    float part ``local`` (jnp's sort order: NaN last), over the mesh
+    dimensions ``dims`` (``order_statistics``)."""
+    keys = masking.total_order_key(local).to(torch.int64)
+    return key_values(order_statistics(backend, keys, ranks, dims),
+                      local.dtype)
+
+
+def _all_gather_var(tensor):
+    """Every process's ``tensor`` (any dtype and shape; flattened), in
+    rank order: one all-gather of the byte counts and one of the bytes,
+    padded to the longest."""
+    import torch.distributed as dist
+
+    flat = tensor.reshape(-1).contiguous()
+    if not multiprocess.is_multiprocess():
+        return [flat]
+    raw = flat.view(torch.uint8) if flat.numel() else flat.new_empty(
+        (0,), dtype=torch.uint8)
+    sizes = multiprocess.all_gather_ints([int(raw.numel())])[:, 0]
+    pad = raw.new_zeros((max(1, int(sizes.max())),))
+    pad[:raw.numel()] = raw
+    parts = [torch.empty_like(pad) for _ in range(len(sizes))]
+    dist.all_gather(parts, multiprocess.sent("all_gather", pad))
+    return [p[:int(n)].view(tensor.dtype) for p, n in zip(parts, sizes)]
+
+
+def scan(backend, data, axis, fn, combine):
+    """``fn(local, dim=axis)`` (a cumulative sum or product) of the DTensor
+    ``data`` along ``axis``: each process scans its own box, then adds (or
+    multiplies by) the totals of the boxes before it along the axis, in
+    order (one all-gather of each process's last slice). ``combine`` is
+    ``"sum"`` or ``"prod"``."""
+    pl = tuple(data.placements)
+    shape = tuple(data.shape)
+    local = fn(data.to_local(), dim=axis)
+    dims = shard_dims(pl, (axis,))
+    if not dims:
+        return backend.from_local(local, shape, pl)
+    n = int(local.shape[axis])
+    if n:
+        last = local.narrow(axis, n - 1, 1)
+    else:
+        box = list(local.shape)
+        box[axis] = 1
+        last = (torch.zeros if combine == "sum" else torch.ones)(
+            box, dtype=local.dtype, device=local.device)
+    moved = torch.movedim(last, axis, 0).contiguous()
+    every = _all_gather_var(moved)
+    coords = backend.coords()
+    me = multiprocess.process_index()
+    boxes = [backend.region(shape, pl, c) for c in coords]
+    mine = boxes[me]
+    before = sorted((boxes[r][axis][0], r) for r in range(len(coords))
+                    if all(coords[r][k] == coords[me][k]
+                           for k in range(len(coords[me])) if k not in dims)
+                    and boxes[r][axis][0] < mine[axis][0]
+                    and boxes[r][axis][1] > boxes[r][axis][0])
+    if not before:
+        return backend.from_local(local, shape, pl)
+    off = None
+    for _, r in before:
+        t = every[r].reshape(moved.shape).to(local.device)
+        off = t if off is None else (off + t if combine == "sum"
+                                     else off * t)
+    off = torch.movedim(off, 0, axis)
+    out = local + off if combine == "sum" else local * off
+    return backend.from_local(out, shape, pl)
+
+
+# -- moving rows along an axis: flatten, repeat, pad ----------------------
+
+
+def flatten(backend, data, placements):
+    """The DTensor ``data`` flattened in row-major order, laid out by
+    ``placements`` (those of a 1-D array): its boxes first hold whole
+    slabs of the leading axis on the mesh dimensions that shard the result
+    (an all-to-all), each process's flat range then moves to its place in
+    the result (one more). Neither gathers the array."""
+    shape = tuple(data.shape)
+    total = int(np.prod(shape, dtype=np.int64))
+    placements = tuple(placements)
+    if data.ndim == 1:
+        return backend.rebox(data, placements)
+    rows = tuple(_shard(0) if p.is_shard() else _replicate()
+                 for p in placements)
+    x = backend.rebox(data, rows)
+    inner = int(np.prod(shape[1:], dtype=np.int64))
+    coords = backend.coords()
+    src = [tuple(v * inner for v in backend.region(shape, rows, c)[0])
+           for c in coords]
+    dst = [backend.region((total,), placements, c)[0] for c in coords]
+    flat = backend.move_rows(x.to_local().reshape(-1), src, dst, rows)
+    return backend.from_local(flat, (total,), placements)
+
+
+def along_rows(backend, data, axis, length, local_fn):
+    """A DTensor whose ``axis`` becomes ``length`` long: ``local_fn(rows)``
+    maps this process's slab of rows ``[a, b)`` along the axis (the axis
+    moved first) to the result's rows ``[r·a, r·b)`` for a fixed ratio r;
+    the rows then move to the result's layout (one all-to-all within each
+    row group). The other axes keep their boxes."""
+    t = move_axis(backend, data, axis, 0)
+    pl = tuple(t.placements)
+    shape = (int(length),) + tuple(t.shape[1:])
+    coords = backend.coords()
+    ratio = int(length) // max(int(t.shape[0]), 1)
+    src = [tuple(v * ratio for v in backend.region(tuple(t.shape), pl,
+                                                    c)[0]) for c in coords]
+    dst = [backend.region(shape, pl, c)[0] for c in coords]
+    rows = backend.move_rows(local_fn(t.to_local()), src, dst, pl)
+    out = backend.from_local(rows.contiguous(), shape, pl)
+    return move_axis(backend, out, 0, axis)
+
+
+def pad_axis(backend, data, axis, before, after, source, fill=None):
+    """``data`` padded along a sharded ``axis`` by ``before`` and
+    ``after``: ``source(i)`` gives, for output positions ``i`` (an int64
+    tensor), the input position each copies, or -1 for ``fill`` (the
+    constant mode). A run of copied rows moves by one all-to-all within
+    the row group (``move_rows``: the constant mode); any other map
+    (edge, wrap, reflect, symmetric) by one ``pull``."""
+    t = move_axis(backend, data, axis, 0)
+    pl = tuple(t.placements)
+    n = int(t.shape[0])
+    shape = (n + int(before) + int(after),) + tuple(t.shape[1:])
+    coords = backend.coords()
+    me = multiprocess.process_index()
+    o0, o1 = backend.region(shape, pl)[0]
+    local = t.to_local()
+    if fill is not None:
+        src = [backend.region(tuple(t.shape), pl, c)[0] for c in coords]
+
+        def run(c):
+            a, b = backend.region(shape, pl, c)[0]
+            lo, hi = max(a - before, 0), min(b - before, n)
+            return (lo, max(lo, hi))
+
+        dst = [run(c) for c in coords]
+        rows = backend.move_rows(local, src, dst, pl)
+        out = torch.full((o1 - o0,) + tuple(local.shape[1:]), fill,
+                         dtype=local.dtype, device=local.device)
+        lo, hi = dst[me]
+        at = lo + before - o0
+        out[at:at + (hi - lo)] = rows
+    else:
+        def wants(r):
+            a, b = backend.region(shape, pl, coords[r])[0]
+            return source(torch.arange(a, b, dtype=torch.int64,
+                                       device=local.device)).reshape(-1, 1)
+
+        out = pull(backend, t, 1, wants(me), wants)
+    res = backend.from_local(out.contiguous(), shape, pl)
+    return move_axis(backend, res, 0, axis)
+
+
+# -- device index arrays: reads and writes by position --------------------
+
+
+def device_positions(backend, arrays, shape, n, placements):
+    """The (m, k) int64 positions over the first k axes of an array of
+    ``shape`` at this process's box of a 1-D key of length ``n`` laid out
+    by ``placements``: ``arrays`` holds one entry per axis, a Python int
+    or an int tensor (plain, whole on every process, or a DTensor) of
+    length n or 1, broadcast. Negative positions count from the end, and
+    every position is clamped into its axis, as jax's gather clamps."""
+    a, b = backend.region((n,), placements)[0]
+    dev = backend.device
+    cols = []
+    for arr, size in zip(arrays, shape):
+        if isinstance(arr, (int, np.integer)):
+            col = torch.full((b - a,), int(arr), dtype=torch.int64,
+                             device=dev)
+        elif int(arr.numel()) == 1 and n != 1:
+            one = (multiprocess.sent_gather(arr).full_tensor()
+                   if _is_sharded(arr) else
+                   arr.to_local() if is_dtensor(arr) else arr)
+            col = one.reshape(()).to(device=dev, dtype=torch.int64).expand(
+                b - a)
+        elif is_dtensor(arr):
+            col = backend.rebox(arr, placements).to_local()
+        else:
+            col = arr.reshape(-1)[a:b]
+        col = col.to(device=dev, dtype=torch.int64)
+        col = torch.where(col < 0, col + int(size), col).clamp(
+            0, max(int(size) - 1, 0))
+        cols.append(col)
+    return torch.stack(cols, dim=1) if cols else torch.zeros(
+        (b - a, 0), dtype=torch.int64, device=dev)
+
+
+def _key_layouts(data, k, rpl):
+    """(placements of ``data`` for the move, of the 1-D key): a mesh
+    dimension that shards an axis past the key's (the result's trailing
+    axes, ``rpl``: the result's placements, or None for a write) shards
+    the same axis of ``data``; one that shards the key's axes of ``data``
+    routes; any other replicates. The key lies along the mesh dimensions
+    that route (or, for a read, that shard the result's first axis)."""
+    xpl, kpl = [], []
+    for m, p in enumerate(data.placements):
+        if rpl is not None and rpl[m].is_shard() and rpl[m].dim >= 1:
+            xpl.append(_shard(rpl[m].dim - 1 + k))
+        elif rpl is None and p.is_shard() and p.dim >= k:
+            xpl.append(p)
+        elif p.is_shard() and p.dim < k:
+            xpl.append(p)
+        else:
+            xpl.append(_replicate())
+        routed = p.is_shard() and p.dim < k
+        lead = (rpl[m].is_shard() and rpl[m].dim == 0) if rpl is not None \
+            else routed
+        kpl.append(_shard(0) if lead else _replicate())
+    return tuple(xpl), tuple(kpl)
+
+
+def gather_device(backend, data, arrays, rpl):
+    """``data[arrays...]`` for a key of index arrays over the first
+    ``len(arrays)`` axes (device or host int arrays and ints, broadcast to
+    one length n; masks already turned into positions): each process
+    takes the positions of its box of the result, which ``rpl`` lays out
+    (shape (n,) + the trailing axes), and pulls them (``pull``: the
+    positions to their holders and the items back, two all-to-alls)."""
+    k = len(arrays)
+    n = _key_length(arrays)
+    shape = (n,) + tuple(data.shape[k:])
+    xpl, kpl = _key_layouts(data, k, rpl)
+    x = backend.rebox(data, xpl)
+    pos = device_positions(backend, arrays, tuple(data.shape), n, kpl)
+    got = pull(backend, x, k, pos)
+    return backend.from_local(got.contiguous(), shape, tuple(rpl))
+
+
+def _key_length(arrays):
+    """The length the key's arrays broadcast to."""
+    lengths = {1}
+    for arr in arrays:
+        if not isinstance(arr, (int, np.integer)):
+            lengths.add(int(arr.numel()))
+    if len(lengths) > 2:
+        raise IndexError("shape mismatch: indexing arrays could not be "
+                         f"broadcast together with lengths {sorted(lengths)}")
+    return max(lengths)
+
+
+def scatter_device(backend, data, arrays, values):
+    """``data[arrays...] = values`` for a key of index arrays over the
+    first k axes (as ``gather_device``'s): each process takes its box of
+    the key and of the value, sends each (position, value) to the process
+    that holds the position and agrees with it on the mesh dimensions that
+    route no key axis (one all-gather of the counts, one all-to-all), and
+    each holder writes what it received. Where a position comes twice,
+    the later one in the key wins, as a serial scatter writes them in
+    order. Returns the new DTensor, laid out as ``data``."""
+    k = len(arrays)
+    n = _key_length(arrays)
+    dshape, dpl = tuple(data.shape), tuple(data.placements)
+    shape = (n,) + dshape[k:]
+    _, kpl = _key_layouts(data, k, None)
+    vpl = tuple(_shard(0) if (p.is_shard() and p.dim < k) else
+                _shard(p.dim - k + 1) if p.is_shard() else _replicate()
+                for p in dpl)
+    pos = device_positions(backend, arrays, dshape, n, kpl)
+    a, b = backend.region((n,), kpl)[0]
+    box = backend.region(dshape, dpl)
+    local = data.to_local().clone(memory_format=torch.contiguous_format)
+    if _is_sharded(values):
+        if tuple(values.shape) != shape:
+            raise NotImplementedError(
+                "index assignment on the mesh: a sharded value must have "
+                f"the indexed shape {shape}, not {tuple(values.shape)}")
+        v = backend.rebox(values, vpl).to_local()
+    else:
+        sub = (slice(a, b),) + tuple(slice(lo, hi) for lo, hi in box[k:])
+        if not torch.is_tensor(values) and np.ndim(values) == 0:
+            v = torch.full(tuple(s.stop - s.start for s in sub),
+                           np.asarray(values).item(), dtype=local.dtype,
+                           device=local.device)
+        else:
+            v = _whole_value(values, shape, local.device)[sub]
+    v = v.to(local.dtype)
+    me = multiprocess.process_index()
+    world = backend.device_grid.num_devices
+    coords = backend.coords()
+    routed = {m for m, p in enumerate(dpl) if p.is_shard() and p.dim < k}
+    dest = torch.full((pos.shape[0],), -1, dtype=torch.int64,
+                      device=pos.device)
+    for r, c in enumerate(coords):
+        if all(c[m] == coords[me][m] for m in range(len(c))
+               if m not in routed):
+            dest[_inside(backend.region(dshape, dpl, c), pos)] = r
+    order = torch.argsort(dest, stable=True)
+    send = torch.bincount(dest, minlength=world).cpu().numpy()
+    recv = multiprocess.all_gather_ints(send)[:, me]
+    j = torch.arange(a, b, dtype=torch.int64, device=pos.device)
+    packed, spec = _pack([j[order], pos[order], v[order.to(v.device)]])
+    got_j, got_pos, got_v = _unpack(multiprocess.exchange(packed, send,
+                                                          recv), spec)
+    if got_pos.dim() == 1:
+        got_pos = got_pos.reshape(-1, k)
+    if got_j.numel():
+        # the last of each position in key order
+        flat = torch.zeros_like(got_j)
+        for col, size in zip(got_pos.T, dshape[:k]):
+            flat = flat * int(size) + col
+        by_j = torch.argsort(got_j, stable=True)
+        by_pos = by_j[torch.argsort(flat[by_j], stable=True)]
+        f = flat[by_pos]
+        last = torch.ones_like(f, dtype=torch.bool)
+        last[:-1] = f[1:] != f[:-1]
+        keep = by_pos[last]
+        at = (got_pos[keep] - torch.tensor(
+            [lo for lo, _ in box[:k]], device=got_pos.device)).to(
+                local.device)
+        local[tuple(at.T)] = got_v[keep.to(got_v.device)].reshape(
+            (-1,) + tuple(local.shape[k:]))
+    return backend.from_local(local, dshape, dpl)

@@ -54,6 +54,35 @@ def _size(shape) -> int:
     return int(math.prod(shape))
 
 
+def _draw_shape(shape, where):
+    """The shape a draw takes: ``shape``, or with a region's ``where``
+    (``flat_range=(start, stop)`` or ``runs=(starts, length)``) the
+    region's flat range or its rows of runs."""
+    if not where:
+        return tuple(shape)
+    if where.get("flat_range") is not None:
+        start, stop = where["flat_range"]
+        return (int(stop) - int(start),)
+    starts, length = where["runs"]
+    return (int(starts.numel()), int(length))
+
+
+def _region_positions(where, device, a=0, b=None):
+    """The flat positions of a region (``_draw_shape``'s), in its order;
+    of its elements ``[a, b)`` alone where given."""
+    if where.get("flat_range") is not None:
+        start, stop = where["flat_range"]
+        b = int(stop) - int(start) if b is None else b
+        return torch.arange(int(start) + a, int(start) + b,
+                            dtype=torch.int64, device=device)
+    starts, length = where["runs"]
+    b = int(starts.numel()) * int(length) if b is None else b
+    i = torch.arange(a, b, dtype=torch.int64, device=device)
+    return starts.to(device)[torch.div(i, int(length),
+                                       rounding_mode="floor")] \
+        + torch.remainder(i, int(length))
+
+
 # ---------------------------------------------------------------------
 # jax.random's samplers
 # ---------------------------------------------------------------------
@@ -215,7 +244,7 @@ def _urem64(x, span: int):
 
 
 def jr_randint(key, shape, minval: int, maxval: int, dtype, device, x64,
-               flat_range=None, chunk=None):
+               flat_range=None, chunk=None, runs=None):
     """``jax.random.randint``: twice the dtype's bits per value, folded by
     ``(hi % span) * (2**nbits % span) + lo % span`` in wrapping unsigned
     arithmetic, bias, ``span == 0`` wrap and ``maxval <= minval`` included.
@@ -265,7 +294,7 @@ def jr_randint(key, shape, minval: int, maxval: int, dtype, device, x64,
         return _wrap_signed(off.add_(minval), nbits).to(dtype)
 
     return _flat_draw([k1, k2], shape, dtype, device, nbits, fold,
-                      flat_range, chunk)
+                      flat_range, chunk, runs)
 
 
 def _unsigned_order(bits):
@@ -289,10 +318,10 @@ def jr_permutation_indices(key, n: int, device):
     return x
 
 
-def jr_gumbel(key, shape, dtype, device):
+def jr_gumbel(key, shape, dtype, device, **where):
     """``jax.random.gumbel`` (its default low-range mode)."""
     tiny = float(np.finfo(_np_float(dtype)).tiny)
-    u = jr_uniform(key, shape, dtype, device, tiny, 1.0)
+    u = jr_uniform(key, shape, dtype, device, tiny, 1.0, **where)
     return u.log_().neg_().log_().neg_()
 
 
@@ -341,46 +370,49 @@ def jr_choice(key, a, shape, replace, p, device, x64):
     return flat.reshape(shape + tuple(pool.shape[1:]))
 
 
-def jr_exponential(key, shape, dtype, device):
-    return jr_uniform(key, shape, dtype, device).neg_().log1p_().neg_()
+def jr_exponential(key, shape, dtype, device, **where):
+    return jr_uniform(key, shape, dtype, device, **where).neg_().log1p_(
+    ).neg_()
 
 
-def jr_laplace(key, shape, dtype, device):
+def jr_laplace(key, shape, dtype, device, **where):
     epsneg = float(np.finfo(_np_float(dtype)).epsneg)
-    u = jr_uniform(key, shape, dtype, device, -1.0 + epsneg, 1.0)
+    u = jr_uniform(key, shape, dtype, device, -1.0 + epsneg, 1.0, **where)
     return torch.sign(u).mul_(u.abs_().neg_().log1p_())
 
 
-def jr_logistic(key, shape, dtype, device):
+def jr_logistic(key, shape, dtype, device, **where):
     tiny = float(np.finfo(_np_float(dtype)).tiny)
-    x = jr_uniform(key, shape, dtype, device, tiny, 1.0)
+    x = jr_uniform(key, shape, dtype, device, tiny, 1.0, **where)
     return torch.log(x).sub_(x.neg_().log1p_())
 
 
-def jr_cauchy(key, shape, dtype, device):
+def jr_cauchy(key, shape, dtype, device, **where):
     npdt = _np_float(dtype)
-    u = jr_uniform(key, shape, dtype, device, float(np.finfo(npdt).eps), 1.0)
+    u = jr_uniform(key, shape, dtype, device, float(np.finfo(npdt).eps), 1.0,
+                   **where)
     return u.sub_(0.5).mul_(float(npdt(np.pi))).tan_()
 
 
-def jr_pareto(key, shape, dtype, device, b):
+def jr_pareto(key, shape, dtype, device, b, **where):
     b = float(_np_float(dtype)(b))
-    return jr_exponential(key, shape, dtype, device).div_(b).exp_()
+    return jr_exponential(key, shape, dtype, device, **where).div_(b).exp_()
 
 
-def jr_rayleigh(key, shape, dtype, device, scale):
+def jr_rayleigh(key, shape, dtype, device, scale, **where):
     scale = float(_np_float(dtype)(scale))
-    u = jr_uniform(key, shape, dtype, device)
+    u = jr_uniform(key, shape, dtype, device, **where)
     return u.log_().mul_(-2.0).sqrt_().mul_(scale)
 
 
-def jr_triangular(key, shape, dtype, device, x64, left, mode, right):
+def jr_triangular(key, shape, dtype, device, x64, left, mode, right,
+                  **where):
     # left, mode and right are Python scalars in the reference: their
     # differences are taken at the wide width, then meet the draw's dtype.
     w = _np_float(_wide(x64))
     left, mode, right = w(left), w(mode), w(right)
     fc = float((mode - left) / (right - left))
-    u = jr_uniform(key, shape, dtype, device)
+    u = jr_uniform(key, shape, dtype, device, **where)
     out1 = (u * float(right - left)).mul_(float(mode - left)).sqrt_()
     out1.add_(float(left))
     out2 = ((1 - u).mul_(float(right - left)).mul_(float(right - mode))
@@ -388,11 +420,11 @@ def jr_triangular(key, shape, dtype, device, x64, left, mode, right):
     return torch.where(u < fc, out1, out2)
 
 
-def jr_geometric(key, shape, device, x64, p):
+def jr_geometric(key, shape, device, x64, p, **where):
     """int32 draws: ``floor(log(u) / log1p(-p)) + 1`` on a uniform of the
     wide float."""
     wide = _wide(x64)
-    u = jr_uniform(key, shape, wide, device)
+    u = jr_uniform(key, shape, wide, device, **where)
     log_one_minus_p = float(np.log1p(-_np_float(wide)(p)))
     g = u.log_().div_(log_one_minus_p).floor_().add_(1)
     # A uniform of exactly 0 gives +inf: the reference's conversion
@@ -480,63 +512,101 @@ def _as_param(value, shape, dtype, device):
     return t.broadcast_to(tuple(shape))
 
 
-def jr_gamma(key, shape, dtype, device, a, log_space=False):
+# Elements of a gamma draw made at a time: each has its own key and its
+# own rejection loop, so a draw a chunk at a time is the same draw, with
+# its scratch (keys and loop state, some 40 bytes an element) bounded.
+GAMMA_CHUNK = 1 << 24
+
+
+def jr_gamma(key, shape, dtype, device, a, log_space=False, **where):
     """``jax.random.gamma`` / ``loggamma``: one key per element from a
-    split over the row-major shape."""
+    split over the row-major shape, ``GAMMA_CHUNK`` elements at a time.
+    With ``where`` (a region's ``flat_range`` or ``runs``) only the keys
+    of the region's positions are made, and each element's loop runs on
+    its own key: the region of the whole draw, bit for bit."""
     shape = tuple(int(s) for s in shape)
-    alpha = _as_param(a, shape, dtype, device).reshape(-1).contiguous()
-    keys = threefry.split_keys(key, alpha.numel(), device)
-    return _gamma_batched(keys, alpha, log_space).reshape(shape)
+    out = _draw_shape(shape, where)
+    alpha = _as_param(a, out, dtype, device).reshape(-1)
+    n = int(alpha.numel())
+    res = torch.empty(n, dtype=dtype, device=device)
+    for a0 in range(0, n, GAMMA_CHUNK):
+        a1 = min(n, a0 + GAMMA_CHUNK)
+        keys = threefry.keys_at(key, _region_positions(
+            where, device, a0, a1) if where else torch.arange(
+                a0, a1, dtype=torch.int64, device=device))
+        res[a0:a1] = _gamma_batched(keys, alpha[a0:a1].contiguous(),
+                                    log_space)
+    return res.reshape(out)
 
 
-def jr_chisquare(key, shape, dtype, device, df):
-    half_df = _as_param(df, shape, dtype, device) / 2
-    return jr_gamma(key, shape, dtype, device, half_df, True).exp_().mul_(2)
+def jr_chisquare(key, shape, dtype, device, df, **where):
+    half_df = _as_param(df, _draw_shape(shape, where), dtype, device) / 2
+    return jr_gamma(key, shape, dtype, device, half_df, True,
+                    **where).exp_().mul_(2)
 
 
-def jr_beta(key, shape, dtype, device, a, b):
+def jr_beta(key, shape, dtype, device, a, b, **where):
     key_a, key_b = threefry.split(key)
-    lg_a = jr_gamma(key_a, shape, dtype, device, a, True)
-    lg_b = jr_gamma(key_b, shape, dtype, device, b, True)
+    lg_a = jr_gamma(key_a, shape, dtype, device, a, True, **where)
+    lg_b = jr_gamma(key_b, shape, dtype, device, b, True, **where)
     log_max = torch.maximum(lg_a, lg_b)
     ga = (lg_a - log_max).exp_()
     gb = (lg_b - log_max).exp_()
     return ga / (ga + gb)
 
 
-def jr_f(key, shape, dtype, device, dfnum, dfden):
+def jr_f(key, shape, dtype, device, dfnum, dfden, **where):
     key_dfd, key_dfn = threefry.split(key)
-    dfnum = _as_param(dfnum, shape, dtype, device)
-    dfden = _as_param(dfden, shape, dtype, device)
-    chi2_dfn = jr_chisquare(key_dfn, shape, dtype, device, dfnum)
-    chi2_dfd = jr_chisquare(key_dfd, shape, dtype, device, dfden)
+    out = _draw_shape(shape, where)
+    dfnum = _as_param(dfnum, out, dtype, device)
+    dfden = _as_param(dfden, out, dtype, device)
+    chi2_dfn = jr_chisquare(key_dfn, shape, dtype, device, dfnum, **where)
+    chi2_dfd = jr_chisquare(key_dfd, shape, dtype, device, dfden, **where)
     return (chi2_dfn / dfnum) / (chi2_dfd / dfden)
 
 
-def jr_t(key, shape, dtype, device, df):
+def jr_t(key, shape, dtype, device, df, **where):
     key_n, key_g = threefry.split(key)
-    n = jr_normal(key_n, shape, dtype, device)
-    half_df = _as_param(df, shape, dtype, device) / 2
-    g = jr_gamma(key_g, shape, dtype, device, half_df)
+    n = jr_normal(key_n, shape, dtype, device, **where)
+    half_df = _as_param(df, _draw_shape(shape, where), dtype, device) / 2
+    g = jr_gamma(key_g, shape, dtype, device, half_df, **where)
     return n * torch.sqrt(half_df / g)
 
 
-def jr_dirichlet(key, shape, dtype, device, alpha):
-    """``alpha`` is a (..., n) tensor; the result ``shape + (n,)``."""
+def jr_dirichlet(key, shape, dtype, device, alpha, region=None):
+    """``alpha`` is a (..., n) tensor; the result ``shape + (n,)``. With
+    ``region`` (a box of the result) only the box's rows are drawn, each
+    whole (a row is normalized over its n gammas), and the box is cut from
+    them: bit for bit the box of the whole draw."""
     alpha = alpha.to(dtype)
     full = tuple(shape) + tuple(alpha.shape[-1:])
-    log_g = jr_gamma(key, full, dtype, device, alpha, True)
+    if region is None:
+        log_g = jr_gamma(key, full, dtype, device, alpha, True)
+    else:
+        rows = tuple((int(a), int(b)) for a, b in region[:-1]) + (
+            (0, full[-1]),)
+        box = tuple(b - a for a, b in rows)
+        if 0 in box:
+            return torch.empty(tuple(b - a for a, b in region), dtype=dtype,
+                               device=device)
+        where = region_where(full, rows, device)
+        a_box = alpha.broadcast_to(full)[tuple(slice(a, b) for a, b in rows)]
+        log_g = jr_gamma(key, full, dtype, device, a_box.reshape(
+            _draw_shape(full, where)), True, **where).reshape(box)
     un = (log_g - log_g.max(dim=-1, keepdim=True).values).exp_()
-    return un / un.sum(dim=-1, keepdim=True)
+    out = un / un.sum(dim=-1, keepdim=True)
+    if region is not None:
+        out = out[..., int(region[-1][0]):int(region[-1][1])]
+    return out
 
 
-def jr_wald(key, shape, dtype, device, mean):
+def jr_wald(key, shape, dtype, device, mean, **where):
     npdt = _np_float(dtype)
     k1, k2 = threefry.split(key)
     mean = npdt(mean)
     mean_sq = mean * mean
-    v = jr_normal(k1, shape, dtype, device)
-    z = jr_uniform(k2, shape, dtype, device)
+    v = jr_normal(k1, shape, dtype, device, **where)
+    z = jr_uniform(k2, shape, dtype, device, **where)
     y = v * v
     y_sq = y * y
     sqrt_term = torch.sqrt(float(npdt(4) * mean) * y + float(mean_sq) * y_sq)
@@ -759,10 +829,17 @@ def jr_multivariate_normal(key, mean, cov, shape, dtype, device):
 # ---------------------------------------------------------------------
 
 
-def _u(key, shape, dtype, device):
+def _u(key, shape, dtype, device, **where):
     # Uniform in (0, 1): avoids log(0) in inversion transforms.
     tiny = float(np.finfo(_np_float(dtype)).tiny)
-    return jr_uniform(key, shape, dtype, device, tiny, 1.0)
+    return jr_uniform(key, shape, dtype, device, tiny, 1.0, **where)
+
+
+def _root(x, x64, a):
+    """x^(1/a) in place, as exp(log(x)/a): torch's CPU ``pow`` rounds the
+    tail of a tensor apart from its vectorized body, so a region of a draw
+    would not be that region of the whole draw bit for bit."""
+    return x.log_().mul_(float(1.0 / _scalar(x64, a))).exp_()
 
 
 def _affine(x, loc, scale):
@@ -770,77 +847,6 @@ def _affine(x, loc, scale):
     return x.mul_(scale).add_(loc)
 
 
-# Each impl: fn(key, shape, dtype, device, x64, *params) -> tensor of
-# `shape`/`dtype` on `device`.
-_DISTS = {
-    "random": lambda key, shape, dtype, device, x64: jr_uniform(
-        key, shape, dtype, device),
-    "uniform": lambda key, shape, dtype, device, x64, low, high: jr_uniform(
-        key, shape, dtype, device, low, high),
-    "normal": lambda key, shape, dtype, device, x64, loc, scale: _affine(
-        jr_normal(key, shape, dtype, device), loc, scale),
-    "beta": lambda key, shape, dtype, device, x64, a, b: jr_beta(
-        key, shape, dtype, device, a, b),
-    "binomial": lambda key, shape, dtype, device, x64, n, p: jr_binomial(
-        key, shape, dtype, device, x64, n, p),
-    "chisquare": lambda key, shape, dtype, device, x64, df: jr_chisquare(
-        key, shape, dtype, device, df),
-    "exponential": lambda key, shape, dtype, device, x64, scale:
-        jr_exponential(key, shape, dtype, device).mul_(scale),
-    "f": lambda key, shape, dtype, device, x64, dfnum, dfden: jr_f(
-        key, shape, dtype, device, dfnum, dfden),
-    "gamma": lambda key, shape, dtype, device, x64, k, theta: jr_gamma(
-        key, shape, dtype, device, k).mul_(theta),
-    "geometric": lambda key, shape, dtype, device, x64, p: jr_geometric(
-        key, shape, device, x64, p).to(dtype),
-    "gumbel": lambda key, shape, dtype, device, x64, loc, scale: _affine(
-        jr_gumbel(key, shape, dtype, device), loc, scale),
-    "laplace": lambda key, shape, dtype, device, x64, loc, scale: _affine(
-        jr_laplace(key, shape, dtype, device), loc, scale),
-    "logistic": lambda key, shape, dtype, device, x64, loc, scale: _affine(
-        jr_logistic(key, shape, dtype, device), loc, scale),
-    "lognormal": lambda key, shape, dtype, device, x64, mean, sigma: _affine(
-        jr_normal(key, shape, dtype, device), mean, sigma).exp_(),
-    # NumPy's pareto is the Lomax (Pareto-II minus 1).
-    "pareto": lambda key, shape, dtype, device, x64, a: jr_pareto(
-        key, shape, dtype, device, a).sub_(1.0),
-    "poisson": lambda key, shape, dtype, device, x64, lam: jr_poisson(
-        key, shape, device, x64, lam).to(dtype),
-    # power(a): density a·x^(a-1) on [0,1] == U^(1/a).
-    "power": lambda key, shape, dtype, device, x64, a: _u(
-        key, shape, dtype, device).pow_(float(1.0 / _scalar(x64, a))),
-    "rayleigh": lambda key, shape, dtype, device, x64, scale: jr_rayleigh(
-        key, shape, dtype, device, scale),
-    "standard_cauchy": lambda key, shape, dtype, device, x64: jr_cauchy(
-        key, shape, dtype, device),
-    "standard_t": lambda key, shape, dtype, device, x64, df: jr_t(
-        key, shape, dtype, device, df),
-    "triangular": lambda key, shape, dtype, device, x64, left, mode, right:
-        jr_triangular(key, shape, dtype, device, x64, left, mode, right),
-    # jr_wald(mean) is IG(mean, lambda=1); c*IG(mu, 1) = IG(c*mu, c), so
-    # numpy's IG(mean, scale) is scale * IG(mean/scale, 1).
-    "wald": lambda key, shape, dtype, device, x64, mean, scale: jr_wald(
-        key, shape, dtype, device,
-        _scalar(x64, mean) / _scalar(x64, scale)).mul_(scale),
-    # NumPy weibull(a): scale-1 Weibull == (-ln U)^(1/a).
-    "weibull": lambda key, shape, dtype, device, x64, a: _u(
-        key, shape, dtype, device).log_().neg_().pow_(
-            float(1.0 / _scalar(x64, a))),
-    # negative_binomial(n, p) == Poisson(Gamma(n, (1-p)/p)).
-    "negative_binomial": lambda key, shape, dtype, device, x64, n, p:
-        _negative_binomial(key, shape, dtype, device, x64, n, p),
-    "noncentral_chisquare": lambda key, shape, dtype, device, x64, df, nonc:
-        _noncentral_chisquare(key, shape, dtype, device, x64, df, nonc),
-    "noncentral_f": lambda key, shape, dtype, device, x64, dfnum, dfden, nonc:
-        _noncentral_f(key, shape, dtype, device, x64, dfnum, dfden, nonc),
-    # Fixed-round rejection and inversion samplers.
-    "vonmises": lambda key, shape, dtype, device, x64, mu, kappa: _vonmises(
-        key, shape, dtype, device, mu, kappa),
-    "zipf": lambda key, shape, dtype, device, x64, a: _zipf(
-        key, shape, dtype, device, x64, a),
-    "logseries": lambda key, shape, dtype, device, x64, p: _logseries(
-        key, shape, dtype, device, x64, p),
-}
 
 
 def _scalar(x64, value):
@@ -852,14 +858,17 @@ def _scalar(x64, value):
 _REJECTION_ROUNDS = 32  # per-element failure prob < 1e-9 for our samplers
 
 
-def _rejection_sample(key, shape, dtype, device, propose_accept, fallback):
+def _rejection_sample(key, shape, dtype, device, propose_accept, fallback,
+                      where=None):
     """Fixed-round rejection sampling: ``propose_accept(subkey) ->
     (proposal, accepted_mask)``; an element keeps its FIRST accepted
     proposal, and after ``_REJECTION_ROUNDS`` rounds any still-unaccepted
     element (probability ~1e-9) takes ``fallback``. Round i's key is
-    ``fold_in(key, i)``."""
-    out = torch.full(shape, fallback, dtype=dtype, device=device)
-    done = torch.zeros(shape, dtype=torch.bool, device=device)
+    ``fold_in(key, i)``. Each element's rounds are its own, so a region
+    (``where``) draws as that region of the whole."""
+    out = torch.full(_draw_shape(shape, where), fallback, dtype=dtype,
+                     device=device)
+    done = torch.zeros(out.shape, dtype=torch.bool, device=device)
     for i in range(_REJECTION_ROUNDS):
         proposal, accept = propose_accept(threefry.fold_in(key, i))
         out = torch.where(accept & ~done, proposal, out)
@@ -867,7 +876,7 @@ def _rejection_sample(key, shape, dtype, device, propose_accept, fallback):
     return out
 
 
-def _vonmises(key, shape, dtype, device, mu, kappa):
+def _vonmises(key, shape, dtype, device, mu, kappa, **where):
     """Best–Fisher (1979) rejection sampler for the von Mises circle."""
     npdt = _np_float(dtype)
     kappa = max(npdt(kappa), npdt(1e-8))
@@ -879,9 +888,9 @@ def _vonmises(key, shape, dtype, device, mu, kappa):
 
     def propose(sub):
         k1, k2, k3 = threefry.split(sub, 3)
-        u1 = jr_uniform(k1, shape, dtype, device, 1e-7, 1.0)
-        u2 = jr_uniform(k2, shape, dtype, device, 1e-7, 1.0)
-        u3 = jr_uniform(k3, shape, dtype, device)
+        u1 = jr_uniform(k1, shape, dtype, device, 1e-7, 1.0, **where)
+        u2 = jr_uniform(k2, shape, dtype, device, 1e-7, 1.0, **where)
+        u3 = jr_uniform(k3, shape, dtype, device, **where)
         z = torch.cos(pi * u1)
         f = (1.0 + r * z) / (r + z)
         c = kappa * (r - f)
@@ -891,12 +900,13 @@ def _vonmises(key, shape, dtype, device, mu, kappa):
         theta = torch.where(u3 < 0.5, -acos_f, acos_f)
         return mu + theta, accept
 
-    raw = _rejection_sample(key, shape, dtype, device, propose, 0.0)
+    raw = _rejection_sample(key, shape, dtype, device, propose, 0.0,
+                            where)
     # wrap to [-pi, pi) like np.random.vonmises
     return torch.remainder(raw + pi, float(npdt(2.0) * npdt(np.pi))) - pi
 
 
-def _zipf(key, shape, dtype, device, x64, a):
+def _zipf(key, shape, dtype, device, x64, a, **where):
     """Devroye's rejection sampler for the Zipf(a) distribution."""
     am1 = _scalar(x64, a) - 1.0
     b = 2.0 ** am1
@@ -905,25 +915,26 @@ def _zipf(key, shape, dtype, device, x64, a):
 
     def propose(sub):
         k1, k2 = threefry.split(sub)
-        u = jr_uniform(k1, shape, torch.float32, device, 1e-7, 1.0)
-        v = jr_uniform(k2, shape, torch.float32, device)
+        u = jr_uniform(k1, shape, torch.float32, device, 1e-7, 1.0, **where)
+        v = jr_uniform(k2, shape, torch.float32, device, **where)
         # cap x to avoid overflow; tail mass beyond 1e9 is negligible
         x = torch.floor(torch.clamp(u.pow_(exponent), max=1e9))
         t = (1.0 + 1.0 / x).pow_(am1_f)
         accept = v * x * (t - 1.0) / bm1_f <= t / b_f
         return x.to(dtype), accept
 
-    return _rejection_sample(key, shape, dtype, device, propose, 1.0)
+    return _rejection_sample(key, shape, dtype, device, propose, 1.0,
+                             where)
 
 
-def _logseries(key, shape, dtype, device, x64, p):
+def _logseries(key, shape, dtype, device, x64, p, **where):
     """Kemp's inversion sampler for the log-series distribution."""
     k1, k2 = threefry.split(key)
     p = _scalar(x64, p)
     r = float(np.log1p(-p))
     p = float(p)
-    v = jr_uniform(k1, shape, torch.float32, device, 1e-7, 1.0)
-    u = jr_uniform(k2, shape, torch.float32, device, 1e-7, 1.0)
+    v = jr_uniform(k1, shape, torch.float32, device, 1e-7, 1.0, **where)
+    u = jr_uniform(k2, shape, torch.float32, device, 1e-7, 1.0, **where)
     q = u.mul_(r).expm1_().neg_()
     # Kemp's branch order: V>=p -> 1; V<=q^2 -> floor(1+lnV/lnq);
     # V>=q -> 1; else -> 2.
@@ -1019,17 +1030,117 @@ def sample(dist_name: str, key, shape: tuple, dtype: torch.dtype, device,
                              device, x64, *params)
 
 
-# The samplers whose value at a flat position depends on the bits at that
-# position alone: a region of the array is drawn by itself (``where``: the
-# ``flat_range`` or ``runs`` keyword of the draw).
+# The samplers whose value at a flat position depends on that position
+# alone (its bits, its key of a split, its own rounds of a fixed-round
+# rejection): a region of the array is drawn by itself (``where``: the
+# ``flat_range`` or ``runs`` keyword of the draw), bit for bit that region
+# of the whole draw. Each entry: fn(key, shape, dtype, device, x64, where,
+# *params).
 _FLAT = {
-    "random": lambda key, shape, dtype, device, where: jr_uniform(
+    "random": lambda key, shape, dtype, device, x64, where: jr_uniform(
         key, shape, dtype, device, **where),
-    "uniform": lambda key, shape, dtype, device, where, low, high:
+    "uniform": lambda key, shape, dtype, device, x64, where, low, high:
         jr_uniform(key, shape, dtype, device, low, high, **where),
-    "normal": lambda key, shape, dtype, device, where, loc, scale: _affine(
-        jr_normal(key, shape, dtype, device, **where), loc, scale),
+    "normal": lambda key, shape, dtype, device, x64, where, loc, scale:
+        _affine(jr_normal(key, shape, dtype, device, **where), loc, scale),
+    "exponential": lambda key, shape, dtype, device, x64, where, scale:
+        jr_exponential(key, shape, dtype, device, **where).mul_(scale),
+    "gumbel": lambda key, shape, dtype, device, x64, where, loc, scale:
+        _affine(jr_gumbel(key, shape, dtype, device, **where), loc, scale),
+    "laplace": lambda key, shape, dtype, device, x64, where, loc, scale:
+        _affine(jr_laplace(key, shape, dtype, device, **where), loc, scale),
+    "logistic": lambda key, shape, dtype, device, x64, where, loc, scale:
+        _affine(jr_logistic(key, shape, dtype, device, **where), loc,
+                scale),
+    "lognormal": lambda key, shape, dtype, device, x64, where, mean, sigma:
+        _affine(jr_normal(key, shape, dtype, device, **where), mean,
+                sigma).exp_(),
+    # NumPy's pareto is the Lomax (Pareto-II minus 1).
+    "pareto": lambda key, shape, dtype, device, x64, where, a: jr_pareto(
+        key, shape, dtype, device, a, **where).sub_(1.0),
+    # power(a): density a·x^(a-1) on [0,1] == U^(1/a).
+    "power": lambda key, shape, dtype, device, x64, where, a: _root(_u(
+        key, shape, dtype, device, **where), x64, a),
+    "rayleigh": lambda key, shape, dtype, device, x64, where, scale:
+        jr_rayleigh(key, shape, dtype, device, scale, **where),
+    "standard_cauchy": lambda key, shape, dtype, device, x64, where:
+        jr_cauchy(key, shape, dtype, device, **where),
+    "triangular": lambda key, shape, dtype, device, x64, where, left, mode,
+        right: jr_triangular(key, shape, dtype, device, x64, left, mode,
+                             right, **where),
+    # jr_wald(mean) is IG(mean, lambda=1); c*IG(mu, 1) = IG(c*mu, c), so
+    # numpy's IG(mean, scale) is scale * IG(mean/scale, 1).
+    "wald": lambda key, shape, dtype, device, x64, where, mean, scale:
+        jr_wald(key, shape, dtype, device,
+                _scalar(x64, mean) / _scalar(x64, scale), **where).mul_(
+                    scale),
+    # NumPy weibull(a): scale-1 Weibull == (-ln U)^(1/a).
+    "weibull": lambda key, shape, dtype, device, x64, where, a: _root(_u(
+        key, shape, dtype, device, **where).log_().neg_(), x64, a),
+    "geometric": lambda key, shape, dtype, device, x64, where, p:
+        jr_geometric(key, shape, device, x64, p, **where).to(dtype),
+    "gamma": lambda key, shape, dtype, device, x64, where, k, theta:
+        jr_gamma(key, shape, dtype, device, k, **where).mul_(theta),
+    "chisquare": lambda key, shape, dtype, device, x64, where, df:
+        jr_chisquare(key, shape, dtype, device, df, **where),
+    "beta": lambda key, shape, dtype, device, x64, where, a, b: jr_beta(
+        key, shape, dtype, device, a, b, **where),
+    "f": lambda key, shape, dtype, device, x64, where, dfnum, dfden: jr_f(
+        key, shape, dtype, device, dfnum, dfden, **where),
+    "standard_t": lambda key, shape, dtype, device, x64, where, df: jr_t(
+        key, shape, dtype, device, df, **where),
+    # Fixed-round rejection and inversion samplers.
+    "vonmises": lambda key, shape, dtype, device, x64, where, mu, kappa:
+        _vonmises(key, shape, dtype, device, mu, kappa, **where),
+    "zipf": lambda key, shape, dtype, device, x64, where, a: _zipf(
+        key, shape, dtype, device, x64, a, **where),
+    "logseries": lambda key, shape, dtype, device, x64, where, p:
+        _logseries(key, shape, dtype, device, x64, p, **where),
 }
+
+# The samplers that are not position-wise, each with the reason from
+# jax's algorithm: a sharded draw of them raises ``NotImplementedError``
+# naming the sampler (a process never draws the whole array to keep a
+# shard of it).
+NOT_POSITION_WISE = {
+    "poisson": "Hörmann's rejection (lam >= 10) loops over the whole array "
+               "until every element is accepted and keeps each element's "
+               "LAST accepted proposal, so an element's value depends on "
+               "how many rounds the slowest element of the array needs",
+    "binomial": "the BTRS rejection (n·min(p, 1-p) > 10) keeps the last "
+                "accepted proposal of a loop over the whole array, as "
+                "Poisson's does",
+    "negative_binomial": "a Poisson draw whose rate is a gamma draw: the "
+                         "rates of 10 and more take Poisson's whole-array "
+                         "rejection loop",
+    "noncentral_chisquare": "its df <= 1 regime is a Poisson mixture "
+                            "(Poisson's whole-array rejection loop)",
+    "noncentral_f": "built on noncentral_chisquare",
+}
+
+
+def _whole(fn):
+    return lambda key, shape, dtype, device, x64, *params: fn(
+        key, shape, dtype, device, x64, {}, *params)
+
+
+# Each impl: fn(key, shape, dtype, device, x64, *params) -> tensor of
+# `shape`/`dtype` on `device` (a position-wise sampler: its ``_FLAT``
+# entry drawing everywhere).
+_DISTS = {name: _whole(fn) for name, fn in _FLAT.items()}
+_DISTS.update({
+    "binomial": lambda key, shape, dtype, device, x64, n, p: jr_binomial(
+        key, shape, dtype, device, x64, n, p),
+    "poisson": lambda key, shape, dtype, device, x64, lam: jr_poisson(
+        key, shape, device, x64, lam).to(dtype),
+    # negative_binomial(n, p) == Poisson(Gamma(n, (1-p)/p)).
+    "negative_binomial": lambda key, shape, dtype, device, x64, n, p:
+        _negative_binomial(key, shape, dtype, device, x64, n, p),
+    "noncentral_chisquare": lambda key, shape, dtype, device, x64, df, nonc:
+        _noncentral_chisquare(key, shape, dtype, device, x64, df, nonc),
+    "noncentral_f": lambda key, shape, dtype, device, x64, dfnum, dfden, nonc:
+        _noncentral_f(key, shape, dtype, device, x64, dfnum, dfden, nonc),
+})
 
 
 def sample_region(dist_name: str, key, shape: tuple, region, dtype, device,
@@ -1050,40 +1161,48 @@ def sample_region(dist_name: str, key, shape: tuple, region, dtype, device,
         if out_shape == shape:
             return sample(dist_name, key, shape, dtype, device, x64,
                           *params)
+        why = NOT_POSITION_WISE.get(dist_name, "not position-wise")
         raise NotImplementedError(
-            f"{dist_name}: a shard of this draw is not drawn alone (the "
-            "sampler is not position-wise; the mesh backend's draw of it "
-            "is not ported)")
+            f"{dist_name}: a shard of this draw is not drawn alone (jax's "
+            f"algorithm is not position-wise: {why})")
     fn = _FLAT[dist_name]
     if 0 in out_shape:
         return torch.empty(out_shape, dtype=dtype, device=device)
+    return fn(key, shape, dtype, device, x64, region_where(
+        shape, region, device), *params).reshape(out_shape)
+
+
+def region_where(shape, region, device):
+    """The ``where`` keyword of a draw of the box ``region`` of ``shape``:
+    one ``flat_range`` for whole rows, else ``runs`` (one range per
+    combination of the leading indices, up to the last axis that is not
+    whole)."""
     partial = [k for k, ((a, b), s) in enumerate(zip(region, shape))
                if b - a != s]
     last = partial[-1] if partial else 0
     stride = [_size(shape[k + 1:]) for k in range(len(shape))]
     if last == 0:
         start = region[0][0] * stride[0] if shape else 0
-        where = {"flat_range": (start, start + _size(out_shape))}
-        return fn(key, shape, dtype, device, where, *params).reshape(
-            out_shape)
+        return {"flat_range": (start, start + _size(
+            [b - a for a, b in region]))}
     starts = torch.zeros((), dtype=torch.int64, device=device)
     for k in range(last):
         idx = torch.arange(*region[k], dtype=torch.int64, device=device)
         starts = (starts[..., None] + idx * stride[k]).reshape(-1)
     starts = starts + region[last][0] * stride[last]
     length = (region[last][1] - region[last][0]) * stride[last]
-    where = {"runs": (starts.reshape(-1), length)}
-    return fn(key, shape, dtype, device, where, *params).reshape(out_shape)
+    return {"runs": (starts.reshape(-1), length)}
 
 
 def integers(key, shape: tuple, dtype: torch.dtype, device, x64: bool,
-             low: int, high: int, endpoint: bool):
+             low: int, high: int, endpoint: bool, region=None):
     """Integers in [low, high), or [low, high] with ``endpoint``.
 
     Without ``x64`` an int64 request draws through the 32-bit path (the
     reference's int64 is int32 there) and the values are widened to int64
     afterwards; a bound outside int32 then raises ``OverflowError``, as
-    the reference's does."""
+    the reference's does. With ``region`` (a box, as ``sample_region``'s)
+    only that box is drawn, bit for bit the box of the whole draw."""
     draw_dtype = dtype
     if not x64 and dtype == torch.int64:
         draw_dtype = torch.int32
@@ -1092,14 +1211,29 @@ def integers(key, shape: tuple, dtype: torch.dtype, device, x64: bool,
                 raise OverflowError(
                     f"integer bound {bound} does not fit the 32-bit integers "
                     "of this backend")
+    where = {}
+    if region is not None:
+        region = tuple((int(a), int(b)) for a, b in region)
+        out_shape = tuple(b - a for a, b in region)
+        if 0 in out_shape:
+            return torch.empty(out_shape, dtype=dtype, device=device)
+        where = region_where(tuple(shape), region, device)
     if endpoint:
         # Draw on [low-1, high) and add 1: high+1 would overflow to the
         # dtype minimum when high is the dtype max, inverting the range.
-        draws = jr_randint(key, shape, low - 1, high, draw_dtype, device, x64)
+        draws = jr_randint(key, shape, low - 1, high, draw_dtype, device, x64,
+                           **where)
         draws = _wrap_signed(draws.to(torch.int64).add_(1),
                              torch.iinfo(draw_dtype).bits)
-        return draws.to(dtype)
-    return jr_randint(key, shape, low, high, draw_dtype, device, x64).to(dtype)
+        return _as_box(draws.to(dtype), region)
+    return _as_box(jr_randint(key, shape, low, high, draw_dtype, device, x64,
+                              **where).to(dtype), region)
+
+
+def _as_box(t, region):
+    """A region draw in the box's shape (a whole draw as it is)."""
+    return t if region is None else t.reshape(tuple(b - a for a, b in
+                                                    region))
 
 
 def permutation(key, n: int, device):

@@ -61,6 +61,14 @@ def reduce(op_name: str, x, axis, keepdims: bool, dtype=None):
         dtype = inexact_dtype(x.dtype)  # the mean of integers is a float
     if x.ndim == 0:
         out = x
+    elif op_name == "mean" and _sharded_along(x, _dims(axis, x.ndim)):
+        # DTensor's mean of uneven shards gathers the operand whole: the
+        # sum of each process's part (all-reduced) over the count
+        dims = _dims(axis, x.ndim)
+        count = 1
+        for d in dims:
+            count *= int(x.shape[d])
+        out = torch.sum(x, dim=dims, keepdim=keepdims, dtype=dtype) / count
     elif dtype is not None and op_name in _DTYPE_AWARE:
         out = fn(x, dim=_dims(axis, x.ndim), keepdim=keepdims, dtype=dtype)
     else:
@@ -76,7 +84,25 @@ def moment(op_name: str, x, axis, ddof: int, keepdims: bool, dtype=None):
     x = x.to(dtype if dtype is not None else inexact_dtype(x.dtype))
     if x.ndim == 0:
         return fn(x.reshape(1), dim=(0,), correction=ddof, keepdim=False)
-    return fn(x, dim=_dims(axis, x.ndim), correction=ddof, keepdim=keepdims)
+    dims = _dims(axis, x.ndim)
+    if _sharded_along(x, dims) and not x.is_complex():
+        # DTensor's var gathers the operand whole; these are sums of each
+        # process's part (all-reduced) and one deviation the part's size
+        count = 1
+        for d in dims:
+            count *= int(x.shape[d])
+        dev = x - x.sum(dim=dims, keepdim=True) / count
+        var = dev.square_().sum(dim=dims, keepdim=keepdims) / (count - ddof)
+        return var if op_name == "var" else torch.sqrt(var)
+    return fn(x, dim=dims, correction=ddof, keepdim=keepdims)
+
+
+def _sharded_along(x, dims):
+    """Whether the DTensor ``x`` is split over several processes along
+    one of ``dims`` (False for a plain tensor)."""
+    placements = getattr(x, "placements", ())
+    return any(p.is_shard() and p.dim in dims and x.device_mesh.size(k) > 1
+               for k, p in enumerate(placements))
 
 
 def arg_op(op_name: str, x, axis):

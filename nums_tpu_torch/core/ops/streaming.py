@@ -28,6 +28,7 @@ rows, and no min or max is taken of nothing.
 
 import torch
 
+from nums_tpu_torch.core import multiprocess
 from nums_tpu_torch.core.ops import cuda_gram, cuda_newton
 from nums_tpu_torch.core.ops import linalg as _linalg
 from nums_tpu_torch.core.ops import summa
@@ -162,7 +163,7 @@ def tsqr_r_combine(mesh, chunk, R):
     if mesh is None or mesh.size() == 1:
         return R
     parts = [torch.empty_like(R) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, R.contiguous())
+    dist.all_gather(parts, multiprocess.sent("all_gather", R.contiguous()))
     return _linalg._tsqr_r_impl(torch.cat(parts, dim=0), chunk)
 
 

@@ -33,6 +33,7 @@ off): the gram kernel on each process's rows and one all-reduce.
 import torch
 import torch.distributed as dist
 
+from nums_tpu_torch.core import multiprocess
 from nums_tpu_torch.core.grid import cdiv
 from nums_tpu_torch.core.ops import cuda_gram, linear
 
@@ -147,7 +148,8 @@ def _spec(backend, *dims):
 def local_part(t, placements):
     """The DTensor ``t``'s region under ``placements`` on this process."""
     if tuple(t.placements) != tuple(placements):
-        t = t.redistribute(t.device_mesh, placements)
+        t = multiprocess.sent_moved(t, t.redistribute(t.device_mesh,
+                                                      placements))
     return t.to_local()
 
 
@@ -168,7 +170,9 @@ def all_reduce_rows(mesh, rows, tensor, op=None):
     op = dist.ReduceOp.SUM if op is None else op
     for j, p in enumerate(rows):
         if p.is_shard() and mesh.size(j) > 1:
-            dist.all_reduce(tensor, op=op, group=mesh.get_group(j))
+            dist.all_reduce(multiprocess.sent("all_reduce", tensor,
+                                              mesh.get_group(j)),
+                            op=op, group=mesh.get_group(j))
     return tensor
 
 
@@ -236,8 +240,9 @@ def tn_matmul(backend, a_raw, b, same=False):
     p = backend.device_grid.mesh_shape[0]
     c = cdiv(m, p)
     out = partial.new_empty((c, n))
-    dist.reduce_scatter_tensor(out, _pad_rows(partial, p * c),
-                               group=backend.mesh.get_group(0))
+    group = backend.mesh.get_group(0)
+    dist.reduce_scatter_tensor(out, multiprocess.sent(
+        "reduce_scatter", _pad_rows(partial, p * c), group), group=group)
     del partial
     box = backend.region((m, n), spec)
     local = out[:box[0][1] - box[0][0]]
@@ -256,8 +261,9 @@ def nt_matmul(backend, a, b_raw):
     p = backend.device_grid.mesh_shape[0]
     c = cdiv(n, p)
     panel = b_loc.new_empty((p * c, k))
-    dist.all_gather_into_tensor(panel, _pad_rows(b_loc, c),
-                                group=backend.mesh.get_group(0))
+    group = backend.mesh.get_group(0)
+    dist.all_gather_into_tensor(panel, multiprocess.sent(
+        "all_gather", _pad_rows(b_loc, c), group), group=group)
     local = _product(a_loc, panel[:n].T)
     return backend.from_local(local, (a.shape[0], n), spec)
 
@@ -316,12 +322,15 @@ def summa_matmul(backend, a, b):
         a_pad = a_loc.new_zeros((a_loc.shape[0], kc1))
         a_pad[:, :a_loc.shape[1]] = a_loc
     parts = a_loc.new_empty((p1 * a_loc.shape[0], kc1))
-    dist.all_gather_into_tensor(parts, a_pad, group=backend.mesh.get_group(1))
+    g1 = backend.mesh.get_group(1)
+    dist.all_gather_into_tensor(parts, multiprocess.sent("all_gather", a_pad,
+                                                         g1), group=g1)
     del a_pad
     parts = parts.view(p1, a_loc.shape[0], kc1)
     panel = b_loc.new_empty((p0 * kc0, b_loc.shape[1]))
-    dist.all_gather_into_tensor(panel, _pad_rows(b_loc, kc0),
-                                group=backend.mesh.get_group(0))
+    g0 = backend.mesh.get_group(0)
+    dist.all_gather_into_tensor(panel, multiprocess.sent(
+        "all_gather", _pad_rows(b_loc, kc0), g0), group=g0)
     acc = a_loc.new_zeros((a_loc.shape[0], b_loc.shape[1]))
     for j in range(p1):
         lo, hi = min(j * kc1, k), min((j + 1) * kc1, k)

@@ -206,19 +206,21 @@ def fill_runs(key, out, width: int, starts, transform=None,
     a column shard of a mesh holds them. ``transform`` as in
     ``fill_bits``."""
     rows, length = out.shape
+    several = isinstance(key, list)
     step = max(1, (chunk or CHUNK) // max(length, 1))
     cols = torch.arange(length, dtype=torch.int64, device=out.device)
     for a in range(0, rows, step):
         b = min(a + step, rows)
         pos = (starts[a:b, None] + cols[None, :]).reshape(-1)
         # The low word as its int32 bit pattern (int64 -> int32 keeps the
-        # low 32 bits), the high word as it is.
-        words = _threefry_inplace(key[0], key[1],
-                                  (pos >> 32).to(torch.int32),
-                                  pos.to(torch.int32))
-        bits = _pack(*words, width)
-        out[a:b] = (bits if transform is None
-                    else transform(bits)).reshape(b - a, length)
+        # low 32 bits), the high word as it is; a list of keys gives the
+        # transform the list of their bits, as ``fill_bits``.
+        bits = [_pack(*_threefry_inplace(k[0], k[1],
+                                         (pos >> 32).to(torch.int32),
+                                         pos.to(torch.int32)), width)
+                for k in (key if several else [key])]
+        out[a:b] = (bits[0] if transform is None else transform(
+            bits if several else bits[0])).reshape(b - a, length)
     return out
 
 
@@ -259,6 +261,14 @@ def split_keys(key, n: int, device):
         k0[a:b] = w0
         k1[a:b] = w1
     return k0, k1
+
+
+def keys_at(key, positions):
+    """The keys ``split(key, n)[i]`` at the given flat positions (an int64
+    tensor, any n beyond them) as a batched key: a region of a split."""
+    pos = positions.reshape(-1)
+    return _threefry_inplace(key[0], key[1], (pos >> 32).to(torch.int32),
+                             pos.to(torch.int32))
 
 
 def split_batched(keys, num: int = 2):

@@ -63,17 +63,75 @@ def _x64(backend) -> bool:
     return backend.default_float == np.float64
 
 
-def _plusplus_init(k, seed, x, xx, x64):
+class _Rows:
+    """Where a fit's rows lie: ``x`` holds rows ``[r0, r0 + len(x))`` of
+    ``n``, and the hooks that join the processes that hold the others.
+    Off the mesh (``backend`` None) every row is here and each hook is the
+    serial step itself; on the mesh the sums, the argmax and a chosen row
+    go over the processes of the row dimensions ``dims``."""
+
+    def __init__(self, n, r0=0, backend=None, dims=()):
+        self.n, self.r0, self.backend, self.dims = int(n), int(r0), \
+            backend, tuple(dims)
+
+    def reduce(self, t, op="sum"):
+        """``t`` replaced in place by its ``op`` over the processes."""
+        from nums_tpu_torch.core.ops import mesh_ops
+
+        if self.backend is None:
+            return t
+        return mesh_ops.group_reduce(self.backend, t, self.dims, op)
+
+    def argmax(self, score):
+        """The row of the largest ``score`` (this process's rows), the
+        first on ties, as ``argmax`` over every row: one all-reduce (MAX)
+        of the value and one (MIN) of the rows that hold it."""
+        if self.backend is None:
+            return torch.argmax(score)
+        big = torch.iinfo(torch.int64).max
+        if score.numel():
+            j = torch.argmax(score)
+            v = score[j].reshape(1)
+            row = (j + self.r0).reshape(1).to(torch.int64)
+        else:
+            v = torch.full((1,), float("-inf"), dtype=score.dtype,
+                           device=score.device)
+            row = torch.full((1,), big, dtype=torch.int64,
+                             device=score.device)
+        top = self.reduce(v.clone(), "max")
+        row = torch.where(v == top, row, torch.full_like(row, big))
+        return int(self.reduce(row, "min")[0])
+
+    def row(self, x, i):
+        """Row ``i`` (of all ``n``) on every process: its holder offers it,
+        the others zeros, and one all-reduce (SUM) adds them (exactly)."""
+        if self.backend is None:
+            return x[i.to(torch.int64)]
+        i = int(i)
+        out = torch.zeros((1, x.shape[1]), dtype=x.dtype, device=x.device)
+        if self.r0 <= i < self.r0 + x.shape[0]:
+            out[0] = x[i - self.r0]
+        return self.reduce(out)[0]
+
+    def flat_range(self, m):
+        """This process's positions of a draw over every row (None: all)."""
+        return None if m == self.n else (self.r0, self.r0 + m)
+
+
+def _plusplus_init(k, seed, x, xx, x64, rows=None):
     """k-means++ on the reference's draws: the first center at
     ``randint(fold_in(key, 0), (), 0, n)``, center i at the argmax of
-    log(d²) plus ``gumbel(fold_in(key, i), (n,))``."""
-    n = int(x.shape[0])
+    log(d²) plus ``gumbel(fold_in(key, i), (n,))``. ``rows`` (``_Rows``)
+    says which rows ``x`` holds; the centers are the same on every
+    process."""
+    rows = rows or _Rows(x.shape[0])
+    n, m = rows.n, int(x.shape[0])
     key = threefry.seed_key(seed, x64)
     int_dtype = torch.int64 if x64 else torch.int32
     first = random_ops.jr_randint(threefry.fold_in(key, 0), (), 0, n,
                                   int_dtype, x.device, x64)
     centers = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
-    centers[0] = x[first.to(torch.int64)]
+    centers[0] = rows.row(x, first)
     slots = torch.arange(k, device=x.device)
     for i in range(1, k):
         d2 = _dists2(x, centers, xx)
@@ -82,8 +140,9 @@ def _plusplus_init(k, seed, x, xx, x64):
                          torch.full_like(d2, float("inf"))).amin(dim=1)
         logits = torch.log(torch.clamp_min(d2, 1e-30))
         gumbel = random_ops.jr_gumbel(threefry.fold_in(key, i), (n,),
-                                      x.dtype, x.device)
-        centers[i] = x[torch.argmax(logits + gumbel)]
+                                      x.dtype, x.device,
+                                      flat_range=rows.flat_range(m))
+        centers[i] = rows.row(x, rows.argmax(logits + gumbel))
     return centers
 
 
@@ -123,19 +182,24 @@ def _update(centers, sums, counts):
     return new, shift
 
 
-def _fit(x, k, max_iter, tol, seed, x64):
-    """(centers, assign, inertia, n_iter) of the in-core fit."""
+def _fit(x, k, max_iter, tol, seed, x64, rows=None):
+    """(centers, assign, inertia, n_iter) of the in-core fit; ``rows``
+    (``_Rows``) as ``_plusplus_init``'s, the Lloyd sums, counts and
+    inertia summed over the processes."""
+    rows = rows or _Rows(x.shape[0])
     xx = _row_sq_norms(x)
-    centers = _plusplus_init(k, seed, x, xx, x64)
+    centers = _plusplus_init(k, seed, x, xx, x64, rows)
     it = 0
     while it < max_iter:
         _, sums, counts = _assign_stats(x, centers, k, xx)
-        centers, shift = _update(centers, sums, counts)
+        centers, shift = _update(centers, rows.reduce(sums),
+                                 rows.reduce(counts))
         it += 1
         if not bool(shift > tol):
             break
     assign = torch.argmin(_dists2(x, centers, xx), dim=1)
-    return centers, assign, _inertia(x, centers, assign), it
+    inertia = rows.reduce(_inertia(x, centers, assign).reshape(1))[0]
+    return centers, assign, inertia, it
 
 
 def _labels(assign, backend):
@@ -162,9 +226,22 @@ class KMeans:
         app = _instance()
         X = X if isinstance(X, BlockArray) else app.array(np.asarray(X))
         xd = X.data.to(torch.float32)
+        if X.backend.mesh is None:
+            x, rows = xd, _Rows(X.shape[0])
+        else:  # each process its own rows, every column
+            from nums_tpu_torch.core.ops import mesh_ops, summa
+
+            lay = summa.row_layout(xd)
+            x = summa.local_part(xd, lay)
+            rows = _Rows(X.shape[0],
+                         X.backend.region(tuple(xd.shape), lay)[0][0],
+                         X.backend, mesh_ops.shard_dims(lay, (0,)))
         centers, assign, inertia, it = _fit(
-            xd, self.n_clusters, self.max_iter, self.tol, self.seed,
-            _x64(X.backend))
+            x, self.n_clusters, self.max_iter, self.tol, self.seed,
+            _x64(X.backend), rows)
+        if X.backend.mesh is not None:
+            assign = X.backend.from_local(assign, (X.shape[0],),
+                                          mesh_ops.rows_only(lay))
         self.cluster_centers_ = BlockArray.from_torch(centers,
                                                       backend=X.backend)
         self.inertia_ = float(inertia)

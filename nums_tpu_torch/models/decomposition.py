@@ -54,12 +54,71 @@ def _flip(u, vt):
     entry of largest magnitude in each left-singular column is made
     positive, and the rows of vt flip to match, so u·diag(s)·vt is
     unchanged. ``u`` and ``vt`` are the SVD's own outputs; writing the
-    signs into them saves a second (n, d) tensor."""
+    signs into them saves a second (n, d) tensor. Where ``u`` holds only
+    the first k columns, vt's first k rows flip."""
+    from nums_tpu_torch.core.ops import mesh_ops
+
+    if mesh_ops.is_dtensor(u):
+        signs = _mesh_signs(u)
+        _scale_box(u, signs, 1)
+        _scale_box(vt, _pad_ones(signs, vt.shape[0]), 0)
+        return
     idx = u.abs().argmax(dim=0)
     signs = torch.sign(u[idx, torch.arange(u.shape[1], device=u.device)])
     signs = torch.where(signs == 0, torch.ones_like(signs), signs)
+    vt = vt[:signs.shape[0]]
     u.mul_(signs[None, :])
     vt.mul_(signs[:, None])
+
+
+def _mesh_signs(u):
+    """``_flip``'s signs of a row-sharded DTensor ``u``, whole on every
+    process: each process's largest |entry| of each column and its row;
+    one all-reduce (MAX) of the values, one (MIN) of the rows that reach
+    it (argmax's first row), one (SUM) of the winners' signs."""
+    from nums_tpu_torch.core.application_manager import instance
+    from nums_tpu_torch.core.ops import mesh_ops, summa
+
+    backend = instance().backend
+    rows = summa.row_layout(u)
+    ul = summa.local_part(u, rows)
+    dims = mesh_ops.shard_dims(rows, (0,))
+    r0 = backend.region(tuple(u.shape), rows)[0][0]
+    k = int(u.shape[1])
+    big = torch.iinfo(torch.int64).max
+    if ul.shape[0]:
+        idx = ul.abs().argmax(dim=0)
+        val = ul[idx, torch.arange(k, device=ul.device)]
+        top = val.abs()
+        row = idx + r0
+    else:
+        val = torch.zeros((k,), dtype=ul.dtype, device=ul.device)
+        top = torch.full((k,), -1.0, dtype=ul.dtype, device=ul.device)
+        row = torch.full((k,), big, dtype=torch.int64, device=ul.device)
+    best = mesh_ops.group_reduce(backend, top.clone(), dims, "max")
+    row = torch.where(top == best, row, torch.full_like(row, big))
+    win = mesh_ops.group_reduce(backend, row.clone(), dims, "min")
+    signs = torch.where(row == win, torch.sign(val), torch.zeros_like(val))
+    signs = mesh_ops.group_reduce(backend, signs, dims)
+    return torch.where(signs == 0, torch.ones_like(signs), signs)
+
+
+def _pad_ones(signs, n):
+    """``signs`` followed by ones, ``n`` in all."""
+    out = torch.ones((n,), dtype=signs.dtype, device=signs.device)
+    out[:signs.shape[0]] = signs
+    return out
+
+
+def _scale_box(t, signs, dim):
+    """``t`` (a DTensor) multiplied in place along ``dim`` by its box of
+    ``signs``."""
+    from nums_tpu_torch.core.application_manager import instance
+
+    a, b = instance().backend.region(tuple(t.shape), t.placements)[dim]
+    shape = [1, 1]
+    shape[dim] = b - a
+    t.to_local().mul_(signs[a:b].reshape(shape))
 
 
 class _BaseSVDModel:
@@ -78,11 +137,12 @@ class _BaseSVDModel:
         self.n_components_ = None
         self.n_samples_ = None
 
-    def _svd(self, X, k):
-        """The SVD of X with the deterministic sign fix: exact (TSQR) by
-        default, or the randomized sketch (``svd_solver='randomized'``),
-        which returns exactly k triplets, when k is below both
-        dimensions."""
+    def _svd(self, X, k, scratch=False):
+        """The SVD of X with the deterministic sign fix, U of k columns:
+        exact (TSQR) by default, or the randomized sketch
+        (``svd_solver='randomized'``), which returns exactly k triplets,
+        when k is below both dimensions. ``scratch``: X is the caller's
+        temporary, and the exact route may overwrite it."""
         app = _instance()
         if self.svd_solver == "randomized" and k < min(X.shape):
             u, s, vt = app.randomized_svd(
@@ -90,7 +150,7 @@ class _BaseSVDModel:
                 n_iter=self.power_iters, seed=self.seed,
             )
         else:
-            u, s, vt = app.svd(X)
+            u, s, vt = app.svd(X, k=k, overwrite_x=scratch)
         _flip(u.data, vt.data)
         return u, s, vt
 
@@ -343,8 +403,9 @@ class PCA(_BaseSVDModel):
         n, d = X.shape
         k = self._resolve_k(X)
         self.mean_ = app.mean(X, axis=0)
-        # The centered copy is never named here: it dies with the SVD.
-        u, s, vt = self._svd(X - self.mean_, k)
+        # The centered copy is never named here: the SVD overwrites it
+        # with Q, and it dies with the SVD.
+        u, s, vt = self._svd(X - self.mean_, k, scratch=True)
         self.n_samples_ = n
         self.n_components_ = k
         self.components_ = vt[:k]

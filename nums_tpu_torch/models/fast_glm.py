@@ -30,6 +30,7 @@ import math
 import numpy as np
 import torch
 
+from nums_tpu_torch.core import multiprocess
 from nums_tpu_torch.core.ops import cuda_gram, cuda_newton, summa
 from nums_tpu_torch.core.ops.linalg import posdef_solve as _posdef_solve
 
@@ -156,6 +157,35 @@ def newton_fit_mesh(X, y, beta0, tol, kind="logistic", max_iter=10,
                       kernels=kernels, reduce=mesh_reduce(X.device_mesh, rows))
 
 
+def mesh_rows(X, y, beta0, lambda_vec):
+    """A row-sharded fit's operands on this process: X's and y's rows (each
+    process's rows, every column), β₀ and λ whole, and the sum over the
+    processes that hold other rows (``summa.all_reduce_rows``)."""
+    rows = summa.row_layout(X)
+    lv = lambda_vec.full_tensor() if lambda_vec is not None else None
+    b0 = beta0.full_tensor() if hasattr(beta0, "full_tensor") else beta0
+    return (summa.local_part(X, rows), summa.local_part(y, rows), b0, lv,
+            lambda t: summa.all_reduce_rows(X.device_mesh, rows, t))
+
+
+def bfgs_fit_mesh(X, y, beta0, tol, **kwargs):
+    """``bfgs_fit`` on the mesh: each process's rows, the objective and
+    gradient summed over the processes (two all-reduces an evaluation);
+    the carry is whole, the same on every process."""
+    Xl, yl, b0, lv, reduce = mesh_rows(X, y, beta0,
+                                       kwargs.pop("lambda_vec", None))
+    return bfgs_fit(Xl, yl, b0, tol, lambda_vec=lv, reduce=reduce, **kwargs)
+
+
+def admm_fit_mesh(X, y, beta0, tol, **kwargs):
+    """``admm_fit`` on the mesh: each process's rows, XᵀX and Xᵀy (or each
+    Newton step's g and H) summed over the processes; the carry is whole,
+    the same on every process."""
+    Xl, yl, b0, lv, reduce = mesh_rows(X, y, beta0,
+                                       kwargs.pop("lambda_vec", None))
+    return admm_fit(Xl, yl, b0, tol, lambda_vec=lv, reduce=reduce, **kwargs)
+
+
 def mesh_reduce(mesh, rows):
     """(g, H) -> their sums over the processes that hold other rows
     (``rows``: ``summa.row_layout``'s placements): one all-reduce of g and
@@ -203,11 +233,14 @@ def _objective(kind, X, y, beta, lambda_vec):
 #    line_search.py: Nocedal & Wright, Algorithms 6.1, 3.5 and 3.6) --------
 
 
-def _value_and_grad(kind, X, y, lambda_vec):
+def _value_and_grad(kind, X, y, lambda_vec,
+                    reduce=multiprocess.one_process):
     """f(b) -> (objective, gradient) of ``_objective``, the gradient in
     closed form. The objective's sum accumulates in float64, so a float32
     objective over millions of rows keeps the digits that the line
-    search's tests compare (the reference sums in X's dtype)."""
+    search's tests compare (the reference sums in X's dtype). With
+    ``reduce`` (on the mesh: X and y are one process's rows) the row sums
+    are summed over the processes before the penalty."""
     f64 = torch.float64
 
     def value_and_grad(b):
@@ -227,6 +260,7 @@ def _value_and_grad(kind, X, y, lambda_vec):
         else:
             raise ValueError(kind)
         g = X.T @ deta
+        phi, g = reduce(phi.reshape(1))[0], reduce(g)
         if lambda_vec is not None:
             phi = phi + 0.5 * (lambda_vec * b * b).sum(dtype=f64)
             g = g + lambda_vec * b
@@ -360,7 +394,8 @@ def _line_search(value_and_grad, xk, pk, old_fval, old_old_fval, gfk,
 
 
 def bfgs_fit(X, y, beta0, tol, kind="logistic", max_iter=100,
-             penalized=False, lambda_vec=None):
+             penalized=False, lambda_vec=None,
+             reduce=multiprocess.one_process):
     """Quasi-Newton fit: the BFGS algorithm of the reference's
     ``jax.scipy.optimize.minimize(method="BFGS")`` (inverse-Hessian
     update, kept where 1/(yᵀs) is not finite; a zoom line search under
@@ -383,7 +418,7 @@ def bfgs_fit(X, y, beta0, tol, kind="logistic", max_iter=100,
     convergence test). Iterates need not match the reference's step for
     step (its sums run in another order); the optimum does."""
     lv = lambda_vec if penalized else None
-    value_and_grad = _value_and_grad(kind, X, y, lv)
+    value_and_grad = _value_and_grad(kind, X, y, lv, reduce)
     d = beta0.shape[0]
     eye = torch.eye(d, dtype=beta0.dtype, device=beta0.device)
     x = beta0
@@ -482,7 +517,8 @@ def admm_fit_gram(G, q0, beta0, tol, max_iter=100, rho=1.0,
 
 
 def admm_fit(X, y, beta0, tol, kind="linear", max_iter=100, rho=1.0,
-             penalty="l1", lambda_vec=None, newton_steps=5, l1_ratio=0.5):
+             penalty="l1", lambda_vec=None, newton_steps=5, l1_ratio=0.5,
+             reduce=multiprocess.one_process):
     """ADMM GLM fit (Boyd et al. 2011, §6.4/§8): split min f(β) + g(z)
     s.t. β = z; the β-update minimizes f(β) + ρ/2‖β − z + u‖², the
     z-update is the proximal operator of g (soft-threshold for l1,
@@ -498,14 +534,16 @@ def admm_fit(X, y, beta0, tol, kind="linear", max_iter=100, rho=1.0,
     Returns (z, residual, iterations); z is the proximal iterate (exactly
     sparse under l1). ``lambda_vec`` is per-coordinate λ: coordinates with
     λ_j = 0 (the intercept under the sklearn aliases) pass the prox
-    unpenalized."""
+    unpenalized. With ``reduce`` (on the mesh: X and y are one process's
+    rows) every row sum (XᵀX and Xᵀy, each Newton step's g and H) is summed
+    over the processes."""
     d = beta0.shape[0]
     lv = lambda_vec if lambda_vec is not None else torch.zeros_like(beta0)
     eye = torch.eye(d, dtype=X.dtype, device=X.device)
 
     if kind == "linear":
-        G = X.T @ X
-        q0 = X.T @ y
+        G = reduce(X.T @ X)
+        q0 = reduce(X.T @ y)
 
         def beta_update(beta, v, rho):
             del beta
@@ -522,8 +560,8 @@ def admm_fit(X, y, beta0, tol, kind="linear", max_iter=100, rho=1.0,
                 else:
                     mu = torch.exp(X @ b)
                     s = mu
-                g = X.T @ (mu - y) + rho * (b - v)
-                H = (X * s[:, None]).T @ X + rho * eye
+                g = reduce(X.T @ (mu - y)) + rho * (b - v)
+                H = reduce((X * s[:, None]).T @ X) + rho * eye
                 b = b - _posdef_solve(H, g)
             return b
 

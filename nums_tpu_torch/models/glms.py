@@ -124,7 +124,9 @@ class GLM:
             from nums_tpu_torch.models import fast_glm
 
             lv = self._lambda_vec.data if self._lambda_vec is not None else None
-            beta_data = fast_glm.bfgs_fit(
+            fit = (fast_glm.bfgs_fit if X.backend.mesh is None
+                   else fast_glm.bfgs_fit_mesh)
+            beta_data = fit(
                 X.data, y.data, beta.data, self._tol,
                 kind=self._fused_kind, max_iter=int(max_iter),
                 penalized=lv is not None, lambda_vec=lv,
@@ -140,7 +142,9 @@ class GLM:
             from nums_tpu_torch.models import fast_glm
 
             lv = self._lambda_vec.data if self._lambda_vec is not None else None
-            beta_data, _, _ = fast_glm.admm_fit(
+            fit = (fast_glm.admm_fit if X.backend.mesh is None
+                   else fast_glm.admm_fit_mesh)
+            beta_data, _, _ = fit(
                 X.data, y.data, beta.data, self._tol,
                 kind=self._fused_kind, max_iter=int(max_iter),
                 rho=self._admm_rho,

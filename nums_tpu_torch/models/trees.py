@@ -33,6 +33,7 @@ import contextlib
 import numpy as np
 import torch
 
+from nums_tpu_torch.core import multiprocess
 from nums_tpu_torch.core.application_manager import instance as _instance
 from nums_tpu_torch.core.array import utils as array_utils
 from nums_tpu_torch.core.array.blockarray import BlockArray
@@ -64,7 +65,43 @@ def _segment_sum(idx, vals, size):
     return out
 
 
-def _quantile_edges(x, n_bins):
+def _rows(X):
+    """(this process's rows of X as float32, the row dimensions to sum
+    over, the backend) on the mesh (every column of each process's rows);
+    (X's tensor, None, None) on one device."""
+    from nums_tpu_torch.core.ops import mesh_ops, summa
+
+    xd = X.data
+    if not mesh_ops.is_dtensor(xd):
+        return xd.to(torch.float32), None, None
+    rows = summa.row_layout(xd)
+    return (summa.local_part(xd, rows).to(torch.float32),
+            mesh_ops.shard_dims(rows, (0,)), X.backend)
+
+
+def _local_rows(y, like):
+    """This process's part of the 1-D DTensor ``y`` on the rows that it
+    holds of the 2-D ``like`` (the same length); ``y`` on one device."""
+    from nums_tpu_torch.core.ops import mesh_ops, summa
+
+    if not mesh_ops.is_dtensor(y):
+        return y
+    return summa.local_part(y, mesh_ops.rows_only(summa.row_layout(like)))
+
+
+def _rows_out(backend, local, like):
+    """A result of this process's rows (``local``, laid out as ``like``'s
+    rows) as a DTensor of every row; ``local`` itself on one device."""
+    from nums_tpu_torch.core.ops import mesh_ops, summa
+
+    if backend is None:
+        return local
+    rows = mesh_ops.rows_only(summa.row_layout(like))
+    shape = (int(like.shape[0]),) + tuple(local.shape[1:])
+    return backend.from_local(local.contiguous(), shape, rows)
+
+
+def _quantile_edges(x, n_bins, n=None, dims=None, backend=None):
     """(n_bins-1, d) per-feature bin edges from quantiles, in x's dtype:
     the reference's ``jnp.percentile(x, linspace(0, 100, n_bins + 1)[1:-1],
     axis=0)`` as XLA compiles it with x64 on, its positions
@@ -76,7 +113,7 @@ def _quantile_edges(x, n_bins):
     ends = torch.tensor([0.0, 100.0], dtype=torch.float64)
     qs = extra._linspace(ends[0], ends[1], n_bins + 1, torch.float64,
                          "cpu")[1:-1].numpy()
-    n = int(x.shape[0])
+    n = int(x.shape[0]) if n is None else int(n)
     pos = qs * (0.01 * (n - 1))
     low = np.clip(np.floor(pos), 0, n - 1)
     high = np.clip(np.ceil(pos), 0, n - 1)
@@ -86,6 +123,22 @@ def _quantile_edges(x, n_bins):
     def col(v):
         return torch.as_tensor(v, device=x.device)[:, None]
 
+    if backend is not None:
+        # on the mesh: the order statistics of each column over the
+        # processes' rows (``mesh_ops.select_ranks``); no row moves
+        from nums_tpu_torch.core.ops import mesh_ops
+
+        d = int(x.shape[1])
+        ranks = torch.as_tensor(np.concatenate([low, high]).astype(
+            np.int64), device=x.device)[:, None].expand(-1, d)
+        vals = mesh_ops.select_ranks(backend, x.T.contiguous(), ranks,
+                                     dims).to(torch.float64)
+        nan = torch.isnan(x).any(dim=0).to(torch.int64)
+        mesh_ops.group_reduce(backend, nan, dims, "max")
+        k = len(low)
+        out = (vals[:k] * col(low_w) + vals[k:] * col(high_w)).to(x.dtype)
+        return torch.where(nan.to(torch.bool)[None, :],
+                           torch.full_like(out, float("nan")), out)
     s = torch.sort(x, dim=0).values
     s = torch.where(torch.isnan(x).any(dim=0, keepdim=True),
                     torch.full_like(s, float("nan")), s)
@@ -125,9 +178,12 @@ def _level_gain(gh, lam):
 
 
 def _train(xb, y, base_score, n_estimators, max_depth, n_bins, objective,
-           learning_rate, reg_lambda):
+           learning_rate, reg_lambda, reduce=multiprocess.one_process):
     """(feats, cuts, leaf_vals, pred) of a fit: (T, D) int32, (T, D)
-    int32, (T, 2^D) float32 and the training predictions."""
+    int32, (T, 2^D) float32 and the training predictions. With ``reduce``
+    (on the mesh: ``xb`` and ``y`` are one process's rows) each level's
+    histograms and each tree's leaf sums are summed over the processes, so
+    every process takes the same splits."""
     n, d = (int(v) for v in xb.shape)
     dev = xb.device
     n_leaves = 1 << max_depth
@@ -150,7 +206,7 @@ def _train(xb, y, base_score, n_estimators, max_depth, n_bins, objective,
             idx = ((leaf[:, None] * d + cols[None, :]) * n_bins
                    + xb64).reshape(-1)
             vals = gh_rows[:, None, :].expand(n, d, 2).reshape(-1, 2)
-            gh = _segment_sum(idx, vals, width * d * n_bins)
+            gh = reduce(_segment_sum(idx, vals, width * d * n_bins))
             gain = _level_gain(gh.reshape(width, d, n_bins, 2), lam)
             best = torch.argmax(gain)
             j = best // n_bins
@@ -160,7 +216,7 @@ def _train(xb, y, base_score, n_estimators, max_depth, n_bins, objective,
             go_right = (xb64.index_select(1, j.reshape(1))[:, 0] > b)
             leaf = leaf * 2 + go_right.to(torch.int64)
         # Newton leaf values from per-leaf grad/hess sums.
-        sums = _segment_sum(leaf, gh_rows, n_leaves)
+        sums = reduce(_segment_sum(leaf, gh_rows, n_leaves))
         leaf_vals = -lr * sums[:, 0] / (sums[:, 1] + lam)
         pred = pred + leaf_vals[leaf]
         all_feats.append(torch.stack(feats))
@@ -215,22 +271,30 @@ class GradientBoostedTrees:
     def fit(self, X: BlockArray, y: BlockArray, _binned=None):
         """``_binned=(edges, xb)`` lets one-vs-rest ensembles share the
         y-independent quantile edges + int binning across members."""
+        from nums_tpu_torch.core.ops import mesh_ops
+
         app = _instance()
         X, y = _as_ba(X, app), _as_ba(y, app)
-        yd = y.data.to(torch.float32)
-        self._base = 0.0 if self.objective == "logistic" else float(
-            yd.mean()
-        )
+        xd, dims, backend = _rows(X)
+        yd = _local_rows(y.data, X.data).to(torch.float32)
+        reduce = multiprocess.one_process if backend is None else (
+            lambda t: mesh_ops.group_reduce(backend, t, dims))
+        if self.objective == "logistic":
+            self._base = 0.0
+        elif backend is None:
+            self._base = float(yd.mean())
+        else:
+            self._base = float(reduce(yd.sum().reshape(1))[0]) / X.shape[0]
         if _binned is not None:
             self._edges, xb = _binned
         else:
-            xd = X.data.to(torch.float32)
-            self._edges = _quantile_edges(xd, self.n_bins)
+            self._edges = _quantile_edges(xd, self.n_bins, X.shape[0], dims,
+                                          backend)
             xb = _bin_features(xd, self._edges)
         feats, cuts, leaf_vals, _ = _train(
             xb, yd, self._base, self.n_estimators, self.max_depth,
             self.n_bins, self.objective, self.learning_rate,
-            self.reg_lambda,
+            self.reg_lambda, reduce,
         )
         self._trees = (feats, cuts, leaf_vals)
         return self
@@ -238,7 +302,7 @@ class GradientBoostedTrees:
     def _raw_predict(self, X: BlockArray, _xb=None):
         assert self._trees is not None, "fit must be called before predict"
         if _xb is None:
-            xd = X.data.to(torch.float32)
+            xd, _, _ = _rows(X)
             _xb = _bin_features(xd, self._edges.to(xd.device))
         return _predict(_xb, self._base, *self._trees)
 
@@ -251,11 +315,12 @@ class GradientBoostedTrees:
         pred = self._raw_predict(X)
         if self.objective == "logistic":
             pred = (torch.sigmoid(pred) > 0.5).to(torch.int64)
-        return self._wrap(X, pred)
+        return self._wrap(X, _rows_out(_rows(X)[2], pred, X.data))
 
     def predict_proba(self, X: BlockArray) -> BlockArray:
         assert self.objective == "logistic"
-        return self._wrap(X, torch.sigmoid(self._raw_predict(X)))
+        return self._wrap(X, _rows_out(_rows(X)[2], torch.sigmoid(
+            self._raw_predict(X)), X.data))
 
     def _arrays(self, suffix=""):
         feats, cuts, leaf_vals = self._trees
@@ -327,36 +392,48 @@ class GBTClassifier(GradientBoostedTrees):
     def fit(self, X, y):
         app = _instance()
         X = _as_ba(X, app)
-        y_host = np.asarray(y.get() if hasattr(y, "get") else y)
-        self.classes_ = np.unique(y_host)
+        bs = (X.block_shape[0],)
+        if X.backend.mesh is not None:
+            # the labels stay on the mesh: their distinct values by the
+            # mesh's unique, each class's indicator elementwise
+            import nums_tpu_torch.numpy as nps
+
+            yb_all = _as_ba(y, app)
+            self.classes_ = np.asarray(nps.unique(yb_all).get())
+
+            def indicator(c):
+                return (yb_all == c).astype(np.float64)
+        else:
+            y_host = np.asarray(y.get() if hasattr(y, "get") else y)
+            self.classes_ = np.unique(y_host)
+
+            def indicator(c):
+                return app.array((y_host == c).astype(np.float64),
+                                 block_shape=bs)
         if len(self.classes_) < 2:
             raise ValueError(
                 "y contains a single class; classification needs >= 2."
             )
-        bs = (X.block_shape[0],)
         if len(self.classes_) <= 2:
             self._ovr = None
-            yb = (y_host == self.classes_[-1]).astype(np.float64)
-            super().fit(X, app.array(yb, block_shape=bs))
+            super().fit(X, indicator(self.classes_[-1]))
             return self
         # Edges + binning depend only on X: compute once and share
         # across the per-class members.
-        xd = X.data.to(torch.float32)
-        edges = _quantile_edges(xd, self.n_bins)
+        xd, dims, backend = _rows(X)
+        edges = _quantile_edges(xd, self.n_bins, X.shape[0], dims, backend)
         xb = _bin_features(xd, edges)
         self._ovr = []
         for c in self.classes_:
             m = GradientBoostedTrees(**self._params())
-            m.fit(X, app.array(
-                (y_host == c).astype(np.float64), block_shape=bs
-            ), _binned=(edges, xb))
+            m.fit(X, indicator(c), _binned=(edges, xb))
             self._ovr.append(m)
         return self
 
     def _ovr_scores(self, X):
         """(n, K) sigmoid scores of the members (binned once: they share
         edges)."""
-        xd = X.data.to(torch.float32)
+        xd, _, _ = _rows(X)
         xb = _bin_features(xd, self._ovr[0]._edges.to(xd.device))
         return torch.stack(
             [torch.sigmoid(m._raw_predict(X, _xb=xb)) for m in self._ovr],
@@ -366,9 +443,20 @@ class GBTClassifier(GradientBoostedTrees):
         app = _instance()
         X = _as_ba(X, app)
         if self._ovr is None:
-            idx = super().predict(X).data
+            idx = _local_rows(super().predict(X).data, X.data)
         else:
             idx = self._ovr_scores(X).argmax(dim=1)
+        backend = _rows(X)[2]
+        if backend is not None:
+            # each process maps its own rows' indices to the labels
+            classes = np.asarray(self.classes_)
+            table = torch.as_tensor(classes.astype(backend.device_dtype(
+                classes.dtype)), device=idx.device)
+            return BlockArray(
+                _rows_out(backend, table[idx.to(torch.int64)], X.data),
+                ArrayGrid((X.shape[0],), (X.block_shape[0],),
+                          array_utils.to_dtype_name(table.dtype)),
+                X.backend)
         return app.array(
             self.classes_[idx.cpu().numpy()],
             block_shape=(X.block_shape[0],),
@@ -384,7 +472,8 @@ class GBTClassifier(GradientBoostedTrees):
             scores = self._ovr_scores(X)
             out = scores / scores.sum(dim=1, keepdim=True)
         return BlockArray.from_torch(
-            out, block_shape=(X.block_shape[0], int(out.shape[1])),
+            _rows_out(_rows(X)[2], out, X.data),
+            block_shape=(X.block_shape[0], int(out.shape[1])),
             backend=X.backend)
 
     def save(self, path: str):

@@ -167,17 +167,51 @@ def _scan(fn, name):
         accumulates in the default int, every other dtype in itself."""
         a = _to_ba(a)
         x = a.data
-        if axis is None:
-            x, axis = x.reshape(-1), 0
         if dtype is not None:
             dt = array_utils.to_torch_dtype(dtype)
         else:
             dt = _default_int(a) if x.dtype == torch.bool else x.dtype
+        if mesh_ops.is_dtensor(x):
+            return _mesh_scan(a, x.to(dt), axis, fn, name)
+        if axis is None:
+            x, axis = x.reshape(-1), 0
         return _wrap(a, fn(x.to(dt), dim=int(axis), dtype=dt))
 
     scan.__name__ = name
     scan.__doc__ = scan.__doc__.format(name=name)
     return scan
+
+
+def _flat_block(a):
+    """The block of ``a`` flattened on the mesh: its row blocks' elements,
+    so that the result is split as ``a``'s rows are (one block, as the
+    serial result's, would lay it whole on every process)."""
+    return (builtins.max(1, a.block_shape[0] * int(np.prod(
+        a.shape[1:], dtype=np.int64))) if a.ndim else 1,)
+
+
+def _mesh_flat(a, x):
+    """``x`` (a DTensor of ``a``'s shape) flattened in row-major order and
+    laid out as a 1-D BlockArray of ``_flat_block(a)``
+    (``mesh_ops.flatten``); returns (tensor, block shape)."""
+    bs = _flat_block(a)
+    grid = ArrayGrid((int(a.size),), bs, array_utils.to_dtype_name(x.dtype))
+    return mesh_ops.flatten(a.backend, x, a.backend.sharding_for_grid(
+        grid)), bs
+
+
+def _mesh_scan(a, x, axis, fn, name):
+    """A scan of a DTensor (``mesh_ops.scan``): axis=None first
+    flattens it by rows (``mesh_ops.flatten``); the totals of the boxes
+    before each box along the axis then join its own scan."""
+    bs = None
+    if axis is None:
+        x, bs = _mesh_flat(a, x)
+        axis = 0
+    combine = "sum" if name == "cumsum" else "prod"
+    out = mesh_ops.scan(a.backend, x, int(axis) % builtins.max(x.ndim, 1),
+                        lambda t, dim: fn(t, dim=dim), combine)
+    return _wrap(a, out, bs)
 
 
 cumsum = _scan(torch.cumsum, "cumsum")
@@ -287,6 +321,9 @@ def _quantile(a, q, axis, method, keepdims, squash_nans):
     if q_arr.ndim > 1:
         raise ValueError(f"q must be have rank <= 1, got shape "
                          f"{tuple(q_arr.shape)}")
+    if mesh_ops.is_dtensor(x):
+        return _mesh_quantile(a.backend, x, q_arr, axis, method, keepdims,
+                              squash_nans)
     flat, kept_shape = _to_last(x, axis)
     nan = torch.isnan(flat)
     s, _ = torch.sort(flat, dim=-1, stable=True)
@@ -319,6 +356,75 @@ def _quantile(a, q, axis, method, keepdims, squash_nans):
     if q_arr.ndim == 0:
         out = out[0]
     return out
+
+
+def _mesh_quantile(backend, x, q_arr, axis, method, keepdims, squash_nans):
+    """``_quantile`` of a DTensor: each process keeps its own box;
+    the order statistics at the positions ``q·(n − 1)`` (and the counts of
+    non-NaN values with ``squash_nans``) come from
+    ``mesh_ops.select_ranks`` over the mesh dimensions that shard the
+    reduced axes (a bisection of all-reduced counts: no value moves).
+    Returns a DTensor laid out by the kept axes' boxes."""
+    qd = torch.float64
+    nd = x.ndim
+    dims = _dims(axis, nd)
+    keep = [d for d in range(nd) if d not in dims]
+    pl = tuple(x.placements)
+    red = mesh_ops.shard_dims(pl, dims)
+    local = x.to_local().permute(*keep, *dims)
+    kshape = tuple(local.shape[:len(keep)])
+    local = local.reshape(kshape + (-1,))
+    n_last = int(np.prod([x.shape[d] for d in dims], dtype=np.int64))
+    nan = torch.isnan(local)
+    if squash_nans:
+        counts = (~nan).sum(dim=-1).to(torch.int64)
+        mesh_ops.group_reduce(backend, counts, red)
+        counts = counts.to(qd)
+        any_nan = None
+    else:
+        counts = torch.full(kshape, float(n_last), dtype=qd,
+                            device=x.device)
+        any_nan = nan.any(dim=-1).to(torch.int64)
+        mesh_ops.group_reduce(backend, any_nan, red, "max")
+    qv = q_arr.reshape((-1,) + (1,) * len(kshape))
+    pos = qv * (counts - 1)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    high_w = pos - low
+    low_w = 1 - high_w
+    lim = counts - 1
+    low = torch.maximum(torch.zeros_like(low), torch.minimum(low, lim))
+    high = torch.maximum(torch.zeros_like(high), torch.minimum(high, lim))
+    nq = int(qv.shape[0])
+    vals = mesh_ops.select_ranks(
+        backend, local, torch.cat([low, high]).to(torch.int64), red)
+    low_v, high_v = vals[:nq], vals[nq:]
+    if method == "linear":
+        out = low_v.to(qd) * low_w + high_v.to(qd) * high_w
+    else:  # midpoint
+        out = (low_v + high_v) * 0.5
+    out = out.to(x.dtype)
+    if any_nan is not None:
+        out = torch.where(any_nan.to(torch.bool), torch.full_like(
+            out, float("nan")), out)
+    # the result's axes: q (if an array), then the kept ones (each
+    # reduced axis as 1 with keepdims)
+    lead = 0 if q_arr.ndim == 0 else 1
+    if keepdims:
+        at = {d: lead + d for d in range(nd)}
+        shape, local_shape = [1] * nd, [1] * nd
+        for i, d in enumerate(keep):
+            shape[d], local_shape[d] = int(x.shape[d]), kshape[i]
+    else:
+        at = {d: lead + i for i, d in enumerate(keep)}
+        shape = [int(x.shape[d]) for d in keep]
+        local_shape = list(kshape)
+    if lead:
+        shape, local_shape = [nq] + shape, [nq] + local_shape
+    out = out.reshape(local_shape)
+    placements = tuple(
+        mesh_ops._shard(at[p.dim]) if p.is_shard() and p.dim in keep
+        else mesh_ops._replicate() for p in pl)
+    return backend.from_local(out.contiguous(), tuple(shape), placements)
 
 
 def median(a, axis=None, keepdims=False):
@@ -551,9 +657,35 @@ def tile(a, reps):
 def repeat(a, repeats, axis=None):
     a = _to_ba(a)
     x = a.data
+    if mesh_ops.is_dtensor(x):
+        return _mesh_repeat(a, x, int(repeats), axis)
     if axis is None:
         x, axis = x.reshape(-1), 0
     return _wrap(a, torch.repeat_interleave(x, int(repeats), dim=int(axis)))
+
+
+def _mesh_repeat(a, x, r, axis):
+    """``repeat`` of a DTensor: axis=None flattens it by rows
+    first (``mesh_ops.flatten``); along a sharded axis each process repeats
+    its own slab and the rows move to the result's layout
+    (``mesh_ops.along_rows``); along any other axis each process repeats
+    its own box."""
+    bs = None
+    if axis is None:
+        x, bs = _mesh_flat(a, x)
+        bs = (bs[0] * r,)
+        axis = 0
+    axis = int(axis) % x.ndim
+    if not mesh_ops.shard_dims(x.placements, (axis,)):
+        local = torch.repeat_interleave(x.to_local(), r, dim=axis)
+        shape = list(x.shape)
+        shape[axis] *= r
+        return _wrap(a, a.backend.from_local(local, tuple(shape),
+                                             tuple(x.placements)), bs)
+    out = mesh_ops.along_rows(
+        a.backend, x, axis, int(x.shape[axis]) * r,
+        lambda rows: torch.repeat_interleave(rows, r, dim=0))
+    return _wrap(a, out, bs)
 
 
 def roll(a, shift, axis=None):
@@ -997,6 +1129,9 @@ def pad(array, pad_width, mode="constant", constant_values=0):
     if mode == "constant":
         values = np.broadcast_to(np.asarray(constant_values),
                                  (x.ndim, 2))
+    if mesh_ops.is_dtensor(x):
+        return _wrap(a, _mesh_pad(a.backend, x, pw, mode, values
+                                  if mode == "constant" else None))
     for axis, (before, after) in enumerate(pw):
         before, after = int(before), int(after)
         if before == 0 and after == 0:
@@ -1014,6 +1149,53 @@ def pad(array, pad_width, mode="constant", constant_values=0):
             idx = _pad_index(x.shape[axis], before, after, mode, x.device)
             x = torch.index_select(x, axis, idx)
     return _wrap(a, x)
+
+
+def _mesh_pad(backend, x, pw, mode, values):
+    """``pad`` of a DTensor, one axis after the other: an axis
+    that no mesh dimension shards is padded in each process's box; a
+    sharded one by ``mesh_ops.pad_axis`` (its rows moved by position,
+    never gathered)."""
+    for axis, (before, after) in enumerate(pw):
+        before, after = int(before), int(after)
+        if before == 0 and after == 0:
+            continue
+        n = int(x.shape[axis])
+        if mode == "constant":
+            lo, hi = values[axis][0].item(), values[axis][1].item()
+        if mesh_ops.shard_dims(x.placements, (axis,)):
+            if mode == "constant" and lo == hi:
+                x = mesh_ops.pad_axis(backend, x, axis, before, after, None,
+                                      fill=lo)
+                continue
+            if mode == "constant":
+                # two fills: the "after" side first, then the "before"
+                x = mesh_ops.pad_axis(backend, x, axis, 0, after, None,
+                                      fill=hi)
+                x = mesh_ops.pad_axis(backend, x, axis, before, 0, None,
+                                      fill=lo)
+                continue
+            x = mesh_ops.pad_axis(
+                backend, x, axis, before, after,
+                lambda i: _pad_index(n, before, after, mode, i.device)[i])
+            continue
+        local = x.to_local()
+        if mode == "constant":
+            parts = []
+            for width, value in ((before, lo), (after, hi)):
+                shape = list(local.shape)
+                shape[axis] = width
+                parts.append(torch.full(shape, value, dtype=local.dtype,
+                                        device=local.device))
+            local = torch.cat([parts[0], local, parts[1]], dim=axis)
+        else:
+            idx = _pad_index(n, before, after, mode, local.device)
+            local = torch.index_select(local, axis, idx)
+        shape = list(x.shape)
+        shape[axis] = n + before + after
+        x = backend.from_local(local.contiguous(), tuple(shape),
+                               tuple(x.placements))
+    return x
 
 
 def bincount(x, minlength=0):
@@ -1407,13 +1589,106 @@ def _conv(x, y, mode, op):
     return torch.flip(out, (0,)) if reverse else out
 
 
+def _whole_small(t):
+    """A kernel operand whole on this process: a plain tensor, a
+    replicated DTensor's own copy, or a sharded one gathered (a kernel is
+    read whole by every output)."""
+    if not mesh_ops.is_dtensor(t):
+        return t
+    if _sharded(t):
+        return multiprocess.sent_gather(t).full_tensor()
+    return t.to_local()
+
+
+def _mesh_conv(a, x, y, mode, op):
+    """``_conv`` on the mesh (an operand is a DTensor). The longer operand
+    ``x`` stays where it is; each process computes the outputs of its own
+    box of the result (laid out as ``_wrap`` lays it), for which it needs
+    the positions of x from its box's start to m − 1 past its end: they
+    come by one ``mesh_ops.pull`` (the halo from the next processes, and
+    whatever the result's layout moves). The kernel is read whole."""
+    backend = a.backend
+    if x.ndim != 1 or y.ndim != 1:
+        raise ValueError(f"{op}() only support 1-dimensional inputs.")
+    dt = _inexact(torch.empty((), dtype=torch.promote_types(x.dtype,
+                                                            y.dtype))).dtype
+    if x.shape[0] == 0 or y.shape[0] == 0:
+        raise ValueError(f"{op}: inputs cannot be empty")
+    # jnp's order: correlate conjugates v, then the longer operand slides
+    # (swapped: the old v is the one conjugated, the output reversed)
+    reverse = conj_x = False
+    if op == "correlate":
+        if x.shape[0] < y.shape[0]:
+            x, y, reverse, conj_x = y, x, True, True
+        k = _whole_small(y).to(dt)
+        k = k if reverse else k.conj()
+    else:
+        if x.shape[0] < y.shape[0]:
+            x, y = y, x
+        k = torch.flip(_whole_small(y).to(dt), (0,))
+    n, m = int(x.shape[0]), int(k.shape[0])
+    if mode == "valid":
+        pad_lo, length = 0, n - m + 1
+    elif mode == "same":
+        pad_lo, length = m // 2, n
+    elif mode == "full":
+        pad_lo, length = m - 1, n + m - 1
+    else:
+        raise ValueError("mode must be one of ['full', 'same', 'valid']")
+    bs = array_utils.default_block_shape_for((length,), a.block_shape)
+    grid = ArrayGrid((length,), bs, array_utils.to_dtype_name(dt))
+    pl = backend.sharding_for_grid(grid)
+    coords = backend.coords()
+    dev = k.device
+
+    def window(r):
+        """The positions of x that process r's outputs read, in order."""
+        o0, o1 = backend.region((length,), pl, coords[r])[0]
+        if reverse:
+            o0, o1 = length - o1, length - o0
+        if o1 <= o0:
+            return torch.zeros((0,), dtype=torch.int64, device=dev), 0
+        start = o0 - pad_lo
+        pos = torch.arange(start, o1 - 1 - pad_lo + m, dtype=torch.int64,
+                           device=dev)
+        return pos, start
+
+    me = multiprocess.process_index()
+    pos, start = window(me)
+    if _sharded(x):
+        def wants(r):
+            p = window(r)[0]
+            return p[(p >= 0) & (p < n)].reshape(-1, 1)
+
+        got = mesh_ops.pull(backend, x, 1, wants(me), wants).to(dt)
+    else:
+        whole = x.to_local() if mesh_ops.is_dtensor(x) else x
+        got = whole.to(device=dev, dtype=dt)[pos[(pos >= 0) & (pos < n)]]
+    xw = torch.zeros(pos.shape, dtype=dt, device=dev)
+    xw[(pos >= 0) & (pos < n)] = got
+    if conj_x:
+        xw = xw.conj()
+    if xw.shape[0]:
+        out = torch.nn.functional.conv1d(xw[None, None, :],
+                                         k[None, None, :])[0, 0]
+    else:
+        out = xw[:0]
+    if reverse:
+        out = torch.flip(out, (0,))
+    return _wrap(a, backend.from_local(out.contiguous(), (length,), pl), bs)
+
+
 def convolve(a, v, mode="full"):
     a, v = _to_ba(a), _to_ba(v)
+    if mesh_ops.is_dtensor(a.data) or mesh_ops.is_dtensor(v.data):
+        return _mesh_conv(a, a.data, v.data, mode, "convolve")
     return _wrap(a, _conv(a.data, v.data, mode, "convolve"))
 
 
 def correlate(a, v, mode="valid"):
     a, v = _to_ba(a), _to_ba(v)
+    if mesh_ops.is_dtensor(a.data) or mesh_ops.is_dtensor(v.data):
+        return _mesh_conv(a, a.data, v.data, mode, "correlate")
     return _wrap(a, _conv(a.data, v.data, mode, "correlate"))
 
 

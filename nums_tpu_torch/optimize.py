@@ -238,10 +238,25 @@ def _state_where(cond, new, old):
     return torch.where(cond, new, old)
 
 
+def _absmax(g):
+    """max|g| of one parameter in float32. On the mesh each process takes
+    its own box (0 where the box is empty: a parameter shorter than the
+    mesh leaves some process none) and one all-reduce (MAX) joins them, so
+    every process makes the same collective."""
+    from nums_tpu_torch.core import multiprocess
+    from nums_tpu_torch.core.ops import mesh_ops
+
+    if not mesh_ops.is_dtensor(g):
+        return g.abs().max().to(torch.float32)
+    local = g.to_local().reshape(-1)
+    m = (local.abs().max().to(torch.float32) if local.numel()
+         else torch.zeros((), dtype=torch.float32, device=local.device))
+    return multiprocess.all_reduce_(m.reshape(1), "max")[0]
+
+
 def _gmax(grads):
     """max|g| over every parameter, in float32 (the reference's carry)."""
-    return torch.stack([g.abs().max().to(torch.float32) for g in grads]
-                       ).max()
+    return torch.stack([_absmax(g) for g in grads]).max()
 
 
 # ---------------------------------------------------------------------

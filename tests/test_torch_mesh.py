@@ -308,35 +308,57 @@ def _spd(n):
 
 
 def _sharded_operands(cluster):
-    """The small factorizations and a draw that is not position-wise, on a
-    sharded operand: each raises naming itself, none gathers."""
+    """The small factorizations and a gamma draw on sharded operands, with
+    whole copies refused (tests/test_torch_mesh_index.py's
+    ``_refusing_gathers``); a draw that is not position-wise raises naming
+    itself."""
+    from test_torch_mesh_index import _refusing_gathers
+
     app = mesh_app(cluster)
     a = app.array(_spd(8), block_shape=(2, 8))
     b = app.array(np.arange(8.0), block_shape=(2,))
     out = {"placements": str(a.raw.placements)}
-    for name, fn in [
-            ("inv", lambda: app.inv(a)),
-            ("cholesky", lambda: app.cholesky(a)),
-            ("posdef_solve", lambda: app.posdef_solve(a, b)),
-            ("gamma", lambda: app.random_state(3).gamma(
-                2.0, 1.5, shape=(13, 9), block_shape=(4, 9)))]:
+    undo = _refusing_gathers()
+    try:
+        res = {"inv": app.inv(a), "cholesky": app.cholesky(a),
+               "posdef_solve": app.posdef_solve(a, b),
+               "gamma": app.random_state(3).gamma(
+                   2.0, 1.5, shape=(13, 9), block_shape=(4, 9))}
         try:
-            fn()
-            out[name] = None
+            app.random_state(3).poisson(12.0, shape=(13, 9),
+                                        block_shape=(4, 9))
+            out["poisson"] = None
         except NotImplementedError as e:
-            out[name] = str(e)
+            out["poisson"] = str(e)
+    finally:
+        undo()
+    out.update({k: v.get() for k, v in res.items()})
     return out
 
 
-def test_sharded_operands_raise_and_never_gather(mesh_pool):
-    """inv, cholesky and posdef_solve of a sharded square matrix, and a
-    sharded draw of a sampler that is not position-wise, raise
-    ``NotImplementedError`` naming the op: no process gathers the whole
-    array or draws it whole to keep a shard."""
+def test_sharded_operands_raise_and_never_gather(mesh_pool, jax_mesh,
+                                                 torch_app):
+    """inv, cholesky and posdef_solve of a sharded square matrix compute
+    (``core/ops/mesh_linalg.py``) and equal nums_tpu's mesh within the
+    reference's tolerance, and a sharded gamma draw equals the serial draw
+    bit for bit, none gathering an operand whole; a sharded draw of a
+    sampler that is not position-wise (poisson at lam >= 10) still raises
+    ``NotImplementedError`` naming itself: no process draws the whole
+    array to keep a shard."""
     got = mesh_pool.run(_sharded_operands, (4, 1))
     assert "Shard(dim=0)" in got["placements"]
-    for name in ("inv", "cholesky", "posdef_solve", "gamma"):
-        assert got[name] is not None and name in got[name], name
+    spd, b = _spd(8), np.arange(8.0)
+    ja = jax_mesh.array(spd, block_shape=(2, 8))
+    ref = {"inv": jax_mesh.inv(ja).get(),
+           "cholesky": jax_mesh.cholesky(ja).get(),
+           "posdef_solve": jax_mesh.posdef_solve(
+               ja, jax_mesh.array(b, block_shape=(2,))).get()}
+    for name, want in ref.items():
+        assert rel_err(got[name], want) <= 1e-10, name
+    serial = torch_app.random_state(3).gamma(2.0, 1.5, shape=(13, 9),
+                                             block_shape=(4, 9)).get()
+    assert np.array_equal(got["gamma"], serial)
+    assert got["poisson"] is not None and "poisson" in got["poisson"]
 
 
 def _replicated_small(app):
@@ -382,7 +404,13 @@ def test_replicated_small_values_compute_on_each_copy(mesh_pool,
 @pytest.mark.parametrize("dist,params", [("random", ()),
                                          ("uniform", (-2.0, 3.0)),
                                          ("normal", (1.0, 2.0)),
-                                         ("gamma", (2.0, 1.5))])
+                                         ("gamma", (2.0, 1.5)),
+                                         ("beta", (2.0, 3.0)),
+                                         ("standard_t", (4.0,)),
+                                         ("vonmises", (0.5, 2.0)),
+                                         ("weibull", (1.5,)),
+                                         ("poisson", (12.0,)),
+                                         ("binomial", (40.0, 0.5))])
 @pytest.mark.parametrize("shape,box", [
     ((13, 9), ((4, 8), (0, 9))), ((13, 9), ((4, 8), (3, 6))),
     ((13, 9), ((0, 13), (5, 9))), ((5, 4, 6), ((1, 4), (0, 4), (2, 5))),

@@ -147,6 +147,29 @@ def _no_gather(cluster):
     column = np.arange(1003.0)[:, None]
     slabs = np.arange(1400.0).reshape(200, 7)
     short = X1003[:1002, 5] > 0
+    # the factorizations of a sharded 40x40 (1600 elements); device index
+    # arrays (and one beside a device mask) read and written
+    spd = X1003[:40, :5] @ X1003[:40, :5].T + 40.0 * np.eye(40)
+    bspd = app.array(spd, block_shape=(10, 20))
+    rhs = X1003[:40, 6]
+    rows = np.random.RandomState(9).randint(0, 1003, size=700)
+    cols = rows % 7
+    drows = app.array(rows, block_shape=(100,))
+    dcols = app.array(cols, block_shape=(100,))
+    n_keep = int(keep.sum())
+    kcols = np.arange(n_keep) % 7
+
+    def pca_values():
+        from nums_tpu_torch.core import settings
+        from nums_tpu_torch.models.decomposition import PCA
+
+        saved = settings.tsqr_method
+        settings.tsqr_method = "cholqr2"
+        try:
+            return PCA(3).fit(bx).singular_values_
+        finally:
+            settings.tsqr_method = saved
+
     ops = [
         ("rows", lambda: bx[mask], X1003[keep]),
         ("elements", lambda: bx[bx > 0], X1003[X1003 > 0]),
@@ -207,11 +230,29 @@ def _no_gather(cluster):
         ("host_write_rows", lambda: written(odd, app.array(
             np.ones((501, 7)), block_shape=(126, 7))),
          expected(odd, 1.0)),
+        ("inv", lambda: app.inv(bspd), np.linalg.inv(spd)),
+        ("cholesky", lambda: app.cholesky(bspd), np.linalg.cholesky(spd)),
+        ("posdef_solve", lambda: app.posdef_solve(bspd, app.array(
+            rhs, block_shape=(10,))), np.linalg.solve(spd, rhs)),
+        ("device_rows", lambda: bx[drows], X1003[rows]),
+        ("device_pairs", lambda: bx[drows, dcols], X1003[rows, cols]),
+        ("device_write_rows", lambda: written(drows, 3.0),
+         expected(rows, 3.0)),
+        ("device_write_pairs", lambda: written((drows, dcols), app.array(
+            np.arange(700.0), block_shape=(100,))),
+         expected((rows, cols), np.arange(700.0))),
+        ("mask_device_index", lambda: bx[mask, app.array(
+            kcols, block_shape=(100,))], X1003[keep, kcols]),
         ("host_write_pairs", lambda: written(
             (np.arange(1003), np.arange(1003) % 7), app.array(
                 np.arange(1003.0), block_shape=(126,))),
          expected((np.arange(1003), np.arange(1003) % 7),
                   np.arange(1003.0))),
+        ("var_rows", lambda: app.var(bx, axis=0, ddof=1),
+         X1003.var(axis=0, ddof=1)),
+        ("std_all", lambda: bx.std(), X1003.std()),
+        ("pca", pca_values, np.linalg.svd(X1003 - X1003.mean(axis=0),
+                                          compute_uv=False)[:3]),
     ]
     before = multiprocess.EXCHANGED["bytes_sent"]
     # the rows this rank holds of bx (and keeps), and its part of the
@@ -252,10 +293,11 @@ def _no_gather(cluster):
 
 @pytest.mark.parametrize("cluster", [(4, 1), (2, 2)])
 def test_no_op_gathers_a_sharded_operand(mesh_pool, cluster):
-    """No data-dependent op of the mesh, and no write of a sharded value
-    by a mask or a host index array, copies a sharded operand whole to a
-    process; each
-    gives numpy's values, and the row mask sends from each rank no more
+    """No data-dependent op of the mesh, no write of a sharded value by a
+    mask or a host index array, no read or write by a device index array
+    (beside a device mask too), none of the factorizations of a sharded
+    square matrix (inv, cholesky, posdef_solve), no variance and no PCA
+    fit copies a sharded operand whole to a process; each gives numpy's values, and the row mask sends from each rank no more
     than the rows it kept and its part of the mask."""
     wrong, every = mesh_pool.run(_no_gather, cluster)
     for refused, sent, kept in every:
