@@ -1,6 +1,6 @@
 """Smoke run of nums_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py                 # phases 1-18
+    python3 chip_smoke.py                 # phases 1-19
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check
     python3 chip_smoke.py --random-only   # phases 1 and 11
     python3 chip_smoke.py --facade-only   # phases 1, 2, 12 and 13
@@ -8,6 +8,7 @@
     python3 chip_smoke.py --mesh-only     # phases 1, 2, 15 and 16 on every card
     python3 chip_smoke.py --masks-only    # phases 1, 2 and 17 on every card
     python3 chip_smoke.py --mesh-core-only  # phases 1, 2 and 18 on every card
+    python3 chip_smoke.py --shape-only    # phases 1, 2 and 19 on every card
 
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi);
@@ -286,6 +287,34 @@ Phases, each printing one JSON line:
      with ``--mesh-core-only`` one process per card at 10M x 1000 and n =
      16384, each card's peak below X's bytes, every rank exits 0 within
      900 s.
+ 19. shape: the mesh's slicing, shape and order ops, none of which copies
+     a sharded operand whole (``core/ops/mesh_ops.py``): ``X[n/10:9n/10]``,
+     ``X[::2]``, ``X[::-1]``, ``X[n/2]``, ``split(X, 4)[2]``,
+     ``X.reshape(2n, d/2)``, ``ravel``, ``concatenate([X, X])``,
+     ``flip(X, 0)``, ``roll(X, 1234567, 0)``, ``diff``/``gradient`` along
+     the rows, ``tril``, ``rfft(X[:, :64], axis=0)``, ``cov(X,
+     rowvar=False)``, ``sort(X, axis=0)``, ``sort(X[:, :250], axis=None)``,
+     ``kron(X[:, :8], ones((2, 1)))``, ``resize(X[:, :8], (2n, 8))``; then
+     on a vector v of float32 normals and k of int32 integers, sharded:
+     ``sort(v)``, ``argsort(v)``, ``partition(v, n/2)``,
+     ``argpartition(v, n/4)``, ``lexsort((k, v))``, ``vander(v, 3)``,
+     ``polyval(p, v)``. The moves bit for bit by an exact hash of bits at
+     their places (each rank hashing its own rows at their new places, one
+     all-reduce); ``tril`` and ``vander`` bit for bit against each rank's
+     own part; the sorts' order within and across the ranks, their values
+     a permutation of the operand's (key moments), the positions a
+     permutation whose values are the sorted ones (pulled), the order
+     statistics bit for bit ``select_ranks``'; diff, gradient (rows at
+     and beside each box edge), rfft (three frequencies), cov and polyval
+     within 1e-5 of float64 (cov 1e-3: cuBLAS's fp32 sums of 2.5M rows a
+     card). Each step's seconds cold and warm (host clock after a
+     barrier, the slowest rank's), and of the warm call its bytes sent
+     (held to the slab it moves), the collectives ``CommDebugMode`` saw
+     (no all-gather inside a torch op), its launches (K1/K2/K3 none) and
+     peak (below X's bytes on four cards). In the full run on phase 15's world-1 mesh at 200,000 rows
+     and a vector of 1e7, every result bit for bit the serial backend's;
+     with ``--shape-only`` one process per card at 10M x 1000 and a
+     vector of 2.5e9, every rank exits 0 within 900 s.
 Then the kernels as one JSON line (each with its bound, the least time
 the card could take for its work at this run's shapes), and last
 {"ok": true, "device": {...}}. A failed phase prints its traceback and
@@ -4310,6 +4339,9 @@ def phase_mesh(torch, smi, keep):
             # Phase 17 on the same world-1 mesh and X.
             masks = phase_masks(torch, smi, app, X, y)
             torch.cuda.empty_cache()
+            # Phase 19 on the same world-1 mesh and X.
+            shape = phase_shape(torch, smi, app, X)
+            torch.cuda.empty_cache()
             # Phase 18 on the same world-1 mesh and X (its last step
             # writes into X).
             core = phase_mesh_core(torch, smi, app, X, y)
@@ -4321,7 +4353,7 @@ def phase_mesh(torch, smi, keep):
         finally:
             application_manager.set_instance(saved)
             dist.destroy_process_group()
-    return out, ooc, masks, core
+    return out, ooc, masks, core, shape
 
 
 class _Tee:
@@ -6764,6 +6796,795 @@ def phase_mesh_core_cards(torch, smi):
     return world
 
 
+# -- Phase 19: the mesh's slicing, shape and order ops (shape) ------------
+# With --shape-only on every card at phase 15's 10M x 1000 and a vector of
+# 2.5e9 (SHAPE_FULL); in the full run on phase 15's world-1 mesh at a
+# smaller depth (SHAPE_WORLD1), bit for bit the serial backend's.
+SHAPE_FULL = {"n": MESH_N, "vec": 2_500_000_000}
+SHAPE_WORLD1 = {"n": 200_000, "vec": 10_000_000}
+SHAPE_ROLL = 1_234_567
+SHAPE_REL = 1e-5             # float32 stencils, FFT, polyval vs float64
+# cov: the plain fp32 product of each card's 2.5M rows, as the serial cov
+# takes it; 9.58e-5 on four cards and 5.1e-6 at world 1 (200k rows)
+# measured, the limit about 3x the four-card reading
+SHAPE_COV_REL = 3e-4
+SHAPE_SLACK_BYTES = 64 << 20  # counts, splitters and halos beside a slab
+SHAPE_HASH_P = 2147483647    # the position weights of the exact hash
+SHAPE_DEADLINE_S = 900.0     # every rank exits 0 within, or the run fails
+SHAPE_POLY = np.array([1.5, -2.0, 0.5])
+
+
+# The checks of phase 19 that failed (each a check's own message): every
+# rank reaches the same verdicts (each is read after a collective), so
+# the phase runs on past one and fails at its end listing them all.
+SHAPE_FAILED = []
+
+
+def _shape_hold(ok, what):
+    if not ok:
+        SHAPE_FAILED.append(repr(what))
+
+
+def _sh_box(app, a):
+    """(this rank's box, its part) of a BlockArray on the mesh."""
+    t = a.raw
+    return app.backend.region(tuple(t.shape), t.placements), _local(a)
+
+
+def _sh_sum(torch, value, dtype=None):
+    """The sum over every rank of a tensor (int64 sums wrap alike on every
+    rank: an exact hash), on this rank's device."""
+    import torch.distributed as dist
+
+    t = value.reshape(-1).to(_mesh_device(torch)).clone()
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.all_reduce(t)
+    return t
+
+
+def _sh_hash(torch, local, flat0, ncols, chunk_elements=1 << 26):
+    """Σ bits(x) · ((p · 1000003) mod P) over the rows of ``local`` (a 2-D
+    part, or 1-D), p the flat position ``flat0 + row · ncols + col`` in
+    the array it is read as: int64, wrapping alike on every rank. An
+    exact hash of the values at their places (bits, not values)."""
+    x = local.reshape(local.shape[0], -1) if local.ndim > 1 else \
+        local.reshape(-1, 1)
+    dev = x.device
+    width = int(x.shape[1])
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        x.element_size()]
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    cols = torch.arange(width, device=dev, dtype=torch.int64)
+    chunk = max(1, chunk_elements // width)
+    for i in range(0, int(x.shape[0]), chunk):
+        rows = torch.arange(i, min(i + chunk, int(x.shape[0])), device=dev,
+                            dtype=torch.int64)
+        p = flat0 + rows[:, None] * int(ncols) + cols[None, :]
+        w = (p * 1000003) % SHAPE_HASH_P
+        bits = x[i:i + chunk].contiguous().view(ints).to(torch.int64)
+        total += (bits * w).sum()
+    return total
+
+
+def _sh_result_hash(torch, app, a):
+    """``_sh_hash`` of a BlockArray result over this rank's box, where the
+    box counts (a replicated part once)."""
+    box, loc = _sh_box(app, a)
+    if not app.backend.counts_here(a.raw.placements):
+        return torch.zeros((), dtype=torch.int64, device=loc.device)
+    ncols = int(np.prod(a.shape[1:], dtype=np.int64))
+    return _sh_hash(torch, loc, box[0][0] * ncols if box else 0, ncols)
+
+
+def _sh_moved(torch, app, a, src_hash, what):
+    """The hash of a move's result equals the hash of the rows each rank
+    sent to their places (summed over the ranks): bit for bit."""
+    got = _sh_sum(torch, _sh_result_hash(torch, app, a))
+    want = _sh_sum(torch, src_hash)
+    _shape_hold(torch.equal(got, want), (what, int(got), int(want)))
+
+
+def _sh_rows_hash(torch, xl, r0, d, dest_row, keep=None):
+    """``_sh_hash`` of X's local rows (starting at global row ``r0``) at
+    the flat places of a result whose row of X row i is ``dest_row(i)`` (an
+    int64 tensor of rows, -1 for none), in a result of ``d`` columns."""
+    rows = torch.arange(r0, r0 + xl.shape[0], device=xl.device,
+                        dtype=torch.int64)
+    dst = dest_row(rows)
+    sel = dst >= 0 if keep is None else keep(rows)
+    total = torch.zeros((), dtype=torch.int64, device=xl.device)
+    idx = torch.nonzero(sel)[:, 0]
+    for i in range(0, int(idx.shape[0]), 1 << 16):
+        j = idx[i:i + (1 << 16)]
+        total += _sh_hash_at(torch, xl[j], dst[j] * d)
+    return total
+
+
+def _sh_hash_at(torch, rows, flat0s):
+    """``_sh_hash`` of rows at their own flat starts (one per row)."""
+    ints = {4: torch.int32, 8: torch.int64}[rows.element_size()]
+    width = int(rows.shape[1])
+    p = flat0s[:, None] + torch.arange(width, device=rows.device,
+                                       dtype=torch.int64)[None, :]
+    w = (p * 1000003) % SHAPE_HASH_P
+    return (rows.contiguous().view(ints).to(torch.int64) * w).sum()
+
+
+def _sh_keys(torch, x):
+    from nums_tpu_torch.core.ops import masking
+
+    return masking.total_order_key(x)
+
+
+def _sh_sorted_1d(torch, app, s, what, pos=None):
+    """A sorted 1-D result (a BlockArray, or this rank's part of one): each
+    rank's part non-decreasing (jnp's order), and each rank's last key at
+    most the next non-empty rank's first; with ``pos`` (the parts'
+    positions in the operand), equal keys in increasing positions (a
+    stable sort)."""
+    import torch.distributed as dist
+
+    loc = _local(s) if hasattr(s, "raw") else s
+    k = _sh_keys(torch, loc).to(torch.int64)
+    ok = bool((k[1:] >= k[:-1]).all()) if k.numel() > 1 else True
+    if pos is not None and k.numel() > 1:
+        pos = pos.to(torch.int64)
+        ok = ok and bool(((k[1:] != k[:-1]) | (pos[1:] > pos[:-1])).all())
+    edge = (lambda t, i: int(t[i]) if t.numel() else 0)
+    p = pos if pos is not None else k
+    ends = torch.tensor([k.numel(), edge(k, 0), edge(p, 0), edge(k, -1),
+                         edge(p, -1)], dtype=torch.int64,
+                        device=_mesh_device(torch))
+    every = [torch.empty_like(ends) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, ends)
+    last = None
+    for e in every:
+        if int(e[0]):
+            if last is not None:
+                ok = ok and (last[0] < int(e[1]) or (
+                    last[0] == int(e[1]) and (pos is None or last[1]
+                                              < int(e[2]))))
+            last = (int(e[3]), int(e[4]))
+    _shape_hold(_all_true(torch, ok), (what, "not in order"))
+
+
+def _sh_moments(torch, x, dim=None, chunk_elements=1 << 26):
+    """Σ key and Σ key² of a float part (int64, wrapping): a permutation
+    keeps both (per column with ``dim=0``); a chunk of rows at a time."""
+    if dim is None:
+        x = x.reshape(-1, 1)
+    width = max(int(x.shape[1]), 1)
+    acc = torch.zeros((2, width), dtype=torch.int64, device=x.device)
+    step = max(1, chunk_elements // width)
+    for i in range(0, int(x.shape[0]), step):
+        k = _sh_keys(torch, x[i:i + step]).to(torch.int64)
+        acc[0] += k.sum(dim=0)
+        acc[1] += (k * k).sum(dim=0)
+    return acc.sum(dim=1) if dim is None else acc.reshape(-1)
+
+
+def _sh_permutation(torch, app, pos, n, what):
+    """Positions that are a permutation of [0, n): each in range, and
+    Σ p and Σ p² (int64, mod 2^64) those of [0, n)."""
+    loc = _local(pos).to(torch.int64)
+    ok = bool(((loc >= 0) & (loc < n)).all()) if loc.numel() else True
+    got = _sh_sum(torch, torch.stack([loc.sum(), (loc * loc).sum()]))
+    m = 1 << 64
+    s1, s2 = n * (n - 1) // 2 % m, (n - 1) * n * (2 * n - 1) // 6 % m
+    want = [s1 - m if s1 >= m // 2 else s1, s2 - m if s2 >= m // 2 else s2]
+    _shape_hold(_all_true(torch, ok) and [int(v) for v in got] == want, (
+        what, "not a permutation"))
+
+
+def _sh_take(torch, app, v, pos):
+    """v at this rank's positions (``mesh_ops.take``: one pull)."""
+    from nums_tpu_torch.core.ops import mesh_ops
+
+    return mesh_ops.take(app.backend, v.raw, _local(pos).to(torch.int64))
+
+
+def _sh_rank_values(torch, app, v, ranks):
+    """The values of the given ranks of v's elements (jnp's order) by
+    ``mesh_ops.select_ranks`` on the float64 values (exact), over the
+    mesh: no value leaves its rank."""
+    from nums_tpu_torch.core.ops import mesh_ops
+
+    loc = _local(v).double()
+    dims = list(range(len(app.backend.device_grid.mesh_shape)))
+    r = torch.tensor(ranks, dtype=torch.int64, device=loc.device)
+    return mesh_ops.select_ranks(app.backend, loc, r, dims).float()
+
+
+def _sh_global_at(torch, app, a, i):
+    """Element i of a 1-D BlockArray on every rank (its holder's, one
+    all-reduce)."""
+    box, loc = _sh_box(app, a)
+    val = torch.zeros((1,), dtype=torch.float64, device=loc.device)
+    a0, a1 = box[0]
+    if a0 <= i < a1 and app.backend.counts_here(a.raw.placements):
+        val[0] = loc[i - a0].double()
+    return float(_sh_sum(torch, val)[0])
+
+
+def _sh_edges(torch, xl, r0, w):
+    """Every rank's (first row, its first ``w`` rows, last ``w`` rows) of
+    X, in float64 (one all-gather)."""
+    import torch.distributed as dist
+
+    d = xl.shape[1]
+    buf = torch.zeros((2 * w, d), dtype=torch.float64, device=xl.device)
+    m = int(xl.shape[0])
+    buf[:min(w, m)] = xl[:w].double()
+    buf[w:w + min(w, m)] = xl[max(0, m - w):].double()
+    head = torch.tensor([r0, m], dtype=torch.int64, device=xl.device)
+    heads = [torch.empty_like(head) for _ in range(dist.get_world_size())]
+    bufs = [torch.empty_like(buf) for _ in range(dist.get_world_size())]
+    dist.all_gather(heads, head)
+    dist.all_gather(bufs, buf)
+    rows = {}
+    for h, b in zip(heads, bufs):
+        s, c = int(h[0]), int(h[1])
+        for j in range(min(w, c)):
+            rows[s + j] = b[j]
+            rows[s + c - min(w, c) + j] = b[w + j]
+    return rows
+
+
+def _sh_row64(xl, r0, edges, i):
+    if r0 <= i < r0 + xl.shape[0]:
+        return xl[i - r0].double()
+    return edges[i]
+
+
+def _sh_check_rows(torch, app, res, xl, r0, n, ref_row, what):
+    """A row-sharded float32 result held to float64 (``ref_row(i)``) on
+    this rank's first, last and middle rows and the rows beside its box
+    edges, within ``SHAPE_REL`` of max|ref|."""
+    box, loc = _sh_box(app, res)
+    a, b = box[0]
+    worst = 0.0
+    for i in sorted({a, a + 1, (a + b) // 2, b - 2, b - 1}):
+        if a <= i < b:
+            ref = ref_row(i)
+            scale = max(float(ref.abs().max()), 1e-30)
+            worst = max(worst, float((loc[i - a].double() - ref).abs().max())
+                        / scale)
+    worst = _all_max(torch, worst)
+    _shape_hold(worst <= SHAPE_REL, (what, worst))
+    return worst
+
+
+def _shape_steps(torch, app, X, v, k, cfg, step, out, checks=True,
+                 keep=True):
+    """Every step of phase 19 on this rank (the mesh of X's app): each
+    result held to its check where ``checks`` (every rank joins each
+    check's collectives); returns name -> result (with ``keep``, every
+    one, for the world-1 comparison with the serial backend; else each
+    goes once checked, for memory)."""
+    import nums_tpu_torch.numpy as nps
+
+    if isinstance(X, list):
+        X = X.pop()  # the only reference: X goes before the vector steps
+    n, d = (int(s) for s in X.shape)
+    nv = int(v.shape[0])
+    mesh = app.backend.mesh is not None
+    drop = not keep
+    res = {}
+    xbox, xl = _sh_box(app, X) if mesh else (((0, n), (0, d)), X.raw)
+    r0, r1 = xbox[0]
+
+    def rows_hash(dest_row, width=d, part=None):
+        return _sh_rows_hash(torch, xl if part is None else part, r0, width,
+                             dest_row)
+
+    def done(*names):
+        """Each result goes once checked (for memory) unless kept."""
+        if drop:
+            for name in names:
+                del res[name]
+            _mesh_free(torch)
+
+    def moved(name, fn, dest_row, width=d, part=None):
+        res[name] = step(name, fn)
+        if checks:
+            _sh_moved(torch, app, res[name], rows_hash(dest_row, width, part),
+                      name)
+        done(name)
+
+    one, mid, three = n // 10, n // 2, 9 * n // 10
+    moved("slice", lambda: X[one:three],
+          lambda i: torch.where((i >= one) & (i < three), i - one, -1))
+    moved("step2", lambda: X[::2],
+          lambda i: torch.where(i % 2 == 0, i // 2, -1))
+    moved("reverse", lambda: X[::-1], lambda i: n - 1 - i)
+    res["row"] = step("row", lambda: X[mid])
+    if checks:
+        same = True
+        if r0 <= mid < r1:
+            same = bool(torch.equal(_local(res["row"]), xl[mid - r0]))
+        _shape_hold(_all_true(torch, same), "row")
+    done("row")
+    q = n // 4
+    moved("split", lambda: nps.split(X, 4)[2],
+          lambda i: torch.where((i >= 2 * q) & (i < 3 * q), i - 2 * q, -1))
+    moved("reshape", lambda: X.reshape(2 * n, d // 2), lambda i: i)
+    moved("ravel", lambda: nps.ravel(X), lambda i: i)
+    res["concatenate"] = step("concatenate", lambda: nps.concatenate([X, X]))
+    if checks:
+        _sh_moved(torch, app, res["concatenate"], rows_hash(lambda i: i)
+                  + rows_hash(lambda i: i + n), "concatenate")
+    done("concatenate")
+    moved("flip", lambda: nps.flip(X, 0), lambda i: n - 1 - i)
+    moved("roll", lambda: nps.roll(X, SHAPE_ROLL, 0),
+          lambda i: (i + SHAPE_ROLL) % n)
+    edges = _sh_edges(torch, xl, r0, 2) if checks else {}
+
+    def row64(i):
+        return _sh_row64(xl, r0, edges, i)
+
+    res["diff"] = step("diff", lambda: nps.diff(X, axis=0))
+    if checks:
+        out["diff_rel"] = _sh_check_rows(
+            torch, app, res["diff"], xl, r0, n,
+            lambda i: row64(i + 1) - row64(i), "diff")
+    done("diff")
+    res["gradient"] = step("gradient", lambda: nps.gradient(X, axis=0))
+    if checks:
+        out["gradient_rel"] = _sh_check_rows(
+            torch, app, res["gradient"], xl, r0, n,
+            lambda i: (row64(1) - row64(0) if i == 0 else
+                       row64(n - 1) - row64(n - 2) if i == n - 1 else
+                       (row64(i + 1) - row64(i - 1)) * 0.5), "gradient")
+    done("gradient")
+    res["tril"] = step("tril", lambda: nps.tril(X))
+    if checks:
+        tbox, tl = _sh_box(app, res["tril"])
+        _shape_hold(_all_true(torch, bool(torch.equal(tl, torch.tril(
+            xl, diagonal=tbox[0][0] - tbox[1][0])))), "tril")
+        del tl
+    done("tril")
+    cols = X[:, :64]
+    res["rfft"] = step("rfft", lambda: nps.fft.rfft(cols, axis=0))
+    if checks:
+        out["rfft_rel"] = _sh_rfft_check(torch, app, res["rfft"], xl[:, :64],
+                                         r0, n)
+    done("rfft")
+    res["cov"] = step("cov", lambda: nps.cov(X, rowvar=False))
+    if checks:
+        out["cov_rel"] = _sh_cov_check(torch, app, res["cov"], xl, n)
+    done("cov")
+    res["sort_rows"] = step("sort_rows", lambda: nps.sort(X, axis=0))
+    if checks:
+        _sh_sorted_rows(torch, app, res["sort_rows"], xl)
+    done("sort_rows")
+    head, eight = X[:, :250], X[:, :8]
+    el = _local(eight) if mesh else eight.raw
+    if drop:
+        del X, xl, cols
+        _mesh_free(torch)
+    res["sort_flat"] = step("sort_flat", lambda: nps.sort(head, axis=None))
+    if checks:
+        _sh_sorted_1d(torch, app, res["sort_flat"], "sort_flat")
+        _shape_hold(torch.equal(
+            _sh_sum(torch, _sh_moments(torch, _local(res["sort_flat"]))),
+            _sh_sum(torch, _sh_moments(torch, _local(head)))), "sort_flat")
+    done("sort_flat")
+    res["kron"] = step("kron", lambda: nps.kron(eight, np.ones((2, 1))))
+    if checks:
+        _sh_moved(torch, app, res["kron"], _sh_rows_hash(
+            torch, el, r0, 8, lambda i: 2 * i) + _sh_rows_hash(
+                torch, el, r0, 8, lambda i: 2 * i + 1), "kron")
+    done("kron")
+    res["resize"] = step("resize", lambda: nps.resize(eight, (2 * n, 8)))
+    if checks:
+        _sh_moved(torch, app, res["resize"], _sh_rows_hash(
+            torch, el, r0, 8, lambda i: i) + _sh_rows_hash(
+                torch, el, r0, 8, lambda i: i + n), "resize")
+    done("resize")
+    if drop:
+        del head, eight, el
+    # the vector steps (phase 19's X is no longer read)
+    vl = _local(v)
+    res["sort"] = step("sort", lambda: nps.sort(v))
+    if checks:
+        _sh_sorted_1d(torch, app, res["sort"], "sort")
+        ranks = [0, nv // 4, nv // 2, nv - 1]
+        sel = _sh_rank_values(torch, app, v, ranks)
+        got = [_sh_global_at(torch, app, res["sort"], r) for r in ranks]
+        _shape_hold([float(s) for s in sel] == got, ("sort ranks", got))
+        _shape_hold(torch.equal(_sh_sum(torch, _sh_moments(torch, _local(
+            res["sort"]))), _sh_sum(torch, _sh_moments(torch, vl))), "sort")
+    done("sort")
+    res["argsort"] = step("argsort", lambda: nps.argsort(v))
+    if checks:
+        # a permutation at which v is in order, ties by position: the one
+        # stable sort (the sorted values' own check is the step before)
+        _sh_permutation(torch, app, res["argsort"], nv, "argsort")
+        taken = _sh_take(torch, app, v, res["argsort"])
+        _sh_sorted_1d(torch, app, taken, "argsort: v at the positions",
+                      pos=_local(res["argsort"]))
+        del taken
+    done("argsort")
+    kth = nv // 2
+    res["partition"] = step("partition", lambda: nps.partition(v, kth))
+    if checks:
+        _sh_selection(torch, app, v, _local(res["partition"]),
+                      _sh_box(app, res["partition"])[0][0][0], kth,
+                      "partition")
+        _shape_hold(torch.equal(_sh_sum(torch, _sh_moments(
+            torch, _local(res["partition"]))), _sh_sum(
+                torch, _sh_moments(torch, vl))), "partition")
+    done("partition")
+    kq = nv // 4
+    res["argpartition"] = step("argpartition",
+                               lambda: nps.argpartition(v, kq))
+    if checks:
+        _sh_permutation(torch, app, res["argpartition"], nv, "argpartition")
+        taken = _sh_take(torch, app, v, res["argpartition"])
+        _sh_selection(torch, app, v, taken, _sh_box(
+            app, res["argpartition"])[0][0][0], kq, "argpartition")
+        del taken
+    done("argpartition")
+    res["lexsort"] = step("lexsort", lambda: nps.lexsort((k, v)))
+    if checks:
+        _sh_permutation(torch, app, res["lexsort"], nv, "lexsort")
+        _sh_lex_check(torch, app, v, k, res["lexsort"])
+    done("lexsort")
+    res["vander"] = step("vander", lambda: nps.vander(v, 3))
+    if checks:
+        from nums_tpu_torch.core.ops import elementwise
+
+        iota = torch.tensor([2.0, 1.0, 0.0], dtype=vl.dtype,
+                            device=vl.device)
+        want = elementwise.bop("power", vl[:, None], iota[None, :],
+                               vl.dtype)
+        _shape_hold(_all_true(torch, bool(torch.equal(_local(res["vander"]),
+                                                 want))), "vander")
+        del want
+    done("vander")
+    p = app.array(SHAPE_POLY.astype(np.float32), block_shape=(3,))
+    res["polyval"] = step("polyval", lambda: nps.polyval(p, v))
+    if checks:
+        x64 = vl[:1 << 20].double()
+        ref = (1.5 * x64 - 2.0) * x64 + 0.5
+        err = float((_local(res["polyval"])[:1 << 20].double() - ref).abs()
+                    .max()) / max(float(ref.abs().max()), 1e-30) \
+            if x64.numel() else 0.0
+        out["polyval_rel"] = _all_max(torch, err)
+        _shape_hold(out["polyval_rel"] <= SHAPE_REL, out["polyval_rel"])
+    return res
+
+
+def _sh_selection(torch, app, v, part, start, kth, what):
+    """A partition's values (this rank's ``part`` at positions from
+    ``start``): the kth is v's kth smallest (``select_ranks``, bit for
+    bit), none before it above it, none after it below it (jnp's order)."""
+    piv = _sh_rank_values(torch, app, v, [kth])[0].to(part.dtype)
+    pk = int(_sh_keys(torch, piv.reshape(1))[0])
+    keys = _sh_keys(torch, part).to(torch.int64)
+    pos = torch.arange(start, start + part.shape[0], device=part.device)
+    ok = bool((keys[pos < kth] <= pk).all()) and bool(
+        (keys[pos > kth] >= pk).all())
+    at = pos == kth
+    if bool(at.any()):
+        ok = ok and int(keys[at][0]) == pk
+    _shape_hold(_all_true(torch, ok), (what, "not a partition at kth"))
+
+
+def _sh_lex_check(torch, app, v, k, pos):
+    """v and k at lexsort's positions: (v, k) non-decreasing within each
+    rank's part and across the ranks' boundaries."""
+    import torch.distributed as dist
+
+    vk = _sh_keys(torch, _sh_take(torch, app, v, pos)).to(torch.int64)
+    kk = _sh_take(torch, app, k, pos).to(torch.int64)
+    ok = True
+    if vk.numel() > 1:
+        up = vk[1:] > vk[:-1]
+        same = vk[1:] == vk[:-1]
+        ok = bool((up | (same & (kk[1:] >= kk[:-1]))).all())
+    ends = torch.tensor([vk.numel(), int(vk[0]) if vk.numel() else 0,
+                         int(kk[0]) if vk.numel() else 0,
+                         int(vk[-1]) if vk.numel() else 0,
+                         int(kk[-1]) if vk.numel() else 0],
+                        dtype=torch.int64, device=_mesh_device(torch))
+    every = [torch.empty_like(ends) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, ends)
+    last = None
+    for e in every:
+        if int(e[0]):
+            if last is not None:
+                ok = ok and last <= (int(e[1]), int(e[2]))
+            last = (int(e[3]), int(e[4]))
+    _shape_hold(_all_true(torch, ok), "lexsort: not in order")
+
+
+def _sh_sorted_rows(torch, app, s, xl):
+    """sort(X, axis=0): each column of each rank's rows non-decreasing,
+    each rank's last row at most the next non-empty rank's first, and each
+    column's key moments X's."""
+    import torch.distributed as dist
+
+    loc = _local(s)
+    k = _sh_keys(torch, loc)
+    ok = bool((k[1:] >= k[:-1]).all()) if k.shape[0] > 1 else True
+    d = loc.shape[1]
+    ends = torch.zeros((2, d), dtype=torch.int64, device=loc.device)
+    if k.shape[0]:
+        ends[0], ends[1] = k[0], k[-1]
+    cnt = torch.tensor([k.shape[0]], dtype=torch.int64, device=loc.device)
+    every = [torch.empty_like(ends) for _ in range(dist.get_world_size())]
+    counts = [torch.empty_like(cnt) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, ends)
+    dist.all_gather(counts, cnt)
+    last = None
+    for e, c in zip(every, counts):
+        if int(c[0]):
+            if last is not None:
+                ok = ok and bool((last <= e[0]).all())
+            last = e[1]
+    _shape_hold(_all_true(torch, ok), "sort_rows: not in order")
+    _shape_hold(torch.equal(_sh_sum(torch, _sh_moments(torch, loc, 0)),
+                            _sh_sum(torch, _sh_moments(torch, xl, 0))),
+                "sort_rows: not a permutation of each column")
+
+
+def _sh_rfft_check(torch, app, res, cl, r0, n):
+    """rfft(X[:, :64], axis=0) at frequencies 0, 1 and n/4 against float64
+    sums of each rank's rows (one all-reduce), within ``SHAPE_REL``."""
+    worst = 0.0
+    rows = torch.arange(r0, r0 + cl.shape[0], device=cl.device,
+                        dtype=torch.float64)
+    box, loc = _sh_box(app, res)
+    a, b = box[0]
+    for f in (0, 1, n // 4):
+        ang = -2.0 * np.pi * ((rows * f) % n) / n
+        w = torch.polar(torch.ones_like(ang), ang)
+        part = (cl.double() * w[:, None]).sum(dim=0) if cl.shape[0] else \
+            torch.zeros(cl.shape[1], dtype=torch.complex128,
+                        device=cl.device)
+        ref = _sh_sum(torch, part)
+        err = 0.0
+        if a <= f < b:
+            err = float((loc[f - a].to(torch.complex128) - ref).abs().max()) \
+                / max(float(ref.abs().max()), 1e-30)
+        worst = max(worst, _all_max(torch, err))
+    _shape_hold(worst <= SHAPE_REL, ("rfft", worst))
+    return worst
+
+
+def _sh_cov_check(torch, app, res, xl, n):
+    """cov(X, rowvar=False) against the float64 centred gram of each
+    rank's rows (one all-reduce of the sums, one of the gram)."""
+    sums = torch.zeros(xl.shape[1], dtype=torch.float64, device=xl.device)
+    for i in range(0, xl.shape[0], MESH_CHUNK):
+        sums += xl[i:i + MESH_CHUNK].double().sum(dim=0)
+    mean = _sh_sum(torch, sums) / n
+    g = torch.zeros((xl.shape[1], xl.shape[1]), dtype=torch.float64,
+                    device=xl.device)
+    for i in range(0, xl.shape[0], MESH_CHUNK):
+        c = xl[i:i + MESH_CHUNK].double() - mean
+        g += c.T @ c
+    ref = _sh_sum(torch, g).reshape(g.shape) / (n - 1)
+    got = _local(res).double()
+    rel = _all_max(torch, float((got - ref).abs().max())
+                   / float(ref.abs().max()))
+    _shape_hold(rel <= SHAPE_COV_REL, ("cov", rel))
+    return rel
+
+
+def _shape_bounds(local_x, local_v, d, world):
+    """The bytes a rank may send in each step, beside
+    ``SHAPE_SLACK_BYTES`` for counts, splitters and halos: the slabs it
+    moves (its rows of X, of a slice of them). The sample sorts of v (m
+    elements a rank) by their payloads, per element and per round:
+    * the all-to-all to the rank of each key range carries the 4 B value,
+      the 8 B position where positions are asked, and lexsort's 4 B of k;
+      v is drawn i.i.d. and the splitters cut it in even ranges, so a
+      rank keeps 1/world of its elements and sends the rest;
+    * the round that lays the sorted runs out carries the result, a 4 B
+      value or an 8 B position, at most for each element of the run;
+    * argpartition sends its chosen positions (8 B each, at most the run)
+      to their holders once more.
+    So sort and partition 4·off + 4, argsort 12·off + 8, argpartition
+    12·off + 16, lexsort 16·off + 8 bytes an element, off =
+    (world - 1) / world."""
+    x, m = local_x, local_v // 4
+    off = (world - 1) / world
+
+    def sample(payload, placed):
+        return int(off * payload * m) + placed * m
+
+    return {"slice": x, "step2": x, "reverse": x, "row": 0, "split": x,
+            "reshape": x, "ravel": x, "concatenate": 2 * x, "flip": x,
+            "roll": x, "diff": 0, "gradient": 0, "tril": 0,
+            "rfft": 4 * x * 64 // d, "cov": 0, "sort_rows": 2 * x,
+            "sort_flat": 2 * x // 4, "kron": 4 * x * 8 // d,
+            "resize": 4 * x * 8 // d, "sort": sample(4, 4),
+            "argsort": sample(12, 8), "partition": sample(4, 4),
+            "argpartition": sample(12, 16), "lexsort": sample(16, 8),
+            "vander": 0, "polyval": 0}
+
+
+def _shape_step_fn(torch, info):
+    """The ``step`` of ``_shape_steps``: each step run once cold (its
+    seconds kept as ``cold_seconds``, its result dropped), then again
+    warm: its seconds (host clock after a barrier, the slowest rank's),
+    the bytes this rank sent through the port's collectives (and by
+    all-to-all alone), the collectives ``CommDebugMode`` saw (DTensor's own
+    inside a torch op too), the kernel launches (set to 0 just before it,
+    read just after) and the peak."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from nums_tpu_torch.core import multiprocess
+
+    def step(name, fn):
+        cold = _mesh_seconds(torch, fn)[1]
+        _mesh_free(torch)
+        sent = multiprocess.SENT["bytes"]
+        moved = multiprocess.EXCHANGED["bytes_sent"]
+        _reset_counts()
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        mode = CommDebugMode()
+        with mode:
+            res, secs = _mesh_seconds(torch, fn)
+        info[name] = {"seconds": secs, "cold_seconds": cold,
+                      "bytes_sent": multiprocess.SENT["bytes"] - sent,
+                      "all_to_all_bytes_sent":
+                      multiprocess.EXCHANGED["bytes_sent"] - moved,
+                      "collectives": {str(k).split(".")[-1]: v for k, v in
+                                      mode.get_comm_counts().items() if v},
+                      "launches": {k: v for k, v in _counts().items() if v},
+                      "peak_bytes": _mesh_peak(torch)}
+        return res
+
+    return step
+
+
+def _shape_held(torch, info, bounds, x_bytes):
+    """Every step: no all-gather inside a torch op (DTensor's own), no
+    kernel launched, its bytes within its bound, its peak below X's
+    bytes (on the cards of a mesh of several; ``x_bytes`` None on one,
+    which holds X whole); a failure goes to ``SHAPE_FAILED``."""
+    for name, st in info.items():
+        _shape_hold("all_gather_into_tensor" not in st["collectives"], (
+            name, st["collectives"]))
+        _shape_hold(not st["launches"], (name, st["launches"]))
+        _shape_hold(st["bytes_sent"] <= bounds[name] + SHAPE_SLACK_BYTES, (
+            name, st["bytes_sent"], bounds[name]))
+        _shape_hold(DEVICE != "cuda" or x_bytes is None
+                    or st["peak_bytes"] < x_bytes, (name, st["peak_bytes"]))
+
+
+def _shape_vectors(torch, app, nv):
+    """v (nv float32 normals) and k (nv int32 integers in [0, 1000)),
+    drawn sharded over the whole mesh."""
+    blocks = -(-nv // app.backend.num_devices)
+    rs = app.random_state(LA_SEED + 19)
+    v = rs.normal(shape=(nv,), block_shape=(blocks,), dtype=np.float32)
+    k = rs.integers(0, 1000, shape=(nv,), block_shape=(blocks,),
+                    dtype=np.int32)
+    return v, k
+
+
+def phase_shape(torch, smi, app, X):
+    """Phase 19 in the full run, on phase 15's world-1 mesh: X's first
+    ``SHAPE_WORLD1["n"]`` rows and a vector of ``SHAPE_WORLD1["vec"]``,
+    every step on the mesh and again on the serial backend with the same
+    tensors, every result bit for bit equal and held to its check; no
+    kernel launched."""
+    from nums_tpu_torch.core import application_manager
+
+    t_phase = time.perf_counter()
+    n = SHAPE_WORLD1["n"]
+    mesh_app = application_manager._instance
+    Xs = X[:n]
+    v, k = _shape_vectors(torch, app, SHAPE_WORLD1["vec"])
+    info, out = {}, {}
+    got = _shape_steps(torch, app, Xs, v, k, SHAPE_WORLD1,
+                       _shape_step_fn(torch, info), out)
+    serial = application_manager.create(
+        device=None if DEVICE == "cuda" else DEVICE)
+    application_manager.set_instance(serial)
+    try:
+        twins = [_serial_twin(serial.backend, a) for a in (Xs, v, k)]
+        ref = _shape_steps(torch, serial, *twins, SHAPE_WORLD1,
+                           lambda name, fn: fn(), {}, checks=False)
+    finally:
+        application_manager.set_instance(mesh_app)
+    differ = _same_results(torch, got, ref)
+    _shape_hold(not differ, ("mesh vs serial", differ))
+    bounds = _shape_bounds(4 * n * D_FULL, 4 * SHAPE_WORLD1["vec"], D_FULL,
+                           1)
+    _shape_held(torch, info, bounds, None)
+    launches = {name: 0 for name, _, _ in KERNELS}
+    out.update({"phase": "shape", "world": 1, "shape": [n, D_FULL],
+                "vector": SHAPE_WORLD1["vec"], "nvidia_smi": smi,
+                "steps": info, "launches": launches,
+                "bitwise_vs_serial": sorted(got), "failed": SHAPE_FAILED,
+                "seconds": time.perf_counter() - t_phase})
+    del got, ref, twins, Xs, v, k
+    _mesh_free(torch)
+    emit(out)
+    assert not SHAPE_FAILED, SHAPE_FAILED
+    return out
+
+
+def _shape_cards(torch, cfg):
+    """--shape-only on this rank: X of 10M x 1000 fp32 drawn on the
+    (cards, 1) mesh from phase 4's seed, v and k of 2.5e9 drawn sharded,
+    then ``_shape_steps`` with every check; each step held to its bytes,
+    no all-gather inside a torch op, no kernel, its peak below X's bytes;
+    rank 0 prints the phase's line."""
+    import torch.distributed as dist
+
+    from nums_tpu_torch.core import application_manager
+
+    world = dist.get_world_size()
+    n, d, nv = cfg["n"], cfg["d"], cfg["vec"]
+    app = application_manager.create(
+        device=None if DEVICE == "cuda" else DEVICE, backend="mesh",
+        cluster_shape=(world, 1))
+    application_manager.set_instance(app)
+    say = emit if dist.get_rank() == 0 else (
+        lambda obj: print(json.dumps(obj)))
+    head = {"world": world, "shape": [n, d], "vector": nv,
+            "cluster_shape": [world, 1]}
+    t0 = time.perf_counter()
+    X, draw_secs = _mesh_seconds(torch, lambda: _draw_mesh_x(torch, app, n,
+                                                             d))
+    (v, k), vec_secs = _mesh_seconds(torch, lambda: _shape_vectors(
+        torch, app, nv))
+    info, out = {}, {}
+    bounds = _shape_bounds(_local(X).numel() * 4, _local(v).numel() * 4, d,
+                           world)
+    held = [X]
+    del X
+    _shape_steps(torch, app, held, v, k, cfg, _shape_step_fn(torch, info),
+                 out, keep=False)
+    _shape_held(torch, info, bounds, 4 * n * d)
+    peaks = [None] * world
+    dist.all_gather_object(peaks, max(st["peak_bytes"]
+                                      for st in info.values()))
+    launches = [None] * world
+    dist.all_gather_object(launches, {
+        name: sum(st["launches"].get(name, 0) for st in info.values())
+        for name, _, _ in KERNELS})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip().splitlines() if DEVICE == "cuda" else []
+    say({"phase": "shape", **head, "draw_seconds": draw_secs,
+         "vector_draw_seconds": vec_secs, **out, "steps": info,
+         "bounds": bounds, "peak_bytes_per_card": peaks,
+         "launches_per_card": launches, "nvidia_smi_per_card": smi,
+         "failed": SHAPE_FAILED, "seconds": time.perf_counter() - t0})
+    assert all(sum(c.values()) == 0 for c in launches), launches
+    assert not SHAPE_FAILED, SHAPE_FAILED
+
+
+def phase_shape_cards(torch, smi):
+    """--shape-only: one process per visible card, as --mesh-core-only
+    spawns them, each running ``_shape_cards``; fails unless every rank
+    exits 0 before ``SHAPE_DEADLINE_S``. Returns the number of ranks."""
+    world = torch.cuda.device_count() if DEVICE == "cuda" else 4
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "mesh_logs")
+    os.makedirs(out_dir, exist_ok=True)
+    cfg = {"n": SHAPE_FULL["n"], "d": D_FULL, "vec": SHAPE_FULL["vec"],
+           "device": DEVICE, "deadline": SHAPE_DEADLINE_S,
+           "out_dir": out_dir, "root": root, "entry": "_shape_cards"}
+    emit({"phase": "shape_start", "world": world, "nvidia_smi": smi,
+          "shape": [cfg["n"], cfg["d"]], "vector": cfg["vec"]})
+    t0 = time.perf_counter()
+    codes = _spawn_ranks(world, cfg)
+    assert codes == [0] * world, ("shape ranks' exit codes", codes)
+    emit({"phase": "shape_done", "world": world, "exit_codes": codes,
+          "seconds": time.perf_counter() - t0})
+    return world
+
+
 KERNELS = (
     ("gram", "nums_tpu_torch/csrc/gram.cu",
      "nums_tpu/core/ops/pallas_gram.py:139"),
@@ -6775,7 +7596,7 @@ KERNELS = (
 
 
 def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
-                 facade, models, mesh, mesh_ooc, masks, core):
+                 facade, models, mesh, mesh_ooc, masks, core, shape):
     """One entry per kernel: "launches" counts the main path (phase 4),
     "launches_per_fit" one fit (phase 6), "launches_ooc" the streamed
     steps of phase 8 (the PCA and TruncatedSVD fits among them),
@@ -6793,7 +7614,9 @@ def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
     one panel there, beside that panel's bound; "launches_masks" phase
     17's gram, fit and predict on the filtered rows, "launches_mesh_core"
     phase 18's steps (K1 in ``ridge_regression``'s RᵀR and the SPD
-    matrix's gram, K3 in the fits that reach it).
+    matrix's gram, K3 in the fits that reach it), "launches_mesh_shape"
+    phase 19's steps (none: the slicing, shape and order ops reach no
+    kernel).
     gram.cu's weighted launches ("gram_weighted") on these paths are K3's
     Hessian, and K2 proper in phase 8's pass with the Newton gate off."""
     return [
@@ -6820,6 +7643,8 @@ def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
          "launches_masks": masks["launches"][name],
          "launches_mesh_core": sum(st["launches"].get(name, 0)
                                    for st in core["steps"].values()),
+         "launches_mesh_shape": sum(st["launches"].get(name, 0)
+                                    for st in shape["steps"].values()),
          "mesh_panel_ms": mesh_ooc["pass_parts"]["panel_kernels_rank0"][
              name]["ms"],
          "mesh_panel_bound_ms": mesh_ooc["pass_parts"][
@@ -6847,6 +7672,12 @@ def main(argv):
             phase_random(torch, smi, nums_tpu_torch.init(), None)
             return 0
         phase_build()
+        if "--shape-only" in argv:
+            world = phase_shape_cards(torch, smi)
+            emit({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": world}})
+            return 0
         if "--mesh-core-only" in argv:
             world = phase_mesh_core_cards(torch, smi)
             emit({"ok": True, "device": {
@@ -6915,11 +7746,11 @@ def main(argv):
         models = phase_models(torch, smi, app, X, draw_labels(torch, app, X))
         del X
         torch.cuda.empty_cache()
-        mesh, mesh_ooc, masks, core = phase_mesh(torch, smi, keep)
+        mesh, mesh_ooc, masks, core, shape = phase_mesh(torch, smi, keep)
         emit({"kernels": kernels_line(counts, fit_counts, times, ooc,
                                       linalg_launches, higgs, facade,
                                       models, mesh, mesh_ooc, masks,
-                                      core)})
+                                      core, shape)})
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})

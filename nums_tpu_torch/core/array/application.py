@@ -353,16 +353,34 @@ class ArrayApplication:
         first = arrays[0]
         for a in arrays:
             assert a.ndim == first.ndim, "Unequal num axes."
-        data = shape_ops.concatenate([a.data for a in arrays], int(axis))
+        axis = int(axis) % first.ndim
+        lshape = list(first.shape)
+        lshape[axis] = sum(a.shape[axis] for a in arrays)
+        lshape = tuple(lshape)
         result_block_shape = list(first.block_shape)
         result_block_shape[axis] = (
             axis_block_size if axis_block_size is not None
             else first.block_shape[axis]
         )
-        lshape = tuple(data.shape)
         result_block_shape = tuple(
             min(b, s) for b, s in zip(result_block_shape, lshape)
         )
+        tensors = [a.data for a in arrays]
+        if self.backend.mesh is not None:
+            # each operand's rows go to their place in the result's layout
+            # (one all-to-all along a sharded axis): never a whole copy
+            from nums_tpu_torch.core.ops import mesh_ops
+
+            dt = tensors[0].dtype
+            for t in tensors[1:]:
+                dt = torch.promote_types(dt, t.dtype)
+            tensors = [t.to(dt) for t in tensors]
+            grid = ArrayGrid(lshape, result_block_shape,
+                             array_utils.to_dtype_name(tensors[0].dtype))
+            data = mesh_ops.concat(self.backend, tensors, axis,
+                                   self.backend.sharding_for_grid(grid))
+        else:
+            data = shape_ops.concatenate(tensors, axis)
         return BlockArray(
             data, ArrayGrid(lshape, result_block_shape,
                             array_utils.to_dtype_name(data.dtype)),
@@ -570,6 +588,16 @@ class ArrayApplication:
             local.contiguous(), (X.shape[0],) + tuple(local.shape[1:]),
             lead)
 
+    @staticmethod
+    def _sharded(X) -> bool:
+        """Whether X's tensor is a DTensor that the mesh shards (the
+        Householder tree then runs on each process's rows,
+        ``mesh_linalg.householder_qr``)."""
+        from nums_tpu_torch.core.ops import mesh_ops
+
+        return mesh_ops.is_dtensor(X.data) and any(
+            p.is_shard() for p in X.data.placements)
+
     def _use_cholqr(self, X=None) -> bool:
         """CholeskyQR2 or the Householder tree. CholeskyQR needs full
         column rank, so a wide matrix takes Householder everywhere; under
@@ -595,6 +623,11 @@ class ArrayApplication:
         del reshape_output
         if self._use_cholqr(X):
             r, _ = self._cholqr_rows(X, linalg.cholqr_r)
+        elif self._sharded(X):
+            from nums_tpu_torch.core.ops import mesh_linalg
+
+            _, r = mesh_linalg.householder_qr(self.backend, X.data,
+                                              self._tsqr_chunk(X), False)
         else:
             r = linalg._tsqr_r_impl(X.data, self._tsqr_chunk(X))
         return self._wrap(
@@ -623,6 +656,11 @@ class ArrayApplication:
         elif self._use_cholqr(X):
             (q, r), lead = self._cholqr_rows(X, linalg.cholqr2)
             q = self._rows_of(X, q, lead)
+        elif self._sharded(X):
+            from nums_tpu_torch.core.ops import mesh_linalg
+
+            q, r = mesh_linalg.householder_qr(self.backend, X.data,
+                                              self._tsqr_chunk(X))
         else:
             q, r = linalg.direct_tsqr(self._tsqr_chunk(X), X.data)
         Q = self._wrap(q, (X.block_shape[0],
@@ -641,6 +679,16 @@ class ArrayApplication:
             (u, s, vt), lead = self._cholqr_rows(X, functools.partial(
                 linalg.svd_cholqr, k=k, overwrite=overwrite_x))
             u = self._rows_of(X, u, lead)
+        elif self._sharded(X):
+            from nums_tpu_torch.core.ops import mesh_linalg
+
+            q, r = mesh_linalg.householder_qr(self.backend, X.data,
+                                              self._tsqr_chunk(X))
+            u_r, s, vt = linalg._small_svd(r)
+            u_r = u_r if k is None else u_r[:, :k]
+            u = self.backend.from_local(
+                (q.to_local() @ u_r).contiguous(),
+                (X.shape[0], int(u_r.shape[1])), tuple(q.placements))
         else:
             u, s, vt = linalg.svd(self._tsqr_chunk(X), X.data)
             u = u if k is None else u[:, :k].contiguous()

@@ -18,17 +18,17 @@ placed by the grid when the BlockArray takes it (``MeshBackend.place``),
 and most ops are DTensor's own; ``x.T @ x`` runs the kernel on each
 process's rows and one all-reduce, and ``settings.collective_matmul``
 sends 2-D products through the hand-scheduled schedules of
-``ops/summa.py``. A boolean mask, a host index array, and an assignment
-through either or through a slice take the mesh's own branch
-(``ops/mesh_ops.py``: each process's rows, moved by one all-to-all). An
-op that DTensor has no sharding strategy for raises
-``NotImplementedError`` naming it.
+``ops/summa.py``. A boolean mask, a host index array, a key of ints and
+slices of a sharded array, a reshape of one, and an assignment through
+any of them take the mesh's own branch (``ops/mesh_ops.py``: each
+process's rows, moved by one all-to-all). An op that DTensor has no
+sharding strategy for raises ``NotImplementedError`` naming it.
 """
 
 import numpy as np
 import torch
 
-from nums_tpu_torch.core import multiprocess, trace
+from nums_tpu_torch.core import trace
 from nums_tpu_torch.core.grid import ArrayGrid
 from nums_tpu_torch.core.array import utils as array_utils
 from nums_tpu_torch.core.ops import (
@@ -264,32 +264,71 @@ class BlockArray:
             new_shape = self.shape
         if new_shape == self.shape and block_shape is None:
             return self
-        data = self._reshaped(new_shape)
         if block_shape is None:
-            block_shape = array_utils.default_block_shape_for(new_shape)
-        grid = ArrayGrid(new_shape, tuple(block_shape),
-                         array_utils.to_dtype_name(data.dtype))
-        return BlockArray(data, grid, self.backend)
+            block_shape = self.mesh_block(new_shape)
+            if not self.keeps_blocks(new_shape, block_shape):
+                block_shape = array_utils.default_block_shape_for(new_shape)
+        grid = ArrayGrid(new_shape, tuple(block_shape), self.grid.dtype)
+        return BlockArray(self._reshaped(grid), grid, self.backend)
 
-    def _reshaped(self, new_shape):
-        """The tensor in ``new_shape``. On the mesh, a reshape that keeps
-        axis 0 of an array sharded on axis 0 alone reshapes each process's
-        rows in place; any other is taken through ``redistribute`` to a
-        replicated value (DTensor refuses to flatten an uneven shard)."""
-        data = self.data
+    def keeps_blocks(self, shape, block_shape):
+        """Whether a result of ``shape`` that holds this array's elements
+        rearranged (a slice, a reshape) takes ``block_shape``, this array's
+        block counts carried over, rather than the serial rule's blocks:
+        on the mesh, where this array is sharded and that layout gives
+        every process a block of its own along each axis it shards.
+        Otherwise the serial rule lays the result out, as the reference
+        does (a row, a model's coefficients, a replicated array's
+        slice)."""
+        from nums_tpu_torch.core.ops import mesh_ops
+
+        if not (mesh_ops.is_dtensor(self.data)
+                and any(p.is_shard() for p in self.data.placements)):
+            return False
+        grid = ArrayGrid(shape, block_shape, self.grid.dtype).grid_shape
+        want = self.backend.sharding_for_shape(shape, grid)
+        mesh = self.backend.device_grid.mesh_shape
+        axes = {p.dim for p in want if p.is_shard()}
+        return bool(axes) and all(grid[k] >= int(np.prod(
+            [mesh[m] for m in mesh_ops.shard_dims(want, (k,))]))
+            for k in axes)
+
+    def mesh_block(self, shape):
+        """The blocks of a result of ``shape`` that holds this array's
+        elements in a new arrangement (a reshape, a flattening) on the
+        mesh (``keeps_blocks``): as many
+        blocks along each leading axis as this array has there (a 1-D
+        result: as many as it has in all), so that a sharded array's
+        result is sharded too, where the serial rule (one block) would lay
+        it whole on every process."""
+        shape = tuple(int(s) for s in shape)
+        if len(shape) == 1:
+            counts = (int(np.prod(self.grid_shape)),)
+        else:
+            counts = tuple(self.grid_shape[:len(shape)])
+        return tuple(max(1, -(-s // c)) for s, c in zip(shape, counts)) \
+            + shape[len(counts):]
+
+    def _reshaped(self, grid):
+        """The tensor in ``grid``'s shape. On the mesh, a reshape that
+        keeps axis 0 of an array sharded on axis 0 alone, into the same
+        layout, reshapes each process's rows in place; any other moves
+        each process's run of the flat order to its place
+        (``mesh_ops.flat_move``: never a whole copy)."""
+        from nums_tpu_torch.core.ops import mesh_ops
+
+        data, new_shape = self.data, grid.shape
         if self.backend.mesh is None:
             return shape_ops.reshape(data, new_shape)
+        want = self.backend.sharding_for_grid(grid)
         if (new_shape[:1] == self.shape[:1] and self.ndim >= 1
+                and tuple(data.placements) == tuple(want)
                 and all(not p.is_shard() or p.dim == 0
                         for p in data.placements)):
             local = shape_ops.reshape(
                 data.to_local(), (-1,) + tuple(new_shape[1:]))
             return self.backend.from_local(local, new_shape, data.placements)
-        whole = multiprocess.sent_moved(data, data.redistribute(
-            self.backend.mesh, self.backend.replicated()))
-        return self.backend.from_local(
-            shape_ops.reshape(whole.to_local(), new_shape), new_shape,
-            self.backend.replicated())
+        return mesh_ops.flat_move(self.backend, data, new_shape, want)
 
     def broadcast_to(self, shape):
         return self._new(shape_ops.broadcast_to(self.data, tuple(shape)))
@@ -933,7 +972,7 @@ class BlockArray:
             return self._new(out, grid.block_shape)
         key = self._host_key(item)
         if key is None:
-            return None
+            return self._mesh_basic(item)
         idx = self._row_index(key)
         if idx is not None:
             out = mesh_ops.gather_rows(self.backend, self.data, idx)
@@ -945,6 +984,82 @@ class BlockArray:
             self.backend, self.data, coord, shape,
             self.backend.sharding_for_grid(grid))
         return self._new(out, grid.block_shape)
+
+    def _mesh_basic(self, item):
+        """A key of ints, slices, ``None`` and ``Ellipsis`` of an array on
+        the mesh (``mesh_ops.basic_slice``: each process slices its own
+        box and the rows move to the result's layout; ``None`` axes are
+        added in place; a replicated array is sliced in place, on every
+        process's copy), or None for any other key. The result
+        has as many blocks along each kept axis as this array where
+        ``keeps_blocks`` says so (the serial rule, one block where the
+        slice fits in one, would lay a slice of a sharded array whole on
+        every process)."""
+        from nums_tpu_torch.core.ops import mesh_ops
+
+        items = item if isinstance(item, tuple) else (item,)
+        if not (mesh_ops.is_dtensor(self.data)
+                and all(s is None or s is Ellipsis or isinstance(s, slice)
+                        or (isinstance(s, (int, np.integer))
+                            and not isinstance(s, bool)) for s in items)):
+            return None
+        if sum(s is Ellipsis for s in items) > 1:
+            raise IndexError("an index can only have a single ellipsis "
+                             "('...')")
+        named = sum(1 for s in items if s is not None and s is not Ellipsis)
+        if named > self.ndim:
+            raise IndexError(f"too many indices for array: array is "
+                             f"{self.ndim}-dimensional, but {named} were "
+                             "indexed")
+        fill = (slice(None),) * (self.ndim - named)
+        if Ellipsis in items:
+            at = items.index(Ellipsis)
+            items = items[:at] + fill + items[at + 1:]
+        else:
+            items = items + fill
+        entries, nones, axis = [], [], 0
+        for s in items:
+            if s is None:
+                nones.append(sum(1 for e in entries if e[3]) + len(nones))
+                continue
+            n = self.shape[axis]
+            if isinstance(s, slice):
+                start, stop, step = s.indices(n)
+                entries.append((start, step, len(range(start, stop, step)),
+                                True))
+            else:
+                if not -n <= int(s) < n:
+                    raise IndexError(f"index {int(s)} is out of bounds for "
+                                     f"axis {axis} with size {n}")
+                entries.append((int(s) % n, 1, 1, False))
+            axis += 1
+        shape = tuple(e[2] for e in entries if e[3])
+        full = list(shape)
+        for at in nones:
+            full.insert(at, 1)
+        full = tuple(full)
+        # each kept axis in as many blocks as this array has along it
+        # (fewer rows a block: a slice within one block stays sharded)
+        bs = [min(b, max(1, -(-e[2] // g))) for e, b, g in zip(
+            entries, self.block_shape, self.grid_shape) if e[3]]
+        for at in nones:
+            bs.insert(at, 1)
+        bs = tuple(bs)
+        if not self.keeps_blocks(full, bs):
+            bs = array_utils.default_block_shape_for(full, self.block_shape)
+        want = self.backend.sharding_for_shape(
+            full, ArrayGrid(full, bs, self.grid.dtype).grid_shape)
+        inner = tuple(mesh_ops._shard([k for k in range(len(full))
+                                       if k not in nones].index(p.dim))
+                      if p.is_shard() else p for p in want)
+        out = mesh_ops.basic_slice(self.backend, self.data, entries, inner)
+        if nones:
+            local = out.to_local()
+            lshape = list(local.shape)
+            for at in nones:
+                lshape.insert(at, 1)
+            out = self.backend.from_local(local.reshape(lshape), full, want)
+        return self._new(out, bs)
 
     def _mesh_setitem(self, item, value):
         """True where the mesh's own assignment took the key."""

@@ -131,6 +131,19 @@ def _contiguous_stride(shape):
     return tuple(reversed(stride))
 
 
+def _stacked_rows(parts, box):
+    """Whether the boxes ``parts`` (None: nothing), in order, tile ``box``
+    along axis 0, each whole on every other axis."""
+    at = box[0][0] if box else 0
+    for part in parts:
+        if part is None:
+            continue
+        if part[0][0] != at or tuple(part[1:]) != tuple(box[1:]):
+            return False
+        at = part[0][1]
+    return bool(box) and at == box[0][1]
+
+
 class MeshBackend(Backend):
     """SPMD backend: one process per device, arrays as DTensors.
 
@@ -381,6 +394,8 @@ class MeshBackend(Backend):
         me = multiprocess.process_index()
         src = [self.region(shape, data.placements, c) for c in coords]
         dst = [self.region(shape, placements, c) for c in coords]
+        if src == dst:  # a mesh dimension of one process: nothing moves
+            return self.from_local(data.to_local(), shape, placements)
         rep = [k for k, p in enumerate(data.placements) if not p.is_shard()]
 
         def part(s, d):
@@ -391,23 +406,33 @@ class MeshBackend(Backend):
             return None if any(b <= a for a, b in box) else box
 
         local = data.to_local()
-        pieces, send = [], []
+        boxes, send = [], []
         for r in range(len(coords)):
             box = part(me, r)
-            if box is None:
-                send.append(0)
-                continue
-            piece = local[tuple(slice(a - lo, b - lo) for (a, b), (lo, _)
-                                in zip(box, src[me]))].reshape(-1)
-            pieces.append(piece)
-            send.append(int(piece.numel()))
+            boxes.append(box)
+            send.append(0 if box is None else
+                        int(np.prod([b - a for a, b in box])))
+        # the parts copied once, straight into the buffer that is sent
+        flat = local.new_empty((sum(send),))
+        at = 0
+        for box, n in zip(boxes, send):
+            if box is not None:
+                flat[at:at + n].view(tuple(b - a for a, b in box)).copy_(
+                    local[tuple(slice(a - lo, b - lo) for (a, b), (lo, _)
+                                in zip(box, src[me]))])
+                at += n
         recv_boxes = [part(r, me) for r in range(len(coords))]
         recv = [0 if box is None else int(np.prod([b - a for a, b in box]))
                 for box in recv_boxes]
-        flat = (torch.cat(pieces) if pieces
-                else local.new_empty((0,)))
         got = multiprocess.exchange(flat, send, recv)
-        out = local.new_empty(tuple(b - a for a, b in dst[me]))
+        del flat
+        out_shape = tuple(b - a for a, b in dst[me])
+        if _stacked_rows(recv_boxes, dst[me]):
+            # the parts arrive in the order of their rows, each whole on
+            # the other axes: the received buffer is the new box
+            return self.from_local(got.reshape(out_shape), shape,
+                                   placements)
+        out = local.new_empty(out_shape)
         at = 0
         for box, n in zip(recv_boxes, recv):
             if box is None:
@@ -440,31 +465,73 @@ class MeshBackend(Backend):
         ``src_ranges[r]`` and ``dst_ranges[r]`` are the (start, stop) rows
         that process ``r`` holds now (``local`` here) and will hold.
         Returns this process's new rows, in order."""
+        return self.move_pieces([local], [[r] for r in src_ranges],
+                                dst_ranges, placements)
+
+    def move_pieces(self, locals_, src_pieces, dst_ranges, placements):
+        """``move_rows`` where each process holds several runs of the
+        sequence: ``src_pieces[r]`` lists the (start, stop) runs that
+        process ``r`` holds (``locals_``, one tensor a run, here), disjoint;
+        ``dst_ranges[r]`` the one range it will hold. Within each row group
+        of ``placements``, one all-to-all a round, the round j moving each
+        process's j-th run, received straight into its place in the result
+        where it arrives in order (so a join or a repeat copies nothing
+        but the rows received); where every process keeps what it has,
+        nothing moves, and this process's one run comes back as it is.
+        Returns this process's new rows, in order."""
         from nums_tpu_torch.core import multiprocess
 
         group, _ = self._row_groups(placements)
         me = multiprocess.process_index()
         world = self.device_grid.num_devices
+        if all(len(src_pieces[r]) == 1 and tuple(src_pieces[r][0])
+               == tuple(dst_ranges[r]) for r in range(world)):
+            return locals_[0]
+        rounds = max(len(src_pieces[r]) for r in group)
+        lo, hi = dst_ranges[me]
+        out = None
 
         def overlap(a, b):
             return max(a[0], b[0]), min(a[1], b[1])
 
-        send, recv, cuts = [0] * world, [0] * world, []
-        s0 = src_ranges[me][0]
-        for r in group:
-            a, b = overlap(src_ranges[me], dst_ranges[r])
-            if b > a:
-                send[r] = b - a
-                cuts.append((a - s0, b - s0))
-            a, b = overlap(src_ranges[r], dst_ranges[me])
-            recv[r] = max(0, b - a)
-        # Each process's range is sent in order: one slice of ``local``
-        # where the parts meet, else a copy of the parts.
-        if all(c[1] == n[0] for c, n in zip(cuts, cuts[1:])):
-            local = local[cuts[0][0]:cuts[-1][1]] if cuts else local[:0]
-        else:
-            local = torch.cat([local[a:b] for a, b in cuts])
-        return multiprocess.exchange(local, send, recv)
+        for j in range(rounds):
+            send, recv, cuts, runs = [0] * world, [0] * world, [], []
+            mine = src_pieces[me][j] if j < len(src_pieces[me]) else None
+            local = locals_[j] if mine is not None else locals_[0][:0]
+            for r in group:
+                if mine is not None:
+                    a, b = overlap(mine, dst_ranges[r])
+                    if b > a:
+                        send[r] = b - a
+                        cuts.append((a - mine[0], b - mine[0]))
+                if j < len(src_pieces[r]):
+                    a, b = overlap(src_pieces[r][j], dst_ranges[me])
+                    if b > a:
+                        recv[r] = b - a
+                        runs.append((a, b))
+            # this process's parts in order: one slice of its run where
+            # they meet, else a copy of them
+            if all(c[1] == n[0] for c, n in zip(cuts, cuts[1:])):
+                items = local[cuts[0][0]:cuts[-1][1]] if cuts else local[:0]
+            else:
+                items = torch.cat([local[a:b] for a, b in cuts])
+            in_order = all(r[1] == n[0] for r, n in zip(runs, runs[1:]))
+            if rounds == 1 and in_order and (not runs or runs[0][0] == lo
+                                             and runs[-1][1] == hi):
+                return multiprocess.exchange(items, send, recv)
+            if out is None:
+                out = local.new_empty((hi - lo,) + tuple(local.shape[1:]))
+            if in_order:
+                at = runs[0][0] - lo if runs else 0
+                multiprocess.exchange(items, send, recv, out=out[
+                    at:at + sum(recv)])
+            else:
+                got = multiprocess.exchange(items, send, recv)
+                at = 0
+                for a, b in runs:
+                    out[a - lo:b - lo] = got[at:at + b - a]
+                    at += b - a
+        return out
 
     def place_rows(self, local, tail, placements):
         """The mesh's re-placement of a data-dependent number of rows: each

@@ -228,16 +228,22 @@ def _as_bytes(items):
     rows = int(items.shape[0])
     width = int(np.prod(items.shape[1:], dtype=np.int64)) \
         * items.element_size()
+    if not items.numel():
+        # an empty tensor may have stride 0, which no view of bytes takes
+        return torch.empty((rows, width), dtype=torch.uint8,
+                           device=items.device)
     return items.contiguous().reshape(-1).view(torch.uint8).reshape(
         rows, width)
 
 
-def exchange(items, send_counts, recv_counts):
+def exchange(items, send_counts, recv_counts, out=None):
     """One all-to-all of whole rows: ``items`` (on this process's device)
     is cut in order into ``send_counts[r]`` rows for each process ``r``;
     returns the rows received, ``recv_counts[r]`` from each process ``r``,
-    in process order (collective). Rows travel as bytes, so every dtype
-    goes, bool and complex included."""
+    in process order (collective), in ``out`` where given (a contiguous
+    tensor of those rows: a view of a larger result, so that nothing is
+    copied after). Rows travel as bytes, so every dtype goes, bool and
+    complex included."""
     send_counts = [int(c) for c in send_counts]
     recv_counts = [int(c) for c in recv_counts]
     assert sum(send_counts) == int(items.shape[0]), (send_counts,
@@ -245,8 +251,15 @@ def exchange(items, send_counts, recv_counts):
     tail = tuple(items.shape[1:])
     src = _as_bytes(items)
     width = int(src.shape[1])
-    out = torch.empty((sum(recv_counts), width), dtype=torch.uint8,
-                      device=items.device)
+    result = out
+    if out is not None:
+        assert out.is_contiguous() and int(out.shape[0]) == sum(
+            recv_counts) and out.dtype == items.dtype, (out.shape,
+                                                        recv_counts)
+        out = _as_bytes(out)  # a view of it (fresh where it is empty)
+    else:
+        out = torch.empty((sum(recv_counts), width), dtype=torch.uint8,
+                          device=items.device)
     me = process_index()
     EXCHANGED["calls"] += 1
     EXCHANGED["bytes_sent"] += width * (sum(send_counts)
@@ -258,6 +271,8 @@ def exchange(items, send_counts, recv_counts):
         dist.all_to_all_single(out.reshape(-1), src.reshape(-1),
                                [c * width for c in recv_counts],
                                [c * width for c in send_counts])
+    if result is not None:
+        return result
     return out.reshape(-1).view(items.dtype).reshape(
         (sum(recv_counts),) + tail)
 

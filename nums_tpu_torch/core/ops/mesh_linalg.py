@@ -33,6 +33,12 @@ the reference has none.
 
 The panel width ``b`` is the operand's row block, at least ``MIN_PANEL`` on
 the card (a narrower panel leaves the card idle between collectives).
+
+* ``householder_qr``: the reduced QR of a tall sharded matrix by the
+  Householder tree (``linalg._direct_tsqr_impl``) on each process's rows,
+  then the row holders' R factors stacked in row order (one all-gather
+  of n×n a process) and factored once more; each process's rows of Q are
+  its own Q times its block of the stack's Q. X is never gathered.
 """
 
 import torch
@@ -302,3 +308,41 @@ def inv(backend, data, block_rows):
     out = mesh_ops.pull(backend, right, 1, wants, every)
     return backend.from_local(out.contiguous(), rows.shape, rows.placements)
 
+
+
+def householder_qr(backend, data, chunk, want_q=True):
+    """(this process's rows of Q or None, R whole) of the tall DTensor
+    ``data`` by the Householder tree (``settings.tsqr_method``'s
+    "householder"), laid out by rows first (``summa.row_layout``); the Q
+    rows' placements are ``mesh_ops.rows_only`` of them."""
+    from nums_tpu_torch.core.ops import summa
+
+    rows = summa.row_layout(data)
+    lead = mesh_ops.rows_only(rows)
+    x = summa.local_part(data, rows)
+    n = int(x.shape[1])
+    lo = backend.region(tuple(data.shape), lead)[0][0]
+    if want_q:
+        q1, r1 = linalg._direct_tsqr_impl(x, chunk)
+    else:
+        q1, r1 = None, linalg._tsqr_r_impl(x, chunk)
+    heads = multiprocess.all_gather_ints([lo, int(x.shape[0]),
+                                          int(r1.shape[0])])
+    parts = mesh_ops._all_gather_var(r1.contiguous())
+    blocks, at, mine = {}, 0, None
+    for (start, m, k), part in sorted(zip(heads.tolist(), parts),
+                                      key=lambda e: e[0][0]):
+        if m and start not in blocks:  # a replica's rows once
+            blocks[start] = (at, part.reshape(int(k), n).to(x.device))
+            at += int(k)
+    stack = torch.cat([b for _, b in blocks.values()])
+    q2, r = linalg._direct_tsqr_impl(stack, chunk)
+    if not want_q:
+        return None, r
+    if x.shape[0]:
+        at, block = blocks[lo]
+        q = q1 @ q2[at:at + block.shape[0]]
+    else:
+        q = x.new_zeros((0, int(q2.shape[1])))
+    return backend.from_local(q.contiguous(), (int(data.shape[0]),
+                                               int(q2.shape[1])), lead), r

@@ -15,7 +15,13 @@ processes meet in a few collectives of ``core/multiprocess.py``:
 * a search or a count sums each process's local answer (one all-reduce,
   or a ring where the searched values are sharded);
 * a host index array is known to every process, so each works out on the
-  host which rows (or elements) it sends where: one all-to-all.
+  host which rows (or elements) it sends where: one all-to-all;
+* a slice, a reshape, a join, a flip or a roll moves runs of one global
+  sequence of rows (``MeshBackend.move_pieces``): each process knows
+  every process's runs, so one all-to-all places them; a stencil takes a
+  halo of rows from its neighbours; a sort or an FFT along a sharded
+  axis moves the sharding to another axis first (``across``); a sharded
+  vector is sorted by a sample sort (``sorted_runs``).
 
 A layout is DTensor's ``placements``; a box is ``MeshBackend.region``. No
 function here gathers an operand whole onto a process.
@@ -937,30 +943,7 @@ def scan(backend, data, axis, fn, combine):
     return backend.from_local(out, shape, pl)
 
 
-# -- moving rows along an axis: flatten, repeat, pad ----------------------
-
-
-def flatten(backend, data, placements):
-    """The DTensor ``data`` flattened in row-major order, laid out by
-    ``placements`` (those of a 1-D array): its boxes first hold whole
-    slabs of the leading axis on the mesh dimensions that shard the result
-    (an all-to-all), each process's flat range then moves to its place in
-    the result (one more). Neither gathers the array."""
-    shape = tuple(data.shape)
-    total = int(np.prod(shape, dtype=np.int64))
-    placements = tuple(placements)
-    if data.ndim == 1:
-        return backend.rebox(data, placements)
-    rows = tuple(_shard(0) if p.is_shard() else _replicate()
-                 for p in placements)
-    x = backend.rebox(data, rows)
-    inner = int(np.prod(shape[1:], dtype=np.int64))
-    coords = backend.coords()
-    src = [tuple(v * inner for v in backend.region(shape, rows, c)[0])
-           for c in coords]
-    dst = [backend.region((total,), placements, c)[0] for c in coords]
-    flat = backend.move_rows(x.to_local().reshape(-1), src, dst, rows)
-    return backend.from_local(flat, (total,), placements)
+# -- moving rows along an axis: repeat, pad ----------------------
 
 
 def along_rows(backend, data, axis, length, local_fn):
@@ -1183,3 +1166,621 @@ def scatter_device(backend, data, arrays, values):
         local[tuple(at.T)] = got_v[keep.to(got_v.device)].reshape(
             (-1,) + tuple(local.shape[k:]))
     return backend.from_local(local, dshape, dpl)
+
+
+# -- slices, shapes and order: the sequence moved in runs -----------------
+
+
+def _moved_placements(placements, src, dst, ndim):
+    """``placements`` of an array whose axis ``src`` moved to ``dst``."""
+    order = list(range(ndim))
+    order.insert(dst, order.pop(src))
+    return tuple(_shard(order.index(p.dim)) if p.is_shard() else p
+                 for p in placements)
+
+
+def full_shard(backend):
+    """The layout of a 1-D array split over every process of the mesh."""
+    return (_shard(0),) * len(backend.device_grid.mesh_shape)
+
+
+def _progression_run(lo, hi, start, step, count):
+    """The j in [0, count) with ``start + j * step`` in [lo, hi), as one
+    (first, stop) run (they are consecutive for any step)."""
+    if step > 0:
+        j0, j1 = -((start - lo) // step), -((start - hi) // step)
+    else:
+        s = -step
+        j0, j1 = (start - hi) // s + 1, (start - lo) // s + 1
+    j0, j1 = min(max(j0, 0), count), min(max(j1, 0), count)
+    return (j0, max(j0, j1))
+
+
+def select_rows(backend, t, start, step, count, whole=False):
+    """Rows ``start + j·step`` (j in [0, count), any nonzero step) of the
+    DTensor ``t`` along axis 0: each process takes the run of them that it
+    holds (reversed for a negative step) and one ``move_rows`` lays them
+    out as ``t`` is laid out, or, with ``whole``, whole on every process
+    of each row group (the mesh dimensions that shard axis 0 then
+    replicate). No process holds more than its rows and its share."""
+    pl = tuple(t.placements)
+    shape = tuple(t.shape)
+    coords = backend.coords()
+    out_shape = (int(count),) + shape[1:]
+    boxes = [backend.region(shape, pl, c)[0] for c in coords]
+    src = [_progression_run(lo, hi, start, step, count) for lo, hi in boxes]
+    out_pl = tuple(_replicate() if whole and p.is_shard() and p.dim == 0
+                   else p for p in pl)
+    dst = [(0, int(count)) if whole else
+           backend.region(out_shape, pl, c)[0] for c in coords]
+    me = multiprocess.process_index()
+    lo = boxes[me][0]
+    j0, j1 = src[me]
+    local = t.to_local()
+    if j1 > j0:
+        first = start + j0 * step - lo
+        last = start + (j1 - 1) * step - lo
+        rows = (local[first:last + 1:step] if step > 0
+                else torch.flip(local[last:first + 1:-step], (0,)))
+    else:
+        rows = local[:0]
+    got = backend.move_rows(rows, src, dst, pl)
+    return backend.from_local(got.contiguous(), out_shape, out_pl)
+
+
+def basic_slice(backend, data, entries, placements):
+    """``data[key]`` for a key of ints and slices (``entries``: per axis
+    (start, step, count, kept), every axis named), laid out by
+    ``placements``: each axis that no mesh dimension shards is sliced in
+    place; along each sharded axis the rows move by ``select_rows`` (an
+    int there is one row, then whole on its row group); the dropped axes
+    go, and one ``rebox`` lays the result out. No process gathers the
+    array."""
+    t = data
+    local = t.to_local()
+    pl = tuple(t.placements)
+    key, shape = [], []
+    for k, (start, step, count, _) in enumerate(entries):
+        if shard_dims(pl, (k,)):
+            key.append(slice(None))
+            shape.append(int(t.shape[k]))
+        elif count == 0:
+            key.append(slice(0, 0))
+            shape.append(0)
+        elif step > 0:
+            key.append(slice(start, start + (count - 1) * step + 1, step))
+            shape.append(count)
+        else:
+            key.append(slice(start + (count - 1) * step, start + 1, -step))
+            shape.append(count)
+    flips = [k for k, (_, step, count, _) in enumerate(entries)
+             if step < 0 and not shard_dims(pl, (k,))]
+    if any(s != slice(None) for s in key) or flips:
+        local = local[tuple(key)]
+        if flips:
+            local = torch.flip(local, flips)
+        t = backend.from_local(local.contiguous(), tuple(shape), pl)
+    for k, (start, step, count, kept) in enumerate(entries):
+        if not shard_dims(pl, (k,)) or (step == 1 and start == 0 and kept
+                                        and count == int(t.shape[k])):
+            continue
+        u = move_axis(backend, t, k, 0) if k else t
+        u = select_rows(backend, u, start, step, count, whole=not kept)
+        t = move_axis(backend, u, 0, k) if k else u
+    drop = [k for k, e in enumerate(entries) if not e[3]]
+    if drop:
+        kept_axes = [k for k in range(len(entries)) if k not in drop]
+        local = t.to_local().reshape(tuple(
+            int(t.to_local().shape[k]) for k in kept_axes))
+        pl = tuple(_shard(kept_axes.index(p.dim)) if p.is_shard() else p
+                   for p in t.placements)
+        t = backend.from_local(local, tuple(int(t.shape[k])
+                                            for k in kept_axes), pl)
+    return backend.rebox(t, tuple(placements))
+
+
+def flat_move(backend, data, shape, placements, cyclic=False):
+    """``data`` in the new ``shape`` by its row-major order (a reshape), or
+    with ``cyclic`` its flat sequence repeated to fill ``shape`` (resize),
+    laid out by ``placements``. Both arrays are first laid out by rows on
+    the mesh dimensions that shard the result (``rebox``), so that each
+    process's box is one run of the flat order; each process then pulls
+    its new run from the holders (one all-to-all) and one ``rebox`` lays
+    it out. No process gathers the array."""
+    shape = tuple(int(s) for s in shape)
+    placements = tuple(placements)
+    old = tuple(data.shape)
+    total = int(np.prod(shape, dtype=np.int64))
+    size = int(np.prod(old, dtype=np.int64))
+    if shape == old and not cyclic:
+        return backend.rebox(data, placements)
+    if not shape or not old:  # a scalar: one element, on every process
+        flat = backend.rebox(data, backend.replicated()).to_local()
+        full = torch.broadcast_to(flat.reshape(-1)[:1] if size else
+                                  flat.new_zeros((1,)), (total,))
+        return backend.rebox(backend.from_local(
+            full.reshape(shape).contiguous(), shape, backend.replicated()),
+            placements)
+    rows = tuple(_shard(0) if p.is_shard() else _replicate()
+                 for p in placements)
+    x = backend.rebox(data, rows)
+    coords = backend.coords()
+    inner_old = int(np.prod(old[1:], dtype=np.int64))
+    inner = int(np.prod(shape[1:], dtype=np.int64))
+    src = [tuple(v * inner_old for v in backend.region(old, rows, c)[0])
+           for c in coords]
+    dst = [tuple(v * inner for v in backend.region(shape, rows, c)[0])
+           for c in coords]
+    local = x.to_local().reshape(-1)
+    if cyclic and size:
+        laps = -(-total // size)
+        pieces = [[(a + i * size, min(b + i * size, total))
+                   for i in range(laps) if a + i * size < total]
+                  for a, b in src]
+        me = multiprocess.process_index()
+        parts = [local[:b - a] for a, b in pieces[me]] or [local[:0]]
+        if not pieces[me]:
+            pieces[me] = []
+        flat = backend.move_pieces(parts, pieces, dst, rows)
+    elif cyclic:
+        a, b = dst[multiprocess.process_index()]
+        flat = local.new_zeros((b - a,))
+    else:
+        flat = backend.move_rows(local, src, dst, rows)
+    a, b = backend.region(shape, rows)[0]
+    out = backend.from_local(flat.reshape((b - a,) + shape[1:]), shape,
+                             rows)
+    return backend.rebox(out, placements)
+
+
+def concat(backend, tensors, axis, placements):
+    """``torch.cat(tensors, axis)`` of DTensors (or whole tensors) laid
+    out by ``placements``: each operand is laid out as the result but for
+    its length along ``axis`` (``as_dtensor``); along an axis that no mesh
+    dimension shards each process joins its own parts, else each
+    operand's rows go to their place in the result by one all-to-all (the
+    operands' runs together, ``move_pieces``)."""
+    placements = tuple(placements)
+    ts = [as_dtensor(backend, t, placements) for t in tensors]
+    shape = list(ts[0].shape)
+    shape[axis] = sum(int(t.shape[axis]) for t in ts)
+    shape = tuple(shape)
+    if not shard_dims(placements, (axis,)):
+        local = torch.cat([t.to_local() for t in ts], dim=axis)
+        return backend.from_local(local, shape, placements)
+    moved = [move_axis(backend, t, axis, 0) if axis else t for t in ts]
+    mpl = tuple(moved[0].placements)
+    mshape = (shape[axis],) + tuple(moved[0].shape[1:])
+    coords = backend.coords()
+    offsets = np.cumsum([0] + [int(t.shape[0]) for t in moved])
+    pieces = [[tuple(int(o) + v for v in backend.region(
+        tuple(t.shape), mpl, c)[0]) for t, o in zip(moved, offsets)]
+        for c in coords]
+    dst = [backend.region(mshape, mpl, c)[0] for c in coords]
+    rows = backend.move_pieces([t.to_local() for t in moved], pieces, dst,
+                               mpl)
+    out = backend.from_local(rows.contiguous(), mshape, mpl)
+    return move_axis(backend, out, 0, axis) if axis else out
+
+
+def reverse_rows(backend, t, shift=None):
+    """``t`` (a DTensor) along axis 0 reversed, or with ``shift`` rolled by
+    it: each process's rows are one run of the result (two where a roll
+    wraps), placed by one all-to-all; laid out as ``t``."""
+    pl = tuple(t.placements)
+    shape = tuple(t.shape)
+    n = shape[0]
+    coords = backend.coords()
+    boxes = [backend.region(shape, pl, c)[0] for c in coords]
+    local = t.to_local()
+    if shift is None:
+        pieces = [[(n - b, n - a)] for a, b in boxes]
+        parts = [torch.flip(local, (0,))]
+    else:
+        s = int(shift) % n if n else 0
+
+        def runs(a, b):
+            out = []
+            if a + s < n and b > a:
+                out.append((a + s, min(b + s, n)))
+            if b + s > n and b > a:
+                out.append((max(a + s, n) - n, b + s - n))
+            return out or [(0, 0)]
+
+        pieces = [runs(a, b) for a, b in boxes]
+        me = multiprocess.process_index()
+        a, b = boxes[me]
+        cut = max(0, min(b, n - s) - a)
+        parts = [local[:cut], local[cut:]] if len(pieces[me]) == 2 \
+            else [local]
+    rows = backend.move_pieces(parts, pieces, boxes, pl)
+    return backend.from_local(rows.contiguous(), shape, pl)
+
+
+def along(backend, t, axis, fn):
+    """``fn`` of the DTensor ``t`` with ``axis`` moved first, moved back."""
+    if not axis:
+        return fn(t)
+    return move_axis(backend, fn(move_axis(backend, t, axis, 0)), 0, axis)
+
+
+def relayout(backend, local, box, shape, placements):
+    """The DTensor of ``shape`` laid out by ``placements`` whose part here
+    is ``local``, the box ``box`` (per axis (start, stop)) of the array,
+    where the processes' boxes tile the array as ``placements`` would but
+    for where the cuts fall along the sharded axes (a stencil's output
+    rows): one all-gather of the boxes, then one move along each sharded
+    axis whose cuts are not the layout's."""
+    shape = tuple(int(s) for s in shape)
+    placements = tuple(placements)
+    ndim = len(shape)
+    table = multiprocess.all_gather_ints([v for ab in box for v in ab])
+    cur = [[(int(row[2 * k]), int(row[2 * k + 1])) for k in range(ndim)]
+           for row in table]
+    coords = backend.coords()
+    canon = [backend.region(shape, placements, c) for c in coords]
+    for k in sorted({p.dim for p in placements if p.is_shard()}):
+        if all(cur[r][k] == canon[r][k] for r in range(len(coords))):
+            continue
+        mpl = _moved_placements(placements, k, 0, ndim)
+        rows = backend.move_rows(torch.movedim(local, k, 0),
+                                 [c[k] for c in cur],
+                                 [c[k] for c in canon], mpl)
+        local = torch.movedim(rows, 0, k)
+        for r in range(len(coords)):
+            cur[r][k] = canon[r][k]
+    return backend.from_local(local.contiguous(), shape, placements)
+
+
+def halo(backend, t, before, after):
+    """The ``before`` rows before this process's box of the DTensor ``t``
+    along axis 0 and the ``after`` rows after it (fewer at the array's
+    ends, none for an empty box), from the processes that hold them: one
+    pull of those rows alone."""
+    pl = tuple(t.placements)
+    shape = tuple(t.shape)
+    n = shape[0]
+    coords = backend.coords()
+    me = multiprocess.process_index()
+
+    def span(r):
+        lo, hi = backend.region(shape, pl, coords[r])[0]
+        if hi <= lo:
+            return (lo, lo), (hi, hi)
+        return (max(0, lo - before), lo), (hi, min(n, hi + after))
+
+    def wants(r):
+        (a, b), (c, d) = span(r)
+        return torch.cat([torch.arange(a, b), torch.arange(c, d)]).to(
+            torch.int64).reshape(-1, 1)
+
+    got = pull(backend, t, 1, wants(me), wants)
+    (a, b), _ = span(me)
+    return got[:b - a], got[b - a:]
+
+
+def across(backend, t, axis, fn, out_len, out_dtype, chunk_elements):
+    """``fn(local, axis)`` of the DTensor ``t`` (of two axes or more)
+    along an ``axis`` that the mesh shards (a sort, a selection, an FFT),
+    into an array whose
+    ``axis`` is ``out_len`` long, laid out as ``t``: the mesh dimensions
+    that shard ``axis`` shard the longest other axis instead (one
+    all-to-all, ``rebox``), ``fn`` runs on each process's whole lines, and
+    the result goes back (one more). Where that other axis is whole on
+    each process, it goes ``chunk_elements`` a process at a time, so that
+    the temporaries (a sort's int64 positions) stay a chunk in size."""
+    pl = tuple(t.placements)
+    shape = tuple(int(s) for s in t.shape)
+    dims = shard_dims(pl, (axis,))
+    others = [k for k in range(len(shape)) if k != axis]
+    f = max(others, key=lambda k: shape[k])
+    off = tuple(_shard(f) if m in dims else p for m, p in enumerate(pl))
+    out_shape = tuple(int(out_len) if k == axis else s
+                      for k, s in enumerate(shape))
+    def lines(sub):
+        moved = backend.rebox(sub, off)
+        res = fn(moved.to_local(), axis).to(out_dtype)
+        del moved
+        res_shape = tuple(int(out_len) if k == axis else s
+                          for k, s in enumerate(sub.shape))
+        return backend.rebox(backend.from_local(res.contiguous(), res_shape,
+                                                off), pl)
+
+    mesh = backend.device_grid.mesh_shape
+    share = int(np.prod([mesh[m] for m in dims]))
+    box = backend.region(shape, pl)
+    line = shape[axis] * int(np.prod([b - a for k, (a, b) in enumerate(box)
+                                      if k not in (axis, f)]))
+    step = max(share, int(chunk_elements) * share // max(line, 1))
+    if any(p.is_shard() and p.dim == f for p in pl) or step >= shape[f]:
+        return lines(t)
+    local = t.to_local()
+    out_box = backend.region(out_shape, pl)
+    out = torch.empty(tuple(b - a for a, b in out_box), dtype=out_dtype,
+                      device=local.device)
+    for c0 in range(0, shape[f], step):
+        c1 = min(shape[f], c0 + step)
+        sub_shape = tuple(c1 - c0 if k == f else s
+                          for k, s in enumerate(shape))
+        sub = backend.from_local(local.narrow(f, c0, c1 - c0).contiguous(),
+                                 sub_shape, pl)
+        out.narrow(f, c0, c1 - c0).copy_(lines(sub).to_local())
+    return backend.from_local(out, out_shape, pl)
+
+
+# -- the distributed sort: a sample sort of one sharded axis ---------------
+
+# Splitter candidates each process offers, for each process of the mesh.
+SORT_SAMPLES = 64
+# Elements that the sample sort orders at a time on a process (an argsort's
+# int64 positions and cub's buffers are several times a chunk's bytes).
+SORT_CHUNK_ELEMENTS = 1 << 26
+# Elements of a chunk of lines that a process orders or transforms at a
+# time (``across``, and a partition's rows on each box): a sort's int64
+# positions are twice float32 values.
+CHUNK_ELEMENTS = 1 << 28
+
+
+def sort_keys(t):
+    """Integer keys (a list, the first the primary one) in jnp's sort
+    order of ``t``: floats by ``masking.total_order_key`` (-0 as 0, every
+    NaN one NaN above +inf), complex numbers by real part then imaginary
+    part (``masking.argsort``'s order), bools as bytes."""
+    if t.is_complex():
+        return [masking.total_order_key(t.real),
+                masking.total_order_key(t.imag)]
+    if t.is_floating_point():
+        return [masking.total_order_key(t)]
+    if t.dtype == torch.bool:
+        return [t.to(torch.uint8)]
+    return [t]
+
+
+def _lex_order(keys, n, device):
+    """The stable order of n elements by ``keys`` (the first the primary
+    one): successive stable sorts from the last key to the first."""
+    perm = None
+    for k in reversed(keys):
+        step = torch.argsort(k if perm is None else k[perm], stable=True)
+        perm = step if perm is None else perm[step]
+    return perm if perm is not None else torch.arange(
+        n, dtype=torch.int64, device=device)
+
+
+def _keys_le(keys, lo, spl):
+    """Whether each element's (keys..., global position) tuple is at most
+    the tuple ``spl`` (Python ints, the position last), in lexicographic
+    order; the positions (``lo`` + index) are read only where every key
+    ties."""
+    le = eq = None
+    for k, v in zip(keys, spl[:-1]):
+        lt, e = k < v, k == v
+        le = lt if le is None else le | (eq & lt)
+        eq = e if eq is None else eq & e
+    tie = masking._flat_nonzero(eq)
+    le[tie] = tie + lo <= spl[-1]
+    return le
+
+
+def _even(n, count, device):
+    """``count`` indices at even steps of [0, n) (repeats where n is
+    smaller)."""
+    return torch.arange(count, device=device, dtype=torch.int64) * n // count
+
+
+def _tuple_splitters(keys, lo, world):
+    """world - 1 (keys..., position) tuples that cut the elements into
+    ranges of about equal size: each process offers ``SORT_SAMPLES ·
+    world`` tuples, the quantiles of an even sample of its own, weighted
+    by its count (one all-gather). Positions make every tuple distinct,
+    so equal keys split too."""
+    n = int(keys[0].numel())
+    s = SORT_SAMPLES * world
+    if n:
+        at = _even(n, s, keys[0].device)
+        cols = [k[at].to(torch.int64) for k in keys] + [at + lo]
+        picks = torch.stack(cols, dim=1)[_lex_order(cols, s, at.device)]
+        picks = picks.cpu().numpy().reshape(-1)
+    else:
+        picks = np.zeros(s * (len(keys) + 1), dtype=np.int64)
+    table = multiprocess.all_gather_ints(np.concatenate([[n], picks]))
+    cand, weight = [], []
+    for row in table:
+        if row[0]:
+            cand.append(row[1:].reshape(s, len(keys) + 1))
+            weight.extend([row[0] / s] * s)
+    if not cand:
+        return [tuple([0] * (len(keys) + 1))] * (world - 1)
+    cand = np.concatenate(cand)
+    order = np.lexsort(cand.T[::-1])
+    cum = np.cumsum(np.asarray(weight)[order])
+    return [tuple(int(v) for v in cand[order[min(len(order) - 1, int(
+        np.searchsorted(cum, (j + 1) * cum[-1] / world)))]])
+        for j in range(world - 1)]
+
+
+def _groups(groups, count):
+    """For each group 0..count-1 in turn, the indices of its elements in
+    increasing order (a stable partition, one group's indices at a
+    time)."""
+    for g in range(count):
+        yield masking._flat_nonzero(groups == g)
+
+
+def _ordered(keys, got, chunk):
+    """``got`` (tensors of one length) in the stable order of ``keys``
+    (the first the primary one), a range of the primary key at a time:
+    each range (cut at the quantiles of an even sample) holds at most
+    about ``chunk`` elements, so that the argsort's int64 positions and
+    its buffers stay a chunk in size; equal primary keys share a range,
+    and each range keeps the elements' order (``_groups``)."""
+    m = int(got[0].shape[0])
+    dev = got[0].device
+    ranges = max(1, -(-m // int(chunk)))
+    if ranges == 1:
+        order = _lex_order(keys, m, dev)
+        return [g[order] for g in got]
+    sample = torch.sort(keys[0][_even(m, 64 * ranges, dev)])[0]
+    cuts = sample[_even(int(sample.numel()), ranges, dev)[1:]]
+    group = torch.zeros(m, dtype=torch.uint8, device=dev)
+    for c in cuts:
+        group += (keys[0] >= c).to(torch.uint8)
+    outs = [torch.empty_like(g) for g in got]
+    at = 0
+    for idx in _groups(group, ranges):
+        size = int(idx.numel())
+        idx = idx[_lex_order([k[idx] for k in keys], size, dev)]
+        for o, g in zip(outs, got):
+            o[at:at + size] = g[idx]
+        at += size
+    return outs
+
+
+def sorted_runs(backend, tensors, keys_fn, positions=False):
+    """The elements of the 1-D DTensors ``tensors`` (one length), sorted
+    stably by ``keys_fn(locals)`` over the whole mesh (a sample sort):
+    each process finds the process of each of its (keys, position)
+    tuples among ``_tuple_splitters``' ranges and sends them there in
+    position order (a stable partition, one all-to-all a tensor); each
+    process then orders what it received, which arrives in position order
+    within equal keys (``_ordered``, a chunk of key ranges at a time).
+    Returns (this process's sorted run of each tensor, or with
+    ``positions`` of their global positions alone; the run's first global
+    rank)."""
+    fs = full_shard(backend)
+    xs = [backend.rebox(t, fs) for t in tensors]
+    world = backend.device_grid.num_devices
+    me = multiprocess.process_index()
+    lo = backend.region(tuple(xs[0].shape), fs)[0][0]
+    locs = [x.to_local() for x in xs]
+    n = int(locs[0].shape[0])
+    dev = locs[0].device
+    keys = keys_fn(locs)
+    dest = torch.zeros(n, dtype=torch.uint8, device=dev)
+    for spl in _tuple_splitters(keys, lo, world):
+        dest += (~_keys_le(keys, lo, spl)).to(torch.uint8)
+    del keys
+    payload = [torch.empty_like(loc) for loc in locs]
+    if positions:
+        payload.append(torch.empty(n, dtype=torch.int64, device=dev))
+    send, at = [], 0
+    for idx in _groups(dest, world):
+        size = int(idx.numel())
+        for p, loc in zip(payload, locs):
+            p[at:at + size] = loc[idx]
+        if positions:
+            payload[-1][at:at + size] = idx + lo
+        send.append(size)
+        at += size
+    del dest
+    recv = multiprocess.all_gather_ints(send)[:, me]
+    got = []
+    for i in range(len(payload)):  # each sent tensor goes once sent
+        got.append(multiprocess.exchange(payload[i], send, recv))
+        payload[i] = None
+    keys = keys_fn(got[:len(tensors)])
+    if positions:
+        got = got[-1:]  # the positions alone are asked for
+    got = _ordered(keys, got, SORT_CHUNK_ELEMENTS)
+    counts = multiprocess.all_gather_ints([int(got[0].shape[0])])[:, 0]
+    return got, int(counts[:me].sum())
+
+
+def _runs_everywhere(start, length):
+    """Every process's (start, length) run, by process (one all-gather)."""
+    table = multiprocess.all_gather_ints([start, length])
+    return [(int(a), int(a) + int(n)) for a, n in table]
+
+
+def sort(backend, data, placements, want="values"):
+    """``masking.sort`` of the 1-D DTensor ``data`` over the whole mesh
+    (``sorted_runs``): the values (``want="values"``; bit for bit, signed
+    zeros and NaN payloads in input order) or their global positions
+    (``"positions"``, int64), laid out by ``placements``."""
+    runs, _ = sorted_runs(backend, [data], lambda locs: sort_keys(locs[0]),
+                          positions=want == "positions")
+    return _placed(backend, runs[-1], placements)
+
+
+def _placed(backend, run, placements):
+    """This process's sorted run of a 1-D result (the runs in rank order
+    are the result), laid out by ``placements`` (``place_rows``)."""
+    out = backend.place_rows(run, (), full_shard(backend))
+    return backend.rebox(out, tuple(placements))
+
+
+def lexsort(backend, tensors, placements):
+    """``jnp.lexsort`` of 1-D DTensors (or whole tensors) of one length:
+    the global positions (int64) that sort them by the last, then by the
+    one before it, ..., stably (``sorted_runs`` on every key at once),
+    laid out by ``placements``."""
+    fs = full_shard(backend)
+    ts = [as_dtensor(backend, t, fs) for t in tensors]
+    runs, _ = sorted_runs(backend, ts, lambda locs: [
+        k for loc in reversed(locs) for k in sort_keys(loc)],
+        positions=True)
+    return _placed(backend, runs[-1], placements)
+
+
+def partition(backend, data, kth, placements, keys_fn, positions=False):
+    """``jnp.partition`` (or, with ``positions``, ``jnp.argpartition``) of
+    the 1-D DTensor ``data``: the elements sorted by ``keys_fn`` and
+    position (``sorted_runs``); the kth+1 smallest in that order first,
+    then the values of the others in descending order (partition) or the
+    positions of every other element in ascending order (argpartition, the
+    positions of the first part sent back to their holders and struck
+    out). One all-to-all places the two runs of each process."""
+    total = int(data.shape[0])
+    kth = int(kth)
+    runs, r0 = sorted_runs(backend, [data], keys_fn, positions=positions)
+    run = runs[-1] if positions else runs[0]
+    m = int(run.shape[0])
+    cut = max(0, min(m, kth + 1 - r0))
+    head = run[:cut]
+    if not positions:
+        tail = torch.flip(run[cut:], (0,))
+        a, b = r0 + cut, r0 + m
+        tail_run = (total + kth - b + 1, total + kth - a + 1)
+    else:
+        tail = _other_positions(backend, data, head)
+        before = multiprocess.all_gather_ints([int(tail.shape[0])])[:, 0]
+        me = multiprocess.process_index()
+        start = kth + 1 + int(before[:me].sum())
+        tail_run = (start, start + int(tail.shape[0]))
+    heads = _runs_everywhere(r0, cut)
+    tails = _runs_everywhere(tail_run[0], tail_run[1] - tail_run[0])
+    fs = full_shard(backend)
+    dst = [backend.region((total,), fs, c)[0] for c in backend.coords()]
+    rows = backend.move_pieces([head, tail], [[h, t] for h, t in zip(
+        heads, tails)], dst, fs)
+    out = backend.from_local(rows.contiguous(), (total,), fs)
+    return backend.rebox(out, tuple(placements))
+
+
+def _other_positions(backend, data, chosen):
+    """The global positions of this process's box of the 1-D DTensor
+    ``data`` (split over the whole mesh) that no process chose
+    (``chosen``: positions, on whichever process), in ascending order:
+    each chosen position goes to its holder (one all-to-all)."""
+    fs = full_shard(backend)
+    shape = tuple(data.shape)
+    coords = backend.coords()
+    dest = torch.zeros(chosen.shape, dtype=torch.uint8,
+                       device=chosen.device)
+    for c in coords[1:]:
+        dest += (chosen >= backend.region(shape, fs, c)[0][0]).to(
+            torch.uint8)
+    buf = torch.empty_like(chosen)
+    send, at = [], 0
+    for idx in _groups(dest, len(coords)):
+        buf[at:at + idx.numel()] = chosen[idx]
+        send.append(int(idx.numel()))
+        at += int(idx.numel())
+    del dest
+    recv = multiprocess.all_gather_ints(send)[
+        :, multiprocess.process_index()]
+    got = multiprocess.exchange(buf, send, recv)
+    lo, hi = backend.region(shape, fs)[0]
+    keep = torch.ones(hi - lo, dtype=torch.bool, device=chosen.device)
+    keep[got - lo] = False
+    return masking._flat_nonzero(keep) + lo

@@ -15,7 +15,9 @@ from nums_tpu_torch.core.application_manager import instance as _instance
 from nums_tpu_torch.core.array.blockarray import BlockArray
 from nums_tpu_torch.core.array import utils as array_utils
 from nums_tpu_torch.core.ops import mesh_ops
-from nums_tpu_torch.numpy.extra import _default_int, _inexact, _to_ba, _wrap
+from nums_tpu_torch.numpy.extra import (
+    _default_int, _inexact, _mesh_target, _to_ba, _wrap,
+)
 from nums_tpu_torch.numpy.extra4 import resize_tensor
 
 __all__ = [
@@ -79,6 +81,13 @@ def resize(a, new_shape):
     new_shape = tuple(int(s) for s in new_shape)
     if any(s < 0 for s in new_shape):
         raise ValueError("all elements of `new_shape` must be non-negative")
+    if mesh_ops.is_dtensor(a.data):
+        # each process pulls its run of the cycled flat order
+        bs = (array_utils.default_block_shape_for(new_shape, a.block_shape)
+              if len(new_shape) == a.ndim else a.mesh_block(new_shape))
+        bs, want = _mesh_target(a, new_shape, bs)
+        return _wrap(a, mesh_ops.flat_move(a.backend, a.data, new_shape,
+                                           want, cyclic=True), bs)
     return _wrap(a, resize_tensor(a.data, new_shape).contiguous())
 
 

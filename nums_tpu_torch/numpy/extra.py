@@ -193,16 +193,16 @@ def _flat_block(a):
 def _mesh_flat(a, x):
     """``x`` (a DTensor of ``a``'s shape) flattened in row-major order and
     laid out as a 1-D BlockArray of ``_flat_block(a)``
-    (``mesh_ops.flatten``); returns (tensor, block shape)."""
+    (``mesh_ops.flat_move``); returns (tensor, block shape)."""
     bs = _flat_block(a)
     grid = ArrayGrid((int(a.size),), bs, array_utils.to_dtype_name(x.dtype))
-    return mesh_ops.flatten(a.backend, x, a.backend.sharding_for_grid(
-        grid)), bs
+    return mesh_ops.flat_move(a.backend, x, (int(a.size),),
+                              a.backend.sharding_for_grid(grid)), bs
 
 
 def _mesh_scan(a, x, axis, fn, name):
     """A scan of a DTensor (``mesh_ops.scan``): axis=None first
-    flattens it by rows (``mesh_ops.flatten``); the totals of the boxes
+    flattens it by rows (``mesh_ops.flat_move``); the totals of the boxes
     before each box along the axis then join its own scan."""
     bs = None
     if axis is None:
@@ -543,6 +543,8 @@ def sort(a, axis=-1, kind=None, order=None, stable=True, descending=False):
     if order is not None:
         raise NotImplementedError("'order' argument to sort is not supported.")
     a = _to_ba(a)
+    if mesh_ops.is_dtensor(a.data):
+        return _mesh_order(a, a.data, axis, "sort", bool(descending))
     x, axis = _sort_input(a, axis)
     return _wrap(a, masking.sort(x, axis, bool(descending))[0])
 
@@ -555,9 +557,64 @@ def argsort(a, axis=-1, kind=None, order=None, stable=True,
         raise NotImplementedError(
             "'order' argument to argsort is not supported.")
     a = _to_ba(a)
+    if mesh_ops.is_dtensor(a.data):
+        return _mesh_order(a, a.data, axis, "argsort", bool(descending))
     x, axis = _sort_input(a, axis)
     out = masking.argsort(x, axis, bool(descending))
     return _wrap(a, out.to(_default_int(a)))
+
+
+def _mesh_target(a, shape, block_shape=None):
+    """(block shape, placements) of a result of ``shape`` that ``_wrap``
+    lays out on ``a``'s mesh."""
+    shape = tuple(int(v) for v in shape)
+    if block_shape is None:
+        block_shape = array_utils.default_block_shape_for(shape,
+                                                          a.block_shape)
+    bs = tuple(builtins.min(b, v) for b, v in zip(tuple(block_shape), shape))
+    return bs, a.backend.sharding_for_grid(ArrayGrid(shape, bs, "float32"))
+
+
+def _index_dtype(a, n):
+    """The default int, or int64 where ``n`` positions overflow it."""
+    return torch.int64 if n >= 2**31 - 1 else _default_int(a)
+
+
+def _mesh_order(a, x, axis, what, descending):
+    """``sort``/``argsort`` of a DTensor: axis=None flattens it by rows
+    (``mesh_ops.flat_move``, the rows' blocks kept); along an axis that no
+    mesh dimension shards each process orders its own lines; a sharded
+    1-D array takes the distributed sort (``mesh_ops.sort``: bit for bit
+    ``masking.sort``'s order, positions global), an n-D one the sharding
+    moved to another axis (``mesh_ops.across``, in chunks of lines)."""
+    bs = None
+    if axis is None:
+        x, bs = _mesh_flat(a, x)
+        axis = 0
+    axis = int(axis) % builtins.max(x.ndim, 1)
+    n = int(x.shape[axis]) if x.ndim else 1
+    dt = x.dtype if what == "sort" else _index_dtype(a, n)
+
+    def lines(local, dim):
+        if what == "sort":
+            return masking.sort(local, dim, descending)[0]
+        return masking.argsort(local, dim, descending).to(dt)
+
+    pl = tuple(x.placements)
+    if x.ndim == 0 or not mesh_ops.shard_dims(pl, (axis,)):
+        return _wrap(a, a.backend.from_local(
+            lines(x.to_local(), builtins.max(axis, 0) if x.ndim else -1),
+            tuple(x.shape), pl), bs)
+    if descending:
+        raise NotImplementedError(
+            f"{what}: descending along an axis that the mesh shards")
+    if x.ndim == 1:
+        bs, want = _mesh_target(a, tuple(x.shape), bs)
+        out = mesh_ops.sort(a.backend, x, want, want="values"
+                            if what == "sort" else "positions")
+        return _wrap(a, out.to(dt), bs)
+    return _wrap(a, mesh_ops.across(a.backend, x, axis, lines, n, dt,
+                                    mesh_ops.CHUNK_ELEMENTS), bs)
 
 
 def searchsorted(a, v, side="left"):
@@ -589,6 +646,8 @@ def take(a, indices, axis=None):
     a = _to_ba(a)
     indices = _to_ba(indices)
     x = a.data
+    if _sharded(x):
+        return _mesh_take(a, x, indices, axis)
     if axis is None:
         x, axis = x.reshape(-1), 0
     axis = int(axis) % x.ndim
@@ -596,6 +655,44 @@ def take(a, indices, axis=None):
     out = torch.index_select(x, axis, idx.reshape(-1))
     shape = x.shape[:axis] + tuple(idx.shape) + x.shape[axis + 1:]
     return _wrap(a, out.reshape(shape))
+
+
+def _mesh_take(a, x, indices, axis):
+    """``take`` of a sharded DTensor: axis=None flattens it by rows; the
+    positions (a device or host int array, flattened) are pulled along
+    the axis moved first (``mesh_ops.gather_device``: each process asks
+    the holders of its box of the result), then the result takes the
+    indices' shape (``mesh_ops.flat_move``) and the axis goes back."""
+    bs = None
+    if axis is None:
+        x, bs = _mesh_flat(a, x)
+        axis = 0
+    axis = int(axis) % x.ndim
+    n = int(x.shape[axis])
+    backend = a.backend
+    t = mesh_ops.move_axis(backend, x, axis, 0) if axis else x
+    idx = indices.data
+    if idx.ndim != 1:
+        idx = (mesh_ops.flat_move(backend, idx, (int(idx.numel()),),
+                                  backend.sharding_for_shape(
+                                      (int(idx.numel()),)))
+               if mesh_ops.is_dtensor(idx) else idx.reshape(-1))
+    if not mesh_ops.is_dtensor(idx):
+        local = idx.to(torch.int64)
+        if local.numel() and (int(local.max()) >= n or int(local.min()) < -n):
+            raise IndexError(f"index out of bounds for axis of size {n}")
+    m = int(idx.numel())
+    rest = tuple(int(v) for v in t.shape[1:])
+    rpl = backend.sharding_for_shape((m,) + rest)
+    out = mesh_ops.gather_device(backend, t, [idx], rpl)
+    ishape = tuple(indices.shape)
+    if ishape != (m,):
+        out = mesh_ops.flat_move(backend, out, ishape + rest,
+                                 backend.sharding_for_shape(ishape + rest))
+    q = len(ishape)
+    for k in range(q if axis else 0):
+        out = mesh_ops.move_axis(backend, out, q - 1 - k, axis + q - 1 - k)
+    return _wrap(a, out, bs)
 
 
 # -- shape manipulation -------------------------------------------------
@@ -606,21 +703,70 @@ def _tensors(arrays):
     return bas, _promote_all([b.data for b in bas])
 
 
+def _cat(bas, ts, axis, shapes=None):
+    """``torch.cat`` of ``ts`` along ``axis``, each first in its shape of
+    ``shapes`` (a reshape that adds axes of one), wrapped like ``bas[0]``.
+    On the mesh each operand keeps its rows in place (a DTensor reshaped
+    by ``mesh_ops.flat_move``, the new axes added locally) and the result
+    is laid out by ``mesh_ops.concat`` (one all-to-all along a sharded
+    axis), never whole but where its grid is whole."""
+    shapes = shapes or [tuple(t.shape) for t in ts]
+    if not builtins.any(mesh_ops.is_dtensor(t) for t in ts):
+        return _wrap(bas[0], torch.cat([t.reshape(s) for t, s in zip(
+            ts, shapes)], dim=axis))
+    backend = bas[0].backend
+    ts = [_expanded(backend, t, s) for t, s in zip(ts, shapes)]
+    shape = list(shapes[0])
+    shape[axis] = builtins.sum(s[axis] for s in shapes)
+    bs, want = _mesh_target(bas[0], shape)
+    return _wrap(bas[0], mesh_ops.concat(backend, ts, axis, want), bs)
+
+
+def _expanded(backend, t, shape):
+    """A tensor in ``shape``, which adds axes of one to its own (a plain
+    tensor reshaped; a DTensor's box reshaped with its placements moved
+    to the axes they shard)."""
+    shape = tuple(int(v) for v in shape)
+    if tuple(t.shape) == shape:
+        return t
+    if not mesh_ops.is_dtensor(t):
+        return t.reshape(shape)
+    old = [int(v) for v in t.shape]
+    at, k = [], 0
+    for i, v in enumerate(shape):
+        if k < len(old) and v == old[k]:
+            at.append(i)
+            k += 1
+    if len(at) != len(old):
+        return mesh_ops.flat_move(backend, t, shape,
+                                  backend.sharding_for_shape(shape))
+    local = t.to_local()
+    lshape = [1] * len(shape)
+    for i, j in enumerate(at):
+        lshape[j] = int(local.shape[i])
+    pl = tuple(mesh_ops._shard(at[p.dim]) if p.is_shard() else p
+               for p in t.placements)
+    return backend.from_local(local.reshape(lshape), shape, pl)
+
+
 def stack(arrays, axis=0):
     bas, ts = _tensors(arrays)
-    return _wrap(bas[0], torch.stack(ts, dim=axis))
+    axis = int(axis) % (ts[0].ndim + 1)
+    shape = tuple(ts[0].shape)
+    one = shape[:axis] + (1,) + shape[axis:]
+    return _cat(bas, ts, axis, [one] * len(ts))
 
 
 def vstack(tup):
     bas, ts = _tensors(tup)
-    ts = [t.reshape(1, -1) if t.ndim <= 1 else t for t in ts]
-    return _wrap(bas[0], torch.cat(ts, dim=0))
+    return _cat(bas, ts, 0, [(1, int(t.numel())) if t.ndim <= 1 else
+                             tuple(t.shape) for t in ts])
 
 
 def hstack(tup):
     bas, ts = _tensors(tup)
-    ts = [t.reshape(1) if t.ndim == 0 else t for t in ts]
-    return _wrap(bas[0], torch.cat(ts, dim=0 if ts[0].ndim == 1 else 1))
+    shapes = [(1,) if t.ndim == 0 else tuple(t.shape) for t in ts]
+    return _cat(bas, ts, 0 if len(shapes[0]) == 1 else 1, shapes)
 
 
 def _at_least_3d(t):
@@ -635,13 +781,14 @@ def _at_least_3d(t):
 
 def dstack(tup):
     bas, ts = _tensors(tup)
-    return _wrap(bas[0], torch.cat([_at_least_3d(t) for t in ts], dim=2))
+    return _cat(bas, ts, 2, [tuple(_at_least_3d(torch.empty(
+        tuple(t.shape), device="meta")).shape) for t in ts])
 
 
 def column_stack(tup):
     bas, ts = _tensors(tup)
-    ts = [t.reshape(-1, 1) if t.ndim < 2 else t for t in ts]
-    return _wrap(bas[0], torch.cat(ts, dim=1))
+    return _cat(bas, ts, 1, [(int(t.numel()), 1) if t.ndim < 2 else
+                             tuple(t.shape) for t in ts])
 
 
 def row_stack(tup):
@@ -651,7 +798,48 @@ def row_stack(tup):
 def tile(a, reps):
     a = _to_ba(a)
     reps = tuple(reps) if isinstance(reps, (tuple, list)) else (int(reps),)
+    if _sharded(a.data):
+        return _mesh_tile(a, a.data, tuple(int(r) for r in reps))
     return _wrap(a, torch.tile(a.data, reps))
+
+
+def _mesh_tile(a, x, reps):
+    """``tile`` of a sharded DTensor: along an axis that no mesh dimension
+    shards each process tiles its own box; along a sharded one its rows
+    are ``reps`` runs of the result, placed by one all-to-all (the same
+    tensor sent once a run)."""
+    backend = a.backend
+    nd = builtins.max(x.ndim, len(reps))
+    reps = (1,) * (nd - len(reps)) + reps
+    x = _expanded(backend, x, (1,) * (nd - x.ndim) + tuple(x.shape))
+    pl = tuple(x.placements)
+    local_reps = [1 if mesh_ops.shard_dims(pl, (k,)) else r
+                  for k, r in enumerate(reps)]
+    shape = tuple(int(v) * r for v, r in zip(x.shape, local_reps))
+    t = backend.from_local(torch.tile(x.to_local(), tuple(local_reps)),
+                           shape, pl)
+    for k, r in enumerate(reps):
+        if r == 1 or not mesh_ops.shard_dims(pl, (k,)):
+            continue
+        t = mesh_ops.along(backend, t, k, lambda u, r=r: _tiled_rows(
+            backend, u, r))
+    return _wrap(a, t)
+
+
+def _tiled_rows(backend, t, r):
+    """``t`` (a DTensor sharded along axis 0) ``r`` times along axis 0:
+    each process's rows are ``r`` runs of the result, placed by one
+    ``move_pieces``."""
+    n = int(t.shape[0])
+    pl = tuple(t.placements)
+    shape = (n * r,) + tuple(t.shape[1:])
+    coords = backend.coords()
+    pieces = [[(i * n + a, i * n + b) for i in range(r)] for a, b in (
+        backend.region(tuple(t.shape), pl, c)[0] for c in coords)]
+    dst = [backend.region(shape, pl, c)[0] for c in coords]
+    local = t.to_local()
+    rows = backend.move_pieces([local] * r, pieces, dst, pl)
+    return backend.from_local(rows.contiguous(), shape, pl)
 
 
 def repeat(a, repeats, axis=None):
@@ -666,7 +854,7 @@ def repeat(a, repeats, axis=None):
 
 def _mesh_repeat(a, x, r, axis):
     """``repeat`` of a DTensor: axis=None flattens it by rows
-    first (``mesh_ops.flatten``); along a sharded axis each process repeats
+    first (``mesh_ops.flat_move``); along a sharded axis each process repeats
     its own slab and the rows move to the result's layout
     (``mesh_ops.along_rows``); along any other axis each process repeats
     its own box."""
@@ -691,6 +879,8 @@ def _mesh_repeat(a, x, r, axis):
 def roll(a, shift, axis=None):
     a = _to_ba(a)
     x = a.data
+    if mesh_ops.is_dtensor(x):
+        return _mesh_roll(a, x, shift, axis)
     if axis is None:
         out = torch.roll(x.reshape(-1), shift).reshape(x.shape)
     else:
@@ -698,9 +888,48 @@ def roll(a, shift, axis=None):
     return _wrap(a, out, a.block_shape)
 
 
+def _mesh_roll(a, x, shift, axis):
+    """``roll`` of a DTensor: axis=None by the rows of its flat
+    order (``mesh_ops.flat_move`` there and back); along a sharded axis
+    each process's rows are one or two runs of the result
+    (``mesh_ops.reverse_rows``, one all-to-all); along any other axis each
+    process rolls its own box."""
+    backend = a.backend
+    if axis is None:
+        flat, _ = _mesh_flat(a, x)
+        out = mesh_ops.along(backend, flat, 0, lambda t: mesh_ops.reverse_rows(
+            backend, t, int(shift)))
+        return _wrap(a, mesh_ops.flat_move(backend, out, tuple(x.shape),
+                                           tuple(x.placements)),
+                     a.block_shape)
+    shifts = (shift,) if isinstance(shift, (int, np.integer)) else shift
+    axes = (axis,) if isinstance(axis, (int, np.integer)) else axis
+    t = x
+    for s, ax in zip(shifts, axes):
+        ax = int(ax) % t.ndim
+        if mesh_ops.shard_dims(t.placements, (ax,)):
+            t = mesh_ops.along(backend, t, ax, lambda u, s=s: (
+                mesh_ops.reverse_rows(backend, u, int(s))))
+        else:
+            t = mesh_ops.like(t, torch.roll(t.to_local(), int(s), dims=ax))
+    return _wrap(a, t, a.block_shape)
+
+
 def flip(a, axis=None):
     a = _to_ba(a)
     x = a.data
+    if mesh_ops.is_dtensor(x):
+        # along a sharded axis the rows move; along any other each
+        # process flips its own box (a replicated array: its own copy)
+        t = x
+        for ax in _dims(axis, x.ndim):
+            if mesh_ops.shard_dims(t.placements, (ax,)):
+                t = mesh_ops.along(a.backend, t, ax,
+                                   lambda u: mesh_ops.reverse_rows(
+                                       a.backend, u))
+            else:
+                t = mesh_ops.like(t, torch.flip(t.to_local(), (ax,)))
+        return _wrap(a, t, a.block_shape)
     return _wrap(a, torch.flip(x, dims=_dims(axis, x.ndim)), a.block_shape)
 
 
@@ -748,14 +977,26 @@ def broadcast_to(a, shape):
     return a.broadcast_to(tuple(shape))
 
 
-def triu(a, k=0):
+def _triangle(fn, a, k):
+    """``fn`` (``torch.tril``/``triu``) at diagonal ``k``; on the mesh each
+    process's box at the diagonal its global offsets give (no
+    communication)."""
     a = _to_ba(a)
-    return _wrap(a, torch.triu(a.data, diagonal=int(k)), a.block_shape)
+    x = a.data
+    if mesh_ops.is_dtensor(x) and x.ndim >= 2:
+        box = a.backend.region(tuple(x.shape), x.placements)
+        shift = box[-2][0] - box[-1][0]
+        return _wrap(a, mesh_ops.like(x, fn(x.to_local(), diagonal=int(
+            k) + shift)), a.block_shape)
+    return _wrap(a, fn(x, diagonal=int(k)), a.block_shape)
+
+
+def triu(a, k=0):
+    return _triangle(torch.triu, a, k)
 
 
 def tril(a, k=0):
-    a = _to_ba(a)
-    return _wrap(a, torch.tril(a.data, diagonal=int(k)), a.block_shape)
+    return _triangle(torch.tril, a, k)
 
 
 # -- contractions -------------------------------------------------------
@@ -785,7 +1026,7 @@ def outer(a, b):
 
 def trace(a, offset=0):
     a = _to_ba(a)
-    d = torch.diagonal(a.data, offset=int(offset))
+    d = _diagonal(a, int(offset))
     return _wrap(a, d.to(_sum_dtype(d.dtype, a)).sum(dim=-1))
 
 
@@ -806,6 +1047,19 @@ def einsum(subscripts, *operands):
 def kron(a, b):
     a, b = _to_ba(a), _to_ba(b)
     x, y = _promote_all([a.data, b.data])
+    if mesh_ops.is_dtensor(x) and x.ndim == y.ndim:
+        # each process's box of a times the whole b is the box of the
+        # result at b.shape times its offsets; the cuts then move
+        backend = a.backend
+        y = _whole_small(y)
+        box = backend.region(tuple(x.shape), x.placements)
+        shape = tuple(int(u) * int(v) for u, v in zip(x.shape, y.shape))
+        out = torch.kron(x.to_local(), y.to(x.device))
+        bs, want = _mesh_target(a, shape)
+        out = mesh_ops.relayout(backend, out, [
+            (lo * int(v), hi * int(v)) for (lo, hi), v in zip(box, y.shape)],
+            shape, tuple(x.placements))
+        return _wrap(a, backend.rebox(out, want), bs)
     return _wrap(a, torch.kron(x, y))
 
 
@@ -862,11 +1116,55 @@ def diff(a, n=1, axis=-1):
     if n == 0:
         return _wrap(a, x.clone())
     axis = int(axis) % x.ndim
-    for _ in range(int(n)):
+    if not mesh_ops.is_dtensor(x):
+        return _wrap(a, _diff_local(x, int(n), axis))
+    if mesh_ops.shard_dims(x.placements, (axis,)):
+        return _wrap(a, _mesh_diff(a.backend, x, int(n), axis))
+    # along an axis that no mesh dimension shards: each process's own box
+    out = _diff_local(x.to_local(), int(n), axis)
+    shape = list(x.shape)
+    shape[axis] = int(out.shape[axis])
+    return _wrap(a, mesh_ops.like(x, out, tuple(shape)))
+
+
+def _diff_local(x, n, axis):
+    for _ in range(n):
         hi = x.narrow(axis, 1, x.shape[axis] - 1)
         lo = x.narrow(axis, 0, x.shape[axis] - 1)
         x = hi != lo if x.dtype == torch.bool else hi - lo
-    return _wrap(a, x)
+    return x
+
+
+def _mesh_diff(backend, x, n, axis):
+    """``diff`` along a sharded axis: each process differences its own
+    rows and, for its last one, the first row of the next box (a halo of
+    one row, ``mesh_ops.halo``); its output rows [lo, min(hi, n - 1)) are
+    then placed (``mesh_ops.relayout``: nothing moves where the cuts
+    agree). ``n`` times."""
+    def once(t):
+        m = int(t.shape[0])
+        pl = tuple(t.placements)
+        box = backend.region(tuple(t.shape), pl)
+        lo, hi = box[0]
+        _, post = mesh_ops.halo(backend, t, 0, 1)
+        local = t.to_local()
+        k = builtins.max(0, builtins.min(hi, m - 1) - lo)
+        op = torch.ne if local.dtype == torch.bool else torch.sub
+        out = torch.empty((k,) + tuple(local.shape[1:]), dtype=local.dtype,
+                          device=local.device)
+        inner = builtins.min(k, builtins.max(int(local.shape[0]) - 1, 0))
+        op(local[1:inner + 1], local[:inner], out=out[:inner])
+        if inner < k:
+            op(post[:1], local[inner:inner + 1], out=out[inner:k])
+        return mesh_ops.relayout(backend, out, ((lo, lo + k),) + box[1:],
+                                 (m - 1,) + tuple(t.shape[1:]), pl)
+
+    def run(t):
+        for _ in range(n):
+            t = once(t)
+        return t
+
+    return mesh_ops.along(backend, x, axis, run)
 
 
 def unique(a, return_index=False, return_inverse=False,
@@ -1017,19 +1315,103 @@ def _cov(x, rowvar, ddof):
     return out.squeeze()
 
 
+def _mesh_cov(m, x, rowvar, ddof):
+    """``_cov`` of a DTensor whose observations axis the mesh shards:
+    the variables first whole on each process, the means from each
+    process's sums
+    (one all-reduce), then each process's centred rows in the plain
+    product that ``_cov`` takes, summed (one all-reduce of the d×d sum);
+    no transposed copy of the operand. A sharded vector is one variable,
+    the (1, n) matrix of its observations. None where the observations
+    are not sharded."""
+    backend = m.backend
+    if x.ndim == 1 and mesh_ops.shard_dims(x.placements, (0,)):
+        x = backend.from_local(x.to_local().reshape(1, -1),
+                               (1, int(x.shape[0])),
+                               tuple(mesh_ops._shard(1) if p.is_shard()
+                                     else p for p in x.placements))
+        rowvar = True
+    obs = 1 if rowvar else 0
+    if x.ndim != 2 or not mesh_ops.shard_dims(x.placements, (obs,)):
+        return None
+    # the variables whole on each process: the mesh dimensions that shard
+    # them shard the observations too (an all-to-all)
+    x = backend.rebox(x, tuple(mesh_ops._shard(obs) if p.is_shard() else p
+                               for p in x.placements))
+    x = _inexact(x)
+    local = x.to_local()
+    here = backend.counts_here(x.placements)
+    n = int(x.shape[obs])
+    ddof = 1 if ddof is None else ddof
+    dims = mesh_ops.shard_dims(x.placements, (obs,))
+    s = local.sum(dim=obs) if here else torch.zeros(
+        int(x.shape[1 - obs]), dtype=local.dtype, device=local.device)
+    mean = mesh_ops.group_reduce(backend, s, dims) / n
+    centred = local - (mean[None, :] if obs == 0 else mean[:, None])
+    xs = centred.T if obs == 0 else centred
+    prod = torch.matmul(xs, xs.T.conj())
+    if not here:
+        prod = torch.zeros_like(prod)
+    out = mesh_ops.group_reduce(backend, prod, dims) / (n - ddof)
+    return backend.from_local(out.squeeze(), tuple(out.squeeze().shape),
+                              backend.replicated())
+
+
 def cov(m, rowvar=True, ddof=None):
     m = _to_ba(m)
-    return _wrap(m, _cov(m.data, rowvar, ddof))
+    return _wrap(m, _cov_of(m, rowvar, ddof))
 
 
 def corrcoef(m, rowvar=True):
     m = _to_ba(m)
-    c = _cov(m.data, rowvar, None)
+    c = _cov_of(m, rowvar, None)
+    if mesh_ops.is_dtensor(c):  # a Partial sum laid out by the rule first
+        c = _wrap(m, c).data
+    if _sharded(c):
+        return _wrap(m, _mesh_corr(m.backend, c))
+    if mesh_ops.is_dtensor(c):
+        return _wrap(m, mesh_ops.like(c, _corr(c.to_local())))
+    return _wrap(m, _corr(c))
+
+
+def _mesh_corr(backend, c):
+    """``_corr`` of a sharded (n, n) DTensor: the diagonal from the boxes
+    that hold it (one all-reduce of n values within each group of boxes),
+    then each box divided by its rows' and columns' deviations."""
+    pl = tuple(c.placements)
+    (r0, r1), (c0, c1) = backend.region(tuple(c.shape), pl)
+    local = c.to_local()
+    d = torch.zeros(int(c.shape[0]), dtype=local.dtype, device=local.device)
+    lo, hi = max(r0, c0), min(r1, c1)
+    if hi > lo:
+        d[lo:hi] = torch.diagonal(local[lo - r0:hi - r0, lo - c0:hi - c0])
+    d = mesh_ops.group_reduce(backend, d, mesh_ops.shard_dims(pl, (0, 1)))
+    std = torch.sqrt(d.real).to(local.dtype)
+    out = torch.clamp(local / std[r0:r1, None] / std[None, c0:c1], -1, 1)
+    return backend.from_local(out.contiguous(), tuple(c.shape), pl)
+
+
+def _cov_of(m, rowvar, ddof):
+    """``_cov`` of m's tensor: on the mesh, by ``_mesh_cov`` where the
+    observations are sharded, on each process's copy where nothing is."""
+    x = m.data
+    if _sharded(x):
+        c = _mesh_cov(m, x, rowvar, ddof)
+        if c is not None:
+            return c
+    elif mesh_ops.is_dtensor(x):
+        c = _cov(x.to_local(), rowvar, ddof)
+        return m.backend.from_local(c, tuple(c.shape),
+                                    m.backend.replicated())
+    return _cov(x, rowvar, ddof)
+
+
+def _corr(c):
     if c.ndim == 0:
-        return _wrap(m, c / c)
+        return c / c
     std = torch.sqrt(torch.diagonal(c).real).to(c.dtype)
     c = c / std[:, None] / std[None, :]
-    return _wrap(m, torch.clamp(c, -1, 1))
+    return torch.clamp(c, -1, 1)
 
 
 def interp(x, xp, fp):
@@ -1253,6 +1635,16 @@ def geomspace(start, stop, num=50, endpoint=True, dtype=None):
 def append(arr, values, axis=None):
     arr, values = _to_ba(arr), _to_ba(values)
     x, v = _promote_all([arr.data, values.data])
+    if mesh_ops.is_dtensor(x) or mesh_ops.is_dtensor(v):
+        if axis is None:
+            # each flattened by rows, the result in the rows' blocks
+            parts = [_mesh_flat(b, t)[0] if mesh_ops.is_dtensor(t)
+                     else t.reshape(-1) for b, t in ((arr, x), (values, v))]
+            shape = (int(x.numel()) + int(v.numel()),)
+            bs, want = _mesh_target(arr, shape, _flat_block(arr))
+            return _wrap(arr, mesh_ops.concat(arr.backend, parts, 0, want),
+                         bs)
+        return _cat([arr, values], [x, v], int(axis) % x.ndim)
     if axis is None:
         return _wrap(arr, torch.cat([x.reshape(-1), v.reshape(-1)]))
     return _wrap(arr, torch.cat([x, v], dim=int(axis)))
@@ -1302,7 +1694,34 @@ def atleast_3d(a):
 
 def diagonal(a, offset=0):
     a = _to_ba(a)
-    return _wrap(a, torch.diagonal(a.data, offset=int(offset)).clone())
+    return _wrap(a, _diagonal(a, int(offset)).clone())
+
+
+def _diagonal(a, offset):
+    """``torch.diagonal`` of a 2-D array; of a sharded DTensor, each
+    process's diagonal entries within its box, gathered with their
+    positions (one all-gather of the diagonal's entries, no more), whole
+    on every process."""
+    x = a.data
+    if not (_sharded(x) and x.ndim == 2):
+        return torch.diagonal(x, offset=offset)
+    backend = a.backend
+    (r0, r1), (c0, c1) = backend.region(tuple(x.shape), x.placements)
+    i0, i1 = builtins.max(r0, c0 - offset), builtins.min(r1, c1 - offset)
+    first = builtins.max(0, -offset)
+    m = int(torch.diagonal(torch.empty(tuple(x.shape), device="meta"),
+                           offset=offset).shape[0])
+    local = x.to_local()
+    rows = torch.arange(builtins.max(i0, 0), builtins.max(i1, i0, 0),
+                        device=local.device)
+    if not backend.counts_here(x.placements):
+        rows = rows[:0]
+    vals = local[rows - r0, rows + offset - c0]
+    out = local.new_empty((m,))
+    for v, pos in zip(mesh_ops._all_gather_var(vals),
+                      mesh_ops._all_gather_var(rows - first)):
+        out[pos.to(out.device)] = v.to(out.device)
+    return backend.from_local(out, (m,), backend.replicated())
 
 
 def diagflat(v, k=0):
@@ -1707,21 +2126,66 @@ def _gradient_along(x, axis):
 
 def gradient(f, axis=None):
     """``jnp.gradient`` at unit spacing: central differences inside,
-    one-sided at the edges; one array per axis (a list for several)."""
+    one-sided at the edges; one array per axis (a list for several). On
+    the mesh each process's box, along a sharded axis with a row of halo
+    on each side (``_mesh_gradient``)."""
     f = _to_ba(f)
     x = _inexact(f.data)
     axes = _dims(axis, x.ndim)
     if builtins.min(x.shape[i] for i in axes) < 2:
         raise ValueError("Shape of array too small to calculate a numerical "
                          "gradient, at least 2 elements are required.")
-    grads = [_wrap(f, _gradient_along(x, ax)) for ax in axes]
+    if mesh_ops.is_dtensor(x):
+        grads = [_wrap(f, mesh_ops.along(f.backend, x, ax, lambda t: (
+            _mesh_gradient(f.backend, t))) if mesh_ops.shard_dims(
+                x.placements, (ax,)) else mesh_ops.like(
+                    x, _gradient_along(x.to_local(), ax)), f.block_shape)
+                 for ax in axes]
+    else:
+        grads = [_wrap(f, _gradient_along(x, ax)) for ax in axes]
     return grads[0] if len(axes) == 1 else grads
+
+
+def _mesh_gradient(backend, t):
+    """``_gradient_along`` axis 0 of a DTensor sharded there: each output
+    row of this process's box from its own rows and one row of halo on
+    each side (``mesh_ops.halo``), by the serial formulas (a difference,
+    halved inside)."""
+    n = int(t.shape[0])
+    lo, hi = backend.region(tuple(t.shape), t.placements)[0]
+    pre, post = mesh_ops.halo(backend, t, 1, 1)
+    local = t.to_local()
+    out = torch.empty_like(local)
+    m = int(local.shape[0])
+    if m > 2:
+        torch.sub(local[2:], local[:-2], out=out[1:-1])
+        out[1:-1].mul_(0.5)
+
+    def row(i):
+        """Row ``i`` of the array, from this box or its halo."""
+        if i < lo:
+            return pre[i - lo + pre.shape[0]:i - lo + pre.shape[0] + 1]
+        if i >= hi:
+            return post[i - hi:i - hi + 1]
+        return local[i - lo:i - lo + 1]
+
+    for i in sorted({lo, hi - 1}) if m else ():
+        if i == 0:
+            out[i - lo:i - lo + 1] = row(1) - row(0)
+        elif i == n - 1:
+            out[i - lo:i - lo + 1] = row(n - 1) - row(n - 2)
+        else:
+            out[i - lo:i - lo + 1] = (row(i + 1) - row(i - 1)) * 0.5
+    return backend.from_local(out, tuple(t.shape), tuple(t.placements))
 
 
 def trapezoid(y, x=None, dx=1.0, axis=-1):
     """``jnp.trapezoid``: ``0.5 · Σ dx · (y[1:] + y[:-1])`` along
     ``axis``; a scalar ``dx`` is weak, as a Python scalar in jax."""
     y = _to_ba(y)
+    axis = int(axis) % builtins.max(y.ndim, 1)
+    if _sharded(y.data) and mesh_ops.shard_dims(y.data.placements, (axis,)):
+        return _mesh_trapezoid(y, x, float(dx), axis)
     if x is None:
         yd, d = _inexact(y.data), float(dx)
     else:
@@ -1739,6 +2203,45 @@ def trapezoid(y, x=None, dx=1.0, axis=-1):
 trapz = trapezoid
 
 
+def _mesh_trapezoid(y, x, dx, axis):
+    """``trapezoid`` along a sharded axis: each process sums the pairs that
+    start in its box (the last with one row of halo), with the sample
+    points' differences pulled for those pairs where ``x`` is a 1-D array
+    (``mesh_ops.take``), then one all-reduce of the sums."""
+    backend = y.backend
+    yd = _inexact(y.data)
+    t = mesh_ops.move_axis(backend, yd, axis, 0) if axis else yd
+    n = int(t.shape[0])
+    lo, hi = backend.region(tuple(t.shape), t.placements)[0]
+    _, post = mesh_ops.halo(backend, t, 0, 1)
+    local = t.to_local()
+    k = builtins.max(0, builtins.min(hi, n - 1) - lo)
+    ext = torch.cat([local, post]) if k > local.shape[0] - 1 else local
+    pairs = ext[1:k + 1] + ext[:k]
+    if x is None:
+        d = dx
+    else:
+        x = _to_ba(x)
+        if x.ndim != 1:
+            raise NotImplementedError(
+                "trapezoid: sample points of more than one axis along an "
+                "axis that the mesh shards")
+        xd = _inexact(x.data)
+        pos = torch.arange(lo, lo + k + 1 if k else lo, dtype=torch.int64)
+        xs = (mesh_ops.take(backend, xd, pos) if mesh_ops.is_dtensor(xd)
+              else xd[pos.to(xd.device)]).to(pairs.dtype)
+        d = (xs[1:] - xs[:-1]).reshape((-1,) + (1,) * (pairs.ndim - 1))
+    here = backend.counts_here(t.placements)
+    part = (d * pairs).sum(0) if here and k else torch.zeros(
+        tuple(local.shape[1:]), dtype=local.dtype, device=local.device)
+    dims = mesh_ops.shard_dims(t.placements, (0,))
+    total = 0.5 * mesh_ops.group_reduce(backend, part, dims)
+    pl = tuple(mesh_ops._replicate() if p.is_shard() and p.dim == 0 else
+               mesh_ops._shard(p.dim - 1) if p.is_shard() else p
+               for p in t.placements)
+    return _wrap(y, backend.from_local(total, tuple(t.shape[1:]), pl))
+
+
 def sinc(x):
     """``jnp.sinc``: ``sin(πx)/(πx)``, 1 at 0."""
     x = _to_ba(x)
@@ -1752,6 +2255,9 @@ def sinc(x):
 
 def ediff1d(ary):
     ary = _to_ba(ary)
+    if _sharded(ary.data):
+        flat, bs = _mesh_flat(ary, ary.data)
+        return _wrap(ary, _mesh_diff(ary.backend, flat, 1, 0), bs)
     flat = ary.data.reshape(-1)
     return _wrap(ary, flat[1:] - flat[:-1])
 
@@ -1767,6 +2273,15 @@ def vander(x, N=None, increasing=False):
     iota = torch.arange(n, device=xd.device).to(xd.dtype)
     if not increasing:
         iota = (n - 1) - iota
+    if mesh_ops.is_dtensor(xd):
+        # each process's powers of its own x, laid out by its rows
+        local = elementwise.bop("power", xd.to_local()[:, None],
+                                iota[None, :], x._default_float())
+        out = x.backend.from_local(local, (int(xd.shape[0]), n),
+                                   tuple(xd.placements))
+        bs = (x.block_shape[0], n)
+        return _wrap(x, x.backend.rebox(out, _mesh_target(x, (
+            int(xd.shape[0]), n), bs)[1]), bs)
     return _wrap(x, elementwise.bop("power", xd[:, None], iota[None, :],
                                     x._default_float()))
 

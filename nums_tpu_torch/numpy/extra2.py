@@ -24,8 +24,9 @@ from nums_tpu_torch.core.array import utils as array_utils
 from nums_tpu_torch.core import multiprocess
 from nums_tpu_torch.core.ops import elementwise, masking, mesh_ops
 from nums_tpu_torch.numpy.extra import (
-    _default_int, _inexact, _local, _promote_all, _quantile,
-    _sharded, _to_ba, _wrap, cumprod, cumsum, hist_edges, prod,
+    _default_int, _inexact, _local, _mesh_diff, _promote_all, _quantile,
+    _sharded, _to_ba, _whole_small, _wrap, cumprod, cumsum, hist_edges,
+    prod,
 )
 
 __all__ = [
@@ -371,6 +372,18 @@ def polyval(p, x):
     """``jnp.polyval``: Horner's rule in the inexact promoted dtype."""
     p, x = _to_ba(p), _to_ba(x)
     pd, xd = _inexact_pair(p.data, x.data, x._default_float())
+    if mesh_ops.is_dtensor(xd) and pd.ndim == 1:
+        # the coefficients whole on each process, x's own box
+        pd = _whole_small(pd)
+        local = _local(xd)
+        y = torch.zeros(tuple(local.shape), dtype=local.dtype,
+                        device=local.device)
+        for c in pd.to(local.device):
+            y = y * local + c
+        return _wrap(x, mesh_ops.like(xd, y), x.block_shape)
+    if mesh_ops.is_dtensor(pd):
+        pd = _whole_small(pd)
+        xd = _local(xd)
     shape = np.broadcast_shapes(tuple(pd.shape[1:]), tuple(xd.shape))
     y = torch.zeros(shape, dtype=xd.dtype, device=xd.device)
     for c in pd:
@@ -437,18 +450,55 @@ def unwrap(p, axis=-1):
     axis = int(axis) % d.ndim
     if d.shape[axis] == 0:
         return _wrap(p, d.clone(), p.block_shape)
-    period = 2 * np.pi
-    interval = period / 2
+    if mesh_ops.is_dtensor(d) and mesh_ops.shard_dims(d.placements,
+                                                      (axis,)):
+        return _wrap(p, mesh_ops.along(p.backend, d, axis, lambda t: (
+            _mesh_unwrap(p.backend, t))), p.block_shape)
     dd = torch.diff(d, dim=axis)
-    ddmod = torch.remainder(dd + interval, period) - interval
-    ddmod = torch.where((ddmod == -interval) & (dd > 0),
-                        torch.full_like(ddmod, interval), ddmod)
-    correct = torch.where(torch.abs(dd) < interval, torch.zeros_like(dd),
-                          ddmod - dd)
+    correct = _corrections(dd)
     n = d.shape[axis]
     up = torch.cat([d.narrow(axis, 0, 1), d.narrow(axis, 1, n - 1)
                     + torch.cumsum(correct, dim=axis)], dim=axis)
     return _wrap(p, up, p.block_shape)
+
+
+def _corrections(dd):
+    """``unwrap``'s correction of each step ``dd``: folded into [-π, π)
+    (π itself where the step is positive), 0 below π."""
+    period = 2 * np.pi
+    interval = period / 2
+    ddmod = torch.remainder(dd + interval, period) - interval
+    ddmod = torch.where((ddmod == -interval) & (dd > 0),
+                        torch.full_like(ddmod, interval), ddmod)
+    return torch.where(torch.abs(dd) < interval, torch.zeros_like(dd),
+                       ddmod - dd)
+
+
+def _mesh_unwrap(backend, t):
+    """``unwrap`` along axis 0 of a DTensor sharded there: the steps by
+    ``_mesh_diff`` (one row of halo), their corrections summed by
+    ``mesh_ops.scan``, and the sums moved one row on (one all-to-all) to
+    join each process's own rows."""
+    n = int(t.shape[0])
+    pl = tuple(t.placements)
+    dd = _mesh_diff(backend, t, 1, 0)
+    corr = backend.from_local(_corrections(dd.to_local()),
+                              tuple(dd.shape), pl)
+    cs = mesh_ops.scan(backend, corr, 0, lambda u, dim: torch.cumsum(
+        u, dim=dim), "sum")
+    coords = backend.coords()
+    pieces = [[tuple(v + 1 for v in backend.region(tuple(cs.shape), pl,
+                                                  c)[0])] for c in coords]
+    boxes = [backend.region((n,) + tuple(t.shape[1:]), pl, c)[0]
+             for c in coords]
+    dst = [(max(lo, 1), max(hi, lo, 1)) for lo, hi in boxes]
+    moved = backend.move_pieces([cs.to_local()], pieces, dst, pl)
+    lo = boxes[multiprocess.process_index()][0]
+    local = t.to_local()
+    out = local.clone()
+    at = max(lo, 1) - lo
+    out[at:] = local[at:] + moved
+    return backend.from_local(out, tuple(t.shape), pl)
 
 
 def _iota(M):

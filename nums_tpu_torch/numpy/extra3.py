@@ -25,8 +25,9 @@ from nums_tpu_torch.core.array.blockarray import BlockArray
 from nums_tpu_torch.core import multiprocess
 from nums_tpu_torch.core.ops import elementwise, masking, mesh_ops
 from nums_tpu_torch.numpy.extra import (
-    _conv, _default_int, _inexact, _local, _mask_indices_1d,
-    _promote_all, _to_ba, _wrap, append, mesh_unique, ravel, real, sort,
+    _conv, _default_int, _index_dtype, _inexact, _local, _mask_indices_1d,
+    _mesh_flat, _mesh_target, _promote_all, _sharded, _to_ba, _wrap,
+    append, mesh_unique, ravel, real, sort,
 )
 from nums_tpu_torch.numpy.extra2 import _inexact_pair, isin
 
@@ -44,11 +45,6 @@ issubdtype = np.issubdtype
 isdtype = getattr(np, "isdtype", None) or np.issubdtype
 iterable = np.iterable
 
-# Rows of a partition sorted at a time: the sort's int64 indices are
-# twice the bytes of float32 values.
-PARTITION_CHUNK_ELEMENTS = 1 << 28
-
-
 def _axis_last(a, kth, axis, name):
     x = a.data
     if x.is_complex():
@@ -60,12 +56,32 @@ def _axis_last(a, kth, axis, name):
     if not -n <= kth < n:
         raise ValueError(f"kth={kth} is out of bounds for axis of size {n}")
     x = torch.movedim(x, axis, -1)
-    if mesh_ops.is_dtensor(x) and any(p.is_shard() and p.dim == x.ndim - 1
-                                      for p in x.placements):
-        raise NotImplementedError(
-            f"{name}: a selection along an axis that the mesh shards (the "
-            "mesh's distributed selection is not ported)")
     return x, kth % n, axis
+
+
+def _mesh_select(a, x, kth, axis, part, positions):
+    """``partition``/``argpartition`` of a DTensor whose last axis (the
+    selected one, moved there) the mesh shards: a 1-D array by the
+    distributed sort (``mesh_ops.partition``, in ``lax.top_k``'s order of
+    floats, ties by position), an n-D one by ``part`` on each process's
+    whole lines with the sharding moved to another axis
+    (``mesh_ops.across``, in chunks of lines)."""
+    n = int(x.shape[-1])
+    dt = ((torch.int32 if n < 2**31 - 1 else torch.int64) if positions
+          else x.dtype)
+    if x.ndim == 1:
+        bs, want = _mesh_target(a, tuple(x.shape))
+        out = mesh_ops.partition(a.backend, x, kth, want, lambda locs: [
+            _top_k_key(locs[0])], positions=positions)
+        return _wrap(a, out.to(dt), bs)
+    out = mesh_ops.across(a.backend, x, x.ndim - 1, lambda local, dim: (
+        _by_rows(part, local, dt)), n, dt, mesh_ops.CHUNK_ELEMENTS)
+    return _wrap(a, torch.movedim(out, -1, axis))
+
+
+def _sharded_last(x):
+    return mesh_ops.is_dtensor(x) and bool(mesh_ops.shard_dims(
+        x.placements, (x.ndim - 1,)))
 
 
 def _by_rows(fn, x, out_dtype):
@@ -73,7 +89,7 @@ def _by_rows(fn, x, out_dtype):
     output tensor: the sort's temporaries stay a chunk in size."""
     rows = x.reshape(-1, x.shape[-1])
     out = torch.empty(rows.shape, dtype=out_dtype, device=x.device)
-    step = builtins.max(1, PARTITION_CHUNK_ELEMENTS // builtins.max(
+    step = builtins.max(1, mesh_ops.CHUNK_ELEMENTS // builtins.max(
         rows.shape[1], 1))
     for i in range(0, rows.shape[0], step):
         out[i:i + step] = fn(rows[i:i + step])
@@ -113,6 +129,8 @@ def partition(a, kth, axis=-1):
         return torch.cat([torch.gather(rows, 1, bottom),
                           torch.gather(rows, 1, top)], dim=1)
 
+    if _sharded_last(x):
+        return _mesh_select(a, x, kth, axis, part, False)
     out = mesh_ops.like(x, _by_rows(part, _local(x), x.dtype))
     return _wrap(a, torch.movedim(out, -1, axis))
 
@@ -131,8 +149,11 @@ def argpartition(a, kth, axis=-1):
         rest.scatter_(1, bottom, 0)
         top = torch.argsort(rest, dim=-1, stable=True,
                             descending=True)[:, :n - kth - 1]
-        return torch.cat([bottom, top], dim=1).to(torch.int32)
+        return torch.cat([bottom, top], dim=1).to(
+            torch.int32 if n < 2**31 - 1 else torch.int64)
 
+    if _sharded_last(x):
+        return _mesh_select(a, x, kth, axis, part, True)
     out = mesh_ops.like(x, _by_rows(part, _local(x), torch.int32))
     return _wrap(a, torch.movedim(out, -1, axis))
 
@@ -145,6 +166,12 @@ def lexsort(keys, axis=-1):
         raise TypeError("need sequence of keys with len > 0 in lexsort")
     ts = [b.data for b in bas]
     shape = np.broadcast_shapes(*[tuple(t.shape) for t in ts])
+    if len(shape) == 1 and any(mesh_ops.is_dtensor(t) for t in ts) \
+            and all(tuple(t.shape) == shape for t in ts):
+        # on the mesh: the distributed sort by every key at once
+        bs, want = _mesh_target(bas[0], shape)
+        out = mesh_ops.lexsort(bas[0].backend, ts, want)
+        return _wrap(bas[0], out.to(_index_dtype(bas[0], shape[0])), bs)
     ts = [torch.broadcast_to(t, shape) for t in ts]
     axis = int(axis) % len(shape)
     perm = None
@@ -254,6 +281,19 @@ def delete(arr, obj, axis=None):
                         axis=axis)
         return _instance().array(out, block_shape=None)
     x = arr.data
+    if _sharded(x):
+        # the kept rows pulled by position along the axis moved first
+        bs = None
+        if axis is None:
+            x, bs = _mesh_flat(arr, x)
+            axis = 0
+        axis = int(axis) % x.ndim
+        n = int(x.shape[axis])
+        keep = np.ones(n, dtype=bool)
+        keep[_static_positions(obj, n)] = False
+        idx = np.nonzero(keep)[0]
+        return _wrap(arr, mesh_ops.along(arr.backend, x, axis, lambda t: (
+            mesh_ops.gather_rows(arr.backend, t, idx))), bs)
     if axis is None:
         x, axis = x.reshape(-1), 0
     axis = int(axis) % x.ndim
@@ -553,6 +593,9 @@ def sort_complex(a):
     cast to a complex dtype."""
     a = _to_ba(a)
     x = a.data
+    if mesh_ops.is_dtensor(x):
+        out = sort(a, axis=-1).data
+        return _wrap(a, out.to(_complex_dtype(x.dtype)), a.block_shape)
     return _wrap(a, masking.sort(x, -1)[0].to(_complex_dtype(x.dtype)))
 
 

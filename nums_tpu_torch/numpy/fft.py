@@ -39,11 +39,53 @@ def _out(a, data):
     return _BA.from_torch(data.resolve_conj(), backend=a.backend)
 
 
+# The length of a transform's output axis, from its input length L and n.
+_OUT_LEN = {"fft": lambda L, n: n or L, "ifft": lambda L, n: n or L,
+            "rfft": lambda L, n: (n or L) // 2 + 1,
+            "irfft": lambda L, n: n or 2 * (L - 1),
+            "hfft": lambda L, n: n or 2 * (L - 1),
+            "ihfft": lambda L, n: (n or L) // 2 + 1}
+
+
+def _mesh_fft(fname, a, x, n, axis, norm):
+    """A 1-D transform of a DTensor: along an axis that no mesh dimension
+    shards, each process transforms its own lines; along a sharded one
+    the sharding moves to another axis first (``mesh_ops.across``: one
+    all-to-all there and one back). The result keeps the operand's row
+    blocks (the serial rule, one block, would lay it whole). A sharded
+    vector has no other axis: its transform is not ported (it raises)."""
+    from nums_tpu_torch.core.ops import mesh_ops
+
+    fn = getattr(_torch.fft, fname)
+    if x.ndim == 1 and mesh_ops.shard_dims(x.placements, (0,)):
+        raise NotImplementedError(
+            f"fft.{fname} of a sharded vector on the mesh: a distributed "
+            "1-D FFT is not ported")
+    axis = int(axis) % x.ndim
+    length = _OUT_LEN[fname](int(x.shape[axis]), n)
+    dt = fn(_torch.zeros((4,), dtype=x.dtype, device="meta"),
+            n=4).dtype
+    if mesh_ops.shard_dims(x.placements, (axis,)):
+        out = mesh_ops.across(a.backend, x, axis, lambda local, dim: fn(
+            local, n=n, dim=dim, norm=norm).resolve_conj(), length, dt,
+            mesh_ops.CHUNK_ELEMENTS)
+    else:
+        local = fn(x.to_local(), n=n, dim=axis, norm=norm).resolve_conj()
+        shape = tuple(length if k == axis else int(s)
+                      for k, s in enumerate(x.shape))
+        out = a.backend.from_local(local.contiguous(), shape,
+                                   tuple(x.placements))
+    bs = tuple(min(b, s) for b, s in zip(a.block_shape, out.shape))
+    return _BA.from_torch(out, block_shape=bs, backend=a.backend)
+
+
 def _make(fname):
     fn = getattr(_torch.fft, fname)
 
     def fft_fn(a, n=None, axis=-1, norm=None):
         a, x = _input(a)
+        if type(x).__name__ == "DTensor":
+            return _mesh_fft(fname, a, x, n, axis, norm)
         return _out(a, fn(x, n=n, dim=axis, norm=norm))
 
     fft_fn.__name__ = fname

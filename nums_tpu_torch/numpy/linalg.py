@@ -79,9 +79,20 @@ def pinv(a):
     return _wrap(a, _torch.linalg.pinv(a.data))
 
 
+def _svdvals(a):
+    """The singular values of a 2-D array; of a tall sharded one on the
+    mesh through ``svd`` (the TSQR routes: never the operand whole)."""
+    x = a.data
+    if (a.ndim == 2 and a.shape[0] >= a.shape[1]
+            and type(x).__name__ == "DTensor"
+            and any(p.is_shard() for p in x.placements)):
+        return svd(a, compute_uv=False).data.to_local()
+    return _torch.linalg.svdvals(x)
+
+
 def matrix_rank(a):
     x = a.data
-    s = _torch.linalg.svdvals(x)
+    s = _svdvals(a)
     tol = s.max(dim=-1, keepdim=True).values * max(x.shape[-2:]) * \
         _torch.finfo(s.dtype).eps
     return _wrap(a, (s > tol).sum(dim=-1))
@@ -101,7 +112,7 @@ def multi_dot(arrays):
 def cond(a, p=None):
     if p is not None:
         raise NotImplementedError("Only the 2-norm condition number.")
-    s = _torch.linalg.svdvals(a.data)
+    s = _svdvals(a)
     return _wrap(a, s[..., 0] / s[..., -1])
 
 
@@ -114,6 +125,10 @@ def matrix_power(a, n):
 
 
 def diagonal(a):
+    from nums_tpu_torch.numpy import extra as _extra
+
+    if a.ndim == 2:
+        return _extra.diagonal(a)
     return _wrap(a, _torch.linalg.diagonal(a.data).clone())
 
 

@@ -42,7 +42,9 @@ factorizations the reference's own (atol 1e-8 at these magnitudes), as
 
 import numpy as np
 
-from torch_parity import jax_mesh_values, mesh_app, run_table
+from torch_parity import (
+    assert_gathers_allowed, jax_mesh_values, mesh_app, run_table,
+)
 
 
 def _rs(seed):
@@ -170,9 +172,9 @@ def _qr_parts(app, nps):
     q, r = app.direct_tsqr(X)
     u, s, vt = app.svd(X)
     # signs of the factors are the routes' own: compare what they define
-    return (np.abs(np.asarray(r.get())), np.abs(np.asarray(
-        app.indirect_tsr(X).get())), s, np.asarray((q @ r).get()),
-        np.asarray((u * s).get()) @ np.asarray(vt.get()))
+    # (read to the host after the entry)
+    return (nps.abs(r), nps.abs(app.indirect_tsr(X)), s, q @ r,
+            (u * s) @ vt)
 
 
 def _autodiff(nps):
@@ -436,4 +438,6 @@ def check(port_mesh, reference_mesh, port_serial, name):
     if name not in SERIAL_ONLY:
         assert_close(got, reference_mesh[name], ref_tol)
     assert_close(got, port_serial[name], serial_tol)
-    assert placed[name], "a result is not laid out as app.array lays it"
+    where, gathered = placed[name]
+    assert where, "a result is not laid out as app.array lays it"
+    assert_gathers_allowed(name, gathered)

@@ -37,7 +37,8 @@ import numpy as np
 import pytest
 
 from torch_parity import (
-    assert_table_entry, jax_mesh_values, mesh_app, run_table,
+    assert_gathers_allowed, assert_table_entry, jax_mesh_values, mesh_app,
+    run_table,
 )
 
 
@@ -73,12 +74,12 @@ def _written(app, x, bs, key, value):
 
 def _chain(app, x, bs, steps):
     """``x`` with each (key, value) of ``steps`` assigned in turn; the
-    array after each step."""
+    array after each step (read to the host after the steps)."""
     b = _a(app, x.copy(), bs)
     out = []
     for key, value in steps:
         b[key(b) if callable(key) else key] = value
-        out.append(b.get())
+        out.append(b.copy())
     return out
 
 
@@ -545,4 +546,6 @@ def check_entry(port_mesh, reference_mesh, port_serial, name):
     else:
         assert_table_entry(got, reference_mesh[name], "reduction")
     assert_table_entry(got, port_serial[name], "reduction")
-    assert placed[name], "a result is not laid out as app.array lays it"
+    where, gathered = placed[name]
+    assert where, "a result is not laid out as app.array lays it"
+    assert_gathers_allowed(name, gathered)

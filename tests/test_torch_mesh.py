@@ -259,33 +259,25 @@ def test_seed_invariance(mesh_pool, torch_app, cluster):
 
 def _unstrategied(cluster):
     """The mask, where and searchsorted cases that once raised on the mesh
-    (their values now), and what still raises: a selection along a
-    sharded axis."""
+    (their values now), and a selection along a sharded axis, which once
+    raised too."""
     import nums_tpu_torch.numpy as nps
 
     app = mesh_app(cluster)
     bx = app.array(np.arange(12.0).reshape(4, 3), block_shape=(1, 3))
-    out = {"mask": bx[bx > 5.0].get(),
-           "where": [a.get() for a in app.where(bx > 5.0)],
-           "searchsorted": nps.searchsorted(bx[:, 0], bx[:, 1]).get()}
-    for name, fn in [("partition", lambda: nps.partition(bx, 1, axis=0)),
-                     ("argpartition", lambda: nps.argpartition(
-                         bx, 1, axis=0))]:
-        try:
-            fn()
-            out[name] = None
-        except NotImplementedError as e:
-            out[name] = str(e)
-    return out
+    return {"mask": bx[bx > 5.0].get(),
+            "where": [a.get() for a in app.where(bx > 5.0)],
+            "searchsorted": nps.searchsorted(bx[:, 0], bx[:, 1]).get(),
+            "partition": nps.partition(bx, 1, axis=0).get(),
+            "argpartition": nps.argpartition(bx, 1, axis=0).get()}
 
 
 def test_ops_without_a_strategy_raise(mesh_pool, torch_app, jax_mesh):
     """DTensor has no sharding strategy for an op whose output shape
-    depends on the data (nonzero) or for searchsorted: the mesh's own
-    branch (core/ops/mesh_ops.py) gives the values of nums_tpu's mesh and
-    of the serial port; a selection along a sharded axis (partition,
-    argpartition) raises ``NotImplementedError`` naming the op, and
-    nothing gathers quietly."""
+    depends on the data (nonzero) or for searchsorted, nor for a selection
+    along a sharded axis (partition, argpartition): the mesh's own branch
+    (core/ops/mesh_ops.py) gives the values of nums_tpu's mesh and of the
+    serial port, and nothing gathers quietly."""
     import nums_tpu.numpy as jnps
     import nums_tpu_torch.numpy as nps
 
@@ -298,8 +290,10 @@ def test_ops_without_a_strategy_raise(mesh_pool, torch_app, jax_mesh):
             assert np.array_equal(g, r.get())
         assert np.array_equal(got["searchsorted"], numpy.searchsorted(
             bx[:, 0], bx[:, 1]).get())
-    for name in ("partition", "argpartition"):
-        assert got[name] is not None and name in got[name], name
+        assert np.array_equal(got["partition"], numpy.partition(
+            bx, 1, axis=0).get())
+        assert np.array_equal(got["argpartition"], numpy.argpartition(
+            bx, 1, axis=0).get())
 
 
 def _spd(n):
@@ -309,16 +303,16 @@ def _spd(n):
 
 def _sharded_operands(cluster):
     """The small factorizations and a gamma draw on sharded operands, with
-    whole copies refused (tests/test_torch_mesh_index.py's
-    ``_refusing_gathers``); a draw that is not position-wise raises naming
+    whole copies refused (tests/torch_parity.py's
+    ``refusing_gathers``); a draw that is not position-wise raises naming
     itself."""
-    from test_torch_mesh_index import _refusing_gathers
+    from torch_parity import refusing_gathers
 
     app = mesh_app(cluster)
     a = app.array(_spd(8), block_shape=(2, 8))
     b = app.array(np.arange(8.0), block_shape=(2,))
     out = {"placements": str(a.raw.placements)}
-    undo = _refusing_gathers()
+    undo = refusing_gathers()
     try:
         res = {"inv": app.inv(a), "cholesky": app.cholesky(a),
                "posdef_solve": app.posdef_solve(a, b),

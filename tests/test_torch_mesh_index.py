@@ -6,21 +6,18 @@ no op of the mesh's data-dependent branch (core/ops/mesh_ops.py) gathers a
 sharded operand whole: ``DTensor.full_tensor``, and every redistribution
 of a sharded DTensor of more than ``WHOLE_LIMIT`` elements to Replicate on
 every mesh dimension (DTensor's own or ``MeshBackend.rebox``), raise while
-they run."""
+they run (``torch_parity.refusing_gathers``, ``WHOLE_LIMIT``)."""
 
 import numpy as np
 import pytest
 
 from mesh_tables import X37, X1003, C1003, S1003, check_entry, names, \
     table_fixtures
-from torch_parity import mesh_app, mesh_pool, torch_app  # noqa: F401
+from torch_parity import (  # noqa: F401
+    mesh_app, mesh_pool, refusing_gathers, torch_app,
+)
 
 port_mesh, reference_mesh, port_serial = table_fixtures("index", (4, 1))
-
-# Above this many elements a replicated copy of a sharded DTensor is a
-# gather of an operand; below it, a small result laid out whole by its
-# grid (counts, edges, a handful of distinct values).
-WHOLE_LIMIT = 1000
 
 
 @pytest.mark.parametrize("name", names("index"))
@@ -60,56 +57,6 @@ def test_rows_land_where_app_array_puts_them(mesh_pool, keep, rows):
     assert same and shape == (int(keep.sum()), 6)
     assert [r for r, _ in every] == rows
     assert [w for _, w in every] == rows
-
-
-def _refusing_gathers():
-    """Patch DTensor so that a whole copy of a sharded operand raises;
-    returns the undo."""
-    import torch.distributed.tensor._api as api
-    import torch.distributed.tensor._dispatch as dispatch
-    import torch.distributed.tensor._redistribute as redist
-    from torch.distributed.tensor import DTensor
-
-    from nums_tpu_torch.core.backend import MeshBackend
-
-    orig = redist.redistribute_local_tensor
-    orig_full = DTensor.full_tensor
-    orig_rebox = MeshBackend.rebox
-
-    def gathers(current, target, shape):
-        return (any(p.is_shard() for p in current)
-                and all(not p.is_shard() for p in target)
-                and int(np.prod(shape)) > WHOLE_LIMIT)
-
-    def redistribute_local_tensor(local, current, target, *args, **kwargs):
-        if gathers(current.placements, target.placements, target.shape):
-            raise AssertionError(f"gathered a sharded {tuple(target.shape)}")
-        return orig(local, current, target, *args, **kwargs)
-
-    def full_tensor(self, *args, **kwargs):
-        if self.numel() > WHOLE_LIMIT:
-            raise AssertionError(f"full_tensor of {tuple(self.shape)}")
-        return orig_full(self, *args, **kwargs)
-
-    def rebox(self, data, placements):
-        if gathers(data.placements, placements, data.shape):
-            raise AssertionError(f"reboxed a sharded {tuple(data.shape)} "
-                                 "whole")
-        return orig_rebox(self, data, placements)
-
-    mods = (api, dispatch, redist)
-    for m in mods:
-        m.redistribute_local_tensor = redistribute_local_tensor
-    DTensor.full_tensor = full_tensor
-    MeshBackend.rebox = rebox
-
-    def undo():
-        for m in mods:
-            m.redistribute_local_tensor = orig
-        DTensor.full_tensor = orig_full
-        MeshBackend.rebox = orig_rebox
-
-    return undo
 
 
 def _no_gather(cluster):
@@ -259,7 +206,7 @@ def _no_gather(cluster):
     # mask, which is first laid out as bx's rows (a byte an element)
     a, b = app.backend.region(bx.shape, bx.raw.placements)[0]
     bound = int(keep[a:b].sum()) * 7 * 8 + int(mask.raw.to_local().numel())
-    undo = _refusing_gathers()
+    undo = refusing_gathers()
     got, refused = {}, {}
     try:
         for name, fn, _ in ops:

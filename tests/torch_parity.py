@@ -444,6 +444,182 @@ def jax_mesh():
 
 
 # ---------------------------------------------------------------------
+# The gather guard: no op of the port's mesh copies a sharded operand
+# whole to a process, but where it is listed below
+# ---------------------------------------------------------------------
+
+# Above this many elements a replicated copy of a sharded DTensor is a
+# gather of an operand; below it, a small result laid out whole by its
+# grid (counts, edges, a handful of distinct values).
+WHOLE_LIMIT = 1000
+
+
+def refusing_gathers(record=None):
+    """Patch DTensor so that a whole copy of a sharded operand raises
+    ``AssertionError`` (with a list ``record``: is appended to it, and
+    goes on): ``DTensor.full_tensor`` and every redistribution of a
+    sharded DTensor of more than ``WHOLE_LIMIT`` elements to Replicate on
+    every mesh dimension (DTensor's own, inside an operator too, or
+    ``MeshBackend.rebox``). Returns the undo."""
+    import torch.distributed.tensor._api as api
+    import torch.distributed.tensor._dispatch as dispatch
+    import torch.distributed.tensor._redistribute as redist
+    from torch.distributed.tensor import DTensor
+
+    from nums_tpu_torch.core.backend import MeshBackend
+
+    orig = redist.redistribute_local_tensor
+    orig_full = DTensor.full_tensor
+    orig_rebox = MeshBackend.rebox
+
+    def gathers(current, target, shape):
+        return (any(p.is_shard() for p in current)
+                and all(not p.is_shard() for p in target)
+                and int(np.prod(shape)) > WHOLE_LIMIT)
+
+    def refuse(what):
+        if record is None:
+            raise AssertionError(what)
+        record.append(what)
+
+    def redistribute_local_tensor(local, current, target, *args, **kwargs):
+        if gathers(current.placements, target.placements, target.shape):
+            refuse(f"gathered a sharded {tuple(target.shape)}")
+        return orig(local, current, target, *args, **kwargs)
+
+    def full_tensor(self, *args, **kwargs):
+        if self.numel() > WHOLE_LIMIT:
+            refuse(f"full_tensor of {tuple(self.shape)}")
+        return orig_full(self, *args, **kwargs)
+
+    def rebox(self, data, placements):
+        if gathers(data.placements, placements, data.shape):
+            refuse(f"reboxed a sharded {tuple(data.shape)} whole")
+        return orig_rebox(self, data, placements)
+
+    mods = (api, dispatch, redist)
+    for m in mods:
+        m.redistribute_local_tensor = redistribute_local_tensor
+    DTensor.full_tensor = full_tensor
+    MeshBackend.rebox = rebox
+
+    def undo():
+        for m in mods:
+            m.redistribute_local_tensor = orig
+        DTensor.full_tensor = orig_full
+        MeshBackend.rebox = orig_rebox
+
+    return undo
+
+
+# The names (a facade name of the sweep of tests/mesh_shape_tables.py, or
+# a table's entry) that may still copy a sharded operand whole: name ->
+# (reason, the meshes where it does, the sweep's operands on which it
+# does: ``MATRIX``, the sharded 1000×8 and 1003×7; ``VECTOR``, the
+# sharded 1003-vector). ``LAYOUT_WHOLE``: the result's grid is one block
+# by the reference's layout (``_wrap``'s rule: a result of another rank
+# than its operand, or of the FFTs and ``block``, is one block), so the
+# reference's mesh holds it whole too (tests/test_torch_mesh_shape.py
+# checks that grid on nums_tpu's mesh).
+BOTH = ((4, 1), (2, 2))
+MATRIX = ("even", "uneven")
+VECTOR = ("vector",)
+EVERY = MATRIX + VECTOR
+_ONE_BLOCK = ("a result of another rank than its operand is one block "
+              "(_wrap's rule, the reference's too)")
+_FFT = ("the n-D transforms and the shifts are one block (from_torch of "
+        "the result, from_jax in the reference)")
+LAYOUT_WHOLE = {
+    "block": ("jnp.block's result is one block (from_torch, from_jax in "
+              "the reference)", BOTH, EVERY),
+    "dstack": (_ONE_BLOCK + ": (n, d, 2) of (n, d), (1, n, 2) of (n,)",
+               BOTH, EVERY),
+    "stack": (_ONE_BLOCK + ": (2, n, d) of (n, d), (2, n) of (n,)", BOTH,
+              EVERY),
+    "expand_dims": (_ONE_BLOCK + ": (1, n, d) of (n, d), (1, n) of (n,)",
+                    BOTH, EVERY),
+    "insert": (_ONE_BLOCK + ": axis=None, (n·d + 1,) of (n, d)", BOTH,
+               MATRIX),
+    "meshgrid": (_ONE_BLOCK + ": (n·d,) of (n, d)", BOTH, MATRIX),
+    "vecdot": (_ONE_BLOCK + ": (n,) of (n, d)", BOTH, MATRIX),
+    "linalg.vecdot": (_ONE_BLOCK + ": (n,) of (n, d)", BOTH, MATRIX),
+    "trapezoid": (_ONE_BLOCK + ": along the last axis, (n,) of (n, d); "
+                  "along the rows it is sharded (CM7_trapezoid_*)", BOTH,
+                  MATRIX),
+    "trapz": (_ONE_BLOCK + ": as trapezoid", BOTH, MATRIX),
+    "rot90": ("(d, n) in (d, d) blocks: axis 0 one block, axis 1 on a "
+              "mesh dimension of one process (on (2, 2) it is sharded)",
+              ((4, 1),), MATRIX),
+    "reshape": ("nps.reshape takes the reference's block policy "
+                "(compute_block_shape: one block under 100 MB); the method "
+                "keeps the rows sharded (CM7_reshape_*)", BOTH, EVERY),
+    "atleast_2d": (_ONE_BLOCK + ": (1, n) of (n,)", BOTH, VECTOR),
+    "atleast_3d": (_ONE_BLOCK + ": (1, n, 1) of (n,)", BOTH, VECTOR),
+    "bmat": (_ONE_BLOCK + ": (1, n) of (n,)", BOTH, VECTOR),
+    "column_stack": (_ONE_BLOCK + ": (n, 2) of two (n,)", BOTH, VECTOR),
+    "row_stack": (_ONE_BLOCK + ": (2, n) of two (n,)", BOTH, VECTOR),
+    "vstack": (_ONE_BLOCK + ": (2, n) of two (n,); of matrices it is "
+               "sharded (CM7_vstack_*)", BOTH, VECTOR),
+    "tile": (_ONE_BLOCK + ": tile(v, (2, 1)) is (2, n) of (n,); of "
+             "matrices it is sharded (CM7_tile_*)", BOTH, VECTOR),
+    **{name: (_FFT, BOTH, EVERY) for name in (
+        "fft.fft2", "fft.fftn", "fft.ifft2", "fft.ifftn", "fft.rfft2",
+        "fft.rfftn", "fft.irfft2", "fft.irfftn", "fft.fftshift",
+        "fft.ifftshift")},
+}
+# ``GATHERS_STILL``: a gather that no strategy of the port removes yet
+# (ROADMAP Queue A, A5d); this list only shrinks.
+_HOST = "reads the values to the host by design (the reference's too)"
+_KERNEL = ("of two sharded vectors: the second operand is read whole "
+           "(C-M1 moves the first's halo only)")
+_Q = ("q given as a sharded array is read whole before it is checked "
+      "(the bisection runs a q at a time)")
+GATHERS_STILL = {
+    "array2string": (_HOST + ": printing", BOTH, EVERY),
+    "array_repr": (_HOST + ": printing", BOTH, EVERY),
+    "array_str": (_HOST + ": printing", BOTH, EVERY),
+    "min_scalar_type": (_HOST + ": np.min_scalar_type of the values",
+                        BOTH, EVERY),
+    "asmatrix": (_HOST + ": a HOST_FALLBACK name", BOTH, EVERY),
+    "cov": ("rowvar=True of a row-sharded matrix (the sweep's call): the "
+            "(n, n) product of the rows is not routed to summa's NT "
+            "schedule; rowvar=False is sharded (CM7_cov_*)", ((4, 1),),
+            MATRIX),
+    "corrcoef": ("as cov, rowvar=True; rowvar=False is sharded "
+                 "(CM7_corrcoef_*)", ((4, 1),), MATRIX),
+    "inner": ("inner(X, X) is X @ X.T: DTensor's matmul strategy "
+              "replicates the right operand (summa's NT schedule is not "
+              "routed here)", BOTH, MATRIX),
+    "diagflat": ("DTensor's diagflat strategy replicates its operand", BOTH,
+                 EVERY),
+    "diag": ("diag of a sharded vector: DTensor's strategy replicates its "
+             "operand (the reference's (n, n) result is sharded by rows)",
+             BOTH, VECTOR),
+    "linalg.pinv": ("torch.linalg.pinv of a DTensor reads the operand "
+                    "whole (the TSQR routes of svd do not)", BOTH, MATRIX),
+    "convolve": ("convolve " + _KERNEL, BOTH, VECTOR),
+    "correlate": ("correlate " + _KERNEL, BOTH, VECTOR),
+    "polymul": ("polymul " + _KERNEL + ": a convolution", BOTH, VECTOR),
+    "poly": ("poly of sharded roots: the product of the n linear factors "
+             "runs on the whole vector (a matrix's eigenvalues are read "
+             "whole too, and the sweep's non-square ones then refused)",
+             BOTH, EVERY),
+    "quantile": (_Q, BOTH, EVERY),
+    "nanquantile": (_Q, BOTH, EVERY),
+    "percentile": (_Q, BOTH, EVERY),
+    "nanpercentile": (_Q, BOTH, EVERY),
+}
+
+
+def assert_gathers_allowed(name, gathered):
+    """``gathered`` (a ``refusing_gathers`` record) is empty unless
+    ``name`` is in ``LAYOUT_WHOLE`` or ``GATHERS_STILL``."""
+    if name in LAYOUT_WHOLE or name in GATHERS_STILL:
+        return
+    assert not gathered, (name, gathered)
+
+
+# ---------------------------------------------------------------------
 # Tables of ops run through every package (tests/test_torch_mesh_index.py,
 # tests/test_torch_mesh_setops.py)
 # ---------------------------------------------------------------------
@@ -471,28 +647,36 @@ def _results(x):
 def run_table(app, nps, table, placed=False):
     """name -> (value on the host, exception type name) for each
     ``(name, fn)`` of ``table``, ``fn(app, nps)`` run in order; with
-    ``placed`` (on the mesh, collective), also name -> whether every
+    ``placed`` (on the mesh, collective), also name -> (whether every
     BlockArray result lies as ``app.array`` would place it, on every
-    process."""
+    process; the whole copies of sharded operands that the entry made,
+    ``refusing_gathers``' record, while it ran and not while its result
+    was read)."""
     values, where = {}, {}
     for name, fn in table:
+        record = []
+        undo = refusing_gathers(record) if placed else (lambda: None)
         try:
             with np.errstate(all="ignore"):
                 out = fn(app, nps)
+            undo()
             values[name] = (host(out), None)
             if placed:
                 # every check runs on every rank: each is collective
-                where[name] = all([_placed_like_array(app, r)
-                                   for r in _results(out)])
+                where[name] = (all([_placed_like_array(app, r)
+                                    for r in _results(out)]), record)
         except Exception as e:  # noqa: BLE001 - the type is what is compared
+            undo()
             values[name] = (None, type(e).__name__)
-            where[name] = True
+            where[name] = (True, record)
     if placed:
         import torch.distributed as dist
 
         every = [None] * dist.get_world_size()
         dist.all_gather_object(every, where)
-        where = {k: all(w[k] for w in every) for k in where}
+        where = {k: (all(w[k][0] for w in every),
+                     sorted({g for w in every for g in w[k][1]}))
+                 for k in where}
     return values, where
 
 
