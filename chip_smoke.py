@@ -1,6 +1,6 @@
 """Smoke run of nums_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py                 # phases 1-19
+    python3 chip_smoke.py                 # phases 1-20
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check
     python3 chip_smoke.py --random-only   # phases 1 and 11
     python3 chip_smoke.py --facade-only   # phases 1, 2, 12 and 13
@@ -9,6 +9,7 @@
     python3 chip_smoke.py --masks-only    # phases 1, 2 and 17 on every card
     python3 chip_smoke.py --mesh-core-only  # phases 1, 2 and 18 on every card
     python3 chip_smoke.py --shape-only    # phases 1, 2 and 19 on every card
+    python3 chip_smoke.py --mesh-random-only  # phases 1, 2 and 20 on every card
 
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi);
@@ -315,6 +316,34 @@ Phases, each printing one JSON line:
      and a vector of 1e7, every result bit for bit the serial backend's;
      with ``--shape-only`` one process per card at 10M x 1000 and a
      vector of 2.5e9, every rank exits 0 within 900 s.
+ 20. mesh_random: the random layer on the mesh, each process drawing its
+     own positions (``core/ops/random_ops.py``), and the linear algebra
+     that copied a sharded operand whole: ``poisson(30)`` (Hörmann's
+     rejection, one flag all-reduced a round), ``poisson(3)`` (Knuth's),
+     ``binomial(100, 0.3)`` (BTRS) at 10M x 1000 float32;
+     ``negative_binomial(5, 0.5)``, ``noncentral_chisquare(0.5, 2)``,
+     ``noncentral_f(3, 5, 2)``, ``hypergeometric(50, 50, 20)`` at 10M x
+     100; ``multivariate_normal`` of 10M rows x 64; ``multinomial(20, 16
+     categories)`` of 10M rows; ``permutation(2.5e9)`` by the mesh's
+     sample sort; ``shuffle(X)``; ``choice(X, 5M)`` with and without
+     replacement; ``choice(10M, 5M, p)``; ``linalg.pinv(X)`` by TSQR;
+     ``inner`` and ``cov(rowvar=True)`` of X's first 100,000 rows by
+     summa's ring (a 100k x 100k result); ``diag`` and ``diagflat`` of a
+     sharded 100k vector. Each draw held to its law (moments, range,
+     integer values), the rejection samplers' round count by a 1M x 100
+     draw bit for bit rank 0's serial draw (an exact hash), the
+     permutation by a distributed count of each value, shuffle by an
+     exact hash of X's rows at the places of the same-seed permutation,
+     the choices' rows at their drawn positions bit for bit, pinv by
+     ‖A·pinv(A)·A − A‖/‖A‖ and ‖pinv(A)·A − I‖ in float64, sampled rows
+     of inner and cov against float64, diag and diagflat exactly. Each
+     step's seconds (host clock after a barrier, the slowest rank's),
+     bytes sent (held to a bound derived from its moves), collectives,
+     launches (K1/K2/K3 none) and peak (below X's bytes on four cards).
+     In the full run on phase 15's world-1 mesh at 100,000 rows, every
+     result bit for bit the serial backend's; with ``--mesh-random-only``
+     one process per card at 10M x 1000, every rank exits 0 within
+     900 s.
 Then the kernels as one JSON line (each with its bound, the least time
 the card could take for its work at this run's shapes), and last
 {"ok": true, "device": {...}}. A failed phase prints its traceback and
@@ -4342,6 +4371,9 @@ def phase_mesh(torch, smi, keep):
             # Phase 19 on the same world-1 mesh and X.
             shape = phase_shape(torch, smi, app, X)
             torch.cuda.empty_cache()
+            # Phase 20 on the same world-1 mesh, on a copy of X's rows.
+            mesh_random = phase_mesh_random(torch, smi, app, X)
+            torch.cuda.empty_cache()
             # Phase 18 on the same world-1 mesh and X (its last step
             # writes into X).
             core = phase_mesh_core(torch, smi, app, X, y)
@@ -4353,7 +4385,7 @@ def phase_mesh(torch, smi, keep):
         finally:
             application_manager.set_instance(saved)
             dist.destroy_process_group()
-    return out, ooc, masks, core, shape
+    return out, ooc, masks, core, shape, mesh_random
 
 
 class _Tee:
@@ -7585,6 +7617,622 @@ def phase_shape_cards(torch, smi):
     return world
 
 
+# -- Phase 20: the random layer on the mesh (mesh_random) -----------------
+# With --mesh-random-only on every card at phase 15's 10M x 1000
+# (MR_FULL); in the full run on phase 15's world-1 mesh at a smaller
+# depth (MR_WORLD1), every result bit for bit the serial backend's.
+MR_FULL = {"n": MESH_N, "narrow": 100, "perm": 2_500_000_000,
+           "choice": 5_000_000, "mvn": 64, "la_rows": 100_000,
+           "vec": 100_000, "rounds_check": (1_000_000, 100)}
+MR_WORLD1 = {"n": 100_000, "narrow": 100, "perm": 5_000_000,
+             "choice": 50_000, "mvn": 64, "la_rows": 5_000,
+             "vec": 5_000, "rounds_check": (50_000, 100)}
+MR_SEED = LA_SEED + 20
+MR_DEADLINE_S = 900.0        # every rank exits 0 within, or the run fails
+MR_SIGMAS = 6.0              # a sample moment within 6 standard errors
+MR_KURTOSIS = 16.0           # bounds μ4/σ⁴ − 1 of the laws here: the
+                             # sample variance's error is σ²·√(16/N) at most
+MR_LA_REL = 1e-5             # fp32 products of 1000 terms vs float64
+MR_PINV_REL = 1e-3           # ‖A·pinv(A)·A − A‖/‖A‖, ‖pinv(A)·A − I‖ (fp32)
+MR_SAMPLE_ROWS = 64          # rows of a result a rank holds to float64
+# (name, call on a random state, its law: mean, variance or None, the
+# least and the largest value or None, integer values)
+MR_LAWS = {
+    "poisson_30": (lambda rs, s, b: rs.poisson(30.0, shape=s, block_shape=b,
+                                               dtype=np.float32),
+                   30.0, 30.0, 0, None, True),
+    "poisson_3": (lambda rs, s, b: rs.poisson(3.0, shape=s, block_shape=b,
+                                              dtype=np.float32),
+                  3.0, 3.0, 0, None, True),
+    "binomial": (lambda rs, s, b: rs.binomial(100, 0.3, shape=s,
+                                              block_shape=b,
+                                              dtype=np.float32),
+                 30.0, 21.0, 0, 100, True),
+    "negative_binomial": (lambda rs, s, b: rs.negative_binomial(
+        5, 0.5, shape=s, block_shape=b, dtype=np.float32), 5.0, 10.0, 0,
+        None, True),
+    "noncentral_chisquare": (lambda rs, s, b: rs.noncentral_chisquare(
+        0.5, 2.0, shape=s, block_shape=b, dtype=np.float32), 2.5, 9.0, 0,
+        None, False),
+    # (a variance, but no fourth moment: its mean alone, by its variance)
+    "noncentral_f": (lambda rs, s, b: rs.noncentral_f(
+        3, 5, 2.0, shape=s, block_shape=b, dtype=np.float32), 25.0 / 9.0,
+        -2.0 * (5.0 / 3.0) ** 2 * (25.0 + 7.0 * 3.0) / 9.0, 0, None, False),
+    "hypergeometric": (lambda rs, s, b: rs.hypergeometric(
+        50, 50, 20, shape=s, block_shape=b, dtype=np.int32), 10.0,
+        20 * 0.25 * 80 / 99, 0, 20, True),
+}
+# The mean's offset that the reference's algorithm itself has at float32,
+# beside its standard errors (the float32 terms of BTRS's acceptance
+# bound): jax's binomial(100, 0.3) at float32 (x64 off) draws a mean
+# 1.5e-3 below 30 on the CPU, as the port's CPU route does
+# (tests/measure_binomial_f32_bias.py, 2e8 draws each), and the port's
+# draw on the card 1.6e-3 below over 1e10; 3e-3 is about twice that.
+MR_F32_BIAS = {"binomial": 3e-3}
+MR_FAILED = []
+
+
+def _mr_hold(ok, what):
+    if not ok:
+        MR_FAILED.append(repr(what))
+
+
+def _mr_var_tol(var, n):
+    """``MR_SIGMAS`` standard errors of a sample variance of n draws."""
+    return MR_SIGMAS * var * np.sqrt(MR_KURTOSIS / n)
+
+
+def _mr_moments(torch, a):
+    """(count, Σx, Σx², min, max) over every rank of a BlockArray's
+    values, in float64, a chunk of rows at a time (a replicated part
+    once)."""
+    loc = _local(a).reshape(-1)
+    here = a.backend.mesh is None or a.backend.counts_here(a.raw.placements)
+    s = torch.zeros(5, dtype=torch.float64, device=_mesh_device(torch))
+    s[3], s[4] = float("inf"), -float("inf")
+    if here:
+        for i in range(0, int(loc.numel()), 1 << 26):
+            c = loc[i:i + (1 << 26)].to(torch.float64)
+            s[0] += c.numel()
+            s[1] += c.sum()
+            s[2] += (c * c).sum()
+            s[3] = torch.minimum(s[3], c.min())
+            s[4] = torch.maximum(s[4], c.max())
+    tot = _sh_sum(torch, s[:3])
+    lo = _all_max(torch, -float(s[3]))
+    hi = _all_max(torch, float(s[4]))
+    n, s1, s2 = (float(v) for v in tot)
+    return n, s1, s2, -lo, hi
+
+
+def _mr_law(torch, a, name, mean, var, lo, hi, integer):
+    """A draw held to its law: the sample mean and variance within
+    ``MR_SIGMAS`` standard errors (a negative ``var``: the variance that
+    bounds the mean, not held), the range, and integer values where the
+    law's are. Returns the moments."""
+    n, s1, s2, mn, mx = _mr_moments(torch, a)
+    m = s1 / n
+    v = s2 / n - m * m
+    bias = MR_F32_BIAS.get(name, 0.0) if a.dtype == np.float32 else 0.0
+    _mr_hold(abs(m - mean) <= MR_SIGMAS * np.sqrt(abs(var) / n) + bias,
+             (name, "mean", m, mean))
+    if var > 0:
+        _mr_hold(abs(v - var) <= _mr_var_tol(var, n), (name, "variance", v,
+                                                       var))
+    _mr_hold(lo is None or mn >= lo, (name, "min", mn))
+    _mr_hold(hi is None or mx <= hi, (name, "max", mx))
+    if integer:
+        loc = _local(a).reshape(-1)
+        bad = 0
+        for i in range(0, int(loc.numel()) if loc.is_floating_point()
+                       else 0, 1 << 26):
+            c = loc[i:i + (1 << 26)]
+            bad += int((c != torch.floor(c)).sum())
+        _mr_hold(_all_max(torch, float(bad)) == 0.0,
+                 (name, "integer values"))
+    return {"mean": m, "variance": v, "min": mn, "max": mx, "count": n}
+
+
+def _mr_counts(torch, app, values, n):
+    """The largest and the least count of a value of [0, n) among the
+    int64 values (this rank's part of a sharded draw) over every rank:
+    each value sent to the rank that owns its range (one all-to-all),
+    counted there."""
+    import torch.distributed as dist
+
+    from nums_tpu_torch.core import multiprocess
+
+    world = dist.get_world_size()
+    chunk = -(-n // world)
+    v = values.reshape(-1)
+    dest = torch.div(v, chunk, rounding_mode="floor")
+    order = torch.argsort(dest, stable=True)
+    send = torch.bincount(dest, minlength=world).cpu().numpy()
+    recv = multiprocess.all_gather_ints(send)[:, dist.get_rank()]
+    got = multiprocess.exchange(v[order], send, recv)
+    del order, dest
+    lo = dist.get_rank() * chunk
+    width = max(0, min(n, lo + chunk) - lo)
+    c = torch.bincount(got - lo, minlength=width)
+    top = float(c.max()) if width else 0.0
+    least = float(c.min()) if width else float("inf")
+    return _all_max(torch, top), -_all_max(torch, -least)
+
+
+def _mr_rows_check(torch, app, result, ind, X, what):
+    """``MR_SAMPLE_ROWS`` rows of each rank's part of a choice of X's rows
+    equal, bit for bit, X's rows at their drawn positions (``ind``, the
+    same choice of X's row numbers), read by a host index array."""
+    import torch.distributed as dist
+
+    loc, idx = _local(result), _local(ind).reshape(-1)
+    k = min(MR_SAMPLE_ROWS, int(loc.shape[0]))
+    mine = (idx[:k].cpu().numpy(), loc[:k].cpu().numpy())
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    rows = np.concatenate([e[0] for e in every])
+    want = np.concatenate([e[1] for e in every])
+    got = np.asarray(X[rows].get()) if rows.size else want
+    _mr_hold(np.array_equal(got.view(np.uint8), want.view(np.uint8)),
+             (what, "rows at the drawn positions"))
+
+
+def _mr_sampled_rows(torch, app, R, Xs, ref_fn, what):
+    """``MR_SAMPLE_ROWS`` rows of each rank's part of an (n, n) result
+    held to ``ref_fn(rows of Xs, Xs)`` in float64 (Xs read whole to the
+    host for the check alone), relative to max|ref|."""
+    box, loc = _sh_box(app, R)
+    xs = torch.from_numpy(np.asarray(Xs.get(), dtype=np.float64)).to(
+        loc.device)
+    k = min(MR_SAMPLE_ROWS, int(loc.shape[0]))
+    rows = torch.arange(box[0][0], box[0][0] + k, device=loc.device)
+    ref = ref_fn(xs[rows], xs)[:, box[1][0]:box[1][1]]
+    got = loc[:k].to(torch.float64)
+    rel = float((got - ref).abs().max() / ref.abs().max()) if k else 0.0
+    rel = _all_max(torch, rel)
+    _mr_hold(rel <= MR_LA_REL, (what, rel))
+    return rel
+
+
+def _mr_diag_check(torch, app, D, v, k, what):
+    """The k-th diagonal of each rank's box of D equals v's elements there
+    (an exact hash of bits at their places over the ranks, beside the
+    hash of v) and nothing else in the box is nonzero."""
+    box, loc = _sh_box(app, D)
+    (a, b), (c, e) = box
+    r0, c0 = max(0, -k), max(0, k)
+    lo = max(a - r0, c - c0, 0)
+    hi = max(lo, min(b - r0, e - c0, int(v.shape[0])))
+    i = torch.arange(lo, hi, device=loc.device, dtype=torch.int64)
+    diag = loc[i + r0 - a, i + c0 - c]
+    got = _sh_sum(torch, _sh_hash_at(torch, diag.reshape(-1, 1), i))
+    want = _sh_sum(torch, _sh_result_hash(torch, app, v))
+    _mr_hold(torch.equal(got, want), (what, "diagonal", int(got),
+                                      int(want)))
+    extra = int(torch.count_nonzero(loc)) - int(torch.count_nonzero(diag))
+    _mr_hold(_all_max(torch, float(extra)) == 0.0, (what, "off-diagonal"))
+
+
+def _mr_steps(torch, app, X, cfg, step, out, checks=True, keep_all=False):
+    """Every step of phase 20 on this rank (the mesh of X's app): each
+    result held to its check where ``checks``; returns name -> result
+    (each a BlockArray, every one with ``keep_all``, for the world-1
+    comparison with the serial backend; else each goes once checked, for
+    memory). ``X`` (or a function that draws it, called after the
+    permutation: the samplers and the permutation run without X resident)
+    is shuffled in place."""
+    import torch.distributed as dist
+
+    import nums_tpu_torch.numpy as nps
+    from nums_tpu_torch.core.ops import random_ops
+
+    world = app.backend.num_devices if app.backend.mesh is not None else 1
+    n, d = cfg["n"], cfg["d"]
+    rows = -(-n // world)
+    narrow = cfg["narrow"]
+    res, laws, rounds = {}, {}, {}
+
+    def keep(name, value):
+        if keep_all:
+            res[name] = value
+
+    for name, (call, mean, var, lo, hi, integer) in MR_LAWS.items():
+        shape = (n, d) if name in ("poisson_30", "poisson_3",
+                                   "binomial") else (n, narrow)
+        r = random_ops.ROUNDS["rounds"]
+        a = step(name, lambda call=call, shape=shape: call(
+            app.random_state(MR_SEED), shape, (rows, shape[1])))
+        rounds[name] = random_ops.ROUNDS["rounds"] - r
+        if checks:
+            laws[name] = _mr_law(torch, a, name, mean, var, lo, hi, integer)
+        keep(name, a)
+        del a
+        _mesh_free(torch)
+    # the round count: a 1M x 100 draw on the mesh, bit for bit rank 0's
+    # serial draw of the same shape (an exact hash of bits at places)
+    if checks and app.backend.mesh is not None:
+        from nums_tpu_torch.core.array.random import NumsRandomState
+        from nums_tpu_torch.core.backend import SerialBackend
+
+        m, w = cfg["rounds_check"]
+        for name in ("poisson_30", "binomial"):
+            call = MR_LAWS[name][0]
+            a = call(app.random_state(MR_SEED + 1), (m, w),
+                     (-(-m // world), w))
+            got = _sh_sum(torch, _sh_result_hash(torch, app, a))
+            h = torch.zeros((), dtype=torch.int64, device=got.device)
+            if dist.get_rank() == 0:
+                s = call(NumsRandomState(SerialBackend(
+                    app.backend.device).init(), MR_SEED + 1), (m, w), (m, w))
+                h = _sh_hash(torch, s.raw, 0, w)
+                del s
+            want = _sh_sum(torch, h)
+            _mr_hold(torch.equal(got, want), (name, "mesh vs serial draw",
+                                              int(got), int(want)))
+            del a
+    out["laws"], out["rounds"] = laws, rounds
+    mvn_mean = np.arange(cfg["mvn"]) / cfg["mvn"]
+    mvn_cov = np.eye(cfg["mvn"]) + 0.5
+    a = step("multivariate_normal", lambda: app.random_state(
+        MR_SEED).multivariate_normal(mvn_mean, mvn_cov, shape=(n,),
+                                     block_shape=(rows, cfg["mvn"]),
+                                     dtype=np.float32))
+    if checks:
+        loc = _local(a).to(torch.float64)
+        s = torch.zeros((3, cfg["mvn"]), dtype=torch.float64,
+                        device=loc.device)
+        if app.backend.counts_here(a.raw.placements):
+            s[0], s[1] = loc.sum(0), (loc * loc).sum(0)
+            s[2] = (loc * loc[:, :1]).sum(0)
+        s = _sh_sum(torch, s).reshape(3, cfg["mvn"]) / n
+        mean = s[0].cpu().numpy()
+        var = (s[1] - s[0] ** 2).cpu().numpy()
+        cov0 = (s[2] - s[0] * s[0][0]).cpu().numpy()
+        _mr_hold(np.all(np.abs(mean - mvn_mean) <= MR_SIGMAS * np.sqrt(
+            1.5 / n)), ("multivariate_normal", "mean"))
+        _mr_hold(np.all(np.abs(var - 1.5) <= _mr_var_tol(1.5, n)),
+                 ("multivariate_normal", "variance", float(var.min()),
+                  float(var.max())))
+        _mr_hold(np.all(np.abs(cov0[1:] - 0.5) <= _mr_var_tol(1.5, n)),
+                 ("multivariate_normal", "covariance",
+                  float(np.abs(cov0[1:] - 0.5).max())))
+        del loc
+    keep("multivariate_normal", a)
+    del a
+    a = step("multinomial", lambda: app.random_state(MR_SEED).multinomial(
+        20, [1.0 / 16] * 16, shape=(n,), block_shape=(rows, 16),
+        dtype=np.int32))
+    if checks:
+        loc = _local(a)
+        _mr_hold(_all_max(torch, float((loc.sum(1) != 20).sum())) == 0.0,
+                 ("multinomial", "row sums"))
+        laws["multinomial"] = _mr_law(torch, a, "multinomial", 1.25,
+                                      20 / 16 * 15 / 16, 0, 20, True)
+    keep("multinomial", a)
+    del a
+    nperm = cfg["perm"]
+    a = step("permutation", lambda: app.random_state(MR_SEED).permutation(
+        nperm, -(-nperm // world)))
+    if checks:
+        top, least = _mr_counts(torch, app, _local(a), nperm)
+        _mr_hold(top == 1.0 and least == 1.0, ("permutation", top, least))
+    keep("permutation", a)
+    del a
+    _mesh_free(torch)
+    if callable(X):
+        X, out["x_draw_seconds"] = _mesh_seconds(torch, X)
+    # shuffle: X's rows at the places of the same-seed permutation, by an
+    # exact hash of their bits (X's own hash taken before, X shuffled in
+    # place)
+    before = _sh_sum(torch, _sh_result_hash(torch, app, X)) if checks \
+        else None
+    step("shuffle", lambda: app.random_state(MR_SEED + 2).shuffle(X))
+    if checks:
+        perm = app.random_state(MR_SEED + 2).permutation(n, rows)
+        xl, pv = _local(X), _local(perm).reshape(-1)
+        after = torch.zeros((), dtype=torch.int64, device=xl.device)
+        for i in range(0, int(xl.shape[0]), 1 << 16):
+            after += _sh_hash_at(torch, xl[i:i + (1 << 16)],
+                                 pv[i:i + (1 << 16)] * d)
+        after = _sh_sum(torch, after)
+        del xl, pv
+        _mr_hold(torch.equal(after, before), ("shuffle", int(after),
+                                              int(before)))
+        del perm
+    keep("shuffle", X)
+    k = cfg["choice"]
+    for replace in (True, False):
+        name = "choice" if replace else "choice_norep"
+        a = step(name, lambda replace=replace: app.random_state(
+            MR_SEED + 3).choice(X, shape=(k,), block_shape=(-(-k // world),
+                                                            d),
+                                replace=replace))
+        if checks:
+            ind = app.random_state(MR_SEED + 3).choice(
+                n, shape=(k,), block_shape=(-(-k // world),),
+                replace=replace)
+            _mr_rows_check(torch, app, a, ind, X, name)
+            top, _ = _mr_counts(torch, app, _local(ind).to(torch.int64), n)
+            _mr_hold(replace or top == 1.0, (name, "repeats", top))
+            del ind
+        keep(name, a)
+        del a
+        _mesh_free(torch)
+    pw = np.arange(1.0, n + 1.0)
+    pw /= pw.sum()
+    a = step("choice_p", lambda: app.random_state(MR_SEED + 4).choice(
+        n, shape=(k,), block_shape=(-(-k // world),), p=pw))
+    if checks:
+        ev = float((np.arange(n) * pw).sum())
+        sd = float(np.sqrt((np.arange(n) ** 2 * pw).sum() - ev * ev))
+        laws["choice_p"] = _mr_law(torch, a, "choice_p", ev, sd * sd, 0,
+                                   n - 1, True)
+    keep("choice_p", a)
+    del a, pw
+    _mesh_free(torch)
+    # pinv of X by TSQR: ‖A·pinv(A)·A − A‖/‖A‖ and ‖pinv(A)·A − I‖ in
+    # float64 (each rank's rows a chunk at a time, one all-reduce)
+    P = step("pinv", lambda: nps.linalg.pinv(X))
+    if checks:
+        # the rows of pinv(A)ᵀ: P's raw where the mesh shards X (a lazy
+        # transpose), else the transpose of P's whole value
+        pl = _local(P) if P.is_transposed else _local(P).T
+        xl = _local(X)
+        here = app.backend.counts_here(X.raw.placements)
+        M = torch.zeros((d, d), dtype=torch.float64, device=xl.device)
+        for i in range(0, int(xl.shape[0]) if here else 0, 1 << 18):
+            M += pl[i:i + (1 << 18)].to(torch.float64).T @ xl[
+                i:i + (1 << 18)].to(torch.float64)
+        M = _sh_sum(torch, M).reshape(d, d)
+        eye = torch.eye(d, dtype=torch.float64, device=M.device)
+        res_i = float(torch.linalg.norm(M - eye))
+        num = torch.zeros(2, dtype=torch.float64, device=M.device)
+        for i in range(0, int(xl.shape[0]) if here else 0, 1 << 18):
+            c = xl[i:i + (1 << 18)].to(torch.float64)
+            num[0] += (c @ (M - eye)).pow(2).sum()
+            num[1] += c.pow(2).sum()
+        num = _sh_sum(torch, num)
+        res_a = float(torch.sqrt(num[0] / num[1]))
+        out["pinv_residuals"] = {"A_pinvA_A": res_a, "pinvA_A_I": res_i}
+        _mr_hold(res_a <= MR_PINV_REL and res_i <= MR_PINV_REL,
+                 ("pinv", res_a, res_i))
+        del M, pl, xl
+    keep("pinv", P)
+    del P
+    _mesh_free(torch)
+    Xs = X[:cfg["la_rows"]]
+    R = step("inner", lambda: nps.inner(Xs, Xs))
+    if checks:
+        out["inner_rel"] = _mr_sampled_rows(
+            torch, app, R, Xs, lambda r, x: r @ x.T, "inner")
+    keep("inner", R)
+    del R
+    _mesh_free(torch)
+    R = step("cov", lambda: nps.cov(Xs, rowvar=True))
+    if checks:
+        def cov_rows(r, x):
+            xc = x - x.mean(dim=1, keepdim=True)
+            return (r - r.mean(dim=1, keepdim=True)) @ xc.T / (x.shape[1] - 1)
+
+        out["cov_rel"] = _mr_sampled_rows(torch, app, R, Xs, cov_rows, "cov")
+    keep("cov", R)
+    del R, Xs
+    _mesh_free(torch)
+    nv = cfg["vec"]
+    v = app.random_state(MR_SEED + 5).normal(
+        shape=(nv,), block_shape=(-(-nv // world),), dtype=np.float32)
+    D = step("diag", lambda: nps.diag(v))
+    if checks:
+        _mr_diag_check(torch, app, D, v, 0, "diag")
+    keep("diag", D)
+    del D
+    _mesh_free(torch)
+    D = step("diagflat", lambda: nps.diagflat(v, 1))
+    if checks:
+        _mr_diag_check(torch, app, D, v, 1, "diagflat")
+    keep("diagflat", D)
+    del D, v
+    _mesh_free(torch)
+    return res
+
+
+def _mr_bounds(cfg, world, d, rounds, x_rows):
+    """The bytes a rank may send in each step, beside
+    ``SHAPE_SLACK_BYTES``: a looped draw one 4-byte flag a round (and,
+    with per-element parameters, one that says whether the rejection
+    branch runs, by category for the multinomial), by the ring count
+    2·(p − 1)/p of an all-reduce; a draw by position none; the
+    permutation's rounds, each a sample sort of a 4 B key and an 8 B
+    value an element (the share that leaves a rank, (p − 1)/p) and the
+    placing of the 8 B values; shuffle that and its slab of X with an 8 B
+    position a row sent twice; a choice its rows and their positions (and
+    without replacement a permutation of X's rows); pinv CholeskyQR2's
+    two d×d all-reduces; the ring of rows p − 1 shards of X's first rows;
+    diag and diagflat their box's diagonal."""
+    off = (world - 1) / world
+    flag = 2 * (world - 1) * 4 // max(world, 1)
+    n = cfg["n"]
+    m = -(-cfg["perm"] // world)
+
+    def perm(count, elems):
+        rounds_p = int(np.ceil(3 * np.log(max(1, count))
+                               / np.log(2 ** 32 - 1)))
+        return int(rounds_p * (off * 12 + 8) * elems)
+
+    k = -(-cfg["choice"] // world)
+    xr = x_rows * d * 4
+    out = {name: (rounds.get(name, 0) + 17) * flag for name in MR_LAWS}
+    out.update({
+        "multivariate_normal": 0, "multinomial": 40 * flag,
+        "permutation": perm(cfg["perm"], m),
+        "shuffle": perm(n, x_rows) + xr + 16 * x_rows,
+        "choice": k * (d * 4 + 16),
+        "choice_norep": k * (d * 4 + 16) + perm(n, x_rows) + 16 * k,
+        "choice_p": 0,
+        "pinv": 4 * d * d * flag,
+        "inner": (world - 1) * -(-cfg["la_rows"] // world) * d * 4,
+        "cov": (world - 1) * -(-cfg["la_rows"] // world) * d * 4,
+        "diag": 8 * cfg["vec"], "diagflat": 8 * cfg["vec"]})
+    return out
+
+
+def _mr_held(torch, info, bounds, x_bytes):
+    """Every step: no all-gather inside a torch op, no kernel launched,
+    its bytes within its bound, its peak below X's bytes (on the cards of
+    a mesh of several; ``x_bytes`` None on one, which holds X whole)."""
+    for name, st in info.items():
+        _mr_hold("all_gather_into_tensor" not in st["collectives"], (
+            name, st["collectives"]))
+        _mr_hold(not st["launches"], (name, st["launches"]))
+        _mr_hold(st["bytes_sent"] <= bounds[name] + SHAPE_SLACK_BYTES, (
+            name, st["bytes_sent"], bounds[name]))
+        _mr_hold(DEVICE != "cuda" or x_bytes is None
+                 or st["peak_bytes"] < x_bytes, (name, st["peak_bytes"]))
+
+
+def _mr_step_fn(torch, info):
+    """The ``step`` of ``_mr_steps``: each step once (nothing compiles),
+    its seconds (host clock after a barrier, the slowest rank's), the
+    bytes this rank sent through the port's collectives, the collectives
+    ``CommDebugMode`` saw, the kernel launches (set to 0 just before it,
+    read just after) and the peak."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from nums_tpu_torch.core import multiprocess
+
+    def step(name, fn):
+        _mesh_free(torch)
+        sent = multiprocess.SENT["bytes"]
+        _reset_counts()
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        mode = CommDebugMode()
+        with mode:
+            res, secs = _mesh_seconds(torch, fn)
+        info[name] = {"seconds": secs,
+                      "bytes_sent": multiprocess.SENT["bytes"] - sent,
+                      "collectives": {str(k).split(".")[-1]: v for k, v in
+                                      mode.get_comm_counts().items() if v},
+                      "launches": {k: v for k, v in _counts().items() if v},
+                      "peak_bytes": _mesh_peak(torch)}
+        # each step as it ends (the phase's line comes after every check)
+        print(json.dumps({"mesh_random_step": name, **info[name]}),
+              flush=True)
+        return res
+
+    return step
+
+
+def phase_mesh_random(torch, smi, app, X):
+    """Phase 20 in the full run, on phase 15's world-1 mesh: a copy of X's
+    first ``MR_WORLD1["n"]`` rows and the steps at ``MR_WORLD1``'s depth,
+    on the mesh and again on the serial backend with the same tensors
+    (each run shuffles its own copy), every result bit for bit equal and
+    held to its check; no kernel launched."""
+    from nums_tpu_torch.core import application_manager
+    from nums_tpu_torch.core.array.blockarray import BlockArray
+
+    t_phase = time.perf_counter()
+    n = MR_WORLD1["n"]
+    mesh_app = application_manager._instance
+    rows = _local(X)[:n]
+    info, out = {}, {}
+    cfg = {**MR_WORLD1, "d": D_FULL}
+    got = _mr_steps(torch, app, BlockArray.from_torch(
+        rows.clone(), (n, D_FULL), app.backend), cfg,
+        _mr_step_fn(torch, info), out, keep_all=True)
+    serial = application_manager.create(
+        device=None if DEVICE == "cuda" else DEVICE)
+    application_manager.set_instance(serial)
+    try:
+        ref = _mr_steps(torch, serial, BlockArray.from_torch(
+            rows.clone(), (n, D_FULL), serial.backend), cfg,
+            lambda name, fn: fn(), {}, checks=False, keep_all=True)
+    finally:
+        application_manager.set_instance(mesh_app)
+    differ = _same_results(torch, got, ref)
+    _mr_hold(not differ, ("mesh vs serial", differ))
+    bounds = _mr_bounds(MR_WORLD1, 1, D_FULL, out["rounds"], n)
+    _mr_held(torch, info, bounds, None)
+    launches = {name: sum(st["launches"].get(name, 0)
+                          for st in info.values()) for name, _, _ in KERNELS}
+    out.update({"phase": "mesh_random", "world": 1, "shape": [n, D_FULL],
+                "nvidia_smi": smi, "steps": info, "launches": launches,
+                "bitwise_vs_serial": sorted(got), "failed": MR_FAILED,
+                "seconds": time.perf_counter() - t_phase})
+    del got, ref, rows
+    _mesh_free(torch)
+    emit(out)
+    assert not MR_FAILED, MR_FAILED
+    assert sum(launches.values()) == 0, launches
+    return out
+
+
+def _mr_cards(torch, cfg):
+    """--mesh-random-only on this rank: X of 10M x 1000 fp32 drawn on the
+    (cards, 1) mesh from phase 4's seed, then ``_mr_steps`` with every
+    check; each step held to its bytes, no all-gather inside a torch op,
+    no kernel, its peak below X's bytes; rank 0 prints the phase's
+    line."""
+    import torch.distributed as dist
+
+    from nums_tpu_torch.core import application_manager
+
+    world = dist.get_world_size()
+    n, d = cfg["n"], cfg["d"]
+    app = application_manager.create(
+        device=None if DEVICE == "cuda" else DEVICE, backend="mesh",
+        cluster_shape=(world, 1))
+    application_manager.set_instance(app)
+    say = emit if dist.get_rank() == 0 else (
+        lambda obj: print(json.dumps(obj)))
+    t0 = time.perf_counter()
+    info, out = {}, {}
+    _mr_steps(torch, app, lambda: _draw_mesh_x(torch, app, n, d), cfg,
+              _mr_step_fn(torch, info), out)
+    bounds = _mr_bounds(cfg, world, d, out["rounds"], -(-n // world))
+    _mr_held(torch, info, bounds, 4 * n * d)
+    peaks = [None] * world
+    dist.all_gather_object(peaks, max(st["peak_bytes"]
+                                      for st in info.values()))
+    launches = [None] * world
+    dist.all_gather_object(launches, {
+        name: sum(st["launches"].get(name, 0) for st in info.values())
+        for name, _, _ in KERNELS})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip().splitlines() if DEVICE == "cuda" else []
+    say({"phase": "mesh_random", "world": world, "shape": [n, d],
+         "cluster_shape": [world, 1], **out,
+         "steps": info, "bounds": bounds, "peak_bytes_per_card": peaks,
+         "launches_per_card": launches, "nvidia_smi_per_card": smi,
+         "failed": MR_FAILED, "seconds": time.perf_counter() - t0})
+    assert all(sum(c.values()) == 0 for c in launches), launches
+    assert not MR_FAILED, MR_FAILED
+
+
+def phase_mesh_random_cards(torch, smi):
+    """--mesh-random-only: one process per visible card, as --shape-only
+    spawns them, each running ``_mr_cards``; fails unless every rank
+    exits 0 before ``MR_DEADLINE_S``. Returns the number of ranks."""
+    world = torch.cuda.device_count() if DEVICE == "cuda" else 4
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "mesh_logs")
+    os.makedirs(out_dir, exist_ok=True)
+    cfg = {**MR_FULL, "d": D_FULL, "device": DEVICE,
+           "deadline": MR_DEADLINE_S, "out_dir": out_dir, "root": root,
+           "entry": "_mr_cards"}
+    emit({"phase": "mesh_random_start", "world": world, "nvidia_smi": smi,
+          "shape": [cfg["n"], cfg["d"]]})
+    t0 = time.perf_counter()
+    codes = _spawn_ranks(world, cfg)
+    assert codes == [0] * world, ("mesh_random ranks' exit codes", codes)
+    emit({"phase": "mesh_random_done", "world": world, "exit_codes": codes,
+          "seconds": time.perf_counter() - t0})
+    return world
+
+
 KERNELS = (
     ("gram", "nums_tpu_torch/csrc/gram.cu",
      "nums_tpu/core/ops/pallas_gram.py:139"),
@@ -7596,7 +8244,8 @@ KERNELS = (
 
 
 def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
-                 facade, models, mesh, mesh_ooc, masks, core, shape):
+                 facade, models, mesh, mesh_ooc, masks, core, shape,
+                 mesh_random):
     """One entry per kernel: "launches" counts the main path (phase 4),
     "launches_per_fit" one fit (phase 6), "launches_ooc" the streamed
     steps of phase 8 (the PCA and TruncatedSVD fits among them),
@@ -7616,7 +8265,8 @@ def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
     phase 18's steps (K1 in ``ridge_regression``'s RᵀR and the SPD
     matrix's gram, K3 in the fits that reach it), "launches_mesh_shape"
     phase 19's steps (none: the slicing, shape and order ops reach no
-    kernel).
+    kernel), "launches_mesh_random" phase 20's (none: the random layer
+    and the linear algebra on the mesh reach no kernel).
     gram.cu's weighted launches ("gram_weighted") on these paths are K3's
     Hessian, and K2 proper in phase 8's pass with the Newton gate off."""
     return [
@@ -7645,6 +8295,7 @@ def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
                                    for st in core["steps"].values()),
          "launches_mesh_shape": sum(st["launches"].get(name, 0)
                                     for st in shape["steps"].values()),
+         "launches_mesh_random": mesh_random["launches"][name],
          "mesh_panel_ms": mesh_ooc["pass_parts"]["panel_kernels_rank0"][
              name]["ms"],
          "mesh_panel_bound_ms": mesh_ooc["pass_parts"][
@@ -7672,6 +8323,12 @@ def main(argv):
             phase_random(torch, smi, nums_tpu_torch.init(), None)
             return 0
         phase_build()
+        if "--mesh-random-only" in argv:
+            world = phase_mesh_random_cards(torch, smi)
+            emit({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": world}})
+            return 0
         if "--shape-only" in argv:
             world = phase_shape_cards(torch, smi)
             emit({"ok": True, "device": {
@@ -7746,11 +8403,12 @@ def main(argv):
         models = phase_models(torch, smi, app, X, draw_labels(torch, app, X))
         del X
         torch.cuda.empty_cache()
-        mesh, mesh_ooc, masks, core, shape = phase_mesh(torch, smi, keep)
+        mesh, mesh_ooc, masks, core, shape, mesh_random = phase_mesh(
+            torch, smi, keep)
         emit({"kernels": kernels_line(counts, fit_counts, times, ooc,
                                       linalg_launches, higgs, facade,
                                       models, mesh, mesh_ooc, masks,
-                                      core, shape)})
+                                      core, shape, mesh_random)})
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})

@@ -318,6 +318,23 @@ class ArrayApplication:
     def diag(self, X: BlockArray) -> BlockArray:
         if X.ndim == 1:
             block_shape = (X.block_shape[0], X.block_shape[0])
+            from nums_tpu_torch.core.ops import mesh_ops
+
+            if self._sharded(X):
+                # each process writes its own box from the vector's
+                # elements that fall there (one all-to-all)
+                n = X.shape[0]
+                grid = ArrayGrid((n, n), block_shape, X.dtype.name)
+                return BlockArray(mesh_ops.diagonal_matrix(
+                    self.backend, X.data, 0, (n, n),
+                    self.backend.sharding_for_grid(grid)), grid,
+                    self.backend)
+            if mesh_ops.is_dtensor(X.data):
+                # a replicated vector: each process's own copy
+                out = creation.diag(X.data.to_local())
+                return BlockArray.from_torch(
+                    mesh_ops.like(X.data, out, tuple(out.shape)),
+                    block_shape, self.backend)
         elif X.ndim == 2:
             assert X.shape[0] == X.shape[1], "X must be square."
             block_shape = (X.block_shape[0],)
@@ -668,6 +685,33 @@ class ArrayApplication:
         R = self._wrap(r, (min(X.block_shape[1], r.shape[0]),
                            X.block_shape[1]))
         return Q, R
+
+    def pinv(self, X: BlockArray) -> BlockArray:
+        """The pseudo-inverse of a tall row-sharded X on the mesh: X = QR
+        by the TSQR route ``svd`` takes (CholeskyQR2 or the Householder
+        tree), then pinv(X) = pinv(R)·Qᵀ. Each process's rows of Q times
+        pinv(R)ᵀ are its rows of pinv(X)ᵀ, so the result is the lazy
+        transpose of an (m, n) array laid out as X's rows: no process
+        holds X or the result whole."""
+        m, n = X.shape
+        if self._use_cholqr(X):
+            (q, r), lead = self._cholqr_rows(X, linalg.cholqr2)
+        else:
+            from nums_tpu_torch.core.ops import mesh_linalg
+
+            q, r = mesh_linalg.householder_qr(self.backend, X.data,
+                                              self._tsqr_chunk(X))
+            lead = tuple(q.placements)
+            q = q.to_local()
+        # the small pseudo-inverse in float64, as the small SVDs; Q's rows
+        # times its transpose written over Q (no second (m, n) tensor)
+        pr = torch.linalg.pinv(r.to(torch.float64)).to(q.dtype)
+        q = linalg._inplace_right_mul(q.contiguous(), pr.T.contiguous(),
+                                      1 << 20)
+        raw = self.backend.from_local(q, (m, n), lead)
+        grid = ArrayGrid((n, m), (n, X.block_shape[0]),
+                         array_utils.to_dtype_name(raw.dtype))
+        return BlockArray(raw, grid, self.backend, transposed=True)
 
     def svd(self, X: BlockArray, k=None, overwrite_x=False):
         """Tall-skinny SVD (U, S, Vᵀ) through TSQR, U with only its first

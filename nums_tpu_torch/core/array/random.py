@@ -27,6 +27,7 @@ mode; the values are equal, and int64 is what the row gather takes).
 import numpy as np
 import torch
 
+from nums_tpu_torch.core import multiprocess
 from nums_tpu_torch.core.array import utils as array_utils
 from nums_tpu_torch.core.array.blockarray import BlockArray
 from nums_tpu_torch.core.grid import ArrayGrid
@@ -107,6 +108,14 @@ class NumsRandomState:
             arr = arr.astype(dtype)
         arr = arr.astype(self._backend.device_dtype(arr.dtype), copy=False)
         return torch.from_numpy(np.array(arr, order="C")).to(self._device)
+
+    def _placed(self, data, grid, box):
+        """A draw as a BlockArray of ``grid``: on the mesh ``data`` is this
+        process's ``box`` of it."""
+        if box is not None:
+            data = self._backend.from_local(
+                data, grid.shape, self._backend.sharding_for_grid(grid))
+        return BlockArray(data, grid, self._backend)
 
     def _wrap(self, data, block_shape):
         grid = self._grid(tuple(data.shape), block_shape,
@@ -240,12 +249,13 @@ class NumsRandomState:
             dtype = self._backend.device_dtype(array_utils.to_np_dtype(dtype))
             grid = self._grid(shape, block_shape,
                               array_utils.to_dtype_name(dtype))
+            box = self._backend.local_region(grid)
             data = random_ops.hypergeometric(
                 self._next_key(), grid.shape,
                 array_utils.to_torch_dtype(dtype), self._device, nsample,
-                ngood, nbad,
+                ngood, nbad, region=box,
             )
-            return BlockArray(data, grid, self._backend)
+            return self._placed(data, grid, box)
         # Huge nsample: the O(nsample) device chain loses to the host
         # generator.
         return self._sample_basic(
@@ -347,12 +357,26 @@ class NumsRandomState:
         cov = self._tensor(cov)
         if not mean.is_floating_point():
             mean = mean.to(random_ops._wide(self._x64))
+        cov = cov.to(mean.dtype)
         shape = tuple(shape) if shape is not None else ()
+        tdt = array_utils.to_torch_dtype(dtype)
+        n = int(mean.shape[-1])
+        full = tuple(torch.broadcast_shapes(
+            tuple(mean.shape), tuple(cov.shape[:-1]), shape + (n,)))
+        if self._backend.mesh is None or full != shape + (n,):
+            # (a batch of means or covariances beyond ``shape`` broadcasts
+            # one draw of ``shape``: drawn whole, each process keeps its
+            # box)
+            data = random_ops.jr_multivariate_normal(
+                self._next_key(), mean, cov, shape, tdt, self._device)
+            return self._wrap(data, block_shape)
+        grid = self._grid(full, block_shape, array_utils.to_dtype_name(
+            torch.promote_types(mean.dtype, tdt)))
+        box = self._backend.local_region(grid)
         data = random_ops.jr_multivariate_normal(
-            self._next_key(), mean, cov.to(mean.dtype), shape,
-            array_utils.to_torch_dtype(dtype), self._device,
-        )
-        return self._wrap(data, block_shape)
+            self._next_key(), mean, cov, shape, tdt, self._device,
+            region=box)
+        return self._placed(data, grid, box)
 
     def dirichlet(self, alpha, shape=None, block_shape=None, dtype=None):
         dtype = self._float_dtype(dtype)
@@ -366,15 +390,13 @@ class NumsRandomState:
         data = random_ops.jr_dirichlet(
             self._next_key(), shape, alpha.dtype, self._device, alpha,
             region=box).to(array_utils.to_torch_dtype(dtype))
-        if box is not None:
-            data = self._backend.from_local(
-                data, grid.shape, self._backend.sharding_for_grid(grid))
-        return BlockArray(data, grid, self._backend)
+        return self._placed(data, grid, box)
 
     def multinomial(self, n, pvals, shape=None, block_shape=None, dtype=None):
         """One binomial per category on the trials that remain, under the
         call's counter-derived key: same-seed determinism under any block
-        shape, like every other distribution here.
+        shape, like every other distribution here. On the mesh each
+        process draws its own rows (over every category).
 
         NumPy's Generator semantics, validated on the host: each pval must
         lie in [0, 1] (no NaNs) and the LAST category's probability is the
@@ -392,16 +414,23 @@ class NumsRandomState:
         n_arr = np.asarray(n)
         shape = tuple(shape) if shape is not None else tuple(n_arr.shape)
         out_dtype = array_utils.to_torch_dtype(dtype or np.int64)
-        full = (shape + pv.shape[-1:]) if (shape or n_arr.shape) else None
+        full = (shape + pv.shape[-1:]) if (shape or n_arr.shape) \
+            else tuple(pv.shape)
+        grid = self._grid(full, block_shape,
+                          array_utils.to_dtype_name(out_dtype))
+        box = self._backend.local_region(grid)
         data = random_ops.jr_multinomial(
             self._next_key(), self._tensor(n_arr, np.float64),
             self._tensor(pv), full, self._device,
-        ).to(out_dtype)
-        if data.ndim == 0:
-            data = data.reshape(1)
-        return self._wrap(data, block_shape)
+            region=box).to(out_dtype)
+        return self._placed(data, grid, box)
 
     def choice(self, a, shape=None, block_shape=None, replace=True, p=None):
+        """``jax.random.choice`` along axis 0; on the mesh, where the pool
+        or the result is sharded, drawn by the result's shards
+        (``_mesh_choice``)."""
+        from nums_tpu_torch.core.ops import mesh_ops
+
         shape = tuple(shape) if shape is not None else ()
         if isinstance(a, BlockArray):
             pool = a.data
@@ -410,22 +439,150 @@ class NumsRandomState:
         else:
             pool = self._tensor(a)
         pt = self._tensor(p) if p is not None else None
+        if self._backend.mesh is not None and random_ops._size(shape):
+            tail = () if isinstance(pool, int) else tuple(pool.shape[1:])
+            dtype = random_ops._default_int(self._x64) \
+                if isinstance(pool, int) else pool.dtype
+            grid = self._grid(shape + tail, block_shape,
+                              array_utils.to_dtype_name(dtype))
+            if mesh_ops._is_sharded(pool) or any(
+                    q.is_shard()
+                    for q in self._backend.sharding_for_grid(grid)):
+                return self._mesh_choice(self._next_key(), pool, shape,
+                                         grid, replace, pt)
+        if mesh_ops.is_dtensor(pool):
+            pool = pool.to_local()
         data = random_ops.jr_choice(
             self._next_key(), pool, shape, replace, pt, self._device,
             self._x64)
         return self._wrap(data, block_shape)
 
+    def _mesh_choice(self, key, pool, shape, grid, replace, p):
+        """``choice`` on the mesh into ``grid``, of a sharded pool or into
+        a sharded result: each process draws the positions of its own
+        rows of the result as ``jr_choice`` does (a ``randint``, the ``p``
+        route's ``searchsorted``, or its part of the sharded permutation
+        or Gumbel top k), then pulls those rows of a sharded pool from
+        their holders (``mesh_ops.pull``). Bit for bit the serial draw."""
+        from nums_tpu_torch.core.ops import mesh_ops
+
+        backend = self._backend
+        lead = len(shape)
+        sharded_pool = mesh_ops._is_sharded(pool)
+        n_inputs = pool if isinstance(pool, int) else int(pool.shape[0])
+        n_draws = random_ops._size(shape)
+        full = grid.shape
+        int_dtype = random_ops._default_int(self._x64)
+        want = backend.sharding_for_grid(grid)
+        if p is not None and not p.is_floating_point():
+            p = p.to(random_ops._wide(self._x64))
+        random_ops.choice_checks(n_inputs, n_draws, replace, p)
+        # the layout the rows are pulled in: the pool's on its columns,
+        # the result's on the draws' axes
+        if sharded_pool:
+            layout = tuple(
+                mesh_ops._shard(q.dim + lead - 1) if q.is_shard() and q.dim
+                else w if w.is_shard() and w.dim < lead
+                else mesh_ops._replicate()
+                for q, w in zip(pool.placements, want))
+        else:
+            layout = want
+        coords = backend.coords()
+
+        def where_of(coord):
+            box = backend.region(full, layout, coord)[:lead]
+            if 0 in tuple(b - a for a, b in box):
+                return None
+            return random_ops.region_where(shape, box, self._device)
+
+        where = where_of(None)
+        box = backend.region(full, layout)
+        ind = None if where is None else random_ops.choice_positions(
+            key, n_inputs, shape, replace, p, self._device, self._x64,
+            where)
+        if not replace:
+            fs = mesh_ops.full_shard(backend)
+            if p is None:
+                source = random_ops.mesh_permutation(backend, key, n_inputs)
+            else:
+                lo, hi = backend.region((n_inputs,), fs)[0]
+                g = random_ops.choice_gumbel(key, n_inputs, p, self._device,
+                                             (lo, hi))
+                source = random_ops.mesh_top_k(
+                    backend, backend.from_local(g, (n_inputs,), fs), n_draws)
+
+            def wants(coord):
+                w = where_of(coord)
+                if w is None:
+                    return torch.empty((0, 1), dtype=torch.int64)
+                return random_ops._region_positions(w, "cpu").reshape(-1, 1)
+
+            ind = mesh_ops.pull(backend, source, 1, wants(
+                coords[multiprocess.process_index()]),
+                lambda r: wants(coords[r])).reshape(-1)
+        if ind is None:
+            ind = torch.empty(0, dtype=torch.int64, device=self._device)
+        lead_shape = tuple(b - a for a, b in box[:lead])
+        if isinstance(pool, int):
+            local = ind.to(int_dtype).reshape(lead_shape)
+        elif sharded_pool:
+            local = mesh_ops.pull(backend, pool, 1, ind.reshape(-1, 1))
+            local = local.reshape(lead_shape + tuple(local.shape[1:]))
+        else:
+            local = pool[ind][(Ellipsis,) + tuple(
+                slice(a, b) for a, b in box[lead:])]
+        data = backend.from_local(local.contiguous(), full, layout)
+        return BlockArray(backend.rebox(data, want), grid, backend)
+
     def shuffle(self, x: BlockArray) -> None:
         """IN PLACE along axis 0 (numpy Generator.shuffle contract).
         Rows are permuted whole: the index order is that of
-        ``permutation(len(x))`` under the same key."""
-        order = random_ops.permutation(self._next_key(), x.shape[0],
-                                       self._device)
-        x._store(x.data[order])
+        ``permutation(len(x))`` under the same key. On the mesh, of an
+        array whose rows are sharded, the order is the sharded permutation
+        and each process pulls its rows from their holders (one
+        ``mesh_ops.pull``): x keeps its layout (the reference's leaves
+        the result replicated)."""
+        from nums_tpu_torch.core.ops import mesh_ops
+
+        key = self._next_key()
+        data = x.data
+        if mesh_ops.is_dtensor(data) and mesh_ops.shard_dims(
+                data.placements, (0,)):
+            backend = self._backend
+            n = int(x.shape[0])
+            perm = random_ops.mesh_permutation(backend, key, n)
+            shape, pl = tuple(data.shape), tuple(data.placements)
+            coords = backend.coords()
+
+            def rows(coord):
+                a, b = backend.region(shape, pl, coord)[0]
+                return torch.arange(a, b, dtype=torch.int64).reshape(-1, 1)
+
+            order = mesh_ops.pull(backend, perm, 1, rows(
+                coords[multiprocess.process_index()]),
+                lambda r: rows(coords[r]))
+            del perm
+            local = mesh_ops.pull(backend, data, 1, order.reshape(-1, 1))
+            x._store(backend.from_local(local, shape, pl))
+            return
+        order = random_ops.permutation(key, x.shape[0], self._device)
+        if mesh_ops.is_dtensor(data):
+            # the rows whole on each process (a column shard at most)
+            x._store(mesh_ops.like(data, data.to_local()[order]))
+            return
+        x._store(data[order])
 
     def permutation(self, size, block_size=None):
-        """A random permutation of ``range(size)`` as int64."""
+        """A random permutation of ``range(size)`` as int64; on the mesh,
+        of a sharded grid, sorted by the mesh's sample sort
+        (``random_ops.mesh_permutation``)."""
         grid = self._grid((size,), (block_size or size,), "int64")
-        data = random_ops.permutation(self._next_key(), int(size),
-                                      self._device)
+        key = self._next_key()
+        box = self._backend.local_region(grid)
+        if box is not None and box != ((0, int(size)),):
+            data = random_ops.mesh_permutation(self._backend, key, int(size))
+            data = self._backend.rebox(
+                data, self._backend.sharding_for_grid(grid))
+            return BlockArray(data, grid, self._backend)
+        data = random_ops.permutation(key, int(size), self._device)
         return BlockArray(data, grid, self._backend)

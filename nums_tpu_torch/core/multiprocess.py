@@ -166,6 +166,17 @@ def all_reduce_(tensor, op="sum"):
     return tensor
 
 
+def any_everywhere(flag) -> bool:
+    """Whether ``flag`` (a bool, or a one-element bool tensor on this
+    process's device) holds on any process (collective; one all-reduce of
+    one int32)."""
+    t = torch.as_tensor(flag).reshape(1)
+    if not is_multiprocess():
+        return bool(t)
+    t = t.to(device=_flag_device(), dtype=torch.int32)
+    return bool(all_reduce_(t, "max"))
+
+
 # What ``exchange`` moved on this process: its calls, and the bytes it
 # sent to other processes (what it keeps for itself is not counted).
 EXCHANGED = {"calls": 0, "bytes_sent": 0}
@@ -182,7 +193,9 @@ SENT = {"bytes": 0}
 _RING = {"all_reduce": lambda b, p: 2 * (p - 1) * b // p,
          "all_gather": lambda b, p: (p - 1) * b,
          "reduce_scatter": lambda b, p: (p - 1) * b // p,
-         "broadcast": lambda b, p: (p - 1) * b // p}
+         "broadcast": lambda b, p: (p - 1) * b // p,
+         # one point-to-point send of the buffer
+         "send": lambda b, p: b}
 
 
 def one_process(t):

@@ -597,7 +597,9 @@ def pull(backend, data, k, wants, every=None):
     box = backend.region(tuple(data.shape), data.placements)
     asked = asked.to(local.device)
     items = local[tuple(asked[:, j] - box[j][0] for j in range(k))]
+    del asked
     got = multiprocess.exchange(items, send, recv)
+    del items  # a slab's worth of rows gone before the result's
     out = torch.empty_like(got)
     out[order.to(got.device)] = got
     return out
@@ -629,6 +631,37 @@ def gather_rows(backend, data, idx):
     out[torch.from_numpy(np.nonzero(idx[a:b] >= 0)[0]).to(
         out.device)] = got
     return backend.from_local(out, shape, pl)
+
+
+def diagonal_matrix(backend, v, k, shape, placements):
+    """The (N, N) matrix ``shape`` holding the elements of the DTensor
+    ``v``, in its flat row-major order, on its k-th diagonal and zeros
+    elsewhere, laid out by ``placements``: each process writes the
+    diagonal entries of its own box, the elements of ``v`` that fall
+    there pulled from their holders (``pull``, one all-to-all: every box
+    is known everywhere). No process holds ``v`` or the matrix whole."""
+    k = int(k)
+    r0, c0 = max(0, -k), max(0, k)
+    vshape = tuple(v.shape)
+    total = int(np.prod(vshape, dtype=np.int64))
+    coords = backend.coords()
+
+    def span(coord):
+        (a, b), (c, e) = backend.region(tuple(shape), placements, coord)
+        lo = max(a - r0, c - c0, 0)
+        return lo, max(lo, min(b - r0, e - c0, total))
+
+    def wants(coord):
+        return _positions(torch.arange(*span(coord), dtype=torch.int64),
+                          vshape)
+
+    got = pull(backend, v, len(vshape), wants(coords[
+        multiprocess.process_index()]), lambda r: wants(coords[r]))
+    (a, b), (c, e) = backend.region(tuple(shape), placements)
+    local = got.new_zeros((b - a, e - c))
+    i = torch.arange(*span(None), dtype=torch.int64, device=local.device)
+    local[i + r0 - a, i + c0 - c] = got
+    return backend.from_local(local, tuple(shape), tuple(placements))
 
 
 def gather_elements(backend, data, coord, shape, placements):

@@ -23,6 +23,14 @@ in jax with 64-bit types on; without it (a CUDA backend) they are float32
 and int32, as in the reference on an accelerator. The one-key
 elementwise draws (``jr_uniform`` and what is built on it in place) are
 made in chunks, so a 10 GB normal needs its output and a bounded scratch.
+
+On the mesh each process draws its own box of a sample
+(``sample_region``), the box of the whole draw bit for bit: a
+position-wise sampler from its positions' bits alone; the looped ones
+(Poisson, binomial and what is built on them, whose rejection loops keep
+each element's last accepted proposal until no element of the whole draw
+is left) with the loop's flag combined over the mesh once a round; a
+permutation by the mesh's sample sort (``mesh_permutation``).
 """
 
 import math
@@ -30,6 +38,7 @@ import math
 import numpy as np
 import torch
 
+from nums_tpu_torch.core import multiprocess
 from nums_tpu_torch.core.ops import threefry
 
 _NP_FLOAT = {torch.float32: np.float32, torch.float64: np.float64}
@@ -302,14 +311,19 @@ def _unsigned_order(bits):
     return bits.bitwise_xor_(-(1 << 31))
 
 
+def permutation_rounds(n: int) -> int:
+    """jax's round count of a permutation of n items: ceil(3 ln n /
+    ln(2**32 - 1))."""
+    return int(np.ceil(3 * np.log(max(1, int(n))) / np.log(threefry.MASK32)))
+
+
 def jr_permutation_indices(key, n: int, device):
     """The index order of ``jax.random.permutation(key, n)`` (and of a
-    shuffle of n items along an axis), int64: ``ceil(3 ln n / ln(2**32 -
-    1))`` rounds, each a split and a stable sort by fresh 32-bit keys."""
+    shuffle of n items along an axis), int64: ``permutation_rounds(n)``
+    rounds, each a split and a stable sort by fresh 32-bit keys."""
     n = int(n)
     x = torch.arange(n, dtype=torch.int64, device=device)
-    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(threefry.MASK32)))
-    for _ in range(rounds):
+    for _ in range(permutation_rounds(n)):
         key, subkey = threefry.split(key)
         sort_keys = _unsigned_order(
             threefry.random_bits(subkey, (n,), 32, device))
@@ -318,11 +332,107 @@ def jr_permutation_indices(key, n: int, device):
     return x
 
 
+def mesh_permutation(backend, key, n: int):
+    """``jr_permutation_indices`` on the mesh, as a 1-D DTensor split over
+    every process (``mesh_ops.full_shard``), no process holding it whole:
+    each round, the fresh 32-bit keys at each process's own positions and
+    a stable sample sort of (key, value) by key (``mesh_ops.sorted_runs``,
+    equal keys in position order as the serial stable sort leaves them),
+    its runs placed back in order. Bit for bit the serial order."""
+    from nums_tpu_torch.core.ops import mesh_ops
+
+    n = int(n)
+    fs = mesh_ops.full_shard(backend)
+    device = backend.device
+    lo, hi = backend.region((n,), fs)[0]
+    values = backend.from_local(torch.arange(lo, hi, dtype=torch.int64,
+                                             device=device), (n,), fs)
+    for _ in range(permutation_rounds(n)):
+        key, subkey = threefry.split(key)
+        keys = backend.from_local(_unsigned_order(_flat_draw(
+            subkey, (n,), torch.int32, device, 32, None, (lo, hi), None)),
+            (n,), fs)
+        runs, _ = mesh_ops.sorted_runs(backend, [keys, values],
+                                       lambda locs: [locs[0]])
+        del keys, values
+        values = backend.place_rows(runs[1], (), fs)
+        del runs
+    return values
+
+
+def mesh_top_k(backend, g, k: int):
+    """The positions of the k largest values of the 1-D DTensor ``g``
+    (split over every process), largest first and equal values in
+    position order, as a 1-D DTensor of length k split over every process:
+    a stable sample sort by the values descending (``mesh_ops.sorted_runs``
+    on the positions), each process's run cut at rank k."""
+    from nums_tpu_torch.core.ops import mesh_ops
+
+    fs = mesh_ops.full_shard(backend)
+    runs, r0 = mesh_ops.sorted_runs(
+        backend, [g], lambda locs: [~mesh_ops.sort_keys(locs[0])[0]],
+        positions=True)
+    run = runs[-1]
+    cut = max(0, min(int(run.shape[0]), int(k) - r0))
+    return backend.place_rows(run[:cut].contiguous(), (), fs)
+
+
 def jr_gumbel(key, shape, dtype, device, **where):
     """``jax.random.gumbel`` (its default low-range mode)."""
     tiny = float(np.finfo(_np_float(dtype)).tiny)
     u = jr_uniform(key, shape, dtype, device, tiny, 1.0, **where)
     return u.log_().neg_().log_().neg_()
+
+
+def choice_checks(n_inputs: int, n_draws: int, replace: bool, p):
+    """``jax.random.choice``'s checks of its arguments (ValueError)."""
+    if n_draws == 0:
+        return
+    if n_inputs <= 0:
+        raise ValueError("a must be greater than 0 unless no samples are "
+                         "taken")
+    if not replace and n_draws > n_inputs:
+        raise ValueError(
+            f"Cannot take a larger sample (size {n_draws}) than "
+            f"population (size {n_inputs}) when 'replace=False'")
+    if p is not None and tuple(p.shape) != (n_inputs,):
+        raise ValueError(
+            "p must be None or a 1D vector with the same size as "
+            f"a.shape[axis]. p has shape {tuple(p.shape)} and "
+            f"a.shape[axis] is {n_inputs}.")
+
+
+def choice_positions(key, n_inputs, shape, replace, p, device, x64,
+                     where=None):
+    """The positions (int64, flat) that ``jax.random.choice`` picks for
+    the draws of ``shape`` where it draws them by position: with
+    replacement a ``randint``, or with ``p`` the ``cumsum``/
+    ``searchsorted`` of a uniform; with ``where`` (a region of ``shape``)
+    those of the region alone. None for a choice without replacement (a
+    permutation's, or the top k of a Gumbel draw)."""
+    where = where or {}
+    if not replace:
+        return None
+    if p is None:
+        return jr_randint(key, shape, 0, n_inputs, _default_int(x64), device,
+                          x64, **where).reshape(-1).to(torch.int64)
+    # the running sum on the host: CUDA's scan may add in another order
+    # from call to call, and every process's draws must be the serial
+    # draw's
+    p_cuml = torch.cumsum(p.cpu(), 0).to(p.device)
+    u = jr_uniform(key, shape, p.dtype, device, **where)
+    r = p_cuml[-1] * (1 - u)
+    return torch.searchsorted(p_cuml, r.reshape(-1))
+
+
+def choice_gumbel(key, n_inputs, p, device, flat_range=None):
+    """The Gumbel scores of a choice with ``p`` without replacement (the
+    ``flat_range`` of them alone)."""
+    g = jr_gumbel(key, (n_inputs,), p.dtype, device,
+                  **({} if flat_range is None else {"flat_range":
+                                                    flat_range}))
+    lo = 0 if flat_range is None else int(flat_range[0])
+    return g + torch.log(p[lo:lo + int(g.shape[0])])
 
 
 def jr_choice(key, a, shape, replace, p, device, x64):
@@ -336,34 +446,15 @@ def jr_choice(key, a, shape, replace, p, device, x64):
     if n_draws == 0:
         return torch.zeros(shape, dtype=int_dtype if pool is None
                            else pool.dtype, device=device)
-    if n_inputs <= 0:
-        raise ValueError("a must be greater than 0 unless no samples are "
-                         "taken")
-    if not replace and n_draws > n_inputs:
-        raise ValueError(
-            f"Cannot take a larger sample (size {n_draws}) than "
-            f"population (size {n_inputs}) when 'replace=False'")
-    if p is None:
-        if replace:
-            ind = jr_randint(key, shape, 0, n_inputs, int_dtype, device, x64)
-        else:
-            ind = jr_permutation_indices(key, n_inputs, device)[:n_draws]
-    else:
-        if tuple(p.shape) != (n_inputs,):
-            raise ValueError(
-                "p must be None or a 1D vector with the same size as "
-                f"a.shape[axis]. p has shape {tuple(p.shape)} and "
-                f"a.shape[axis] is {n_inputs}.")
-        if not p.is_floating_point():
-            p = p.to(_wide(x64))
-        if replace:
-            p_cuml = torch.cumsum(p, 0)
-            u = jr_uniform(key, shape, p.dtype, device)
-            r = p_cuml[-1] * (1 - u)
-            ind = torch.searchsorted(p_cuml, r.reshape(-1)).reshape(shape)
-        else:
-            g = jr_gumbel(key, (n_inputs,), p.dtype, device) + torch.log(p)
-            ind = torch.topk(g, n_draws).indices
+    if p is not None and not p.is_floating_point():
+        p = p.to(_wide(x64))
+    choice_checks(n_inputs, n_draws, replace, p)
+    ind = choice_positions(key, n_inputs, shape, replace, p, device, x64)
+    if ind is None and p is None:
+        ind = jr_permutation_indices(key, n_inputs, device)[:n_draws]
+    elif ind is None:
+        ind = torch.topk(choice_gumbel(key, n_inputs, p, device),
+                         n_draws).indices
     if pool is None:
         return ind.to(int_dtype).reshape(shape)
     flat = pool[ind.reshape(-1).to(torch.int64)]
@@ -616,64 +707,195 @@ def jr_wald(key, shape, dtype, device, mean, **where):
                        float(mean_sq) / x)
 
 
-def _poisson_knuth(key, lam, shape, dtype, device):
-    k = torch.zeros(shape, dtype=dtype, device=device)
-    log_prod = torch.zeros(shape, dtype=torch.float32, device=device)
+# Elements of a looped draw (Poisson, binomial) that a process works on at
+# a time: its state is the output and one bool an element, and each piece
+# of the region brings its own temporaries (some 20 floats an element).
+LOOP_CHUNK = 1 << 24
+
+# The rounds run by the rejection loops whose round count is the whole
+# draw's (Hörmann's Poisson, BTRS): one flag is combined over the mesh
+# after each.
+ROUNDS = {"rounds": 0}
+
+
+def _pieces(shape, where, chunk):
+    """(offset, count, where) of each piece of a draw's region (the whole
+    shape where no region is given) in the region's order, at most about
+    ``chunk`` elements each: a flat range cut into ranges, runs cut into
+    whole runs."""
+    if not where:
+        where = {"flat_range": (0, _size(shape))}
+    if where.get("flat_range") is not None:
+        start, stop = (int(v) for v in where["flat_range"])
+        return [(a - start, min(stop, a + chunk) - a,
+                 {"flat_range": (a, min(stop, a + chunk))})
+                for a in range(start, stop, chunk)]
+    starts, length = where["runs"]
+    rows, length = int(starts.numel()), int(length)
+    step = max(1, chunk // max(length, 1))
+    return [(a * length, (min(rows, a + step) - a) * length,
+             {"runs": (starts[a:a + step], length)})
+            for a in range(0, rows, step)]
+
+
+def _by_piece(values, draw_shape, dtype, device, terms):
+    """``terms(*params)`` of a looped draw's parameters ``values`` at a
+    piece, as ``at(off, cnt)``, and whether every parameter is one value.
+    A Python scalar or a 0-d tensor is one value (a 0-d ``dtype`` tensor,
+    which every round's arithmetic broadcasts); a tensor with dimensions
+    is one value an element of the draw (of the region's shape), and each
+    piece takes its own elements. Where every parameter is one value the
+    terms are computed once; else for each piece's elements as it comes."""
+    ones = [not torch.is_tensor(v) or v.dim() == 0 for v in values]
+    flats = [_as_param(v, (), dtype, device) if one
+             else v.to(device).broadcast_to(tuple(draw_shape)).reshape(-1)
+             for v, one in zip(values, ones)]
+    if all(ones):
+        fixed = terms(*flats)
+        return (lambda off, cnt: fixed), True
+    return (lambda off, cnt: terms(*[
+        f if one else f[off:off + cnt].to(dtype)
+        for f, one in zip(flats, ones)])), False
+
+
+def _left(flag, where):
+    """Whether an element of the whole draw is left: this process's flag
+    (a bool tensor or bool), combined over every process of the mesh (one
+    all-reduce) where the draw is a region (``where``): each process of a
+    mesh draws its own region of the same draw in the same call."""
+    if where:
+        return multiprocess.any_everywhere(flag)
+    return bool(flag)
+
+
+def _uniform_at(key, shape, dtype, device, where):
+    """``jr_uniform`` at a piece's positions, flattened."""
+    return jr_uniform(key, shape, dtype, device, **where).reshape(-1)
+
+
+def _poisson_knuth(key, lam, cnt, shape, where, device):
+    """Knuth's product for one piece of ``cnt`` elements (``lam`` float32,
+    its rates or one rate), as a float32 count: an element's count stops
+    with its own product, so the piece's loop ends when its own elements
+    are done."""
+    k = torch.zeros((cnt,), dtype=torch.float32, device=device)
+    log_prod = torch.zeros_like(k)
     neg_lam = -lam
     while bool((log_prod > neg_lam).any()):
         key, subkey = threefry.split(key)
         k = torch.where(log_prod > neg_lam, k + 1, k)
-        u = jr_uniform(subkey, shape, torch.float32, device)
+        u = _uniform_at(subkey, shape, torch.float32, device, where)
         log_prod = log_prod + u.log_()
     return k - 1
 
 
-def _poisson_rejection(key, lam, shape, dtype, device):
-    log_lam = torch.log(lam)
-    b = 0.931 + 2.53 * torch.sqrt(lam)
-    a = -0.059 + 0.02483 * b
-    inv_alpha = 1.1239 + 1.1328 / (b - 3.4)
-    v_r = 0.9277 - 3.6224 / (b - 2)
-    k_out = torch.full(shape, -1.0, dtype=lam.dtype, device=device)
-    accepted = torch.zeros(shape, dtype=torch.bool, device=device)
-    while not bool(accepted.all()):
+def _poisson_terms(lam):
+    """jax's branch of each rate (Knuth's below 10) and Hörmann's
+    constants of the rates that take his rejection (the others at 1e5)."""
+    knuth = torch.isnan(lam) | (lam < 10)
+    rej = torch.where(knuth, torch.full_like(lam, 1e5), lam)
+    b = 0.931 + 2.53 * torch.sqrt(rej)
+    return {"lam": lam, "knuth": knuth, "rej": rej, "log_lam": torch.log(rej),
+            "b": b, "a": -0.059 + 0.02483 * b,
+            "inv_alpha": 1.1239 + 1.1328 / (b - 3.4),
+            "v_r": 0.9277 - 3.6224 / (b - 2)}
+
+
+def _poisson_proposal(u, v, c):
+    """Hörmann's proposal k of one round and whether it is accepted (``c``
+    the rates' ``_poisson_terms``)."""
+    lam, a, b = c["rej"], c["a"], c["b"]
+    u = u - 0.5
+    u_shifted = 0.5 - u.abs()
+    k = torch.floor((2 * a / u_shifted + b) * u + lam + 0.43)
+    s = torch.log(v * c["inv_alpha"] / (a / (u_shifted * u_shifted) + b))
+    t = -lam + k * c["log_lam"] - torch.lgamma(k + 1)
+    accept1 = (u_shifted >= 0.07) & (v <= c["v_r"])
+    reject = (k < 0) | ((u_shifted < 0.013) & (v > u_shifted))
+    return k, accept1 | (~reject & (s <= t))
+
+
+def _last_accepted(key, shape, pieces, buf, dtype, device, where, propose):
+    """jax's rejection loop that keeps each element's LAST accepted
+    proposal and runs until no element of the whole draw is left (so an
+    element's value depends on the whole draw's round count): each round
+    splits the key in three, proposes at every position of the region, a
+    piece at a time (``propose(u, v, off, cnt) -> (k, accept, keep)``:
+    ``keep`` marks the elements of another branch, whose values stay),
+    and ends with one flag, combined over the mesh for a region
+    (``where``). Every piece is carried through every round, never
+    redrawn."""
+    accepted = torch.zeros(buf.shape, dtype=torch.bool, device=device)
+    while True:
+        ROUNDS["rounds"] += 1
         key, subkey_0, subkey_1 = threefry.split(key, 3)
-        u = jr_uniform(subkey_0, shape, lam.dtype, device) - 0.5
-        v = jr_uniform(subkey_1, shape, lam.dtype, device)
-        u_shifted = 0.5 - u.abs()
-        k = torch.floor((2 * a / u_shifted + b) * u + lam + 0.43)
-        s = torch.log(v * inv_alpha / (a / (u_shifted * u_shifted) + b))
-        t = -lam + k * log_lam - torch.lgamma(k + 1)
-        accept1 = (u_shifted >= 0.07) & (v <= v_r)
-        reject = (k < 0) | ((u_shifted < 0.013) & (v > u_shifted))
-        accept = accept1 | (~reject & (s <= t))
-        k_out = torch.where(accept, k, k_out)
-        accepted |= accept
-    return k_out.to(dtype)
+        for off, cnt, w in pieces:
+            u = _uniform_at(subkey_0, shape, dtype, device, w)
+            v = _uniform_at(subkey_1, shape, dtype, device, w)
+            k, accept, keep = propose(u, v, off, cnt)
+            part = buf[off:off + cnt]
+            part.copy_(torch.where(accept & ~keep, k, part))
+            accepted[off:off + cnt] |= accept
+        if not _left((~accepted).any(), where):
+            return
 
 
-def jr_poisson(key, shape, device, x64, lam, dtype=None):
+def jr_poisson(key, shape, device, x64, lam, dtype=None, where=None):
     """``jax.random.poisson``: Knuth's product below lam = 10, Hörmann's
-    transformed rejection above, both on float32, each a whole-array loop
-    over split keys until no element is left. Both run on the same key and
-    are selected by element, as jax's; a branch no element takes is
-    skipped (it does not touch the other's values)."""
+    transformed rejection above, both on float32, each a loop over split
+    keys until no element is left. Both run on the same key and are
+    selected by element, as jax's; a branch no element takes is skipped.
+    With ``where`` (a region's ``flat_range`` or ``runs``) only its
+    positions are drawn, a ``LOOP_CHUNK`` piece at a time: Knuth's counts
+    are position-wise (each piece loops alone), Hörmann's keep the last
+    accepted proposal, so its rounds run to the whole draw's count, the
+    flag combined over the mesh once a round (every process of the mesh
+    draws its region in the same call), and the region is that region of
+    the whole draw bit for bit. ``lam`` is one rate (a Python scalar or a
+    0-d tensor) or a tensor of the draw's (region's) shape. The counts are
+    returned in ``dtype`` (default: the integer of the mode)."""
     shape = tuple(int(s) for s in shape)
     dtype = dtype or _default_int(x64)
-    lam = _as_param(lam, shape, torch.float32, device)
-    use_knuth = torch.isnan(lam) | (lam < 10)
-    result = torch.zeros(shape, dtype=dtype, device=device)
-    if bool(use_knuth.any()):
-        lam_knuth = torch.where(use_knuth, lam, torch.zeros_like(lam))
-        result = torch.where(
-            use_knuth, _poisson_knuth(key, lam_knuth, shape, dtype, device),
-            result)
-    if not bool(use_knuth.all()):
-        lam_rej = torch.where(use_knuth, torch.full_like(lam, 1e5), lam)
-        result = torch.where(
-            use_knuth, result,
-            _poisson_rejection(key, lam_rej, shape, dtype, device))
-    return torch.where(lam == 0, torch.zeros_like(result), result)
+    where = where or {}
+    out = torch.empty(_draw_shape(shape, where), dtype=dtype, device=device)
+    flat = out.view(-1)
+    at, one = _by_piece((lam,), out.shape, torch.float32, device,
+                        _poisson_terms)
+    pieces = _pieces(shape, where, LOOP_CHUNK)
+    buf = flat if dtype == torch.float32 else torch.empty(
+        flat.shape, dtype=torch.float32, device=device)
+
+    rejection = False
+    for off, cnt, w in pieces:
+        c = at(off, cnt)
+        knuth = c["knuth"]
+        k = torch.full((cnt,), -1.0, dtype=torch.float32, device=device)
+        if bool(knuth.any()):
+            k = torch.where(knuth, _poisson_knuth(
+                key, torch.where(knuth, c["lam"], torch.zeros_like(c["lam"])),
+                cnt, shape, w, device), k)
+        buf[off:off + cnt] = k
+        rejection = rejection or not bool(knuth.all())
+    if one:
+        # one rate: the branch is known on every process
+        rejection = _size(shape) > 0 and not bool(at(0, 0)["knuth"])
+    else:
+        # whether any element of the whole draw takes Hörmann's branch
+        rejection = _left(rejection, where)
+    if rejection:
+        def propose(u, v, off, cnt):
+            c = at(off, cnt)
+            k, accept = _poisson_proposal(u, v, c)
+            return k, accept, c["knuth"]
+
+        _last_accepted(key, shape, pieces, buf, torch.float32, device, where,
+                       propose)
+    for off, cnt, _ in pieces:
+        lam_c = at(off, cnt)["lam"]
+        k = buf[off:off + cnt]
+        flat[off:off + cnt] = torch.where(lam_c == 0, torch.zeros_like(k),
+                                          k).to(dtype)
+    return out
 
 
 _STIRLING_TAIL = (
@@ -695,106 +917,166 @@ def _stirling_approx_tail(k):
                        approx)
 
 
-def _binomial_inversion(key, count, prob, shape, device):
+def _binomial_inversion(key, count, prob, cnt, shape, where, device):
+    """The geometric inversion for one piece of ``cnt`` elements:
+    position-wise, as Knuth's product is."""
     log1minusprob = torch.log1p(-prob)
-    num_geom = torch.zeros(shape, dtype=prob.dtype, device=device)
-    geom_sum = torch.zeros(shape, dtype=prob.dtype, device=device)
+    num_geom = torch.zeros((cnt,), dtype=prob.dtype, device=device)
+    geom_sum = torch.zeros_like(num_geom)
     while bool((geom_sum <= count).any()):
         subkey, key = threefry.split(key)
         num_geom = torch.where(geom_sum <= count, num_geom + 1, num_geom)
-        u = jr_uniform(subkey, shape, prob.dtype, device)
+        u = _uniform_at(subkey, shape, prob.dtype, device, where)
         geom_sum = geom_sum + torch.ceil(u.log_() / log1minusprob)
     return num_geom - 1
 
 
-def _btrs(key, count, prob, shape, device):
+def _binomial_terms(count, prob):
+    """jax's preparation of a binomial's parameters (trials ``count`` and
+    probability ``prob`` in one float): the trials (floored) and
+    q = min(p, 1 - p), the branch of each element and the masks of its
+    special cases; and the BTRS constants of the elements that take it
+    (the others at 1e4 trials, q = 0.5)."""
+    t = {"p_lt_half": prob < 0.5}
+    q = torch.where(t["p_lt_half"], prob, 1.0 - prob)
+    t["count_nan_or_neg"] = torch.isnan(count) | (count < 0.0)
+    t["count_inf"] = torch.isinf(count)
+    t["q_is_nan"] = torch.isnan(q)
+    t["q_l_0"] = q < 0.0
+    t["q"] = torch.where(t["q_is_nan"] | t["q_l_0"], torch.full_like(q, 0.01),
+                         q)
+    inv = t["use_inversion"] = t["count_nan_or_neg"] | (count * t["q"] <= 10.0)
+    t["count"] = torch.floor(count)
+    count = torch.where(inv, torch.full_like(t["count"], 1e4), t["count"])
+    prob = torch.where(inv, torch.full_like(t["q"], 0.5), t["q"])
     stddev = torch.sqrt(count * prob * (1 - prob))
     b = 1.15 + 2.53 * stddev
-    a = -0.0873 + 0.0248 * b + 0.01 * prob
-    c = count * prob + 0.5
-    v_r = 0.92 - 4.2 / b
     r = prob / (1 - prob)
-    alpha = (2.83 + 5.1 / b) * stddev
     m = torch.floor((count + 1) * prob)
-    k_out = torch.full(shape, -1.0, dtype=prob.dtype, device=device)
-    accepted = torch.zeros(shape, dtype=torch.bool, device=device)
-    while not bool(accepted.all()):
-        key, subkey_0, subkey_1 = threefry.split(key, 3)
-        u = jr_uniform(subkey_0, shape, prob.dtype, device)
-        v = jr_uniform(subkey_1, shape, prob.dtype, device)
-        u = u - 0.5
-        us = 0.5 - u.abs()
-        accept1 = (us >= 0.07) & (v <= v_r)
-        k = torch.floor((2 * a / us + b) * u + c)
-        reject = (k < 0) | (k > count)
-        v = torch.log(v * alpha / (a / (us * us) + b))
-        ub = (
-            (m + 0.5) * torch.log((m + 1) / (r * (count - m + 1)))
-            + (count + 1) * torch.log((count - m + 1) / (count - k + 1))
-            + (k + 0.5) * torch.log(r * (count - k + 1) / (k + 1))
-            + _stirling_approx_tail(m)
-            + _stirling_approx_tail(count - m)
-            - _stirling_approx_tail(k)
-            - _stirling_approx_tail(count - k)
-        )
-        accept = accept1 | (~reject & (v <= ub))
-        k_out = torch.where(accept, k, k_out)
-        accepted |= accept
-    return k_out
+    t["btrs"] = {
+        "count": count, "b": b, "a": -0.0873 + 0.0248 * b + 0.01 * prob,
+        "c": count * prob + 0.5, "v_r": 0.92 - 4.2 / b, "r": r,
+        "alpha": (2.83 + 5.1 / b) * stddev,
+        "count_1": count + 1, "count_m_1": count - m + 1,
+        "ub_m": (m + 0.5) * torch.log((m + 1) / (r * (count - m + 1))),
+        "m_tail": _stirling_approx_tail(m),
+        "count_m_tail": _stirling_approx_tail(count - m)}
+    return t
 
 
-def jr_binomial(key, shape, dtype, device, x64, n, p):
+def _btrs_proposal(u, v, c):
+    """The BTRS proposal k of one round and whether it is accepted (``c``
+    the ``btrs`` constants of ``_binomial_terms``)."""
+    count, a, b = c["count"], c["a"], c["b"]
+    u = u - 0.5
+    us = 0.5 - u.abs()
+    accept1 = (us >= 0.07) & (v <= c["v_r"])
+    k = torch.floor((2 * a / us + b) * u + c["c"])
+    reject = (k < 0) | (k > count)
+    v = torch.log(v * c["alpha"] / (a / (us * us) + b))
+    ub = (
+        c["ub_m"]
+        + c["count_1"] * torch.log(c["count_m_1"] / (count - k + 1))
+        + (k + 0.5) * torch.log(c["r"] * (count - k + 1) / (k + 1))
+        + c["m_tail"]
+        + c["count_m_tail"]
+        - _stirling_approx_tail(k)
+        - _stirling_approx_tail(count - k)
+    )
+    return k, accept1 | (~reject & (v <= ub))
+
+
+def _binomial_finish(samples, t, dtype):
+    samples = samples.to(dtype)
+    invalid = t["q_l_0"] | t["q_is_nan"] | t["count_nan_or_neg"]
+    samples = torch.where(invalid, torch.full_like(samples, np.nan), samples)
+    samples = torch.where(t["count_inf"] & ~invalid,
+                          torch.full_like(samples, np.inf), samples)
+    return torch.where(
+        t["p_lt_half"] | t["count_nan_or_neg"] | t["q_is_nan"]
+        | t["count_inf"], samples, t["count"].to(dtype) - samples)
+
+
+def jr_binomial(key, shape, dtype, device, x64, n, p, where=None):
     """``jax.random.binomial``: geometric inversion where n·min(p, 1-p) <=
     10, the BTRS rejection above, both in the width of ``p`` (a Python
-    float is the wide float) and cast to ``dtype`` at the end."""
+    float is the wide float) and cast to ``dtype`` at the end. With
+    ``where`` the region alone, a piece at a time, as ``jr_poisson``: the
+    inversion is position-wise, BTRS keeps the last accepted proposal and
+    runs to the whole draw's round count (its flag combined over the mesh
+    once a round). ``n`` and ``p`` are each one value (a Python scalar or a
+    0-d tensor) or a tensor of the draw's (region's) shape."""
     shape = tuple(int(s) for s in shape)
     pdt = p.dtype if torch.is_tensor(p) and p.is_floating_point() \
         else _wide(x64)
-    prob = _as_param(p, shape, pdt, device)
-    count = _as_param(n, shape, pdt, device)
-    p_lt_half = prob < 0.5
-    q = torch.where(p_lt_half, prob, 1.0 - prob)
-    count_nan_or_neg = torch.isnan(count) | (count < 0.0)
-    count_inf = torch.isinf(count)
-    q_is_nan = torch.isnan(q)
-    q_l_0 = q < 0.0
-    q = torch.where(q_is_nan | q_l_0, torch.full_like(q, 0.01), q)
-    use_inversion = count_nan_or_neg | (count * q <= 10.0)
-    count = torch.floor(count)
-    samples = torch.zeros(shape, dtype=pdt, device=device)
-    if bool(use_inversion.any()):
-        count_inv = torch.where(use_inversion, count,
-                                torch.zeros_like(count))
-        samples = torch.where(
-            use_inversion,
-            _binomial_inversion(key, count_inv, q, shape, device), samples)
-    if not bool(use_inversion.all()):
-        count_btrs = torch.where(use_inversion, torch.full_like(count, 1e4),
-                                 count)
-        q_btrs = torch.where(use_inversion, torch.full_like(q, 0.5), q)
-        samples = torch.where(
-            use_inversion, samples,
-            _btrs(key, count_btrs, q_btrs, shape, device))
-    samples = samples.to(dtype)
-    invalid = q_l_0 | q_is_nan | count_nan_or_neg
-    samples = torch.where(invalid, torch.full_like(samples, np.nan), samples)
-    samples = torch.where(count_inf & ~invalid,
-                          torch.full_like(samples, np.inf), samples)
-    return torch.where(
-        p_lt_half | count_nan_or_neg | q_is_nan | count_inf, samples,
-        count.to(dtype) - samples)
+    where = where or {}
+    out = torch.empty(_draw_shape(shape, where), dtype=dtype, device=device)
+    flat = out.view(-1)
+    at, one = _by_piece((n, p), out.shape, pdt, device, _binomial_terms)
+    pieces = _pieces(shape, where, LOOP_CHUNK)
+    buf = flat if dtype == pdt else torch.empty(flat.shape, dtype=pdt,
+                                                device=device)
+
+    btrs = False
+    for off, cnt, w in pieces:
+        t = at(off, cnt)
+        inv = t["use_inversion"]
+        s = torch.full((cnt,), -1.0, dtype=pdt, device=device)
+        if bool(inv.any()):
+            count_inv = torch.where(inv, t["count"],
+                                    torch.zeros_like(t["count"]))
+            s = torch.where(inv, _binomial_inversion(
+                key, count_inv, t["q"], cnt, shape, w, device), s)
+        buf[off:off + cnt] = s
+        btrs = btrs or not bool(inv.all())
+    if one:
+        # one n and one p: the branch is known on every process
+        btrs = _size(shape) > 0 and not bool(at(0, 0)["use_inversion"])
+    else:
+        btrs = _left(btrs, where)
+    if btrs:
+        def propose(u, v, off, cnt):
+            t = at(off, cnt)
+            k, accept = _btrs_proposal(u, v, t["btrs"])
+            return k, accept, t["use_inversion"]
+
+        _last_accepted(key, shape, pieces, buf, pdt, device, where, propose)
+    for off, cnt, _ in pieces:
+        flat[off:off + cnt] = _binomial_finish(buf[off:off + cnt],
+                                               at(off, cnt), dtype)
+    return out
 
 
-def jr_multinomial(key, n, p, shape, device):
+def jr_multinomial(key, n, p, shape, device, region=None):
     """``jax.random.multinomial``: ``p`` (..., K) and ``n`` float tensors;
     ``shape`` the FULL output shape (batch and category axes) or None.
     One binomial per category on the trials that remain, keys from one
-    split over the categories."""
+    split over the categories. With ``region`` (a box of the result) only
+    the box's rows are drawn, each over all K categories (a row's counts
+    take its remainders in turn), and the box is cut from them: each
+    category's binomial is the region of the whole draw
+    (``jr_binomial``'s ``where``, its loops' flags combined over the
+    mesh): every process of the mesh draws its own box in the same call,
+    and without a mesh a box smaller than the array raises
+    ``NotImplementedError``."""
     if shape is None:
         shape = tuple(p.shape)
     shape = tuple(int(s) for s in shape)
-    n = n.broadcast_to(shape[:-1])
-    p = torch.movedim(p.broadcast_to(shape), -1, 0)
+    batch = shape[:-1]
+    n = n.broadcast_to(batch)
+    p = p.broadcast_to(shape)
+    where = {}
+    if region is not None:
+        rows = tuple((int(a), int(b)) for a, b in region[:-1])
+        if rows != tuple((0, s) for s in batch):
+            # (an empty box too: its process joins the loops' flags)
+            _on_the_mesh("multinomial")
+            where = region_where(batch, rows, device)
+            n = n[tuple(slice(a, b) for a, b in rows)].reshape(
+                _draw_shape(batch, where))
+            p = p[tuple(slice(a, b) for a, b in rows)].reshape(
+                _draw_shape(batch, where) + shape[-1:])
+    p = torch.movedim(p, -1, 0)
     remaining = torch.flip(torch.cumsum(torch.flip(p, (0,)), 0), (0,))
     ratios = p / torch.where(remaining == 0, torch.ones_like(remaining),
                              remaining)
@@ -802,16 +1084,24 @@ def jr_multinomial(key, n, p, shape, device):
     remainder = n
     counts = []
     for ratio, sub in zip(ratios, keys):
-        count = jr_binomial(sub, shape[:-1], remainder.dtype, device, False,
-                            remainder, ratio.clamp(0, 1))
+        count = jr_binomial(sub, batch, remainder.dtype, device, False,
+                            remainder, ratio.clamp(0, 1), where)
         remainder = remainder - count
         counts.append(count)
-    return torch.movedim(torch.stack(counts, 0), 0, -1)
+    out = torch.movedim(torch.stack(counts, 0), 0, -1)
+    if region is None:
+        return out
+    box = tuple(b - a for a, b in region[:-1])
+    return out.reshape(box + shape[-1:])[
+        ..., int(region[-1][0]):int(region[-1][1])]
 
 
-def jr_multivariate_normal(key, mean, cov, shape, dtype, device):
+def jr_multivariate_normal(key, mean, cov, shape, dtype, device,
+                           region=None):
     """``jax.random.multivariate_normal`` with its default Cholesky
-    factor; ``shape`` the batch shape or None."""
+    factor; ``shape`` the batch shape or None. With ``region`` (a box of
+    the result) only the box's rows are drawn, each over its n normals,
+    times the factor, and the box is cut from them."""
     n = int(mean.shape[-1])
     if tuple(cov.shape[-2:]) != (n, n):
         raise ValueError(
@@ -820,8 +1110,33 @@ def jr_multivariate_normal(key, mean, cov, shape, dtype, device):
     if shape is None:
         shape = torch.broadcast_shapes(mean.shape[:-1], cov.shape[:-2])
     factor = torch.linalg.cholesky(cov)
-    z = jr_normal(key, tuple(shape) + (n,), dtype, device)
-    return mean + torch.einsum("...ij,...j->...i", factor.to(z.dtype), z)
+    full = tuple(int(s) for s in shape) + (n,)
+    if region is None:
+        z = jr_normal(key, full, dtype, device)
+        return mean + _factor_times(factor.to(z.dtype), z)
+    rows = tuple((int(a), int(b)) for a, b in region[:-1])
+    box = tuple(b - a for a, b in rows) + (n,)
+    if 0 in box or 0 in tuple(b - a for a, b in region):
+        return torch.empty(tuple(b - a for a, b in region), dtype=dtype,
+                           device=device)
+    z = jr_normal(key, full, dtype, device, **region_where(
+        full, rows + ((0, n),), device)).reshape(box)
+    cut = tuple(slice(a, b) for a, b in rows)
+    mean = mean.broadcast_to(full)[cut]
+    factor = factor.broadcast_to(full[:-1] + (n, n))[cut]
+    out = mean + _factor_times(factor.to(z.dtype), z)
+    return out[..., int(region[-1][0]):int(region[-1][1])]
+
+
+def _factor_times(factor, z):
+    """``factor @ z`` along the last axis, a column of the factor at a
+    time: each element's sum runs over j in order, whatever the batch
+    shape (a matmul's blocking, and so its rounding, depends on it, and a
+    process's rows would not be those rows of the whole draw)."""
+    out = factor[..., :, 0] * z[..., :1]
+    for j in range(1, int(z.shape[-1])):
+        out = out + factor[..., :, j] * z[..., j:j + 1]
+    return out
 
 
 # ---------------------------------------------------------------------
@@ -950,15 +1265,24 @@ def _logseries(key, shape, dtype, device, x64, p, **where):
     return x.to(dtype)
 
 
-def _negative_binomial(key, shape, dtype, device, x64, n, p):
+def _poisson(key, shape, dtype, device, x64, where, lam):
+    return jr_poisson(key, shape, device, x64, lam, dtype, where)
+
+
+def _binomial(key, shape, dtype, device, x64, where, n, p):
+    return jr_binomial(key, shape, dtype, device, x64, n, p, where)
+
+
+def _negative_binomial(key, shape, dtype, device, x64, where, n, p):
+    # negative_binomial(n, p) == Poisson(Gamma(n, (1-p)/p)).
     k1, k2 = threefry.split(key)
     p = _scalar(x64, p)
-    lam = jr_gamma(k1, shape, torch.float32, device, n).mul_(
+    lam = jr_gamma(k1, shape, torch.float32, device, n, **where).mul_(
         float((1.0 - p) / p))
-    return jr_poisson(k2, shape, device, x64, lam).to(dtype)
+    return jr_poisson(k2, shape, device, x64, lam, dtype, where)
 
 
-def _noncentral_chisquare(key, shape, dtype, device, x64, df, nonc):
+def _noncentral_chisquare(key, shape, dtype, device, x64, where, df, nonc):
     """numpy's two-regime construction: chi2(df-1) + (Z+sqrt(nonc))^2 for
     df > 1, the Poisson mixture chi2(df + 2*Poisson(nonc/2)) for df <= 1.
     The reference samples both regimes and selects (its df is traced);
@@ -969,23 +1293,26 @@ def _noncentral_chisquare(key, shape, dtype, device, x64, df, nonc):
     dfa = npdt(df)
     if dfa > 1.0:
         central = jr_chisquare(k1, shape, dtype, device,
-                               float(max(dfa - npdt(1.0), npdt(1e-6))))
+                               float(max(dfa - npdt(1.0), npdt(1e-6))),
+                               **where)
         sqrt_nonc = float(np.sqrt(_scalar(x64, nonc)))
-        shifted = jr_normal(k2, shape, dtype, device).add_(sqrt_nonc)
+        shifted = jr_normal(k2, shape, dtype, device, **where).add_(
+            sqrt_nonc)
         return central.add_(shifted.mul_(shifted))
     i = jr_poisson(k3, shape, device, x64,
-                   float(np.float32(nonc) / np.float32(2.0)))
+                   float(np.float32(nonc) / np.float32(2.0)), None, where)
     return jr_chisquare(k4, shape, dtype, device,
-                        float(dfa) + 2.0 * i.to(dtype))
+                        float(dfa) + 2.0 * i.to(dtype), **where)
 
 
-def _noncentral_f(key, shape, dtype, device, x64, dfnum, dfden, nonc):
+def _noncentral_f(key, shape, dtype, device, x64, where, dfnum, dfden, nonc):
     # Independent keys via ONE split: mixing fold_in(key, i) with
     # split(key) collides (threefry split == fold_in over indices).
     k_num, k_den = threefry.split(key)
-    num = _noncentral_chisquare(k_num, shape, dtype, device, x64, dfnum,
-                                nonc).div_(dfnum)
-    den = jr_chisquare(k_den, shape, dtype, device, dfden).div_(dfden)
+    num = _noncentral_chisquare(k_num, shape, dtype, device, x64, where,
+                                dfnum, nonc).div_(dfnum)
+    den = jr_chisquare(k_den, shape, dtype, device, dfden,
+                       **where).div_(dfden)
     return num.div_(den)
 
 
@@ -998,7 +1325,8 @@ def supported(name: str) -> bool:
 HYPERGEOMETRIC_DEVICE_MAX_NSAMPLE = 4096
 
 
-def hypergeometric(key, shape, dtype, device, nsample: int, ngood, nbad):
+def hypergeometric(key, shape, dtype, device, nsample: int, ngood, nbad,
+                   region=None):
     """Exact sequential without-replacement sampler.
 
     k = Σ_{t<nsample} Bernoulli(good_t / (good_t + bad_t)) with the urn
@@ -1007,20 +1335,31 @@ def hypergeometric(key, shape, dtype, device, nsample: int, ngood, nbad):
     ``fold_in(key, t)`` and its uniform float32. The urn counts are int32:
     exact updates for populations up to 2^31 (float32 counts stop
     depleting above 2^24); the float32 cast in the accept test only
-    perturbs the ratio in its 7th digit."""
+    perturbs the ratio in its 7th digit. With ``region`` (a box, as
+    ``sample_region``'s) only its positions are drawn: each element's
+    chain is its own."""
     shape = tuple(int(s) for s in shape)
-    good = torch.full(shape, int(ngood), dtype=torch.int32, device=device)
-    bad = torch.full(shape, int(nbad), dtype=torch.int32, device=device)
-    k = torch.zeros(shape, dtype=torch.int32, device=device)
+    where = {}
+    out = shape
+    if region is not None:
+        region = tuple((int(a), int(b)) for a, b in region)
+        out = tuple(b - a for a, b in region)
+        if 0 in out:
+            return torch.empty(out, dtype=dtype, device=device)
+        where = region_where(shape, region, device)
+    draw = _draw_shape(shape, where)
+    good = torch.full(draw, int(ngood), dtype=torch.int32, device=device)
+    bad = torch.full(draw, int(nbad), dtype=torch.int32, device=device)
+    k = torch.zeros(draw, dtype=torch.int32, device=device)
     for t in range(int(nsample)):
         u = jr_uniform(threefry.fold_in(key, t), shape, torch.float32,
-                       device)
+                       device, **where)
         goodf = good.to(torch.float32)
         take = (u * (goodf + bad.to(torch.float32)) < goodf).to(torch.int32)
         good -= take
         bad -= 1 - take
         k += take
-    return k.to(dtype)
+    return k.to(dtype).reshape(out)
 
 
 def sample(dist_name: str, key, shape: tuple, dtype: torch.dtype, device,
@@ -1098,24 +1437,18 @@ _FLAT = {
         _logseries(key, shape, dtype, device, x64, p, **where),
 }
 
-# The samplers that are not position-wise, each with the reason from
-# jax's algorithm: a sharded draw of them raises ``NotImplementedError``
-# naming the sampler (a process never draws the whole array to keep a
-# shard of it).
-NOT_POSITION_WISE = {
-    "poisson": "Hörmann's rejection (lam >= 10) loops over the whole array "
-               "until every element is accepted and keeps each element's "
-               "LAST accepted proposal, so an element's value depends on "
-               "how many rounds the slowest element of the array needs",
-    "binomial": "the BTRS rejection (n·min(p, 1-p) > 10) keeps the last "
-                "accepted proposal of a loop over the whole array, as "
-                "Poisson's does",
-    "negative_binomial": "a Poisson draw whose rate is a gamma draw: the "
-                         "rates of 10 and more take Poisson's whole-array "
-                         "rejection loop",
-    "noncentral_chisquare": "its df <= 1 regime is a Poisson mixture "
-                            "(Poisson's whole-array rejection loop)",
-    "noncentral_f": "built on noncentral_chisquare",
+# The samplers whose rejection loops run until no element of the WHOLE
+# draw is left (Hörmann's Poisson, BTRS, and what is built on them): an
+# element's value depends on the whole draw's round count. A region is
+# drawn alone only on the mesh, with the loops' flags combined over its
+# processes once a round. Each entry: fn(key, shape, dtype, device, x64,
+# where, *params).
+_LOOPED = {
+    "poisson": _poisson,
+    "binomial": _binomial,
+    "negative_binomial": _negative_binomial,
+    "noncentral_chisquare": _noncentral_chisquare,
+    "noncentral_f": _noncentral_f,
 }
 
 
@@ -1125,22 +1458,21 @@ def _whole(fn):
 
 
 # Each impl: fn(key, shape, dtype, device, x64, *params) -> tensor of
-# `shape`/`dtype` on `device` (a position-wise sampler: its ``_FLAT``
-# entry drawing everywhere).
-_DISTS = {name: _whole(fn) for name, fn in _FLAT.items()}
-_DISTS.update({
-    "binomial": lambda key, shape, dtype, device, x64, n, p: jr_binomial(
-        key, shape, dtype, device, x64, n, p),
-    "poisson": lambda key, shape, dtype, device, x64, lam: jr_poisson(
-        key, shape, device, x64, lam).to(dtype),
-    # negative_binomial(n, p) == Poisson(Gamma(n, (1-p)/p)).
-    "negative_binomial": lambda key, shape, dtype, device, x64, n, p:
-        _negative_binomial(key, shape, dtype, device, x64, n, p),
-    "noncentral_chisquare": lambda key, shape, dtype, device, x64, df, nonc:
-        _noncentral_chisquare(key, shape, dtype, device, x64, df, nonc),
-    "noncentral_f": lambda key, shape, dtype, device, x64, dfnum, dfden, nonc:
-        _noncentral_f(key, shape, dtype, device, x64, dfnum, dfden, nonc),
-})
+# `shape`/`dtype` on `device` (its ``_FLAT`` or ``_LOOPED`` entry drawing
+# everywhere).
+_DISTS = {name: _whole(fn) for name, fn in {**_FLAT, **_LOOPED}.items()}
+
+
+def _on_the_mesh(dist_name):
+    """Raise ``NotImplementedError`` naming a looped sampler asked for a
+    box smaller than its array outside a multi-process run: a box alone
+    cannot know the whole draw's round count."""
+    if not multiprocess.is_multiprocess():
+        raise NotImplementedError(
+            f"{dist_name}: a box of this draw is drawn only on the mesh, "
+            "every process drawing its own (its rejection loop keeps each "
+            "element's last accepted proposal until no element of the "
+            "whole draw is left)")
 
 
 def sample_region(dist_name: str, key, shape: tuple, region, dtype, device,
@@ -1150,23 +1482,27 @@ def sample_region(dist_name: str, key, shape: tuple, region, dtype, device,
     draw: a mesh process draws only its own positions. The box is one
     range of C-order positions per combination of its leading indices, up
     to its last axis that is not whole: one range for whole rows, one per
-    row for a column shard. A sampler that is not position-wise (not in
-    ``_FLAT``) draws only a box that is the whole array, and raises
-    ``NotImplementedError`` naming itself for a smaller one: a process
-    never draws the whole array to keep a shard of it."""
+    row for a column shard. A looped sampler (``_LOOPED``) draws a box
+    smaller than the array only on the mesh: every process draws its own
+    box of the same draw in the same call, and the loops' flags are
+    combined over them once a round; outside a multi-process run such a
+    box raises ``NotImplementedError`` naming the sampler."""
     shape = tuple(int(s) for s in shape)
     region = tuple((int(a), int(b)) for a, b in region)
     out_shape = tuple(b - a for a, b in region)
-    if dist_name not in _FLAT:
-        if out_shape == shape:
-            return sample(dist_name, key, shape, dtype, device, x64,
-                          *params)
-        why = NOT_POSITION_WISE.get(dist_name, "not position-wise")
-        raise NotImplementedError(
-            f"{dist_name}: a shard of this draw is not drawn alone (jax's "
-            f"algorithm is not position-wise: {why})")
-    fn = _FLAT[dist_name]
+    if out_shape == shape:
+        return sample(dist_name, key, shape, dtype, device, x64, *params)
+    if dist_name in _LOOPED:
+        _on_the_mesh(dist_name)
+        fn = _LOOPED[dist_name]
+    else:
+        fn = _FLAT[dist_name]
     if 0 in out_shape:
+        if dist_name in _LOOPED:
+            # the loops' flags are collective: a process with no elements
+            # joins them all the same
+            fn(key, shape, dtype, device, x64, {"flat_range": (0, 0)},
+               *params)
         return torch.empty(out_shape, dtype=dtype, device=device)
     return fn(key, shape, dtype, device, x64, region_where(
         shape, region, device), *params).reshape(out_shape)
@@ -1239,5 +1575,6 @@ def _as_box(t, region):
 def permutation(key, n: int, device):
     """A random permutation of ``range(n)``, int64 (the reference's is
     int32 where 64-bit types are off: the values are the same, and int64
-    is what torch's row gather takes without a cast)."""
+    is what torch's row gather takes without a cast); on the mesh,
+    ``mesh_permutation``."""
     return jr_permutation_indices(key, n, device)

@@ -268,40 +268,76 @@ def nt_matmul(backend, a, b_raw):
     return backend.from_local(local, (a.shape[0], n), spec)
 
 
-def ring_matmul(backend, a, b):
-    """C = A·B on a ring over m0: A (m, K) and B (K, n) row-sharded. At
-    step t the process at ring position i holds B's shard (i − t) mod p and
-    adds the product of the matching K columns of its A rows; the send of
-    that shard to position i + 1 and the receive of the next from i − 1 are
-    posted before the product and waited on after it (p − 1 hops)."""
-    spec = _spec(backend, 0)
-    a_loc, b_loc = _common(local_part(a, spec), local_part(b, spec))
-    k, n = b.shape
+def _around_ring(backend, cur, step):
+    """``step(j, shard)`` for each row shard j of a ring over m0: this
+    process's own first, then each received from the previous ring
+    position. The send of the current shard to the next position and the
+    receive of the next are posted before the step and waited on after
+    it (p − 1 hops, each counted in ``multiprocess.SENT``)."""
     p = backend.device_grid.mesh_shape[0]
-    kc = cdiv(k, p)
     group = backend.mesh.get_group(0)
     ranks = dist.get_process_group_ranks(group)
     i = backend.mesh.get_local_rank(0)
     nxt, prv = ranks[(i + 1) % p], ranks[(i - 1) % p]
-    cur = _pad_rows(b_loc, kc)
-    acc = a_loc.new_zeros((a_loc.shape[0], n))
     for t in range(p):
         reqs = []
         if t < p - 1:
             buf = torch.empty_like(cur)
             reqs = dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, cur, nxt, group),
+                dist.P2POp(dist.isend, multiprocess.sent("send", cur), nxt,
+                           group),
                 dist.P2POp(dist.irecv, buf, prv, group),
             ])
-        j = (i - t) % p
-        lo, hi = min(j * kc, k), min((j + 1) * kc, k)
-        if hi > lo:
-            acc.addmm_(a_loc[:, lo:hi], cur[:hi - lo])
+        step((i - t) % p, cur)
         for req in reqs:
             req.wait()
         if t < p - 1:
             cur = buf
+
+
+def ring_matmul(backend, a, b):
+    """C = A·B on a ring over m0: A (m, K) and B (K, n) row-sharded. At
+    step t the process at ring position i holds B's shard (i − t) mod p and
+    adds the product of the matching K columns of its A rows
+    (``_around_ring``)."""
+    spec = _spec(backend, 0)
+    a_loc, b_loc = _common(local_part(a, spec), local_part(b, spec))
+    k, n = b.shape
+    kc = cdiv(k, backend.device_grid.mesh_shape[0])
+    acc = a_loc.new_zeros((a_loc.shape[0], n))
+
+    def step(j, cur):
+        lo, hi = min(j * kc, k), min((j + 1) * kc, k)
+        if hi > lo:
+            acc.addmm_(a_loc[:, lo:hi], cur[:hi - lo])
+
+    _around_ring(backend, _pad_rows(b_loc, kc), step)
     return backend.from_local(acc, (a.shape[0], n), spec)
+
+
+def ring_nt(backend, a, b, conj=False):
+    """C = A·Bᵀ (A·Bᴴ with ``conj``) on a ring over m0: A (m, K) and
+    B (n, K), each by rows over m0 with every column. At step t the
+    process at ring position i holds B's row shard (i − t) mod p and fills
+    the matching columns of its rows of C (``_around_ring``). No process
+    holds more of B than two shards, and C comes out row-sharded over m0,
+    as A: never built from an all-gather (``nt_matmul`` gathers B's
+    rows)."""
+    spec = _spec(backend, 0)
+    a_loc, b_loc = _common(local_part(a, spec), local_part(b, spec))
+    n = int(b.shape[0])
+    nc = cdiv(n, backend.device_grid.mesh_shape[0])
+    acc = a_loc.new_empty((a_loc.shape[0], n))
+
+    def step(j, cur):
+        lo, hi = min(j * nc, n), min((j + 1) * nc, n)
+        if hi > lo:
+            block = cur[:hi - lo]
+            acc[:, lo:hi] = _product(a_loc, (block.conj() if conj
+                                             else block).T)
+
+    _around_ring(backend, _pad_rows(b_loc, nc), step)
+    return backend.from_local(acc, (int(a.shape[0]), n), spec)
 
 
 def summa_matmul(backend, a, b):

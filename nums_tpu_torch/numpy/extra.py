@@ -28,7 +28,9 @@ from nums_tpu_torch.core.application_manager import instance as _instance
 from nums_tpu_torch.core.array.blockarray import BlockArray
 from nums_tpu_torch.core.array import utils as array_utils
 from nums_tpu_torch.core.grid import ArrayGrid
-from nums_tpu_torch.core.ops import elementwise, linear, masking, mesh_ops
+from nums_tpu_torch.core.ops import (
+    elementwise, linear, masking, mesh_ops, summa,
+)
 
 
 __all__ = [
@@ -1016,6 +1018,11 @@ def inner(a, b):
     a, b = _to_ba(a), _to_ba(b)
     if a.ndim == 0 or b.ndim == 0:
         return a * b
+    if a.ndim == b.ndim == 2 and (_sharded(a.data) or _sharded(b.data)):
+        # A·Bᵀ by summa's ring: laid out by A's rows (the reference's
+        # one block would hold the (m, n) result whole on every process)
+        return _wrap(a, summa.ring_nt(a.backend, a.data, b.data),
+                     (a.block_shape[0], int(b.shape[0])))
     return a.tensordot(b, axes=((a.ndim - 1,), (b.ndim - 1,)))
 
 
@@ -1332,6 +1339,18 @@ def _mesh_cov(m, x, rowvar, ddof):
                                      else p for p in x.placements))
         rowvar = True
     obs = 1 if rowvar else 0
+    if (x.ndim == 2 and rowvar and mesh_ops.shard_dims(x.placements, (0,))
+            and not mesh_ops.shard_dims(x.placements, (1,))):
+        # the variables sharded, each with its observations whole: each
+        # row centred where it lies, then the (n, n) product by summa's
+        # ring, laid out by the rows
+        x = _inexact(x)
+        local = x.to_local()
+        centred = backend.from_local(
+            local - local.mean(dim=1, keepdim=True), tuple(x.shape),
+            tuple(x.placements))
+        f = int(x.shape[1]) - (1 if ddof is None else ddof)
+        return summa.ring_nt(backend, centred, centred, conj=True) / f
     if x.ndim != 2 or not mesh_ops.shard_dims(x.placements, (obs,)):
         return None
     # the variables whole on each process: the mesh dimensions that shard
@@ -1726,7 +1745,17 @@ def _diagonal(a, offset):
 
 def diagflat(v, k=0):
     v = _to_ba(v)
-    return _wrap(v, torch.diagflat(v.data, offset=int(k)))
+    if _sharded(v.data):
+        # each process writes its own rows (the reference's one block
+        # would hold the (N, N) result whole on every process)
+        n = int(np.prod(v.shape, dtype=np.int64)) + builtins.abs(int(k))
+        grid = ArrayGrid((n, n), (int(np.prod(v.block_shape)), n),
+                         array_utils.to_dtype_name(v.data.dtype))
+        return BlockArray(mesh_ops.diagonal_matrix(
+            v.backend, v.data, k, (n, n), v.backend.sharding_for_grid(grid)),
+            grid, v.backend)
+    out = torch.diagflat(_local(v.data), offset=int(k))
+    return _wrap(v, mesh_ops.like(v.data, out, tuple(out.shape)))
 
 
 def digitize(x, bins, right=False):

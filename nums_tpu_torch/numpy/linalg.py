@@ -76,7 +76,20 @@ def eigvalsh(a):
 
 
 def pinv(a):
-    return _wrap(a, _torch.linalg.pinv(a.data))
+    x = a.data
+    if type(x).__name__ == "DTensor":
+        if a.ndim == 2 and a.shape[0] >= a.shape[1] and any(
+                p.is_shard() and p.dim == 0 for p in x.placements):
+            # through TSQR (the application's pinv): never the operand whole
+            return _instance().pinv(a)
+        if not any(p.is_shard() for p in x.placements):
+            # a replicated value: each process's own copy (DTensor has no
+            # strategy for pinv on every torch)
+            from nums_tpu_torch.core.ops import mesh_ops
+
+            out = _torch.linalg.pinv(x.to_local())
+            return _wrap(a, mesh_ops.like(x, out, tuple(out.shape)))
+    return _wrap(a, _torch.linalg.pinv(x))
 
 
 def _svdvals(a):

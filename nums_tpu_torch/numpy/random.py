@@ -121,7 +121,7 @@ class RandomState:
             return self.rs().permutation(shape[0], block_shape[0])
         assert isinstance(x, BlockArray)
         # The integer row gather takes the index array on the device.
-        return x[self.rs().permutation(x.shape[0], x.shape[0])]
+        return x[self.rs().permutation(x.shape[0], x.block_shape[0])]
 
 
 # The full distribution zoo, surfaced module-style like np.random.*

@@ -302,10 +302,10 @@ def _spd(n):
 
 
 def _sharded_operands(cluster):
-    """The small factorizations and a gamma draw on sharded operands, with
-    whole copies refused (tests/torch_parity.py's
-    ``refusing_gathers``); a draw that is not position-wise raises naming
-    itself."""
+    """The small factorizations, a gamma draw and a Poisson draw at lam >=
+    10 (Hörmann's rejection, which runs to the whole draw's round count)
+    on sharded operands, with whole copies refused (tests/torch_parity.py's
+    ``refusing_gathers``)."""
     from torch_parity import refusing_gathers
 
     app = mesh_app(cluster)
@@ -317,13 +317,9 @@ def _sharded_operands(cluster):
         res = {"inv": app.inv(a), "cholesky": app.cholesky(a),
                "posdef_solve": app.posdef_solve(a, b),
                "gamma": app.random_state(3).gamma(
-                   2.0, 1.5, shape=(13, 9), block_shape=(4, 9))}
-        try:
-            app.random_state(3).poisson(12.0, shape=(13, 9),
-                                        block_shape=(4, 9))
-            out["poisson"] = None
-        except NotImplementedError as e:
-            out["poisson"] = str(e)
+                   2.0, 1.5, shape=(13, 9), block_shape=(4, 9)),
+               "poisson": app.random_state(3).poisson(
+                   12.0, shape=(13, 9), block_shape=(4, 9))}
     finally:
         undo()
     out.update({k: v.get() for k, v in res.items()})
@@ -334,11 +330,10 @@ def test_sharded_operands_raise_and_never_gather(mesh_pool, jax_mesh,
                                                  torch_app):
     """inv, cholesky and posdef_solve of a sharded square matrix compute
     (``core/ops/mesh_linalg.py``) and equal nums_tpu's mesh within the
-    reference's tolerance, and a sharded gamma draw equals the serial draw
-    bit for bit, none gathering an operand whole; a sharded draw of a
-    sampler that is not position-wise (poisson at lam >= 10) still raises
-    ``NotImplementedError`` naming itself: no process draws the whole
-    array to keep a shard."""
+    reference's tolerance, and a sharded gamma draw and a sharded Poisson
+    draw at lam >= 10 (each process its own positions, the rejection
+    loop's flag combined over the mesh once a round) equal the serial
+    draws bit for bit, none gathering an operand whole."""
     got = mesh_pool.run(_sharded_operands, (4, 1))
     assert "Shard(dim=0)" in got["placements"]
     spd, b = _spd(8), np.arange(8.0)
@@ -352,7 +347,11 @@ def test_sharded_operands_raise_and_never_gather(mesh_pool, jax_mesh,
     serial = torch_app.random_state(3).gamma(2.0, 1.5, shape=(13, 9),
                                              block_shape=(4, 9)).get()
     assert np.array_equal(got["gamma"], serial)
-    assert got["poisson"] is not None and "poisson" in got["poisson"]
+    serial = torch_app.random_state(3).poisson(12.0, shape=(13, 9),
+                                               block_shape=(4, 9)).get()
+    assert got["poisson"].dtype == serial.dtype
+    assert np.array_equal(got["poisson"].view(np.uint8),
+                          serial.view(np.uint8))
 
 
 def _replicated_small(app):
@@ -415,7 +414,10 @@ def test_sample_region_is_the_box_of_the_draw(dist, params, shape, box,
                                               dtype):
     """A process's box of a draw (whole rows: one flat range; a column
     shard: one range per row) equals that box of the whole draw, bit for
-    bit; a sampler that is not position-wise draws only the whole box."""
+    bit; a sampler whose loop runs to the whole draw's round count
+    (poisson at lam >= 10, binomial by BTRS) draws a smaller box only on
+    the mesh (every process of a multi-process run drawing its own box),
+    and outside one raises naming itself."""
     import torch
 
     from nums_tpu_torch.core.ops import random_ops, threefry
@@ -424,8 +426,9 @@ def test_sample_region_is_the_box_of_the_draw(dist, params, shape, box,
     dt = getattr(torch, dtype)
     whole = random_ops.sample(dist, key, shape, dt, "cpu", True, *params)
     if dist not in random_ops._FLAT and tuple(b - a for a, b in box) != shape:
-        # Not position-wise: a shard is not drawn alone, and the whole
-        # array is not drawn to keep one.
+        # A box alone cannot know the whole draw's round count: without a
+        # mesh it is not drawn, and the whole array is not drawn to keep
+        # it.
         with pytest.raises(NotImplementedError, match=dist):
             random_ops.sample_region(dist, key, shape, box, dt, "cpu", True,
                                      *params)

@@ -581,22 +581,6 @@ GATHERS_STILL = {
     "min_scalar_type": (_HOST + ": np.min_scalar_type of the values",
                         BOTH, EVERY),
     "asmatrix": (_HOST + ": a HOST_FALLBACK name", BOTH, EVERY),
-    "cov": ("rowvar=True of a row-sharded matrix (the sweep's call): the "
-            "(n, n) product of the rows is not routed to summa's NT "
-            "schedule; rowvar=False is sharded (CM7_cov_*)", ((4, 1),),
-            MATRIX),
-    "corrcoef": ("as cov, rowvar=True; rowvar=False is sharded "
-                 "(CM7_corrcoef_*)", ((4, 1),), MATRIX),
-    "inner": ("inner(X, X) is X @ X.T: DTensor's matmul strategy "
-              "replicates the right operand (summa's NT schedule is not "
-              "routed here)", BOTH, MATRIX),
-    "diagflat": ("DTensor's diagflat strategy replicates its operand", BOTH,
-                 EVERY),
-    "diag": ("diag of a sharded vector: DTensor's strategy replicates its "
-             "operand (the reference's (n, n) result is sharded by rows)",
-             BOTH, VECTOR),
-    "linalg.pinv": ("torch.linalg.pinv of a DTensor reads the operand "
-                    "whole (the TSQR routes of svd do not)", BOTH, MATRIX),
     "convolve": ("convolve " + _KERNEL, BOTH, VECTOR),
     "correlate": ("correlate " + _KERNEL, BOTH, VECTOR),
     "polymul": ("polymul " + _KERNEL + ": a convolution", BOTH, VECTOR),
