@@ -1,6 +1,6 @@
 """Smoke run of nums_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py                 # phases 1-20
+    python3 chip_smoke.py                 # phases 1-21
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check
     python3 chip_smoke.py --random-only   # phases 1 and 11
     python3 chip_smoke.py --facade-only   # phases 1, 2, 12 and 13
@@ -10,6 +10,7 @@
     python3 chip_smoke.py --mesh-core-only  # phases 1, 2 and 18 on every card
     python3 chip_smoke.py --shape-only    # phases 1, 2 and 19 on every card
     python3 chip_smoke.py --mesh-random-only  # phases 1, 2 and 20 on every card
+    python3 chip_smoke.py --mesh-signal-only  # phases 1, 2 and 21 on every card
 
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi);
@@ -344,6 +345,27 @@ Phases, each printing one JSON line:
      result bit for bit the serial backend's; with ``--mesh-random-only``
      one process per card at 10M x 1000, every rank exits 0 within
      900 s.
+ 21. mesh_signal: the signal ops on the mesh through ``nps``: ``fft``,
+     ``fftshift`` and ``ifft`` of a complex64 vector of 2.5e9 = 2^8·5^10
+     (the four-step over 50,000 x 50,000), ``rfft``/``irfft`` of a float32
+     vector of 2.5e9, ``fft`` at the prime 999,999,937 (Bluestein over
+     2^31), each held to Parseval's identity in float64, 64 bins against
+     a direct float64 DFT (within 5·2^-24·log2(n) of ‖x‖₂; three times
+     that of 2^31 for Bluestein), its planted tones, the round trips and
+     the shift's positions bit for bit; ``quantile``/``nanquantile`` of
+     the float32 vector at a sharded q of 10^6 (NaNs planted for the
+     second), 64 results bracketed by all-reduced counts; ``convolve``
+     and ``correlate`` of a float32 signal of 1e8 by a sharded kernel of
+     2^18 taps, ``polymul`` of two sharded polynomials of 2^20, each
+     against float64 (4·2^-24·√taps of the largest output); ``poly`` of
+     2^16 sharded roots in ±2^-16 at 16 points of the unit circle against
+     the float64 product; ``fft2`` of X at 10M x 1000 (Parseval, 8 bins).
+     Each step's seconds, bytes sent (held to a bound derived from its
+     moves), collectives (no all-gather inside a torch op), launches
+     (K1/K2/K3 none) and peak (below X's bytes on four cards). In the
+     full run on phase 15's world-1 mesh at ``SIG_WORLD1``, every result
+     bit for bit the serial backend's; with ``--mesh-signal-only`` one
+     process per card, every rank exits 0 within 1000 s.
 Then the kernels as one JSON line (each with its bound, the least time
 the card could take for its work at this run's shapes), and last
 {"ok": true, "device": {...}}. A failed phase prints its traceback and
@@ -4374,6 +4396,9 @@ def phase_mesh(torch, smi, keep):
             # Phase 20 on the same world-1 mesh, on a copy of X's rows.
             mesh_random = phase_mesh_random(torch, smi, app, X)
             torch.cuda.empty_cache()
+            # Phase 21 on the same world-1 mesh and X's rows.
+            signal = phase_mesh_signal(torch, smi, app, X)
+            torch.cuda.empty_cache()
             # Phase 18 on the same world-1 mesh and X (its last step
             # writes into X).
             core = phase_mesh_core(torch, smi, app, X, y)
@@ -4385,7 +4410,7 @@ def phase_mesh(torch, smi, keep):
         finally:
             application_manager.set_instance(saved)
             dist.destroy_process_group()
-    return out, ooc, masks, core, shape, mesh_random
+    return out, ooc, masks, core, shape, mesh_random, signal
 
 
 class _Tee:
@@ -8233,6 +8258,731 @@ def phase_mesh_random_cards(torch, smi):
     return world
 
 
+# -- Phase 21: the signal ops on the mesh (mesh_signal) ------------------
+# The distributed 1-D FFT of a sharded vector (four-step, Bluestein), the
+# n-D FFT and the shift without whole copies, convolve/correlate/polymul of
+# two sharded operands (the shorter on a ring), poly of sharded roots and
+# quantiles at a sharded q. With --mesh-signal-only on every card
+# (SIG_FULL: a vector of 2.5e9 = 2^8·5^10, four-step 50,000 x 50,000; the
+# prime 999,999,937, Bluestein over M = 2^31; X at 10M x 1000); in the full
+# run on phase 15's world-1 mesh at SIG_WORLD1, every result bit for bit
+# the serial backend's.
+SIG_FULL = {"n": MESH_N, "vec": 2_500_000_000, "prime": 999_999_937,
+            "signal": 100_000_000, "taps": 1 << 18, "poly": 1 << 20,
+            "roots": 1 << 16, "q": 1_000_000}
+SIG_WORLD1 = {"n": 100_000, "vec": 1 << 24, "prime": 9_999_991,
+              "signal": 1_000_000, "taps": 1 << 12, "poly": 1 << 14,
+              "roots": 1 << 12, "q": 10_000}
+SIG_SEED = LA_SEED + 21
+SIG_DEADLINE_S = 1000.0      # every rank exits 0 within, or the run fails
+SIG_BINS = 64                # bins of a transform held to a float64 DFT
+SIG_X_BINS = 8               # ... of fft2(X)
+# (bin, amplitude) of the tones planted in the vectors (a negative bin
+# counts from the end); the real vector takes the amplitude's modulus
+SIG_TONES = ((12_345, 0.1), (-7_777, 0.05j))
+SIG_NAN_EVERY = 1000         # NaNs planted for nanquantile
+SIG_SAMPLES = 64             # quantile results held to all-reduced counts
+SIG_POINTS = 16              # poly evaluated on the unit circle there
+SIG_ROOT_SCALE = 2.0 ** -16  # poly's roots: uniform in ±this
+SIG_POLY_REL = 1e-5          # float32 coefficients: 2^-24·log2(roots)·Σ|c|
+SIG_CHUNK = 1 << 18          # positions of a float64 reference at a time
+SIG_SLACK_BYTES = 64 << 20   # counts, splitters and flags beside the moves
+SIG_FAILED = []
+
+
+def _sig_fft_rel(n):
+    """The limit of a float32 transform of length n, of ‖x‖₂ a bin (and a
+    round trip's ‖y − x‖₂, Parseval's Σ|X|² against n·Σ|x|²): 5·2^-24·
+    log2(n)."""
+    return 5 * 2.0 ** -24 * float(np.log2(n))
+
+
+def _sig_conv_rel(k):
+    """The limit of a float32 sum of k products against float64, of the
+    largest output: 4·2^-24·√k (roundings of partial sums of size √k, in
+    sequence, four times their typical sum)."""
+    return 4 * 2.0 ** -24 * float(np.sqrt(k))
+
+
+def _sig_hold(ok, what):
+    if not ok:
+        SIG_FAILED.append(repr(what))
+
+
+def _sig_start(app, a):
+    """The first position of this rank's part of a 1-D BlockArray."""
+    if app.backend.mesh is None:
+        return 0
+    return app.backend.region(tuple(a.shape), a.raw.placements)[0][0]
+
+
+def _sig_here(app, a):
+    """Whether this rank's part counts in a sum over the ranks."""
+    return app.backend.mesh is None or app.backend.counts_here(
+        a.raw.placements)
+
+
+def _sig_sum(torch, t):
+    """A float64 or complex128 tensor summed over every rank."""
+    import torch.distributed as dist
+
+    t = t.reshape(-1).to(_mesh_device(torch)).clone()
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.all_reduce(torch.view_as_real(t) if t.is_complex() else t)
+    return t
+
+
+def _sig_tones(torch, loc, start, n, real):
+    """``SIG_TONES`` added to this rank's part ``loc`` (positions from
+    ``start``) of a vector of n: amp·exp(2πi·k·j/n), or |amp|·cos(2π·k·j/n)
+    for a real one, from exact (k·j mod n)."""
+    for k0, amp in SIG_TONES:
+        k = k0 % n
+        for c0 in range(0, int(loc.numel()), SIG_CHUNK * 16):
+            c1 = min(int(loc.numel()), c0 + SIG_CHUNK * 16)
+            j = torch.arange(start + c0, start + c1, dtype=torch.int64,
+                             device=loc.device)
+            ang = ((j * k) % n).to(torch.float64) * (2 * np.pi / n)
+            if real:
+                loc[c0:c1] += (abs(amp) * torch.cos(ang)).to(loc.dtype)
+            else:
+                loc[c0:c1] += (amp * torch.polar(torch.ones_like(ang),
+                                                 ang)).to(loc.dtype)
+
+
+def _sig_vector(torch, app, n, seed, kind, tones=False):
+    """A vector of n drawn sharded over the mesh from ``seed``: "complex"
+    (complex64 of two float32 normal draws), "real" (float32 normals) or
+    "roots" (float32 uniform in ±``SIG_ROOT_SCALE``); with ``tones``,
+    ``SIG_TONES`` planted."""
+    from nums_tpu_torch.core.array.blockarray import BlockArray
+    from nums_tpu_torch.core.grid import ArrayGrid
+    from nums_tpu_torch.core.ops import mesh_ops
+
+    blocks = (-(-n // app.backend.num_devices),)
+    rs = app.random_state(seed)
+    if kind == "roots":
+        return rs.uniform(-SIG_ROOT_SCALE, SIG_ROOT_SCALE, shape=(n,),
+                          block_shape=blocks, dtype=np.float32)
+    v = rs.normal(shape=(n,), block_shape=blocks, dtype=np.float32)
+    if kind == "complex":
+        im = rs.normal(shape=(n,), block_shape=blocks, dtype=np.float32)
+        loc = torch.complex(_local(v), _local(im))
+        del im
+        v = BlockArray(mesh_ops.like(v.raw, loc), ArrayGrid(
+            (n,), blocks, "complex64"), app.backend)
+    if tones:
+        _sig_tones(torch, _local(v), _sig_start(app, v), n,
+                   kind == "real")
+    return v
+
+
+def _sig_values_at(torch, app, a, idx):
+    """The elements ``idx`` (host ints) of a 1-D BlockArray, complex128, on
+    every rank (its holders' values, one all-reduce)."""
+    loc = _local(a)
+    lo = _sig_start(app, a)
+    at = torch.as_tensor(np.asarray(idx, dtype=np.int64),
+                         device=loc.device) - lo
+    vals = torch.zeros(len(idx), dtype=torch.complex128, device=loc.device)
+    if _sig_here(app, a):
+        mine = (at >= 0) & (at < loc.numel())
+        vals[mine] = loc[at[mine]].to(torch.complex128)
+    return _sig_sum(torch, vals)
+
+
+def _sig_energy(torch, app, a, b=None):
+    """Σ|a|² (with ``b``, Σ|a − b|², both laid out alike) over every rank,
+    in float64, a chunk at a time."""
+    loc = _local(a).reshape(-1)
+    other = None if b is None else _local(b).reshape(-1)
+    s = torch.zeros((1,), dtype=torch.float64, device=loc.device)
+    if _sig_here(app, a):
+        for c0 in range(0, int(loc.numel()), SIG_CHUNK * 64):
+            c = loc[c0:c0 + SIG_CHUNK * 64].to(torch.complex128)
+            if other is not None:
+                c = c - other[c0:c0 + SIG_CHUNK * 64].to(torch.complex128)
+            s += (c.real * c.real + c.imag * c.imag).sum()
+    return float(_sig_sum(torch, s)[0])
+
+
+def _sig_dft64(torch, app, x, bins, n):
+    """The DFT of the 1-D BlockArray x at ``bins`` by the direct float64 sum
+    over every rank's part (each phase from exact (j·k mod n); one
+    distributed dot product a bin, all bins a chunk of positions at a
+    time)."""
+    loc = _local(x)
+    lo = _sig_start(app, x)
+    kb = torch.as_tensor(np.asarray(bins, dtype=np.int64), device=loc.device)
+    acc = torch.zeros(len(bins), dtype=torch.complex128, device=loc.device)
+    if _sig_here(app, x):
+        for c0 in range(0, int(loc.numel()), SIG_CHUNK):
+            c1 = min(int(loc.numel()), c0 + SIG_CHUNK)
+            j = torch.arange(lo + c0, lo + c1, dtype=torch.int64,
+                             device=loc.device)
+            ang = ((j[:, None] * kb[None, :]) % n).to(torch.float64) * (
+                -2 * np.pi / n)
+            acc += loc[c0:c1].to(torch.complex128) @ torch.polar(
+                torch.ones_like(ang), ang)
+    return _sig_sum(torch, acc)
+
+
+def _sig_bins(n, out_len, seed):
+    """((amplitude, bin) of the tones that the output holds, ``SIG_BINS``
+    bins of a transform of n: those tones' bins, 0, the last, and random
+    ones)."""
+    rs = np.random.RandomState(seed)
+    tones = [(amp, k % n) for k, amp in SIG_TONES if k % n < out_len]
+    rest = rs.randint(0, out_len, SIG_BINS - len(tones) - 2)
+    return tones, [int(b) for b in [k for _, k in tones] + [0, out_len - 1]
+                   + list(rest)]
+
+
+def _sig_dft_check(torch, app, x, F, n, what, rel, half=False):
+    """A transform F of x (length n, or its n // 2 + 1 bins with ``half``)
+    held to: Parseval's identity in float64, ``SIG_BINS`` bins against
+    the direct float64 DFT (each within ``rel``·(‖x‖₂ + |X[k]|): a bin's
+    roundings scale with the partial sums that reach it, about ‖x‖₂ for
+    the noise and |X[k]| itself at a planted tone, where amp·n is far
+    above ‖x‖₂) and the planted tones found at their bins (within 6
+    standard errors of the noise)."""
+    out_len = int(F.shape[0])
+    energy_x = _sig_energy(torch, app, x)
+    norm_x = float(np.sqrt(energy_x))
+    energy_f = _sig_energy(torch, app, F)
+    if half:
+        ends = _sig_values_at(torch, app, F, [0, out_len - 1])
+        e = [float(abs(v) ** 2) for v in ends.tolist()]
+        energy_f = 2 * energy_f - e[0] - (e[1] if n % 2 == 0 else 0.0)
+    parseval = abs(energy_f - n * energy_x) / (n * energy_x)
+    _sig_hold(parseval <= rel, (what, "parseval", parseval))
+    tones, bins = _sig_bins(n, out_len, SIG_SEED + n % 997)
+    got = _sig_values_at(torch, app, F, bins)
+    ref = _sig_dft64(torch, app, x, bins, n)
+    diff = (got - ref).abs()
+    err = float((diff / (norm_x + ref.abs())).max())
+    _sig_hold(err <= rel, (what, "bins", err))
+    noise = float(diff[len(tones):].max()) / norm_x
+    # a tone: amp·n (amp/2·n real) beside noise of std √(2n) (√(n/2))
+    real = not x.raw.is_complex()
+    tone_err = 0.0
+    for (amp, k), v in zip(tones, got.tolist()):
+        want = abs(amp) * n / 2 if real else amp * n
+        dev = abs(v - want) / (6 * np.sqrt(n / 2 if real else 2 * n))
+        tone_err = max(tone_err, dev)
+    _sig_hold(tone_err <= 1.0, (what, "tones", tone_err))
+    return {"parseval_rel": parseval,
+            "bins_err_over_norm_and_value": err,
+            "noise_bins_err_over_norm": noise,
+            "tone_dev_over_6_sigma": tone_err, "limit": rel,
+            "bins": len(bins)}
+
+
+def _sig_round_trip(torch, app, x, y, what, rel):
+    err = float(np.sqrt(_sig_energy(torch, app, y, x)
+                        / _sig_energy(torch, app, x)))
+    _sig_hold(err <= rel, (what, "round trip", err))
+    return {"round_trip_rel": err, "limit": rel}
+
+
+def _sig_shift_check(torch, app, F, S, n):
+    """fftshift(F): ``SIG_BINS`` positions i hold F[(i − n // 2) mod n]
+    bit for bit."""
+    rs = np.random.RandomState(SIG_SEED)
+    pos = [0, n - 1] + [int(i) for i in rs.randint(0, n, SIG_BINS - 2)]
+    a = _sig_values_at(torch, app, S, pos)
+    b = _sig_values_at(torch, app, F, [(i - n // 2) % n for i in pos])
+    same = bool(torch.equal(a, b))
+    _sig_hold(same, ("fftshift", "positions"))
+    return {"positions_equal": same, "positions": len(pos)}
+
+
+def _sig_fft2_check(torch, app, X, G):
+    """fft2(X) of an (n, d) X: Parseval's identity and ``SIG_X_BINS`` bins
+    against the direct float64 sum over every rank's rows, each within
+    5·2^-24·log2(n·d) of ‖X‖₂."""
+    n, d = (int(s) for s in X.shape)
+    rel = _sig_fft_rel(n * d)
+    energy_x = _sig_energy(torch, app, X)
+    parseval = abs(_sig_energy(torch, app, G) - n * d * energy_x) / (
+        n * d * energy_x)
+    _sig_hold(parseval <= rel, ("fft2", "parseval", parseval))
+    rs = np.random.RandomState(SIG_SEED + 2)
+    bins = [(0, 0)] + [(int(rs.randint(n)), int(rs.randint(d)))
+                       for _ in range(SIG_X_BINS - 1)]
+    xl, gl = _local(X), _local(G)
+    dev = xl.device
+    r0 = app.backend.region((n, d), X.raw.placements)[0][0] \
+        if app.backend.mesh is not None else 0
+    k1 = torch.tensor([b[0] for b in bins], dtype=torch.int64, device=dev)
+    k2 = torch.tensor([b[1] for b in bins], dtype=torch.int64, device=dev)
+    j2 = torch.arange(d, dtype=torch.int64, device=dev)
+    a2 = ((j2[:, None] * k2[None, :]) % d).to(torch.float64) * (
+        -2 * np.pi / d)
+    e2 = torch.polar(torch.ones_like(a2), a2)
+    ref = torch.zeros(len(bins), dtype=torch.complex128, device=dev)
+    got = torch.zeros_like(ref)
+    rows = max(1, SIG_CHUNK // d)
+    for c0 in range(0, int(xl.shape[0]), rows):
+        c1 = min(int(xl.shape[0]), c0 + rows)
+        j1 = torch.arange(r0 + c0, r0 + c1, dtype=torch.int64, device=dev)
+        a1 = ((j1[:, None] * k1[None, :]) % n).to(torch.float64) * (
+            -2 * np.pi / n)
+        inner = xl[c0:c1].to(torch.complex128) @ e2
+        ref += (inner * torch.polar(torch.ones_like(a1), a1)).sum(0)
+    for i, (b1, b2) in enumerate(bins):
+        if r0 <= b1 < r0 + int(gl.shape[0]):
+            got[i] = gl[b1 - r0, b2].to(torch.complex128)
+    ref, got = _sig_sum(torch, ref), _sig_sum(torch, got)
+    err = float((got - ref).abs().max()) / float(np.sqrt(energy_x))
+    _sig_hold(err <= rel, ("fft2", "bins", err))
+    return {"parseval_rel": parseval, "bins_err_over_norm": err,
+            "limit": rel, "bins": len(bins)}
+
+
+def _sig_whole64(torch, app, a):
+    """A small sharded 1-D BlockArray whole on every rank, in float64 (a
+    check's reference input: one all-gather)."""
+    loc = _local(a).to(torch.float64)
+    if app.backend.mesh is None:
+        return loc
+    if not _sig_here(app, a):
+        loc = loc[:0]
+    return _mc_gather_vec(torch, loc, _sig_start(app, a))
+
+
+def _sig_conv64(torch, xw, ker, outs):
+    """Σ_i xw[o + i]·ker[i] for o < ``outs`` in float64, by a float64
+    FFT."""
+    m = int(ker.shape[0])
+    size = 1 << int(xw.shape[0] + m - 1).bit_length()
+    full = torch.fft.irfft(torch.fft.rfft(xw, size)
+                           * torch.fft.rfft(torch.flip(ker, (0,)), size),
+                           size)
+    return full[m - 1:m - 1 + outs]
+
+
+def _sig_conv_check(torch, app, v, k, res, op, mode):
+    """``op`` of the signal v by the sharded kernel k in ``mode``: each
+    rank's first and last 2(m − 1) outputs (their inputs cross into the
+    neighbours' parts) and an interior window held to float64 (the kernel
+    read whole for the check, the halo from the neighbours' edges)."""
+    n, m = int(v.shape[0]), int(k.shape[0])
+    lv = _local(v).double()
+    a = _sig_start(app, v)
+    b = a + int(lv.shape[0])
+    kk = _sig_whole64(torch, app, k)
+    ker = torch.flip(kk, (0,)) if op == "convolve" else kk
+    edges = _mc_edges(torch, lv, a, b, 4 * m)
+    local = _local(res)
+    o0 = _sig_start(app, res)
+    o1 = o0 + int(local.shape[0])
+    pad = {"valid": 0, "same": m // 2, "full": m - 1}[mode]
+    lo = max(o0, a + pad)
+    edge = 2 * (m - 1)
+    pieces = [(o0, min(o1, o0 + edge)), (max(o0, o1 - edge), o1),
+              (lo, min(o1, b + pad - m + 1, lo + MC_CONV_CHECK))]
+    err, scale = 0.0, 0.0
+    for s0, s1 in pieces:
+        if s1 <= s0:
+            continue
+        xw = _mc_window(torch, lv, a, b, edges, s0 - pad, s1 - pad + m - 1,
+                        n)
+        want = _sig_conv64(torch, xw, ker, s1 - s0)
+        err = max(err, float((local[s0 - o0:s1 - o0].double()
+                              - want).abs().max()))
+        scale = max(scale, float(want.abs().max()))
+    err = _mc_sum(torch, err, "max") / _mc_sum(torch, scale, "max")
+    rel = _sig_conv_rel(m)
+    _sig_hold(err <= rel, (op, mode, err))
+    return {"halo_and_interior_rel_err_vs_f64": err, "limit": rel,
+            "length": int(res.shape[0])}
+
+
+def _sig_polymul_check(torch, app, p1, p2, res):
+    """polymul of two sharded polynomials: each rank's coefficients held
+    to the float64 product (both operands read whole for the check)."""
+    a, b = _sig_whole64(torch, app, p1), _sig_whole64(torch, app, p2)
+    want = _sig_conv64(torch, torch.nn.functional.pad(
+        a, (b.shape[0] - 1, b.shape[0] - 1)), torch.flip(b, (0,)),
+        a.shape[0] + b.shape[0] - 1)
+    local = _local(res).double()
+    o0 = _sig_start(app, res)
+    err = float((local - want[o0:o0 + local.shape[0]]).abs().max()) \
+        if local.numel() else 0.0
+    err = _mc_sum(torch, err, "max") / float(want.abs().max())
+    rel = _sig_conv_rel(min(a.shape[0], b.shape[0]))
+    _sig_hold(err <= rel, ("polymul", err))
+    return {"rel_err_vs_f64": err, "limit": rel,
+            "length": int(res.shape[0])}
+
+
+def _sig_poly_check(torch, app, z, res):
+    """poly of the sharded roots z, evaluated at ``SIG_POINTS`` points
+    t = exp(πi·(2j + 1)/16) of the unit circle (each power from exact
+    integers) against the float64 product Π(t − zᵢ) over every rank."""
+    deg = int(z.shape[0])
+    dev = _local(z).device
+    odd = torch.arange(1, 2 * SIG_POINTS, 2, dtype=torch.int64, device=dev)
+    t = torch.polar(torch.ones(SIG_POINTS, dtype=torch.float64, device=dev),
+                    odd.to(torch.float64) * (np.pi / SIG_POINTS))
+    c = _local(res).to(torch.complex128)
+    k0 = _sig_start(app, res)
+    e = deg - torch.arange(k0, k0 + c.shape[0], dtype=torch.int64,
+                           device=dev)
+    ang = ((e[:, None] * odd[None, :]) % (2 * SIG_POINTS)).to(
+        torch.float64) * (np.pi / SIG_POINTS)
+    val = (c[:, None] * torch.polar(torch.ones_like(ang), ang)).sum(0) \
+        if _sig_here(app, res) else torch.zeros_like(t)
+    val = _sig_sum(torch, val)
+    zl = _local(z).to(torch.complex128)
+    part = (t[None, :] - zl[:, None]).prod(0) if _sig_here(app, z) \
+        else torch.ones_like(t)
+    import torch.distributed as dist
+
+    parts = [part]
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        parts = [torch.empty_like(part) for _ in range(
+            dist.get_world_size())]
+        dist.all_gather(parts, part)
+    ref = torch.stack(parts).prod(0)
+    err = float(((val - ref).abs() / ref.abs()).max())
+    _sig_hold(err <= SIG_POLY_REL, ("poly", err))
+    return {"points": SIG_POINTS, "rel_err_vs_f64_product": err,
+            "limit": SIG_POLY_REL, "degree": deg}
+
+
+def _sig_quantile_check(torch, app, v, q, res, what):
+    """Quantiles of v at q: ``SIG_SAMPLES`` results r, each between the
+    order statistics of its positions low ≤ q·(n − 1) ≤ high (n the values
+    that are not NaN): the all-reduced counts #{v ≤ r} ≥ low + 1 and
+    #{v < r} ≤ high."""
+    k = int(q.shape[0])
+    rs = np.random.RandomState(SIG_SEED + 3)
+    idx = [0, k - 1] + [int(i) for i in rs.randint(0, k, SIG_SAMPLES - 2)]
+    r = _sig_values_at(torch, app, res, idx).real
+    qv = _sig_values_at(torch, app, q, idx).real
+    loc = _local(v)
+    order = torch.argsort(r)
+    bounds = r[order].to(device=loc.device, dtype=loc.dtype)
+    le = torch.zeros(len(idx) + 1, dtype=torch.float64, device=loc.device)
+    lt = torch.zeros_like(le)
+    valid = torch.zeros((1,), dtype=torch.float64, device=loc.device)
+    if _sig_here(app, v):
+        for c0 in range(0, int(loc.numel()), SIG_CHUNK * 64):
+            c = loc[c0:c0 + SIG_CHUNK * 64]
+            c = c[~torch.isnan(c)]
+            valid += c.numel()
+            le += torch.bincount(torch.bucketize(c, bounds),
+                                 minlength=len(idx) + 1).double()
+            lt += torch.bincount(torch.bucketize(c, bounds, right=True),
+                                 minlength=len(idx) + 1).double()
+    le, lt, valid = (_sig_sum(torch, t) for t in (le, lt, valid))
+    c_le = torch.empty_like(r)
+    c_lt = torch.empty_like(r)
+    c_le[order] = torch.cumsum(le, 0)[:-1].to(r.device)
+    c_lt[order] = torch.cumsum(lt, 0)[:-1].to(r.device)
+    pos = qv * (float(valid[0]) - 1)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    ok = bool(((c_le >= low + 1) & (c_lt <= high)).all())
+    _sig_hold(ok, (what, "bracketing"))
+    return {"samples": len(idx), "bracketed": ok, "values": float(valid[0])}
+
+
+def _sig_bounds(cfg, world, d):
+    """The bytes a rank may send in each step, beside ``SIG_SLACK_BYTES``
+    (off = (P − 1)/P; a shard is ⌈n/P⌉ elements):
+    * the four-step moves its complex64 shard three times, keeping 1/P
+      each time (the runs of the vector are already whole rows of the
+      50,000 × 50,000 view, and the output's runs its boxes): 24·off a
+      position; rfft's half output then moves once more (8 B a position
+      of the shard), irfft's Hermitian extension reads each input shard
+      at most twice (16 B a position of its shard of n / 2 + 1);
+    * Bluestein: three transforms of M = 2^31 (72·off a position of the
+      M-shard), the input's runs to whole rows of (2^15, 2^16) (8 B a
+      position of the n-shard) and its first n outputs back from those
+      rows (8 B a position of the M-shard, of at most n);
+    * fftshift: each position of the shard once (8 B); fft2 of X: the
+      columns made local and back, 4 B out and 8 B back, off each;
+    * the ring: P − 1 shards of the kernel (4 B), the halo 4·4m, the
+      polynomials' whole shards of x to every other rank;
+    * the quantiles: the sample sort of v (4·off + 4 B an element,
+      ``_shape_bounds``) and 24 B a q of this rank (8 B a position out,
+      4 B a value back, two of each)."""
+    from nums_tpu_torch.core.ops import mesh_fft
+
+    off = (world - 1) / world
+
+    def shard(n):
+        return -(-n // world)
+
+    n, nd = cfg["vec"], shard(cfg["n"]) * d
+    M = mesh_fft.bluestein_length(cfg["prime"], world)
+    m, mp = cfg["taps"], cfg["poly"]
+    sort = int((4 * off + 4) * shard(n))
+    return {"fft": int(24 * off * shard(n)), "fftshift": 8 * shard(n),
+            "ifft": int(24 * off * shard(n)),
+            "rfft": int(24 * off * shard(n)) + 8 * shard(n),
+            "irfft": int(24 * off * shard(n)) + 16 * shard(n // 2 + 1),
+            "fft_prime": int(72 * off * shard(M)) + 8 * shard(
+                cfg["prime"]) + 8 * min(shard(M), cfg["prime"]),
+            "fft2": int(12 * off * nd),
+            "convolve": 4 * (world - 1) * shard(m) + 16 * m,
+            "correlate": 4 * (world - 1) * shard(m) + 16 * m,
+            "polymul": 8 * (world - 1) * shard(mp), "poly": 0,
+            "quantile": sort + 24 * shard(cfg["q"]),
+            "nanquantile": sort + 24 * shard(cfg["q"])}
+
+
+def _sig_held(torch, info, bounds, x_bytes):
+    """Every step: no all-gather inside a torch op, no kernel launched,
+    its bytes within its bound, its peak below X's bytes (on the cards of
+    a mesh of several; None on one, which holds X whole)."""
+    for name, st in info.items():
+        _sig_hold("all_gather_into_tensor" not in st["collectives"], (
+            name, st["collectives"]))
+        _sig_hold(not st["launches"], (name, st["launches"]))
+        _sig_hold(st["bytes_sent"] <= bounds[name] + SIG_SLACK_BYTES, (
+            name, st["bytes_sent"], bounds[name]))
+        _sig_hold(DEVICE != "cuda" or x_bytes is None
+                  or st["peak_bytes"] < x_bytes, (name, st["peak_bytes"]))
+
+
+def _sig_steps(torch, app, X, cfg, step, out, checks=True, keep=False):
+    """Phase 21's steps through the facade (``nps``) on ``app``, each
+    through ``step(name, fn)``, each held to its check where ``checks``;
+    X is an array or a function that draws it (freed after its step).
+    Returns the results by name where ``keep`` (to compare two runs)."""
+    import nums_tpu_torch.numpy as nps
+    from nums_tpu_torch.core.ops import mesh_fft
+
+    got = {}
+    world = app.backend.num_devices
+    N = cfg["vec"]
+    rel = _sig_fft_rel(N)
+    # the four-step: fft, its shift, the inverse
+    x = _sig_vector(torch, app, N, SIG_SEED, "complex", tones=True)
+    F = step("fft", lambda: nps.fft.fft(x))
+    if checks:
+        out["fft"] = _sig_dft_check(torch, app, x, F, N, "fft", rel)
+    S = step("fftshift", lambda: nps.fft.fftshift(F))
+    if checks:
+        out["fftshift"] = _sig_shift_check(torch, app, F, S, N)
+    if keep:
+        got["fftshift"] = S
+    del S
+    _mesh_free(torch)
+    B = step("ifft", lambda: nps.fft.ifft(F))
+    if checks:
+        out["ifft"] = _sig_round_trip(torch, app, x, B, "ifft", rel)
+    if keep:
+        got.update(fft=F, ifft=B)
+    del x, F, B
+    _mesh_free(torch)
+    # the real transforms of the float32 vector
+    v = _sig_vector(torch, app, N, SIG_SEED + 1, "real", tones=True)
+    R = step("rfft", lambda: nps.fft.rfft(v))
+    if checks:
+        out["rfft"] = _sig_dft_check(torch, app, v, R, N, "rfft", rel,
+                                     half=True)
+    B = step("irfft", lambda: nps.fft.irfft(R, n=N))
+    if checks:
+        out["irfft"] = _sig_round_trip(torch, app, v, B, "irfft", rel)
+    if keep:
+        got.update(rfft=R, irfft=B)
+    del R, B
+    _mesh_free(torch)
+    # Bluestein at a prime length
+    p = cfg["prime"]
+    M = mesh_fft.bluestein_length(p, world)
+    xp = _sig_vector(torch, app, p, SIG_SEED + 2, "complex", tones=True)
+    F = step("fft_prime", lambda: nps.fft.fft(xp))
+    if checks:
+        out["fft_prime"] = _sig_dft_check(torch, app, xp, F, p, "fft_prime",
+                                          3 * _sig_fft_rel(M))
+        out["fft_prime"]["bluestein_length"] = M
+    if keep:
+        got["fft_prime"] = F
+    del xp, F
+    _mesh_free(torch)
+    # the quantiles of v at a sharded q, and with NaNs planted
+    k = cfg["q"]
+    q = app.linspace(0.0, 1.0, (k,), (-(-k // world),))
+    Q = step("quantile", lambda: nps.quantile(v, q))
+    if checks:
+        out["quantile"] = _sig_quantile_check(torch, app, v, q, Q,
+                                              "quantile")
+    if keep:
+        got["quantile"] = Q
+    del Q
+    loc = _local(v)
+    first = -_sig_start(app, v) % SIG_NAN_EVERY
+    loc[first::SIG_NAN_EVERY] = float("nan")
+    Q = step("nanquantile", lambda: nps.nanquantile(v, q))
+    if checks:
+        out["nanquantile"] = _sig_quantile_check(torch, app, v, q, Q,
+                                                 "nanquantile")
+    if keep:
+        got["nanquantile"] = Q
+    del Q, v, loc, q
+    _mesh_free(torch)
+    # convolve/correlate of a signal by a sharded kernel; polymul; poly
+    sig = _sig_vector(torch, app, cfg["signal"], SIG_SEED + 3, "real")
+    ker = _sig_vector(torch, app, cfg["taps"], SIG_SEED + 4, "real")
+    for op, mode in (("convolve", "full"), ("correlate", "same")):
+        C = step(op, lambda op=op, mode=mode: getattr(nps, op)(
+            sig, ker, mode=mode))
+        if checks:
+            out[op] = _sig_conv_check(torch, app, sig, ker, C, op, mode)
+        if keep:
+            got[op] = C
+        del C
+    del sig, ker
+    p1 = _sig_vector(torch, app, cfg["poly"], SIG_SEED + 5, "real")
+    p2 = _sig_vector(torch, app, cfg["poly"], SIG_SEED + 6, "real")
+    C = step("polymul", lambda: nps.polymul(p1, p2))
+    if checks:
+        out["polymul"] = _sig_polymul_check(torch, app, p1, p2, C)
+    if keep:
+        got["polymul"] = C
+    del C, p1, p2
+    z = _sig_vector(torch, app, cfg["roots"], SIG_SEED + 7, "roots")
+    C = step("poly", lambda: nps.poly(z))
+    if checks:
+        out["poly"] = _sig_poly_check(torch, app, z, C)
+    if keep:
+        got["poly"] = C
+    del C, z
+    _mesh_free(torch)
+    # the n-D transform of X (drawn here where X is a function)
+    X = X() if callable(X) else X
+    G = step("fft2", lambda: nps.fft.fft2(X))
+    if checks:
+        out["fft2"] = _sig_fft2_check(torch, app, X, G)
+    if keep:
+        got["fft2"] = G
+    del G, X
+    _mesh_free(torch)
+    return got
+
+
+def phase_mesh_signal(torch, smi, app, X):
+    """Phase 21 in the full run, on phase 15's world-1 mesh: X's first
+    ``SIG_WORLD1["n"]`` rows and the vectors at ``SIG_WORLD1``'s depth,
+    every step on the mesh with its checks and again on the serial backend
+    (each draws its vectors from the same seeds), every result bit for bit
+    equal; no kernel launched."""
+    from nums_tpu_torch.core import application_manager
+
+    t_phase = time.perf_counter()
+    n = SIG_WORLD1["n"]
+    mesh_app = application_manager._instance
+    Xs = X[:n]
+    info, out = {}, {}
+    got = _sig_steps(torch, app, Xs, SIG_WORLD1,
+                     _shape_step_fn(torch, info), out, keep=True)
+    serial = application_manager.create(
+        device=None if DEVICE == "cuda" else DEVICE)
+    application_manager.set_instance(serial)
+    try:
+        ref = _sig_steps(torch, serial, _serial_twin(serial.backend, Xs),
+                         SIG_WORLD1, lambda name, fn: fn(), {}, checks=False,
+                         keep=True)
+    finally:
+        application_manager.set_instance(mesh_app)
+    differ = _same_results(torch, got, ref)
+    _sig_hold(not differ, ("mesh vs serial", differ))
+    bounds = _sig_bounds(SIG_WORLD1, 1, D_FULL)
+    _sig_held(torch, info, bounds, None)
+    launches = {name: sum(st["launches"].get(name, 0)
+                          for st in info.values()) for name, _, _ in KERNELS}
+    out.update({"phase": "mesh_signal", "world": 1, "shape": [n, D_FULL],
+                "config": SIG_WORLD1, "nvidia_smi": smi, "steps": info,
+                "bounds": bounds, "launches": launches,
+                "bitwise_vs_serial": sorted(got), "failed": SIG_FAILED,
+                "seconds": time.perf_counter() - t_phase})
+    del got, ref, Xs
+    _mesh_free(torch)
+    emit(out)
+    assert not SIG_FAILED, SIG_FAILED
+    assert sum(launches.values()) == 0, launches
+    return out
+
+
+def _sig_cards(torch, cfg):
+    """--mesh-signal-only on this rank: ``_sig_steps`` at ``SIG_FULL`` on
+    the (cards, 1) mesh with every check, X of 10M x 1000 fp32 drawn from
+    phase 4's seed for its step; each step held to its bytes, no
+    all-gather inside a torch op, no kernel, its peak below X's bytes;
+    rank 0 prints the phase's line."""
+    import torch.distributed as dist
+
+    from nums_tpu_torch.core import application_manager
+
+    world = dist.get_world_size()
+    n, d = cfg["n"], cfg["d"]
+    app = application_manager.create(
+        device=None if DEVICE == "cuda" else DEVICE, backend="mesh",
+        cluster_shape=(world, 1))
+    application_manager.set_instance(app)
+    say = emit if dist.get_rank() == 0 else (
+        lambda obj: print(json.dumps(obj)))
+    t0 = time.perf_counter()
+    info, out = {}, {}
+    step = _shape_step_fn(torch, info)
+
+    def logged(name, fn):
+        res = step(name, fn)
+        print(json.dumps({"mesh_signal_step": name, **info[name]}),
+              flush=True)
+        return res
+
+    _sig_steps(torch, app, lambda: _draw_mesh_x(torch, app, n, d), cfg,
+               logged, out)
+    bounds = _sig_bounds(cfg, world, d)
+    _sig_held(torch, info, bounds, 4 * n * d)
+    peaks = [None] * world
+    dist.all_gather_object(peaks, max(st["peak_bytes"]
+                                      for st in info.values()))
+    launches = [None] * world
+    dist.all_gather_object(launches, {
+        name: sum(st["launches"].get(name, 0) for st in info.values())
+        for name, _, _ in KERNELS})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip().splitlines() if DEVICE == "cuda" else []
+    say({"phase": "mesh_signal", "world": world, "shape": [n, d],
+         "cluster_shape": [world, 1], "config": {
+             k: v for k, v in cfg.items() if k in SIG_FULL}, **out,
+         "steps": info, "bounds": bounds, "peak_bytes_per_card": peaks,
+         "launches_per_card": launches, "nvidia_smi_per_card": smi,
+         "failed": SIG_FAILED, "seconds": time.perf_counter() - t0})
+    assert all(sum(c.values()) == 0 for c in launches), launches
+    assert not SIG_FAILED, SIG_FAILED
+
+
+def phase_mesh_signal_cards(torch, smi):
+    """--mesh-signal-only: one process per visible card, as --shape-only
+    spawns them, each running ``_sig_cards``; fails unless every rank
+    exits 0 before ``SIG_DEADLINE_S``. Returns the number of ranks."""
+    world = torch.cuda.device_count() if DEVICE == "cuda" else 4
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "mesh_logs")
+    os.makedirs(out_dir, exist_ok=True)
+    cfg = {**SIG_FULL, "d": D_FULL, "device": DEVICE,
+           "deadline": SIG_DEADLINE_S, "out_dir": out_dir, "root": root,
+           "entry": "_sig_cards"}
+    emit({"phase": "mesh_signal_start", "world": world, "nvidia_smi": smi,
+          "config": SIG_FULL})
+    t0 = time.perf_counter()
+    codes = _spawn_ranks(world, cfg)
+    assert codes == [0] * world, ("mesh_signal ranks' exit codes", codes)
+    emit({"phase": "mesh_signal_done", "world": world, "exit_codes": codes,
+          "seconds": time.perf_counter() - t0})
+    return world
+
+
 KERNELS = (
     ("gram", "nums_tpu_torch/csrc/gram.cu",
      "nums_tpu/core/ops/pallas_gram.py:139"),
@@ -8245,7 +8995,7 @@ KERNELS = (
 
 def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
                  facade, models, mesh, mesh_ooc, masks, core, shape,
-                 mesh_random):
+                 mesh_random, signal):
     """One entry per kernel: "launches" counts the main path (phase 4),
     "launches_per_fit" one fit (phase 6), "launches_ooc" the streamed
     steps of phase 8 (the PCA and TruncatedSVD fits among them),
@@ -8266,7 +9016,9 @@ def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
     matrix's gram, K3 in the fits that reach it), "launches_mesh_shape"
     phase 19's steps (none: the slicing, shape and order ops reach no
     kernel), "launches_mesh_random" phase 20's (none: the random layer
-    and the linear algebra on the mesh reach no kernel).
+    and the linear algebra on the mesh reach no kernel),
+    "launches_mesh_signal" phase 21's (none: the FFTs, convolutions,
+    polynomials and quantiles on the mesh reach no kernel).
     gram.cu's weighted launches ("gram_weighted") on these paths are K3's
     Hessian, and K2 proper in phase 8's pass with the Newton gate off."""
     return [
@@ -8296,6 +9048,7 @@ def kernels_line(counts, fit_counts, times, ooc, linalg_launches, higgs,
          "launches_mesh_shape": sum(st["launches"].get(name, 0)
                                     for st in shape["steps"].values()),
          "launches_mesh_random": mesh_random["launches"][name],
+         "launches_mesh_signal": signal["launches"][name],
          "mesh_panel_ms": mesh_ooc["pass_parts"]["panel_kernels_rank0"][
              name]["ms"],
          "mesh_panel_bound_ms": mesh_ooc["pass_parts"][
@@ -8323,6 +9076,12 @@ def main(argv):
             phase_random(torch, smi, nums_tpu_torch.init(), None)
             return 0
         phase_build()
+        if "--mesh-signal-only" in argv:
+            world = phase_mesh_signal_cards(torch, smi)
+            emit({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": world}})
+            return 0
         if "--mesh-random-only" in argv:
             world = phase_mesh_random_cards(torch, smi)
             emit({"ok": True, "device": {
@@ -8403,12 +9162,12 @@ def main(argv):
         models = phase_models(torch, smi, app, X, draw_labels(torch, app, X))
         del X
         torch.cuda.empty_cache()
-        mesh, mesh_ooc, masks, core, shape, mesh_random = phase_mesh(
-            torch, smi, keep)
+        mesh, mesh_ooc, masks, core, shape, mesh_random, signal = (
+            phase_mesh(torch, smi, keep))
         emit({"kernels": kernels_line(counts, fit_counts, times, ooc,
                                       linalg_launches, higgs, facade,
                                       models, mesh, mesh_ooc, masks,
-                                      core, shape, mesh_random)})
+                                      core, shape, mesh_random, signal)})
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})

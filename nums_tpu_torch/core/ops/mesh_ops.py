@@ -1501,7 +1501,9 @@ def across(backend, t, axis, fn, out_len, out_dtype, chunk_elements):
     all-to-all, ``rebox``), ``fn`` runs on each process's whole lines, and
     the result goes back (one more). Where that other axis is whole on
     each process, it goes ``chunk_elements`` a process at a time, so that
-    the temporaries (a sort's int64 positions) stay a chunk in size."""
+    the temporaries (a sort's int64 positions) stay a chunk in size, the
+    lines of a chunk a multiple of the processes that share ``axis`` (each
+    then takes as many and sends (P − 1)/P of its part)."""
     pl = tuple(t.placements)
     shape = tuple(int(s) for s in t.shape)
     dims = shard_dims(pl, (axis,))
@@ -1525,6 +1527,7 @@ def across(backend, t, axis, fn, out_len, out_dtype, chunk_elements):
     line = shape[axis] * int(np.prod([b - a for k, (a, b) in enumerate(box)
                                       if k not in (axis, f)]))
     step = max(share, int(chunk_elements) * share // max(line, 1))
+    step -= step % share  # each process then takes as many lines
     if any(p.is_shard() and p.dim == f for p in pl) or step >= shape[f]:
         return lines(t)
     local = t.to_local()

@@ -429,6 +429,117 @@ def _mesh_quantile(backend, x, q_arr, axis, method, keepdims, squash_nans):
     return backend.from_local(out.contiguous(), tuple(shape), placements)
 
 
+class _Scaled:
+    """A q given as an array on the mesh, over ``divide`` (percentiles: 100),
+    never read to the host."""
+
+    def __init__(self, q, divide):
+        self.q, self.divide = q, divide
+
+
+def _q_arg(q, divide=1.0):
+    """``q`` as float64 host values over ``divide``, or a DTensor q of one
+    axis or more kept on the devices (``_Scaled``)."""
+    if isinstance(q, BlockArray) and q.ndim and mesh_ops.is_dtensor(q.data):
+        return _Scaled(q, divide)
+    return np.asarray(q, dtype=np.float64) / divide
+
+
+def _device_q(q):
+    return isinstance(q, _Scaled)
+
+
+def _mesh_quantile_at(a, q, axis, squash_nans):
+    """``_quantile``'s linear method at a q that lies on the mesh
+    (``_Scaled``, of k values): the reduced axis sorted once
+    (``_mesh_order``: the sample sort of a vector, ``mesh_ops.across``
+    along a sharded axis of an n-D array, NaN last), each line's count
+    of values (without NaN, or -1 where ``squash_nans`` is off and it
+    holds one) all-reduced over the processes of the line and pulled to
+    the boxes of the result, then each process's 2·k/P (times its kept
+    elements) order statistics pulled from the sorted array
+    (``mesh_ops.pull``, two all-to-alls). The result
+    (k,) + the kept axes takes q's blocks along its first axis and the
+    operand's along the others; q is never read whole."""
+    backend = a.backend
+    x = _inexact(a.data)
+    if x.is_complex():
+        raise ValueError("quantile does not support complex input")
+    qa, divide = q.q, q.divide
+    if qa.ndim > 1:
+        raise ValueError(f"q must be have rank <= 1, got shape "
+                         f"{tuple(qa.shape)}")
+    if axis is not None and not isinstance(axis, (int, np.integer)):
+        if len(tuple(axis)) != 1:
+            raise NotImplementedError(
+                "quantile of several reduced axes at a q on the mesh is not "
+                "ported")
+        axis = tuple(axis)[0]
+    s = _mesh_order(a, x, axis, "sort", False).data
+    ax = 0 if axis is None else int(axis) % x.ndim
+    kept = [d for d in range(s.ndim) if d != ax]
+    kshape = tuple(int(s.shape[d]) for d in kept)
+    n_last = int(s.shape[ax])
+    spl = tuple(s.placements)
+    nan = torch.isnan(s.to_local())
+    if squash_nans:
+        stat = (~nan).sum(dim=ax)
+    else:
+        stat = torch.where(nan.any(dim=ax), -1, n_last).to(torch.int64)
+    mesh_ops.group_reduce(backend, stat, mesh_ops.shard_dims(spl, (ax,)),
+                          "sum" if squash_nans else "min")
+    k = int(qa.shape[0])
+    out_shape = (k,) + kshape
+    blocks = (qa.block_shape[0],) + (() if axis is None else tuple(
+        b for d, b in enumerate(a.block_shape) if d != ax))
+    bs, out_pl = _mesh_target(a, out_shape, blocks)
+    box = backend.region(out_shape, out_pl)
+    dev = stat.device
+    q_pl = tuple(mesh_ops._shard(0) if p.is_shard() and p.dim == 0
+                 else mesh_ops._replicate() for p in out_pl)
+    qd = backend.rebox(qa.data, q_pl).to_local().to(
+        device=dev, dtype=torch.float64) / divide
+    if kept:
+        grids = torch.meshgrid(*[torch.arange(lo, hi, device=dev)
+                                 for lo, hi in box[1:]], indexing="ij")
+        kpos = torch.stack([g.reshape(-1) for g in grids], dim=1)
+        st_pl = tuple(mesh_ops._shard(kept.index(p.dim))
+                      if p.is_shard() and p.dim != ax
+                      else mesh_ops._replicate() for p in spl)
+        cnt = mesh_ops.pull(backend, backend.from_local(
+            stat.contiguous(), kshape, st_pl), len(kept), kpos)
+    else:
+        kpos = torch.zeros((1, 0), dtype=torch.int64, device=dev)
+        cnt = stat.reshape(1)
+    valid = cnt >= 0
+    c = torch.where(valid, cnt, n_last).to(torch.float64)
+    pos = qd[:, None] * (c[None, :] - 1)
+    bad = torch.isnan(pos)
+    pos = torch.where(bad, 0.0, pos)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    high_w = pos - low
+    low_w = 1 - high_w
+    lim = c[None, :] - 1
+    low = torch.clamp(torch.minimum(low, lim), min=0).to(torch.int64)
+    high = torch.clamp(torch.minimum(high, lim), min=0).to(torch.int64)
+
+    def at(rank):
+        cols = [rank.reshape(-1) if d == ax else kpos[:, kept.index(d)][
+            None, :].expand(rank.shape).reshape(-1) for d in range(s.ndim)]
+        return torch.stack(cols, dim=1)
+
+    vals = mesh_ops.pull(backend, s, s.ndim, torch.cat([at(low), at(high)]))
+    low_v, high_v = vals[:low.numel()].reshape(low.shape), \
+        vals[low.numel():].reshape(low.shape)
+    out = low_v.to(torch.float64) * low_w + high_v.to(torch.float64) \
+        * high_w
+    nan_out = bad | ~valid[None, :]
+    out = torch.where(nan_out, torch.full_like(out, float("nan")), out)
+    out = out.to(x.dtype).reshape(tuple(hi - lo for lo, hi in box))
+    return _wrap(a, backend.from_local(out.contiguous(), out_shape, out_pl),
+                 bs)
+
+
 def median(a, axis=None, keepdims=False):
     a = _to_ba(a)
     return _wrap(a, _quantile(a, 0.5, axis, "midpoint", keepdims, False))
@@ -1243,14 +1354,18 @@ def mesh_unique(arrays, want_index=False, want_inverse=False,
 
 def percentile(a, q, axis=None):
     a = _to_ba(a)
-    q = np.asarray(q, dtype=np.float64) / 100.0
+    q = _q_arg(q, 100.0)
+    if _device_q(q):
+        return _mesh_quantile_at(a, q, axis, False)
     return _wrap(a, _quantile(a, q, axis, "linear", False, False))
 
 
 def quantile(a, q, axis=None):
     a = _to_ba(a)
-    return _wrap(a, _quantile(a, np.asarray(q, dtype=np.float64), axis,
-                              "linear", False, False))
+    q = _q_arg(q)
+    if _device_q(q):
+        return _mesh_quantile_at(a, q, axis, False)
+    return _wrap(a, _quantile(a, q, axis, "linear", False, False))
 
 
 def _linspace(start, stop, num, dtype, device):
@@ -2054,7 +2169,9 @@ def _mesh_conv(a, x, y, mode, op):
     box of the result (laid out as ``_wrap`` lays it), for which it needs
     the positions of x from its box's start to m − 1 past its end: they
     come by one ``mesh_ops.pull`` (the halo from the next processes, and
-    whatever the result's layout moves). The kernel is read whole."""
+    whatever the result's layout moves). A whole kernel is read by each
+    process; a sharded one goes round its row group (``_ring_conv``), so
+    that no process holds it whole."""
     backend = a.backend
     if x.ndim != 1 or y.ndim != 1:
         raise ValueError(f"{op}() only support 1-dimensional inputs.")
@@ -2063,18 +2180,16 @@ def _mesh_conv(a, x, y, mode, op):
     if x.shape[0] == 0 or y.shape[0] == 0:
         raise ValueError(f"{op}: inputs cannot be empty")
     # jnp's order: correlate conjugates v, then the longer operand slides
-    # (swapped: the old v is the one conjugated, the output reversed)
+    # (swapped: the old v is the one conjugated, the output reversed); the
+    # kernel is y flipped (convolve) or conjugated (correlate, unswapped)
     reverse = conj_x = False
     if op == "correlate":
         if x.shape[0] < y.shape[0]:
             x, y, reverse, conj_x = y, x, True, True
-        k = _whole_small(y).to(dt)
-        k = k if reverse else k.conj()
-    else:
-        if x.shape[0] < y.shape[0]:
-            x, y = y, x
-        k = torch.flip(_whole_small(y).to(dt), (0,))
-    n, m = int(x.shape[0]), int(k.shape[0])
+    elif x.shape[0] < y.shape[0]:
+        x, y = y, x
+    flip, conj_k = op == "convolve", op == "correlate" and not reverse
+    n, m = int(x.shape[0]), int(y.shape[0])
     if mode == "valid":
         pad_lo, length = 0, n - m + 1
     elif mode == "same":
@@ -2087,7 +2202,7 @@ def _mesh_conv(a, x, y, mode, op):
     grid = ArrayGrid((length,), bs, array_utils.to_dtype_name(dt))
     pl = backend.sharding_for_grid(grid)
     coords = backend.coords()
-    dev = k.device
+    dev = _local(x).device
 
     def window(r):
         """The positions of x that process r's outputs read, in order."""
@@ -2110,20 +2225,61 @@ def _mesh_conv(a, x, y, mode, op):
 
         got = mesh_ops.pull(backend, x, 1, wants(me), wants).to(dt)
     else:
-        whole = x.to_local() if mesh_ops.is_dtensor(x) else x
-        got = whole.to(device=dev, dtype=dt)[pos[(pos >= 0) & (pos < n)]]
+        got = _local(x).to(device=dev, dtype=dt)[pos[(pos >= 0)
+                                                      & (pos < n)]]
     xw = torch.zeros(pos.shape, dtype=dt, device=dev)
     xw[(pos >= 0) & (pos < n)] = got
     if conj_x:
         xw = xw.conj()
-    if xw.shape[0]:
-        out = torch.nn.functional.conv1d(xw[None, None, :],
-                                         k[None, None, :])[0, 0]
+    outs = max(0, int(xw.shape[0]) - m + 1)
+
+    def kernel(part):
+        part = part.to(device=dev, dtype=dt)
+        part = torch.flip(part, (0,)) if flip else part
+        return part.conj() if conj_k else part
+
+    if _sharded(y):
+        out = _ring_conv(backend, xw, y, outs, flip, kernel)
+    elif outs:
+        out = torch.nn.functional.conv1d(
+            xw[None, None, :], kernel(_local(y))[None, None, :])[0, 0]
     else:
         out = xw[:0]
     if reverse:
         out = torch.flip(out, (0,))
     return _wrap(a, backend.from_local(out.contiguous(), (length,), pl), bs)
+
+
+def _ring_conv(backend, xw, y, outs, flip, kernel):
+    """The ``outs`` outputs of ``conv1d(xw, kernel(y))`` for a sharded
+    kernel operand y of m positions: its shards go round a ring of its row
+    group (P − 1 steps of one all-to-all, each process sending the shard
+    it holds to the next), and each process adds what the shard in hand
+    contributes, the slice of its window ``xw`` that meets that part of
+    the kernel (the shard [s0, s1) of y is the kernel's positions
+    [m − s1, m − s0) flipped, else [s0, s1)). No process holds y whole."""
+    pl = tuple(y.placements)
+    m = int(y.shape[0])
+    coords = backend.coords()
+    group, g = backend._row_groups(pl)
+    ring = len(group)
+    boxes = [backend.region((m,), pl, coords[r])[0] for r in group]
+    out = torch.zeros((outs,), dtype=xw.dtype, device=xw.device)
+    held = y.to_local()
+    for t in range(ring):
+        s0, s1 = boxes[(g - t) % ring]
+        if outs and s1 > s0:
+            i0 = m - s1 if flip else s0
+            out += torch.nn.functional.conv1d(
+                xw[None, None, i0:i0 + outs + s1 - s0 - 1],
+                kernel(held)[None, None, :])[0, 0]
+        if t < ring - 1:
+            send, recv = [0] * len(coords), [0] * len(coords)
+            send[group[(g + 1) % ring]] = s1 - s0
+            a, b = boxes[(g - t - 1) % ring]
+            recv[group[(g - 1) % ring]] = b - a
+            held = multiprocess.exchange(held, send, recv)
+    return out
 
 
 def convolve(a, v, mode="full"):

@@ -24,9 +24,9 @@ from nums_tpu_torch.core.array import utils as array_utils
 from nums_tpu_torch.core import multiprocess
 from nums_tpu_torch.core.ops import elementwise, masking, mesh_ops
 from nums_tpu_torch.numpy.extra import (
-    _default_int, _inexact, _local, _mesh_diff, _promote_all, _quantile,
-    _sharded, _to_ba, _whole_small, _wrap, cumprod, cumsum, hist_edges,
-    prod,
+    _default_int, _device_q, _inexact, _local, _mesh_diff,
+    _mesh_quantile_at, _promote_all, _q_arg, _quantile, _sharded, _to_ba,
+    _whole_small, _wrap, cumprod, cumsum, hist_edges, prod,
 )
 
 __all__ = [
@@ -194,17 +194,19 @@ nancumprod = _nan_filled(cumprod, 1, "nancumprod")
 nanprod = _nan_filled(prod, 1, "nanprod")
 
 
-def _nan_quantile(a, q, axis):
+def _nan_quantile(a, q, axis, divide=1.0):
     """``jnp.nanquantile`` on the port's ``_quantile`` (float64 positions
-    on every device)."""
-    out = _quantile(a, np.atleast_1d(np.asarray(q, dtype=np.float64)), axis,
-                    "linear", False, True)
+    on every device; a q on the mesh stays there)."""
+    q = _q_arg(q, divide)
+    if _device_q(q):
+        return _mesh_quantile_at(a, q, axis, True)
+    out = _quantile(a, np.atleast_1d(q), axis, "linear", False, True)
     return _wrap(a, out[0] if np.ndim(q) == 0 else out)
 
 
 def nanpercentile(a, q, axis=None):
     a = _to_ba(a)
-    return _nan_quantile(a, np.asarray(q, dtype=np.float64) / 100.0, axis)
+    return _nan_quantile(a, q, axis, 100.0)
 
 
 def nanquantile(a, q, axis=None):

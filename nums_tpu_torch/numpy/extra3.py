@@ -26,8 +26,8 @@ from nums_tpu_torch.core import multiprocess
 from nums_tpu_torch.core.ops import elementwise, masking, mesh_ops
 from nums_tpu_torch.numpy.extra import (
     _conv, _default_int, _index_dtype, _inexact, _local, _mask_indices_1d,
-    _mesh_flat, _mesh_target, _promote_all, _sharded, _to_ba, _wrap,
-    append, mesh_unique, ravel, real, sort,
+    _mesh_conv, _mesh_flat, _mesh_target, _promote_all, _sharded, _to_ba,
+    _wrap, append, mesh_unique, ravel, real, sort,
 )
 from nums_tpu_torch.numpy.extra2 import _inexact_pair, isin
 
@@ -634,6 +634,8 @@ def polymul(a1, a2):
         x = torch.zeros(1, dtype=y.dtype, device=y.device)
     if len(y) == 0:
         y = torch.zeros(1, dtype=x.dtype, device=x.device)
+    if mesh_ops.is_dtensor(x) or mesh_ops.is_dtensor(y):
+        return _mesh_conv(a1, x, y, "full", "convolve")
     return _wrap(a1, _conv(x, y, "full", "convolve"))
 
 
@@ -698,6 +700,9 @@ def poly(seq_of_zeros):
     z = sz.data.reshape(-1)
     if not (z.is_floating_point() or z.is_complex()):
         z = z.to(sz._default_float())
+    if _sharded(z):
+        return _mesh_poly(sz, z)
+    z = _local(z)  # a replicated DTensor: this process's whole copy
     if len(z) == 0:
         return _wrap(sz, torch.ones((), dtype=z.dtype, device=z.device))
     a = torch.ones(1, dtype=z.dtype, device=z.device)
@@ -709,6 +714,80 @@ def poly(seq_of_zeros):
             z.conj())[0]).all()):
         return real(coeffs)
     return coeffs
+
+
+def _mesh_poly(sz, z):
+    """``poly`` of sharded roots: each process multiplies out its own linear
+    factors; the partial polynomials of a row group, each whole on one
+    process, are laid out over the mesh (one all-to-all), then multiplied
+    in ⌈log2 P⌉ rounds of the sharded ``polymul`` (``_mesh_conv``: the
+    shorter operand on a ring). Complex roots in conjugate pairs (the mesh
+    sort of z and of conj(z) equal, one all-reduced flag) give real
+    coefficients. No process holds z or the result whole."""
+    backend = sz.backend
+    local = z.to_local()
+    part = torch.ones(1, dtype=z.dtype, device=local.device)
+    for root in local:
+        part = torch.cat([part, part.new_zeros(1)]) - root * torch.cat(
+            [part.new_zeros(1), part])
+    polys = _laid_out(sz, z, part)
+    while len(polys) > 1:
+        polys = [_mesh_conv(sz, polys[i], polys[i + 1], "full",
+                            "convolve").data if i + 1 < len(polys)
+                 else polys[i] for i in range(0, len(polys), 2)]
+    out = polys[0]
+    if z.is_complex():
+        pl = tuple(z.placements)
+        conj = mesh_ops.like(z, local.conj().resolve_conj())
+        same = (mesh_ops.sort(backend, z, pl).to_local()
+                == mesh_ops.sort(backend, conj, pl).to_local()).all()
+        if not multiprocess.any_everywhere(~same):
+            out = mesh_ops.like(out, out.to_local().real.contiguous())
+    return _wrap(sz, out)
+
+
+def _laid_out(sz, z, part):
+    """Each process of a row group of z (the processes that shard it)
+    holds ``part``, the polynomial of its own roots; returns the row
+    group's polynomials in order, each a DTensor laid out as ``_wrap``
+    lays out its shape (one all-to-all: a process sends each other its
+    box of its own polynomial)."""
+    backend = sz.backend
+    coords = backend.coords()
+    world = len(coords)
+    me = multiprocess.process_index()
+    shard = [k for k, p in enumerate(z.placements) if p.is_shard()]
+
+    def members(r):
+        return [s for s in range(world) if all(
+            coords[s][k] == coords[r][k] for k in range(len(coords[r]))
+            if k not in shard)]
+
+    mine = members(me)
+    g = mine.index(me)
+    sizes = [int(v) for v in multiprocess.all_gather_ints(
+        [part.shape[0]])[:, 0]]
+    layouts = [((sizes[s],), _mesh_target(sz, (sizes[s],))[1])
+               for s in mine]
+    send, recv, items = [0] * world, [0] * world, []
+    shape, pl = layouts[g]
+    for r in range(world):
+        if members(r)[g] == me:
+            lo, hi = backend.region(shape, pl, coords[r])[0]
+            send[r] = hi - lo
+            items.append(part[lo:hi])
+    for i, s in enumerate(mine):
+        shape, pl = layouts[i]
+        lo, hi = backend.region(shape, pl)[0]
+        recv[s] = hi - lo
+    got = multiprocess.exchange(torch.cat(items), send, recv)
+    out, at = [], 0
+    for i, s in enumerate(mine):
+        shape, pl = layouts[i]
+        out.append(backend.from_local(got[at:at + recv[s]].contiguous(),
+                                      shape, pl))
+        at += recv[s]
+    return out
 
 
 def roots(p):

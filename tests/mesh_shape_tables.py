@@ -353,12 +353,16 @@ def sweep(cluster):
 
 # The names of the sweep whose call there is the form that C-M6..C-M9
 # named (the others are held in that form by the table: cov and corrcoef
-# of the columns, trapezoid along the rows, the method reshape).
+# of the columns, trapezoid along the rows, the method reshape), and the
+# 1-D transforms and the shift, which copied a sharded vector whole
+# before the mesh had a distributed FFT (tests/mesh_signal_tables.py).
 SWEEP_FAULTS = {"sort", "argsort", "ravel", "concatenate", "delete",
                 "vstack", "append", "flip", "flipud", "roll", "take",
                 "tile", "tril", "triu", "diff", "gradient", "unwrap",
                 "fft.fft", "fft.rfft", "array_split", "resize", "vander",
-                "partition", "argpartition", "sort_complex", "ediff1d"}
+                "partition", "argpartition", "sort_complex", "ediff1d",
+                "fft.ifft", "fft.irfft", "fft.hfft", "fft.ihfft",
+                "fft.fftshift"}
 
 
 def check_sweep(found, cluster):

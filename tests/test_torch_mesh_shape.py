@@ -4,6 +4,7 @@ and selections along a sharded axis) on the (4, 1) mesh: the port's mesh
 against nums_tpu's mesh and the port's serial backend, one case an entry,
 each under the gather guard (each entry's tolerances are the table's)."""
 
+import numpy as np
 import pytest
 
 import mesh_shape_tables as shape
@@ -92,9 +93,9 @@ def test_row_slice_sends_its_share(mesh_pool):
 
 
 def _vector_ffts(cluster):
-    """Each 1-D FFT of the sharded vector V under the gather guard: the
-    message of the error it raised (None where it answered), and the
-    gathers it made."""
+    """Each 1-D FFT of the sharded vector V (its NaNs as 0) under the
+    gather guard: its value (None where it raised, with the message), and
+    the gathers it made."""
     import nums_tpu_torch.numpy as nps
     from torch_parity import mesh_app, refusing_gathers
 
@@ -104,19 +105,64 @@ def _vector_ffts(cluster):
         record = []
         undo = refusing_gathers(record)
         try:
-            getattr(nps.fft, name)(app.array(shape.V, block_shape=(126,)))
-            out[name] = (None, record)
-        except NotImplementedError as e:
-            out[name] = (str(e), record)
-        finally:
+            got = getattr(nps.fft, name)(app.array(
+                np.nan_to_num(shape.V), block_shape=(126,)))
             undo()
+            out[name] = (np.asarray(got.get()), None, record)
+        except NotImplementedError as e:
+            undo()
+            out[name] = (None, str(e), record)
     return out
 
 
-def test_fft_of_a_sharded_vector_raises(mesh_pool):
-    """A 1-D FFT of a sharded vector has no strategy on the mesh: it raises
-    NotImplementedError naming itself and never gathers the vector."""
-    for name, (said, gathered) in mesh_pool.run(_vector_ffts,
-                                                CLUSTER).items():
-        assert said is not None and f"fft.{name}" in said, (name, said)
+def test_fft_of_a_sharded_vector_answers(mesh_pool):
+    """Every 1-D FFT of a sharded vector computes on the mesh (the
+    distributed transform of ``core/ops/mesh_fft.py``), agrees with numpy
+    and never gathers the vector."""
+    v = np.nan_to_num(shape.V)
+    for name, (got, said, gathered) in mesh_pool.run(_vector_ffts,
+                                                     CLUSTER).items():
+        assert said is None, (name, said)
         assert not gathered, (name, gathered)
+        ref = getattr(np.fft, name)(v)
+        assert got.shape == ref.shape and got.dtype == ref.dtype, name
+        err = np.max(np.abs(got - ref))
+        assert err <= 1e-12 * np.max(np.abs(ref)), (name, err)
+
+
+def _beyond_the_chirp(cluster):
+    """``fft`` of a sharded prime-length vector (1009: Bluestein) with the
+    chirp's length limit (``mesh_fft.CHIRP_MAX_LENGTH``) set below it: the
+    message of the error it raised on every rank, and the gathers made."""
+    import torch.distributed as dist
+
+    import nums_tpu_torch.numpy as nps
+    from nums_tpu_torch.core.ops import mesh_fft
+    from torch_parity import mesh_app, refusing_gathers
+
+    app = mesh_app(cluster)
+    saved = mesh_fft.CHIRP_MAX_LENGTH
+    mesh_fft.CHIRP_MAX_LENGTH = 1000
+    record = []
+    undo = refusing_gathers(record)
+    said = None
+    try:
+        nps.fft.fft(app.array(np.arange(1009.0), block_shape=(126,)))
+    except NotImplementedError as e:
+        said = str(e)
+    finally:
+        undo()
+        mesh_fft.CHIRP_MAX_LENGTH = saved
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (said, record))
+    return every
+
+
+def test_fft_of_a_sharded_vector_raises(mesh_pool):
+    """A 1-D FFT of a sharded vector that the mesh cannot compute without a
+    whole copy (here a length past the chirp's limit) raises
+    NotImplementedError naming itself on every rank, and gathers
+    nothing."""
+    for said, gathered in mesh_pool.run(_beyond_the_chirp, CLUSTER):
+        assert said is not None and "fft of length 1009" in said, said
+        assert not gathered, gathered

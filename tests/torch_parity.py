@@ -518,7 +518,7 @@ def refusing_gathers(record=None):
 # does: ``MATRIX``, the sharded 1000×8 and 1003×7; ``VECTOR``, the
 # sharded 1003-vector). ``LAYOUT_WHOLE``: the result's grid is one block
 # by the reference's layout (``_wrap``'s rule: a result of another rank
-# than its operand, or of the FFTs and ``block``, is one block), so the
+# than its operand, or of ``block``, is one block), so the
 # reference's mesh holds it whole too (tests/test_torch_mesh_shape.py
 # checks that grid on nums_tpu's mesh).
 BOTH = ((4, 1), (2, 2))
@@ -527,8 +527,6 @@ VECTOR = ("vector",)
 EVERY = MATRIX + VECTOR
 _ONE_BLOCK = ("a result of another rank than its operand is one block "
               "(_wrap's rule, the reference's too)")
-_FFT = ("the n-D transforms and the shifts are one block (from_torch of "
-        "the result, from_jax in the reference)")
 LAYOUT_WHOLE = {
     "block": ("jnp.block's result is one block (from_torch, from_jax in "
               "the reference)", BOTH, EVERY),
@@ -562,18 +560,10 @@ LAYOUT_WHOLE = {
                "sharded (CM7_vstack_*)", BOTH, VECTOR),
     "tile": (_ONE_BLOCK + ": tile(v, (2, 1)) is (2, n) of (n,); of "
              "matrices it is sharded (CM7_tile_*)", BOTH, VECTOR),
-    **{name: (_FFT, BOTH, EVERY) for name in (
-        "fft.fft2", "fft.fftn", "fft.ifft2", "fft.ifftn", "fft.rfft2",
-        "fft.rfftn", "fft.irfft2", "fft.irfftn", "fft.fftshift",
-        "fft.ifftshift")},
 }
-# ``GATHERS_STILL``: a gather that no strategy of the port removes yet
-# (ROADMAP Queue A, A5d); this list only shrinks.
+# ``GATHERS_STILL``: what reads a sharded operand whole by design; this
+# list only shrinks.
 _HOST = "reads the values to the host by design (the reference's too)"
-_KERNEL = ("of two sharded vectors: the second operand is read whole "
-           "(C-M1 moves the first's halo only)")
-_Q = ("q given as a sharded array is read whole before it is checked "
-      "(the bisection runs a q at a time)")
 GATHERS_STILL = {
     "array2string": (_HOST + ": printing", BOTH, EVERY),
     "array_repr": (_HOST + ": printing", BOTH, EVERY),
@@ -581,17 +571,8 @@ GATHERS_STILL = {
     "min_scalar_type": (_HOST + ": np.min_scalar_type of the values",
                         BOTH, EVERY),
     "asmatrix": (_HOST + ": a HOST_FALLBACK name", BOTH, EVERY),
-    "convolve": ("convolve " + _KERNEL, BOTH, VECTOR),
-    "correlate": ("correlate " + _KERNEL, BOTH, VECTOR),
-    "polymul": ("polymul " + _KERNEL + ": a convolution", BOTH, VECTOR),
-    "poly": ("poly of sharded roots: the product of the n linear factors "
-             "runs on the whole vector (a matrix's eigenvalues are read "
-             "whole too, and the sweep's non-square ones then refused)",
-             BOTH, EVERY),
-    "quantile": (_Q, BOTH, EVERY),
-    "nanquantile": (_Q, BOTH, EVERY),
-    "percentile": (_Q, BOTH, EVERY),
-    "nanpercentile": (_Q, BOTH, EVERY),
+    "poly": (_HOST + ": np.poly of a matrix (its eigenvalues; the sweep's "
+             "non-square ones then refused)", BOTH, MATRIX),
 }
 
 
