@@ -572,21 +572,22 @@ class BlockArray:
         else:
             static_axes = tuple(tuple(a) for a in axes)
         trace.log_op("tensordot", self, other)
-        collective = self._collective_matmul(other, static_axes)
-        if collective is not None:
-            return collective
-        if other._data is self._data:
-            fast = self._gram_fast(other, static_axes)
-            if fast is not None:
-                return fast
-        data = linear.tensordot(self.data, other.data, static_axes)
-        if isinstance(static_axes, int):
-            bs = array_utils.tensordot_block_shape(
-                self.block_shape, other.block_shape, static_axes
-            )
-        else:
-            bs = array_utils.default_block_shape_for(tuple(data.shape))
-        return self._new(data, bs)
+        with trace.span("nums.array.tensordot"):
+            collective = self._collective_matmul(other, static_axes)
+            if collective is not None:
+                return collective
+            if other._data is self._data:
+                fast = self._gram_fast(other, static_axes)
+                if fast is not None:
+                    return fast
+            data = linear.tensordot(self.data, other.data, static_axes)
+            if isinstance(static_axes, int):
+                bs = array_utils.tensordot_block_shape(
+                    self.block_shape, other.block_shape, static_axes
+                )
+            else:
+                bs = array_utils.default_block_shape_for(tuple(data.shape))
+            return self._new(data, bs)
 
     def _gram_fast(self, other, static_axes):
         """x.T @ x through the symmetric gram kernel, or None.

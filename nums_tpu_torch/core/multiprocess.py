@@ -177,9 +177,9 @@ def any_everywhere(flag) -> bool:
     return bool(all_reduce_(t, "max"))
 
 
-# What ``exchange`` moved on this process: its calls, and the bytes it
-# sent to other processes (what it keeps for itself is not counted).
-EXCHANGED = {"calls": 0, "bytes_sent": 0}
+# The bytes that ``exchange`` sent from this process to other processes
+# (what it keeps for itself is not counted).
+EXCHANGED = {"bytes_sent": 0}
 
 # The bytes this process sent through every collective that the port
 # issues (``sent``; ``exchange``'s all-to-alls too), by the ring
@@ -274,7 +274,6 @@ def exchange(items, send_counts, recv_counts, out=None):
         out = torch.empty((sum(recv_counts), width), dtype=torch.uint8,
                           device=items.device)
     me = process_index()
-    EXCHANGED["calls"] += 1
     EXCHANGED["bytes_sent"] += width * (sum(send_counts)
                                         - send_counts[me])
     SENT["bytes"] += width * (sum(send_counts) - send_counts[me])

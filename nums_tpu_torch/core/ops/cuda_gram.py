@@ -39,7 +39,7 @@ its gradient is XLA's plain product, so this one is ``torch.matmul``
 import numpy as np
 import torch
 
-from nums_tpu_torch.core import settings
+from nums_tpu_torch.core import settings, trace
 from nums_tpu_torch.core.array import utils as array_utils
 from nums_tpu_torch.core.ops import _build
 
@@ -226,13 +226,14 @@ def gram(x, s=None, mode=None):
     bf16 rounding of ``mode`` (default: ``MODE_X`` without s,
     ``MODE_SCALE_F32`` with it). A gradient flows through X alone
     (``GramFunction``); the weighted modes take no gradient."""
-    mode = _mode(s, mode)
-    if torch.is_grad_enabled() and x.requires_grad:
-        if mode != MODE_X:
-            raise NotImplementedError(
-                "gram: the weighted modes have no backward")
-        return GramFunction.apply(x)
-    return _gram(x, s, mode)
+    with trace.span("nums.kernel.gram"):
+        mode = _mode(s, mode)
+        if torch.is_grad_enabled() and x.requires_grad:
+            if mode != MODE_X:
+                raise NotImplementedError(
+                    "gram: the weighted modes have no backward")
+            return GramFunction.apply(x)
+        return _gram(x, s, mode)
 
 
 def _gram(x, s, mode):

@@ -29,7 +29,7 @@ from dataclasses import dataclass
 
 import torch
 
-from nums_tpu_torch.core import settings
+from nums_tpu_torch.core import settings, trace
 from nums_tpu_torch.core.ops import _build, cuda_gram
 
 KINDS = ("logistic", "linear", "poisson")
@@ -252,14 +252,16 @@ def stats(x, y, beta, kind):
     copy to every iteration); y: (n,); beta: (d,); kind in ``KINDS``."""
     if kind not in KINDS:
         raise ValueError(kind)
-    if x.device.type == "cpu":
-        return stats_plain(x, y, beta, kind)
-    if x.device.type != "cuda":
-        raise ValueError(f"stats: no kernel for device {x.device}")
-    staged = x if isinstance(x, Staged) else prepare(x)
-    rb, wb = eta(staged, y, beta, kind)
-    g, xs = grad_scale(staged, rb, wb)
-    LAUNCHES["newton_stats"] += 1
-    if xs is None:
-        return g, cuda_gram.gram_staged(staged.xt, staged.d, weighted=False)
-    return g, cuda_gram.gram_staged(xs, staged.d, weighted=True)
+    with trace.span("nums.kernel.newton_stats"):
+        if x.device.type == "cpu":
+            return stats_plain(x, y, beta, kind)
+        if x.device.type != "cuda":
+            raise ValueError(f"stats: no kernel for device {x.device}")
+        staged = x if isinstance(x, Staged) else prepare(x)
+        rb, wb = eta(staged, y, beta, kind)
+        g, xs = grad_scale(staged, rb, wb)
+        LAUNCHES["newton_stats"] += 1
+        if xs is None:
+            return g, cuda_gram.gram_staged(staged.xt, staged.d,
+                                            weighted=False)
+        return g, cuda_gram.gram_staged(xs, staged.d, weighted=True)

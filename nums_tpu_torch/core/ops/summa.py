@@ -33,7 +33,7 @@ off): the gram kernel on each process's rows and one all-reduce.
 import torch
 import torch.distributed as dist
 
-from nums_tpu_torch.core import multiprocess
+from nums_tpu_torch.core import multiprocess, trace
 from nums_tpu_torch.core.grid import cdiv
 from nums_tpu_torch.core.ops import cuda_gram, linear
 
@@ -168,11 +168,12 @@ def all_reduce_rows(mesh, rows, tensor, op=None):
     (``row_layout``'s) shards them. ``op`` (a ``dist.ReduceOp``; default
     SUM) combines them otherwise."""
     op = dist.ReduceOp.SUM if op is None else op
-    for j, p in enumerate(rows):
-        if p.is_shard() and mesh.size(j) > 1:
-            dist.all_reduce(multiprocess.sent("all_reduce", tensor,
-                                              mesh.get_group(j)),
-                            op=op, group=mesh.get_group(j))
+    with trace.span("nums.mesh.all_reduce"):
+        for j, p in enumerate(rows):
+            if p.is_shard() and mesh.size(j) > 1:
+                dist.all_reduce(multiprocess.sent("all_reduce", tensor,
+                                                  mesh.get_group(j)),
+                                op=op, group=mesh.get_group(j))
     return tensor
 
 

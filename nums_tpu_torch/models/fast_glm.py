@@ -30,7 +30,7 @@ import math
 import numpy as np
 import torch
 
-from nums_tpu_torch.core import multiprocess
+from nums_tpu_torch.core import multiprocess, trace
 from nums_tpu_torch.core.ops import cuda_gram, cuda_newton, summa
 from nums_tpu_torch.core.ops.linalg import posdef_solve as _posdef_solve
 
@@ -108,7 +108,8 @@ def _newton_step_penalized(kind, X, y, beta, lambda_vec, kernels=False,
     if lambda_vec is not None:
         g = g + lambda_vec * beta
         H = H + torch.diag(lambda_vec)
-    return beta - _posdef_solve(H, g), g
+    with trace.span("nums.newton.solve"):
+        return beta - _posdef_solve(H, g), g
 
 
 def newton_fit(X, y, beta0, tol, kind="logistic", max_iter=10,
@@ -120,21 +121,30 @@ def newton_fit(X, y, beta0, tol, kind="logistic", max_iter=10,
     staged once, before the loop, and the staged copy is freed when the
     fit returns. With ``reduce`` (``newton_fit_mesh``) X and y are one
     process's rows and each step's statistics are summed over the
-    processes. Returns ``(beta, gmax, it)``."""
-    lv = lambda_vec if penalized else None
-    dev = X.device
-    beta = beta0
-    gmax = torch.full((), float("inf"), dtype=X.dtype, device=dev)
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    tol = torch.as_tensor(tol, dtype=X.dtype, device=dev)
-    Xs = cuda_newton.prepare(X) if _newton_kernel(X, kernels) else X
-    for _ in range(int(max_iter)):
-        active = gmax > tol
-        new_beta, g = _newton_step_penalized(kind, Xs, y, beta, lv,
-                                             kernels=kernels, reduce=reduce)
-        beta = torch.where(active, new_beta, beta)
-        gmax = torch.where(active, g.abs().max(), gmax)
-        it = it + active.to(torch.int32)
+    processes. Returns ``(beta, gmax, it)``. Counts ``max_iter`` in the
+    trace's ``newton.steps_run`` and ``it``, on the device, in
+    ``newton.steps_useful``."""
+    with trace.span("nums.newton.fit"):
+        lv = lambda_vec if penalized else None
+        dev = X.device
+        beta = beta0
+        gmax = torch.full((), float("inf"), dtype=X.dtype, device=dev)
+        it = torch.zeros((), dtype=torch.int32, device=dev)
+        tol = torch.as_tensor(tol, dtype=X.dtype, device=dev)
+        Xs = X
+        if _newton_kernel(X, kernels):
+            with trace.span("nums.newton.stage"):
+                Xs = cuda_newton.prepare(X)
+        for _ in range(int(max_iter)):
+            with trace.span("nums.newton.step"):
+                active = gmax > tol
+                new_beta, g = _newton_step_penalized(
+                    kind, Xs, y, beta, lv, kernels=kernels, reduce=reduce)
+                beta = torch.where(active, new_beta, beta)
+                gmax = torch.where(active, g.abs().max(), gmax)
+                it = it + active.to(torch.int32)
+        trace.count("newton.steps_run", int(max_iter))
+        trace.count("newton.steps_useful", it)
     return beta, gmax, it
 
 
@@ -148,13 +158,15 @@ def newton_fit_mesh(X, y, beta0, tol, kind="logistic", max_iter=10,
     replicated, the same on every process (the reference keeps β, g and H
     replicated). Returns ``(beta, gmax, it)`` as whole tensors, the same on
     every process."""
-    rows = summa.row_layout(X)
-    Xl, yl = summa.local_part(X, rows), summa.local_part(y, rows)
-    lv = lambda_vec.full_tensor() if lambda_vec is not None else None
+    with trace.span("nums.newton.mesh_operands"):
+        rows = summa.row_layout(X)
+        Xl, yl = summa.local_part(X, rows), summa.local_part(y, rows)
+        lv = lambda_vec.full_tensor() if lambda_vec is not None else None
+        b0 = beta0.full_tensor()
     kernels = kernels and cuda_gram.supported(tuple(Xl.shape), Xl.dtype)
-    return newton_fit(Xl, yl, beta0.full_tensor(), tol, kind=kind,
-                      max_iter=max_iter, penalized=penalized, lambda_vec=lv,
-                      kernels=kernels, reduce=mesh_reduce(X.device_mesh, rows))
+    return newton_fit(Xl, yl, b0, tol, kind=kind, max_iter=max_iter,
+                      penalized=penalized, lambda_vec=lv, kernels=kernels,
+                      reduce=mesh_reduce(X.device_mesh, rows))
 
 
 def mesh_rows(X, y, beta0, lambda_vec):
@@ -595,7 +607,9 @@ def newton_fit_ooc(X_disk, y, tol, kind="logistic", max_iter=10,
 
     y: a host array, a BlockArray (fetched to the host once), or a 1-D
     DiskArray with X's row partitioning. Returns (beta with the intercept
-    last, max|g|, iterations)."""
+    last, max|g|, iterations); the iterations count in the trace's
+    ``newton.steps_run`` and ``newton.steps_useful`` alike (the loop stops
+    at convergence)."""
     from nums_tpu_torch.core.array.application import (
         _device_dtype, _ooc_y_getter, ooc_accumulator, ooc_panels, ooc_put,
     )
@@ -633,6 +647,8 @@ def newton_fit_ooc(X_disk, y, tol, kind="logistic", max_iter=10,
                                              lv)
         if float(gmax) <= tol:  # one host sync per pass
             break
+    trace.count("newton.steps_run", it)
+    trace.count("newton.steps_useful", it)
     return beta, gmax, it
 
 

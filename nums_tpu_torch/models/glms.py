@@ -22,6 +22,7 @@ model from that state held as numpy arrays.
 import numpy as np
 import torch
 
+from nums_tpu_torch.core import trace
 from nums_tpu_torch.core.application_manager import instance as _instance
 from nums_tpu_torch.core.array.blockarray import BlockArray
 from nums_tpu_torch.core.array.diskarray import DiskArray
@@ -87,22 +88,30 @@ class GLM:
         """X is augmented with a ones column, so the last component of
         beta is the intercept (glms.py:72-169 of the reference). ``X`` may
         be a ``DiskArray``: the fit then runs out of core (``_fit_ooc``)."""
-        if isinstance(X, DiskArray):
-            return self._fit_ooc(X, y)
+        with trace.span("nums.glm.fit"):
+            if isinstance(X, DiskArray):
+                return self._fit_ooc(X, y)
+            return self._fit(X, y)
+
+    def _fit(self, X, y):
         assert X.ndim == 2 and y.ndim == 1
         app = self._app
-        X = app.concatenate(
-            [X, app.ones((X.shape[0], 1), (X.block_shape[0], 1),
-                         dtype=X.dtype)],
-            axis=1,
-            axis_block_size=X.block_shape[1],
-        )
-        beta = app.zeros((X.shape[1],), (X.block_shape[1],), dtype=X.dtype)
-        tol = app.scalar(self._tol)
-        max_iter = self._max_iter
-        vec = self._lambda_host_vec(X.shape[0], beta.shape[0], dtype=X.dtype)
-        if vec is not None:
-            self._lambda_vec = app.array(vec, block_shape=beta.block_shape)
+        with trace.span("nums.glm.augment"):
+            X = app.concatenate(
+                [X, app.ones((X.shape[0], 1), (X.block_shape[0], 1),
+                             dtype=X.dtype)],
+                axis=1,
+                axis_block_size=X.block_shape[1],
+            )
+            beta = app.zeros((X.shape[1],), (X.block_shape[1],),
+                             dtype=X.dtype)
+            tol = app.scalar(self._tol)
+            max_iter = self._max_iter
+            vec = self._lambda_host_vec(X.shape[0], beta.shape[0],
+                                        dtype=X.dtype)
+            if vec is not None:
+                self._lambda_vec = app.array(vec,
+                                             block_shape=beta.block_shape)
         if self._opt in ("gd", "sgd", "block_sgd"):
             lr = app.scalar(self._lr)
             opt = {"gd": gd, "sgd": sgd, "block_sgd": block_sgd}[self._opt]
